@@ -23,11 +23,30 @@ any phase fails:
    fp32: 8x8x8 = 512 tasks, 768 MiB of tiles through the device LRU)
    through ``Context`` and ``init_cuda_devices()``, every tile of C checked
    against one float64 product on the card, with its phase walls.
+4. **kernel ragged_attn_page** — K2 against its plain PyTorch version on
+   the card through the tile-list wrapper the serving path calls: (a) the
+   path's shape, a batch of 64 ToyLM pages (3,16,4,8) with fills 0..16
+   and empty and non-empty accumulators; (b) a Llama-2-7B head geometry,
+   1024 pages (3,16,32,128), about 805 MB.  Kernel, plain and bound
+   times; no single PyTorch call computes the flash-state page update, so
+   there is no library time.
+5. **path llm** — LLM decode serving through ``RuntimeServer(nb_cores=2)``
+   and ``submit_stream`` with no device argument, so the batcher decodes
+   on the card: 32 concurrent streams of ToyLM (the only model the repo
+   serves, at its defaults), prompts of 64-512 tokens drawn from a seed,
+   64 new tokens each, k=8 steps per superpool, two tenants, one stream
+   with an EOS and one forked from another's prompt.  Every stream's
+   tokens must equal the float64 oracle ``ToyLM.reference_generate``,
+   every ATTN/OUT/SAMPLE/PF task must have run on the card, K2 must have
+   launched and batched.
+6. **trace llm** — the same backlog with 16 new tokens a stream, under
+   ``torch.profiler`` (device activity only): the card's busy time over
+   the serving wall, and the kernels that took it.
 
 TF32 is off for every PyTorch matmul, so the plain versions compute
 strict fp32.  Every printed number stands beside the card's name and
 power limit.  The line before the last lists each kernel with its launch
-count on the path; the last line is the result object.
+count on its own path; the last line is the result object.
 """
 
 from __future__ import annotations
@@ -258,6 +277,257 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
     return rec
 
 
+def _attn_inputs(torch, batch: int, P: int, H: int, D: int, seed: int):
+    """Tile lists for K2: fills cycle 0..P (so 0 and P occur), odd tasks
+    carry a non-empty accumulator (one plain update on another page)."""
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q3 = torch.randn(batch, 3, H, D, device="cuda", generator=g)
+    page = torch.randn(batch, 3, P, H, D, device="cuda", generator=g)
+    fills = torch.arange(batch, device="cuda") % (P + 1)
+    page[:, 2] = 0.0
+    page[:, 2, 0, 0, 0] = fills.float()
+    acc = torch.zeros(batch, H, D + 2, device="cuda")
+    warm = page[1::2].clone()
+    warm[:, 2, 0, 0, 0] = float(P)
+    acc[1::2] = ra.attn_page_update_plain(q3[1::2], warm, acc[1::2])
+    del warm
+    return (list(q3.unbind(0)), list(page.unbind(0)), list(acc.unbind(0)),
+            q3, page, acc, int(fills.sum()))
+
+
+def phase_attn_kernel(card: str, torch) -> dict:
+    """K2 (``ragged_attn_page``) against its plain version at the serving
+    path's shape and at a Llama-2-7B head geometry; returns the path
+    shape's record for the kernels line."""
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    # fp32 sums in another order than the plain version: 1e-5 at D=8,
+    # 1e-4 at D=128 (scores sum 128 products); a wrong slot is O(1)
+    cases = [("ToyLM 64x(3,16,4,8)", 64, 16, 4, 8, 1e-5, 200),
+             ("Llama-2-7B heads 1024x(3,16,32,128)", 1024, 16, 32, 128,
+              1e-4, 20)]
+    main = None
+    for i, (label, batch, P, H, D, tol, iters) in enumerate(cases):
+        qs, pages, accs, q3, page, acc, fill_sum = _attn_inputs(
+            torch, batch, P, H, D, 300 + i)
+        want = ra.attn_page_update_plain(q3, page, acc)
+        got = torch.stack(ra.attn_page_update_tiles(qs, pages, accs))
+        strided = ra.attn_page_update(q3, page, acc)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_strided = (strided - want).abs().max().item()
+        _check(err <= tol and err_strided <= tol,
+               f"ragged_attn_page {label}: max abs err {err} "
+               f"(strided {err_strided}) above {tol}")
+        _check(bool(torch.isfinite(got).all()), f"{label}: not finite")
+        # the tile-list entry the path calls (it allocates one output per
+        # tile and builds the pointer array on the host), and the strided
+        # entry: one launch over stacked tensors, the kernel's own time
+        ms = _time_ms(torch, lambda: ra.attn_page_update_tiles(
+            qs, pages, accs), iters)
+        strided_ms = _time_ms(torch, lambda: ra.attn_page_update(
+            q3, page, acc), iters)
+        plain_ms = _time_ms(torch, lambda: ra.attn_page_update_plain(
+            q3, page, acc), iters)
+        # bytes the function must move: the query rows, the filled slots'
+        # K and V, each page's fill, acc in and out; operations: the
+        # scores and the weighted V sum, 4 flops a (slot, head, dim)
+        esize = page.element_size()
+        nbytes = (batch * H * D * 4 + fill_sum * 2 * H * D * esize
+                  + batch * esize + 2 * batch * H * (D + 2) * 4)
+        bound_ms, bound_by = _bound(4.0 * fill_sum * H * D, nbytes,
+                                    "float32")
+        rec = dict(shape=label, max_abs_err=err,
+                   strided_max_abs_err=err_strided, tol=tol, ms=ms,
+                   strided_ms=strided_ms, plain_ms=plain_ms,
+                   library_ms=None, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes,
+                   strided_gbps=nbytes / strided_ms / 1e6)
+        _emit(card, phase="kernel", name="ragged_attn_page", **rec)
+        if main is None:
+            main = rec
+        del qs, pages, accs, q3, page, acc, want, got, strided
+        torch.cuda.empty_cache()
+    return main
+
+
+def _backlog(seed: int, n: int = 32, max_new: int = 64):
+    """The serving backlog: n streams of ToyLM, prompts of 64-512 tokens
+    drawn from the seed, two tenants; stream 1 forks stream 0's prompt.
+    Returns (model, [(prompt, tenant, fork_of, eos)])."""
+    import numpy as np
+
+    from parsec_tpu_torch.llm import ToyLM
+    model = ToyLM()
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        if i == 1:
+            prompt, fork_of = list(out[0][0]), 0
+        else:
+            length = int(rng.integers(64, 513))
+            prompt = [int(t) for t in rng.integers(0, model.vocab, length)]
+            fork_of = None
+        out.append((prompt, f"tenant{i % 2}", fork_of, None))
+    # stream 2 stops at an EOS: the token its free run samples a third
+    # of the way in
+    free = model.reference_generate(out[2][0], max_new)
+    out[2] = (out[2][0], out[2][1], None, free[(max_new - 1) // 3])
+    return model, out
+
+
+def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
+              label: str = "llm") -> dict:
+    """LLM decode serving through the entry points, on the card."""
+    import statistics
+
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    from parsec_tpu_torch.serve import RuntimeServer
+
+    model, backlog = _backlog(seed, max_new=max_new)
+    want, margins = [], []
+    for prompt, _, _, eos in backlog:
+        m: list[float] = []
+        want.append(model.reference_generate(prompt, max_new, eos=eos,
+                                             margins=m))
+        margins.append(m)
+    cuda_devs = registry.by_type("cuda")
+    before = {d.name: d.stats() for d in cuda_devs}
+    cpu = registry.by_type("cpu")[0]
+    cpu_before = cpu.executed_tasks
+    ra.attn_page_update.launches = 0     # counts from here are the path's
+    t0 = time.perf_counter()
+    with RuntimeServer(nb_cores=2) as server:
+        tickets = []
+        for prompt, tenant, fork_of, eos in backlog:
+            tickets.append(server.submit_stream(
+                prompt, max_new_tokens=max_new, tenant=tenant, eos=eos,
+                fork_from=None if fork_of is None else tickets[fork_of]))
+        results = [tk.result(timeout=600) for tk in tickets]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        llm = server.stats()["llm"]
+    launches = ra.attn_page_update.launches
+    devs = registry.by_type("cuda")
+    _check(len(devs) == 1 and devs[0].is_cuda,
+           f"the serving path ran on {[d.name for d in devs]}, not a card")
+    dev = devs[0]
+    s = dev.stats()
+    b = before.get(dev.name, {})
+
+    def delta(key):
+        return s[key] - b.get(key, 0)
+
+    def delta_cls(key):
+        old = b.get(key, {})
+        return {c: n - old.get(c, 0) for c, n in s[key].items()
+                if n - old.get(c, 0)}
+
+    for i, (r, w) in enumerate(zip(results, want)):
+        got = r["tokens"]
+        if got != w:
+            step = next((j for j, (a, c) in enumerate(zip(got, w))
+                         if a != c), min(len(got), len(w)))
+            gap = margins[i][step] if step < len(margins[i]) else None
+            raise RuntimeError(
+                f"chip_smoke: stream {i} differs from the oracle at step "
+                f"{step} (oracle top-2 logit margin there: {gap}): got "
+                f"{got[max(0, step - 2):step + 3]}, want "
+                f"{w[max(0, step - 2):step + 3]}")
+    tasks = delta_cls("tasks_by_class")
+    dispatches = delta_cls("dispatches_by_class")
+    steps = sum(8 * -(-len(w) // 8) for w in want)
+    pf = sum(-(-(len(p) - 1) // 16) for i, (p, _, f, _) in enumerate(backlog)
+             if f is None)
+    _check(backlog[2][3] is not None and len(want[2]) < max_new,
+           "the EOS stream did not stop early")
+    _check(llm["forked_streams"] == 1, f"forked {llm['forked_streams']}")
+    _check(set(tasks) == {"ATTN", "OUT", "SAMPLE", "PF"},
+           f"task classes on the card: {sorted(tasks)}")
+    _check(tasks["SAMPLE"] == tasks["OUT"] == steps,
+           f"SAMPLE {tasks['SAMPLE']} OUT {tasks['OUT']} steps {steps}")
+    _check(tasks["PF"] == pf, f"PF {tasks['PF']}, prompt pages {pf}")
+    _check(sum(tasks.values()) == delta("executed_tasks"),
+           "task counts by class do not add up")
+    _check(cpu.executed_tasks == cpu_before, "a task ran on the CPU")
+    _check(launches > 0, "the path launched no ragged_attn_page kernel")
+    _check(delta("batched_dispatches") > 0, "no batched dispatch")
+    def p99(xs):
+        return xs[int(0.99 * (len(xs) - 1))]
+
+    # per-token latency as a client sees it: the gaps between token
+    # arrivals, stamped at delivery; a superpool's tokens arrive in one
+    # burst, so most gaps are 0 and the rest are whole iterations
+    itl = sorted(b - a for tk in tickets
+                 for a, b in zip(tk.token_at, tk.token_at[1:]))
+    _check(len(itl) == sum(len(r["tokens"]) - 1 for r in results),
+           "a token without its arrival stamp")
+    share = sorted(x for r in results for x in r["per_token_s"])
+    ttft = sorted(tk.first_token_at - tk.submitted_at for tk in tickets)
+    ntok = sum(len(r["tokens"]) for r in results)
+    rec = dict(streams=len(backlog), tokens=ntok, wall_s=wall,
+               tokens_per_s=ntok / wall,
+               itl_ms_p50=1e3 * statistics.median(itl),
+               itl_ms_p99=1e3 * p99(itl), itl_ms_max=1e3 * itl[-1],
+               iter_wall_over_k_ms_p50=1e3 * statistics.median(share),
+               iter_wall_over_k_ms_p99=1e3 * p99(share),
+               ttft_ms_p50=1e3 * statistics.median(ttft),
+               prompt_tokens=sum(len(p) for p, *_ in backlog),
+               ragged_attn_page_launches=launches,
+               tasks_by_class=tasks, dispatches_by_class=dispatches,
+               mean_batch=delta("executed_tasks")
+               / max(1, delta("kernel_launches")),
+               batched_dispatches=delta("batched_dispatches"),
+               decode_submits=llm["decode_submits"],
+               prefill_submits=llm["prefill_submits"],
+               forked_streams=llm["forked_streams"],
+               stage_in_s=delta("t_stage_in"), dispatch_s=delta("t_dispatch"),
+               complete_s=delta("t_complete"), manager_s=delta("t_manager"),
+               h2d_mb=delta("bytes_in") / 1e6,
+               min_oracle_margin=min(min(m) for m in margins))
+    _emit(card, phase="path", name=label, **rec)
+    return rec
+
+
+def phase_llm_trace(card: str, torch, max_new: int = 16) -> dict:
+    """The LLM path again, shorter (16 new tokens a stream), under
+    ``torch.profiler`` recording device activity only: the card's busy
+    time is the union of its kernel and copy intervals, and its idle
+    share is the rest of the serving wall."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec = phase_llm(card, torch, max_new=max_new, label="llm traced")
+    spans, count, dev_ns = [], Counter(), Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        start, dur = e.start_ns(), e.duration_ns()
+        spans.append((start, start + dur))
+        count[e.name()] += 1
+        dev_ns[e.name()] += dur
+    _check(bool(spans), "the profiler recorded no device activity")
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = [{"name": n[:60], "count": count[n], "ms": dev_ns[n] / 1e6}
+           for n, _ in dev_ns.most_common(5)]
+    out = dict(wall_s=rec["wall_s"], device_busy_s=busy / 1e9,
+               idle_share=1.0 - busy / 1e9 / rec["wall_s"],
+               device_events=len(spans), top_device_time=top)
+    _emit(card, phase="trace", name="llm", **out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -280,6 +550,9 @@ def main() -> int:
     phase_build(card)
     main_rec = phase_kernel(card, torch)
     path = phase_path(card, torch)
+    attn_rec = phase_attn_kernel(card, torch)
+    llm = phase_llm(card, torch)
+    phase_llm_trace(card, torch)
     kernels = [{"name": "gemm_update", "route": "cuda",
                 "source": "parsec_tpu_torch/csrc/gemm.cu",
                 "replaces": "parsec_tpu/ops/gemm.py:66",
@@ -288,7 +561,16 @@ def main() -> int:
                 "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
                 "bound_ms": main_rec["bound_ms"],
                 "bound_by": main_rec["bound_by"],
-                "library_ms": main_rec["library_ms"]}]
+                "library_ms": main_rec["library_ms"]},
+               {"name": "ragged_attn_page", "route": "cuda",
+                "source": "parsec_tpu_torch/csrc/ragged_attn.cu",
+                "replaces": "parsec_tpu/ops/ragged_attention.py:448",
+                "launches": llm["ragged_attn_page_launches"],
+                "max_abs_err": attn_rec["max_abs_err"],
+                "ms": attn_rec["ms"], "plain_ms": attn_rec["plain_ms"],
+                "bound_ms": attn_rec["bound_ms"],
+                "bound_by": attn_rec["bound_by"],
+                "library_ms": attn_rec["library_ms"]}]
     _check(all(math.isfinite(k["ms"]) for k in kernels), "a time is not finite")
     _emit(card, phase="done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

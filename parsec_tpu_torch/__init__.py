@@ -3,9 +3,11 @@
 The same task runtime as :mod:`parsec_tpu` (PTG builder, dependency
 tracking, the LFQ scheduler, the context and the device module), with
 tiles held as ``torch.Tensor`` values and the accelerator being an NVIDIA
-Hopper card driven through :mod:`parsec_tpu_torch.device.cuda`.  Task
-bodies on the card run hand-written CUDA kernels built from ``csrc/`` at
-first use (:mod:`parsec_tpu_torch.ops._build`).
+Hopper card driven through :mod:`parsec_tpu_torch.device.cuda`, and the
+serving layer above it (:mod:`parsec_tpu_torch.serve`,
+:mod:`parsec_tpu_torch.llm`: LLM decode streams by continuous batching).
+Task bodies on the card run hand-written CUDA kernels built from
+``csrc/`` at first use (:mod:`parsec_tpu_torch.ops._build`).
 
 The package is self-contained: it imports neither ``jax`` nor anything of
 ``parsec_tpu``, and keeps its own trimmed copies of the framework-neutral

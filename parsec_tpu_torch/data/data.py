@@ -85,6 +85,10 @@ class Data:
             self.device_copies[copy.device_index] = copy
             return copy
 
+    def detach_copy(self, device_index: int) -> DataCopy | None:
+        with self._lock:
+            return self.device_copies.pop(device_index, None)
+
     def newest_copy(self) -> DataCopy | None:
         """The highest-version valid copy on any device."""
         with self._lock:

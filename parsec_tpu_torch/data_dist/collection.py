@@ -3,14 +3,21 @@
 Port of ``parsec_tpu/data_dist/collection.py`` (the reference's
 ``parsec_data_collection_t``): a collection maps logical keys to the
 owning rank (``rank_of``), the master :class:`Data` (``data_of``) and a
-virtual-process hint (``vpid_of``).  Left out: ``DictCollection`` and
-``enumerate_keys`` (used by operators and the lowering, not ported yet).
+virtual-process hint (``vpid_of``).  :class:`DictCollection` is the
+host-dict-backed collection the LLM pools keep their side tiles in.
+Left out: ``key_to_string``, ``open_key_space`` and ``enumerate_keys``
+(used by operators and the lowering, not ported yet).
 """
 
 from __future__ import annotations
 
-from ..data.data import Data
-from ..data.datatype import TileType
+import threading
+from typing import Callable, Iterable
+
+import torch
+
+from ..data.data import Data, data_create
+from ..data.datatype import TileType, to_tensor
 
 
 class DataCollection:
@@ -33,3 +40,66 @@ class DataCollection:
 
     def has_key(self, *key) -> bool:
         return True
+
+
+class DictCollection(DataCollection):
+    """Host-dict-backed collection: every key owned by rank 0, data
+    created lazily from ``init_fn(*key)`` (a tensor or array-like) or as
+    zeros of ``dtt``.  ``keys`` optionally declares the key space up
+    front (still lazily materialized); ``has_key`` then answers from it.
+    """
+
+    def __init__(self, name: str = "dict", dtt: TileType | None = None,
+                 init_fn: Callable | None = None,
+                 keys: Iterable[tuple] | None = None) -> None:
+        super().__init__(name)
+        self.default_dtt = dtt
+        self._init_fn = init_fn
+        self._keys = None if keys is None else frozenset(
+            tuple(k) for k in keys)
+        self._store: dict[tuple, Data] = {}
+        self._lock = threading.Lock()
+
+    def rank_of(self, *key) -> int:
+        return 0
+
+    def data_of(self, *key) -> Data:
+        with self._lock:
+            d = self._store.get(key)
+            if d is None:
+                if self._init_fn is not None:
+                    value = to_tensor(self._init_fn(*key))
+                elif self.default_dtt is not None:
+                    value = torch.zeros(self.default_dtt.shape,
+                                        dtype=self.default_dtt.dtype)
+                else:
+                    raise KeyError(f"{self.name}: no data and no init for "
+                                   f"{key}")
+                d = data_create(value, key=(self.name,) + key,
+                                dtt=self.default_dtt, dc=self)
+                self._store[key] = d
+            return d
+
+    def __contains__(self, key: tuple) -> bool:
+        with self._lock:
+            return tuple(key) in self._store
+
+    def has_key(self, *key) -> bool:
+        """A declared key space is closed; an undeclared one is open
+        (keys materialize on first touch)."""
+        return self._keys is None or tuple(key) in self._keys
+
+    def discard(self, *key) -> bool:
+        """Drop a materialized key (serving retirement: a long-lived
+        store must not grow by every sequence it ever served).  A
+        declared key stays legal and re-materializes on next touch."""
+        with self._lock:
+            return self._store.pop(tuple(key), None) is not None
+
+    def known_keys(self) -> list[tuple]:
+        """The declared key space if one was given, else the keys
+        materialized so far."""
+        if self._keys is not None:
+            return sorted(self._keys, key=repr)
+        with self._lock:
+            return sorted(self._store, key=repr)

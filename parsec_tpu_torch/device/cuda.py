@@ -29,6 +29,11 @@ Port of ``parsec_tpu/device/tpu.py`` (itself a rebuild of the reference's
   launch; past ``device_cuda_max_inflight`` the manager waits on the
   oldest.  A fault in a kernel surfaces there (or at the launch) and
   poisons the context through ``record_failure``.
+- **Detached copies**: a datum may detach its device copy while the copy
+  still sits in the LRU or the write-back queue (a recycled or
+  copy-on-write KV page, ``data_dist/paged_kv.py``); stage-in then misses
+  it, and write-back skips it, so it never overwrites the rewritten host
+  copy.
 
 ``init_cuda_devices(device="cpu")`` wraps ``torch.device("cpu")`` in the
 same module (the role of ``device_tpu_allow_cpu``), so stage-in, the
@@ -45,7 +50,7 @@ from __future__ import annotations
 
 import threading
 import time
-from collections import OrderedDict, deque
+from collections import Counter, OrderedDict, deque
 from typing import Any, Callable
 
 import torch
@@ -132,6 +137,10 @@ class CUDADevice(Device):
         # counters the bench reads
         self.kernel_launches = 0      # dispatches: per task, or per batch
         self.batched_dispatches = 0   # dispatches that serviced >1 task
+        # per task class: tasks executed here, and the dispatches that ran
+        # them (one per task, or one per fused batch)
+        self.tasks_by_class: Counter[str] = Counter()
+        self.dispatches_by_class: Counter[str] = Counter()
         self.cache_hits = 0
         self.cache_misses = 0
         self.t_stage_in = 0.0
@@ -200,7 +209,12 @@ class CUDADevice(Device):
     def _writeback_many(self, copies: list[DataCopy]) -> None:
         """Push dirty device copies back to their host copies, then drop
         them.  Two phases: every D2H is started into pinned memory first,
-        then one stream synchronize lands them all."""
+        then one stream synchronize lands them all.
+
+        A copy its datum has detached meanwhile (a recycled or privatized
+        KV page, ``data_dist/paged_kv.py``) is skipped under the datum's
+        lock: its host copy was rewritten and versioned past it, and must
+        not be written over."""
         dirty = [c for c in copies
                  if c.coherency in (COHERENCY_OWNED, COHERENCY_EXCLUSIVE)]
         hosts = []
@@ -216,13 +230,17 @@ class CUDADevice(Device):
             torch.cuda.current_stream(self.torch_device).synchronize()
         for c, h in zip(dirty, hosts):
             d = c.original
-            host = d.get_copy(0)
-            if host is None:
-                host = d.attach_copy(DataCopy(d, 0, value=h, dtt=c.dtt))
-            else:
-                host.value = h
-            host.version = c.version
-            host.coherency = COHERENCY_SHARED
+            with d._lock:
+                if d.device_copies.get(self.device_index) is not c \
+                        or c.coherency == COHERENCY_INVALID:
+                    continue
+                host = d.get_copy(0)
+                if host is None:
+                    host = d.attach_copy(DataCopy(d, 0, value=h, dtt=c.dtt))
+                else:
+                    host.value = h
+                host.version = c.version
+                host.coherency = COHERENCY_SHARED
             self.bytes_out += nbytes_of(h)
         for c in copies:
             d = c.original
@@ -416,13 +434,18 @@ class CUDADevice(Device):
         self.stage_in_many([d.task for d in batch])
         t1 = time.perf_counter()
         self.t_stage_in += t1 - t0
-        if not (len(batch) > 1 and self._run_batched(batch)):
+        name = batch[0].task.task_class.name
+        if len(batch) > 1 and self._run_batched(batch):
+            self.dispatches_by_class[name] += 1
+        else:
             for dtask in batch:
                 dtask.submit(dtask.es, dtask.task, self)
                 self.kernel_launches += 1
                 self._note_inflight()
                 self.executed_tasks += 1
                 self._mark_written(dtask.task)
+            self.dispatches_by_class[name] += len(batch)
+        self.tasks_by_class[name] += len(batch)
         t2 = time.perf_counter()
         self.t_dispatch += t2 - t1
         for dtask in batch:
@@ -505,7 +528,9 @@ class CUDADevice(Device):
                  t_stage_in=self.t_stage_in, t_pin=self.t_pin,
                  t_dispatch=self.t_dispatch,
                  t_complete=self.t_complete, t_drain=self.t_drain,
-                 t_manager=self.t_manager)
+                 t_manager=self.t_manager,
+                 tasks_by_class=dict(self.tasks_by_class),
+                 dispatches_by_class=dict(self.dispatches_by_class))
         return s
 
 

@@ -10,8 +10,11 @@ dependency-tracking table.  Workers park on a start barrier until
 mode the device manager favours).
 
 A failure in a worker, in the caller-driven loop or in the device
-manager poisons the context (:meth:`record_failure`) and surfaces from
-``wait()``; ``fini()`` re-raises a failure no caller has seen yet.
+manager poisons the context (:meth:`record_failure`), fires the failure
+listeners (the serving layer fails its in-flight tickets from there) and
+surfaces from ``wait()``; ``fini()`` re-raises a failure no caller has
+seen yet.  :meth:`add_taskpool` is live: it may be called from any thread
+while the workers run.
 
 Left out: the compiled-DAG incarnation, the comm engine and remote deps,
 multiple virtual processes and vpmaps, thread binding, the flight
@@ -75,6 +78,7 @@ class Context:
         self._submit_lock = threading.RLock()
         self._worker_error: BaseException | None = None
         self._error_surfaced = False
+        self._failure_listeners: list[Callable[[BaseException], None]] = []
         self.deps = DependencyTracking()
         self.devices = device_registry
 
@@ -128,6 +132,23 @@ class Context:
             if self._worker_error is None:
                 self._worker_error = e
             self._cond.notify_all()
+            listeners = list(self._failure_listeners)
+        for cb in listeners:            # outside the lock: a listener may
+            try:                        # fail tickets and take its locks
+                cb(e)
+            except Exception:           # noqa: BLE001 — never mask poison
+                pass
+
+    def add_failure_listener(
+            self, cb: Callable[[BaseException], None]) -> None:
+        """Observe context poison.  Fires immediately if the context is
+        already poisoned."""
+        with self._lock:
+            err = self._worker_error
+            if err is None:
+                self._failure_listeners.append(cb)
+                return
+        cb(err)
 
     def start(self) -> None:
         with self._lock:

@@ -61,8 +61,11 @@ def schedule_tasks(es: ExecutionStream, tasks: list[Task],
         return
     # next_task is a single-owner slot: only the thread running this
     # stream's loop may fill it (a device manager completing a task on
-    # behalf of another stream goes through the scheduler)
+    # behalf of another stream goes through the scheduler).  A scheduler
+    # with strict_order (the serving layer's fair shim) takes every task:
+    # a released successor must not jump other tenants' queues
     if _params.get("runtime_keep_highest_priority_task") \
+            and not getattr(es.context.scheduler, "strict_order", False) \
             and es.owner_ident == threading.get_ident() \
             and es.next_task is None and es.context.started:
         tasks.sort(key=lambda t: t.priority)

@@ -3,9 +3,10 @@
 Port of ``parsec_tpu/runtime/taskpool.py`` (the reference's
 ``parsec_taskpool_t``): a taskpool owns task classes and their data
 repos, a termination-detection monitor (the only path to ``nb_tasks``),
-startup enumeration and completion callbacks.  Left out: the process-wide
-taskpool registry, sequential composition (``compose``), per-pool
-termdet selection, region plans and the simulation date.
+startup enumeration and completion listeners
+(:meth:`Taskpool.add_completion_listener`).  Left out:
+the process-wide taskpool registry, sequential composition (``compose``),
+per-pool termdet selection, region plans and the simulation date.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ class Taskpool:
         self.task_classes_by_name: dict[str, TaskClass] = {}
         for tc in task_classes:
             self.add_task_class(tc)
-        self.on_complete: Callable[["Taskpool"], None] | None = None
         self._done = threading.Event()
+        self._completion_listeners: list[Callable[["Taskpool"], None]] = []
+        self._listeners_lock = threading.Lock()
 
     def add_task_class(self, tc: TaskClass) -> TaskClass:
         tc.task_class_id = len(self.task_classes)
@@ -53,10 +55,24 @@ class Taskpool:
         """Total local task count (-1 = unknown)."""
         return -1
 
+    def add_completion_listener(self, cb: Callable[["Taskpool"], None]
+                                ) -> None:
+        """Register a termination observer.  Fires exactly once;
+        immediately when the pool already terminated (the add/terminate
+        race is closed under ``_listeners_lock``)."""
+        with self._listeners_lock:
+            if not self._done.is_set():
+                self._completion_listeners.append(cb)
+                return
+        cb(self)
+
     def terminated(self) -> None:
-        self._done.set()
-        if self.on_complete is not None:
-            self.on_complete(self)
+        with self._listeners_lock:
+            self._done.set()
+            listeners = self._completion_listeners
+            self._completion_listeners = []
+        for cb in listeners:
+            cb(self)
         if self.context is not None:
             self.context._taskpool_terminated(self)
 

@@ -1,5 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernel and the
-device module on the card.  They skip without one.
+"""Tests of the port that need an NVIDIA GPU: the CUDA kernels (K1, the
+GEMM; K2, the ragged paged-attention page update), the device module and
+decode serving on the card.  They skip without one.
 
 This file imports no JAX, so it also runs where JAX is not installed;
 there, skip ``tests/conftest.py`` (it sets JAX up)::
@@ -19,9 +20,12 @@ import torch
 from parsec_tpu_torch.device import registry
 from parsec_tpu_torch.device.cuda import init_cuda_devices
 from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+from parsec_tpu_torch.llm import ToyLM
 from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
 from parsec_tpu_torch.ops import gemm as tg
+from parsec_tpu_torch.ops import ragged_attention as ra
 from parsec_tpu_torch.runtime import Context
+from parsec_tpu_torch.serve import RuntimeServer
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +105,94 @@ def test_tiled_gemm_on_the_card(card):
     assert card.executed_tasks == 4 * 3 * 3
     assert tg.gemm_update.launches > launches
     np.testing.assert_allclose(C.to_dense(), a @ b, rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K2: the ragged paged-attention page update, and decode serving on the card
+# ---------------------------------------------------------------------------
+
+def _attn_case(batch, P, H, D, seed):
+    """Tile batches with fills cycling 0..P and, on odd tasks, a
+    non-empty accumulator (one plain update on a full page)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q3 = torch.randn(batch, 3, H, D, device="cuda", generator=g)
+    page = torch.randn(batch, 3, P, H, D, device="cuda", generator=g)
+    page[:, 2] = 0.0
+    page[:, 2, 0, 0, 0] = (torch.arange(batch, device="cuda")
+                           % (P + 1)).float()
+    acc = torch.zeros(batch, H, D + 2, device="cuda")
+    warm = page[1::2].clone()
+    warm[:, 2, 0, 0, 0] = float(P)
+    acc[1::2] = ra.attn_page_update_plain(q3[1::2], warm, acc[1::2])
+    return q3, page, acc
+
+
+# tolerance: fp32 sums in another order than the plain version; 1e-5 at
+# D=8, 1e-4 at D=128 (128-term scores); a wrong or unmasked slot is O(1)
+@pytest.mark.parametrize("batch,P,H,D,tol", [
+    (64, 16, 4, 8, 1e-5),            # the serving path's ToyLM pages
+    (1024, 16, 32, 128, 1e-4)])      # a Llama-2-7B head geometry
+def test_ragged_attn_kernel_matches_plain(card, batch, P, H, D, tol):
+    q3, page, acc = _attn_case(batch, P, H, D, 5)
+    want = ra.attn_page_update_plain(q3, page, acc)
+    before = ra.attn_page_update.launches
+    tiles = ra.attn_page_update_tiles(list(q3), list(page), list(acc))
+    strided = ra.attn_page_update(q3, page, acc)
+    torch.cuda.synchronize()
+    assert ra.attn_page_update.launches == before + 2
+    assert len({t.untyped_storage().data_ptr() for t in tiles}) == batch
+    torch.testing.assert_close(torch.stack(tiles), want, rtol=0, atol=tol)
+    torch.testing.assert_close(strided, want, rtol=0, atol=tol)
+    one = ra.attn_page_update(q3[3], page[3], acc[3])
+    torch.testing.assert_close(one, want[3], rtol=0, atol=tol)
+
+
+def test_ragged_attn_kernel_takes_bf16_pages(card):
+    q3, page, acc = _attn_case(32, 16, 4, 8, 6)
+    page = page.bfloat16()
+    got = ra.attn_page_update(q3, page, acc)
+    torch.testing.assert_close(got, ra.attn_page_update_plain(q3, page, acc),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["q3_dtype", "acc_shape", "page_heads",
+                                 "mixed_device", "noncontiguous"])
+def test_ragged_attn_wrapper_raises_on_cuda_without_fallback(card, bad):
+    q3, page, acc = _attn_case(2, 16, 4, 8, 7)
+    q3, page, acc = q3[0], page[0], acc[0]
+    if bad == "q3_dtype":
+        q3 = q3.double()
+    elif bad == "acc_shape":
+        acc = acc[:, :-1].contiguous()
+    elif bad == "page_heads":
+        page = page[:, :, :2].contiguous()
+    elif bad == "mixed_device":
+        acc = acc.cpu()
+    else:
+        page = page.transpose(2, 3).contiguous().transpose(2, 3)
+    before = ra.attn_page_update.launches
+    with pytest.raises((TypeError, ValueError)):
+        ra.attn_page_update(q3, page, acc)
+    assert ra.attn_page_update.launches == before
+
+
+def test_streams_decode_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+    model = ToyLM()
+    prompts = [list(range(3, 40)), [5, 9, 11], list(range(60, 0, -3))]
+    before = ra.attn_page_update.launches
+    with RuntimeServer(nb_cores=2) as server:
+        tks = [server.submit_stream(p, max_new_tokens=12, tenant=f"t{i % 2}")
+               for i, p in enumerate(prompts)]
+        fork = server.submit_stream(prompts[0], max_new_tokens=5,
+                                    fork_from=tks[0])
+        for p, tk in zip(prompts, tks):
+            assert tk.result(timeout=120)["tokens"] == \
+                model.reference_generate(p, 12)
+        assert fork.result(timeout=120)["tokens"] == \
+            model.reference_generate(prompts[0], 5)
+        assert server.stats()["llm"]["kv"]["physical_pages"] == 0
+    dev = [d for d in registry.by_type("cuda") if d.is_cuda][0]
+    assert dev.tasks_by_class["ATTN"] > 0 and dev.tasks_by_class["PF"] > 0
+    assert ra.attn_page_update.launches > before

@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither ``jax`` nor ``parsec_tpu``.
 
-Checked two ways: a fresh interpreter imports ``parsec_tpu_torch`` and
-runs a 2x2x2-tile GEMM, then inspects ``sys.modules`` (a subprocess,
-because this test process already holds jax through ``conftest.py``);
-and an AST scan of every module of the package finds no such import.
+Checked two ways: fresh interpreters import ``parsec_tpu_torch`` and run
+a 2x2x2-tile GEMM and a served LLM stream, then inspect ``sys.modules``
+(subprocesses, because this test process already holds jax through
+``conftest.py``); and an AST scan of every module of the package finds
+no such import.
 Names match exactly or by dotted prefix: ``parsec_tpu_torch`` itself
 starts with the string ``parsec_tpu``.
 """
@@ -90,9 +91,37 @@ def test_the_package_has_the_slice_modules():
                 "runtime/context.py", "ptg/dsl.py", "ptg/lowering.py",
                 "device/device.py", "device/kernels.py", "device/hooks.py",
                 "device/cuda.py", "ops/gemm.py", "ops/_build.py",
-                "models/tiled_gemm.py"):
+                "models/tiled_gemm.py", "core/future.py",
+                "data_dist/paged_kv.py", "ops/ragged_attention.py",
+                "llm/model.py", "llm/decode.py", "llm/batcher.py",
+                "serve/admission.py", "serve/fair.py", "serve/server.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     assert (PORT / "csrc" / "gemm.cu").is_file()
+    assert (PORT / "csrc" / "ragged_attn.cu").is_file()
+
+
+def test_serving_a_stream_loads_no_jax_and_no_parsec_tpu():
+    code = textwrap.dedent("""
+        import json, sys
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.llm import ToyLM
+        from parsec_tpu_torch.serve import RuntimeServer
+        init_cuda_devices(device="cpu")
+        with RuntimeServer(nb_cores=2) as server:
+            tk = server.submit_stream([3, 7, 11, 5], max_new_tokens=4)
+            toks = tk.result(timeout=60)["tokens"]
+        ok = toks == ToyLM().reference_generate([3, 7, 11, 5], 4)
+        print(json.dumps({"ok": ok, "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"]
+    assert "parsec_tpu_torch.ops.ragged_attention" in out["modules"]
+    assert "parsec_tpu_torch.llm.batcher" in out["modules"]
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
