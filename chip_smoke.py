@@ -42,9 +42,29 @@ any phase fails:
 6. **trace llm** — the same backlog with 16 new tokens a stream, under
    ``torch.profiler`` (device activity only): the card's busy time over
    the serving wall, and the kernels that took it.
+7. **kernel stencil1d** — K3 against its plain PyTorch version on the
+   card: the lowered stencil's interior group (62 rows of 2^18 + 8, fp32,
+   9 taps), the same in bf16, one row of 2^20 + 8 (past the TPU kernel's
+   VMEM limit) and a 3-D batch; kernel, plain and bound times, and
+   ``torch.nn.functional.conv1d`` on the same rows (the same
+   cross-correlation; a yardstick the port never calls).
+8. **path lowered_stencil** — ``lower_taskpool(stencil_1d_ptg(V, w, 64))``
+   at the JAX bench's configuration (n = 2^24, mb = 2^18, R = 4, weights
+   1/9, base from seed 0): the wavefront pass, 3 K3 launches a level, all
+   of V against a float64 oracle computed on the card; the execute wall,
+   the step wall with stores resident, one step under ``torch.profiler``.
+9. **path lowered_stencil2d** — ``stencil_2d_ptg`` lowered at 8192^2
+   fp32, 1024^2 tiles, 16 iterations (plain PyTorch traceable, no
+   kernel), against the float64 oracle on the card.
+10. **path lowered_gemm** — ``lower_taskpool(tiled_gemm_ptg(A, B, C))`` at
+   N = 16384, nb = 512, bf16 A/B, fp32 C of zeros (the JAX bench's
+   headline): chain collapse on dense stores, one K1 launch a step; the
+   step timed with stores resident, ``execute()`` end to end, all of C
+   against a float64 product of the same bf16 inputs on the card, and
+   K1 and ``torch.baddbmm`` at that shape.
 
-TF32 is off for every PyTorch matmul, so the plain versions compute
-strict fp32.  Every printed number stands beside the card's name and
+TF32 is off for every PyTorch matmul and convolution, so the plain
+versions and the yardsticks compute strict fp32.  Every printed number stands beside the card's name and
 power limit.  The line before the last lists each kernel with its launch
 count on its own path; the last line is the result object.
 """
@@ -490,18 +510,14 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
     return rec
 
 
-def phase_llm_trace(card: str, torch, max_new: int = 16) -> dict:
-    """The LLM path again, shorter (16 new tokens a stream), under
-    ``torch.profiler`` recording device activity only: the card's busy
-    time is the union of its kernel and copy intervals, and its idle
-    share is the rest of the serving wall."""
+def _device_busy(prof) -> tuple[float, int, list]:
+    """A profile's device busy seconds (the union of its kernel and copy
+    intervals), its device event count, and the five names that took the
+    most device time."""
     from collections import Counter
 
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rec = phase_llm(card, torch, max_new=max_new, label="llm traced")
     spans, count, dev_ns = [], Counter(), Counter()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != DeviceType.CUDA:
@@ -521,11 +537,299 @@ def phase_llm_trace(card: str, torch, max_new: int = 16) -> dict:
             end = b
     top = [{"name": n[:60], "count": count[n], "ms": dev_ns[n] / 1e6}
            for n, _ in dev_ns.most_common(5)]
-    out = dict(wall_s=rec["wall_s"], device_busy_s=busy / 1e9,
-               idle_share=1.0 - busy / 1e9 / rec["wall_s"],
-               device_events=len(spans), top_device_time=top)
+    return busy / 1e9, len(spans), top
+
+
+def phase_llm_trace(card: str, torch, max_new: int = 16) -> dict:
+    """The LLM path again, shorter (16 new tokens a stream), under
+    ``torch.profiler`` recording device activity only: the card's busy
+    time is the union of its kernel and copy intervals, and its idle
+    share is the rest of the serving wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec = phase_llm(card, torch, max_new=max_new, label="llm traced")
+    busy, events, top = _device_busy(prof)
+    out = dict(wall_s=rec["wall_s"], device_busy_s=busy,
+               idle_share=1.0 - busy / rec["wall_s"],
+               device_events=events, top_device_time=top)
     _emit(card, phase="trace", name="llm", **out)
     return out
+
+
+def phase_stencil_kernel(card: str, torch) -> dict:
+    """K3 (``stencil1d``) against its plain version at the lowered
+    stencil's interior group and at shapes the TPU kernel could not take;
+    returns the interior group's record for the kernels line."""
+    import torch.nn.functional as F
+
+    from parsec_tpu_torch.ops import stencil as ks
+    taps = 9
+    w = [1.0 / taps] * taps
+    # fp32: the kernel fuses each tap's multiply-add, the plain version
+    # rounds the product first: a few ulp of |out| <= ~5, a wrong element
+    # is O(0.1).  bf16 output: one bf16 ulp (2^-7 relative) where the two
+    # fp32 sums round to neighbouring bf16 values
+    cases = [("interior group [62, 262152] fp32", (62, 262152),
+              torch.float32, 1e-5, 50),
+             ("interior group [62, 262152] bf16", (62, 262152),
+              torch.bfloat16, 4e-2, 50),
+             ("one row of 2^20+8 fp32", (1, (1 << 20) + 8), torch.float32,
+              1e-5, 50),
+             ("3-D batch [4, 8, 4104] fp32", (4, 8, 4104), torch.float32,
+              1e-5, 200)]
+    main = None
+    for i, (label, shape, dtype, tol, iters) in enumerate(cases):
+        g = torch.Generator(device="cuda").manual_seed(500 + i)
+        p = torch.randn(*shape, device="cuda", generator=g).to(dtype)
+        got = ks.stencil1d(p, w)
+        want = ks.stencil1d_plain(p, w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        _check(got.shape == want.shape and got.dtype == dtype,
+               f"stencil1d {label}: {tuple(got.shape)} {got.dtype}")
+        _check(err <= tol, f"stencil1d {label}: max abs err {err} above "
+               f"{tol}")
+        ms = _time_ms(torch, lambda: ks.stencil1d(p, w), iters)
+        plain_ms = _time_ms(torch, lambda: ks.stencil1d_plain(p, w), iters)
+        # the same cross-correlation as one library call on (rows, 1, L)
+        rows2 = p.reshape(-1, 1, shape[-1])
+        wt = torch.tensor(w, device="cuda", dtype=dtype).reshape(1, 1, taps)
+        lib = lambda: F.conv1d(rows2, wt)  # noqa: E731
+        lib_out = lib().reshape(got.shape)
+        torch.cuda.synchronize()
+        lib_err = (lib_out.float() - want.float()).abs().max().item()
+        lib_ms = _time_ms(torch, lib, iters)
+        nbytes = (p.numel() + got.numel()) * p.element_size()
+        bound_ms, bound_by = _bound(2.0 * taps * got.numel(), nbytes,
+                                    "float32")
+        rec = dict(shape=label, max_abs_err=err, tol=tol, ms=ms,
+                   plain_ms=plain_ms, library_ms=lib_ms,
+                   library_max_abs_err=lib_err, bound_ms=bound_ms,
+                   bound_by=bound_by, gbps=nbytes / ms / 1e6)
+        _emit(card, phase="kernel", name="stencil1d", **rec)
+        if main is None:
+            main = rec
+        del p, got, want, lib_out, rows2
+    torch.cuda.empty_cache()
+    return main
+
+
+def _step_wall(torch, step, stores, reps: int) -> float:
+    """Mean host wall of ``reps`` steps on resident stores, each ended by
+    a synchronize, after one warm-up step."""
+    step(stores)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        step(stores)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def phase_lowered_stencil(card: str, torch, n: int = 1 << 24,
+                          mb: int = 1 << 18, radius: int = 4,
+                          iterations: int = 64) -> dict:
+    """The compiled 1-D stencil at the JAX bench's configuration
+    (``bench.py:676-704``), through ``lower_taskpool`` on the card."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from parsec_tpu_torch.data_dist.matrix import VectorTwoDimCyclic
+    from parsec_tpu_torch.models.stencil import (stencil_1d_ptg,
+                                                 stencil_flops,
+                                                 stencil_reference)
+    from parsec_tpu_torch.ops import stencil as ks
+    from parsec_tpu_torch.ptg.lowering import lower_taskpool
+
+    base = np.random.default_rng(0).standard_normal(n).astype(np.float32)
+    V = VectorTwoDimCyclic("V", lm=n, mb=mb, P=1,
+                           init_fn=lambda m, size:
+                           base[m * mb:m * mb + size])
+    weights = np.full(2 * radius + 1, 1.0 / (2 * radius + 1))
+    t0 = time.perf_counter()
+    low = lower_taskpool(stencil_1d_ptg(V, weights, iterations))
+    lower_s = time.perf_counter() - t0
+    _check(low.mode == "wavefront", f"lowered stencil mode {low.mode}")
+    ks.stencil1d.launches = 0            # counts from here are the path's
+    t0 = time.perf_counter()
+    low.execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ks.stencil1d.launches
+    # one interior group and two one-row boundary groups a level
+    _check(launches == 3 * iterations,
+           f"K3 launched {launches} times, expected {3 * iterations}")
+
+    # all of V against the float64 tap loop on the card: fp32 stores
+    # round every level (2^-24 of |x| <= ~5), 64 levels stay far under
+    # 1e-4; a wrong ghost or group is O(0.1)
+    got = torch.cat([V.data_of(i).newest_copy().value
+                     for i in range(V.mt)]).cuda()
+    _check(got.shape == (n,) and got.dtype == torch.float32,
+           f"V is {tuple(got.shape)} {got.dtype}")
+    _check(bool(torch.isfinite(got).all()), "V is not finite")
+    ref = stencil_reference(torch.from_numpy(base).cuda(), weights,
+                            iterations)
+    err = (got.double() - ref).abs().max().item()
+    _check(err <= 1e-4, f"lowered stencil: max abs err {err} above 1e-4")
+    del got, ref
+
+    t0 = time.perf_counter()
+    stores = low.initial_stores()
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t0
+    step_s = _step_wall(torch, low.step_fn, stores, reps=5)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        low.step_fn(stores)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    busy, events, top = _device_busy(prof)
+    # the ideal step reads and writes the vector once a level
+    nbytes = 2.0 * 4 * n * iterations
+    rec = dict(n=n, mb=mb, radius=radius, iterations=iterations,
+               mode=low.mode, levels=iterations, lower_s=lower_s,
+               execute_wall_s=wall, materialize_s=materialize_s,
+               step_s=step_s,
+               gflops=stencil_flops(n, radius, iterations) / step_s / 1e9,
+               gbps=nbytes / step_s / 1e9, stencil1d_launches=launches,
+               traced_step_s=traced_s, device_busy_s=busy,
+               idle_share=1.0 - busy / traced_s, device_events=events,
+               top_device_time=top, max_abs_err=err)
+    _emit(card, phase="path", name="lowered_stencil", **rec)
+    del stores
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lowered_stencil2d(card: str, torch, size: int = 8192,
+                            tile: int = 1024, iterations: int = 16) -> dict:
+    """``stencil_2d_ptg`` through the wavefront lowering on the card."""
+    import numpy as np
+
+    from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+    from parsec_tpu_torch.models.stencil2d import (stencil2d_flops,
+                                                   stencil2d_reference,
+                                                   stencil_2d_ptg)
+    from parsec_tpu_torch.ptg.lowering import lower_taskpool
+
+    w = (0.5, 0.15, 0.15, 0.1, 0.1)
+    dense = np.random.default_rng(1).standard_normal((size, size),
+                                                     dtype=np.float32)
+    M = TiledMatrix.from_dense("M", dense, tile, tile)
+    t0 = time.perf_counter()
+    low = lower_taskpool(stencil_2d_ptg(M, w, iterations))
+    lower_s = time.perf_counter() - t0
+    _check(low.mode == "wavefront", f"lowered stencil2d mode {low.mode}")
+    t0 = time.perf_counter()
+    low.execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # fp32 stores round every level; the weights sum to 1, so |x| stays
+    # O(5) and 16 levels stay under 1e-5; a wrong ghost row is O(0.1)
+    got = M.to_tensor().cuda()
+    _check(bool(torch.isfinite(got).all()), "M is not finite")
+    ref = stencil2d_reference(torch.from_numpy(dense).cuda(), w, iterations)
+    err = (got.double() - ref).abs().max().item()
+    _check(err <= 1e-4, f"lowered stencil2d: max abs err {err} above 1e-4")
+    del got, ref
+    stores = low.initial_stores()
+    step_s = _step_wall(torch, low.step_fn, stores, reps=3)
+    rec = dict(size=size, tile=tile, iterations=iterations, mode=low.mode,
+               lower_s=lower_s, execute_wall_s=wall, step_s=step_s,
+               gflops=stencil2d_flops(size, size, iterations) / step_s / 1e9,
+               max_abs_err=err)
+    _emit(card, phase="path", name="lowered_stencil2d", **rec)
+    del stores
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lowered_gemm(card: str, torch, n: int = 16384,
+                       nb: int = 512) -> dict:
+    """The headline: ``lower_taskpool(tiled_gemm_ptg(A, B, C))`` at the
+    JAX bench's configuration (``bench.py:24-102``), bf16 A/B, fp32 C of
+    zeros, on the card; K1 and ``torch.baddbmm`` at that shape."""
+    from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops, tiled_gemm_ptg
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.ptg.lowering import lower_taskpool
+
+    # the operands are made on the card from a seed, in bulk, and the
+    # host tiles cut from them (set-up, before any clock)
+    g = torch.Generator(device="cuda").manual_seed(600)
+    a_dev = torch.randn(n, n, device="cuda", generator=g).bfloat16()
+    b_dev = torch.randn(n, n, device="cuda", generator=g).bfloat16()
+    A = TiledMatrix.from_dense("A", a_dev.cpu(), nb, nb)
+    B = TiledMatrix.from_dense("B", b_dev.cpu(), nb, nb)
+    C = TiledMatrix("C", n, n, nb, nb, dtype=torch.float32)
+    t0 = time.perf_counter()
+    low = lower_taskpool(tiled_gemm_ptg(A, B, C))
+    lower_s = time.perf_counter() - t0
+    _check(low.mode == "chain-collapse", f"lowered gemm mode {low.mode}")
+    _check(low.layout == {"A": "dense", "B": "dense", "C": "dense"},
+           f"lowered gemm layout {low.layout}")
+    tg.gemm_update.launches = 0          # counts from here are the path's
+    t0 = time.perf_counter()
+    low.execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tg.gemm_update.launches
+    _check(launches == 1, f"K1 launched {launches} times, expected 1")
+
+    # all of C against a float64 product of the same bf16 inputs: the
+    # products are exact in fp32, the 16384-term fp32 sums of |C| ~ 128
+    # round to about 1e-3 (a random walk of half-ulp steps); a wrong tile
+    # is off by O(100)
+    got = C.to_tensor().cuda()
+    _check(got.shape == (n, n) and got.dtype == torch.float32,
+           f"C is {tuple(got.shape)} {got.dtype}")
+    _check(bool(torch.isfinite(got).all()), "C is not finite")
+    ref = a_dev.double() @ b_dev.double()
+    err = (got.double() - ref).abs().max().item()
+    _check(err <= 2e-2, f"lowered gemm: max abs err {err} above 2e-2")
+    del got, ref
+
+    t0 = time.perf_counter()
+    stores = low.initial_stores()        # one host stack + H2D a store
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    low.step_fn(stores)
+    reps = 3
+    start.record()
+    for _ in range(reps):
+        low.step_fn(stores)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / reps
+    del stores
+    torch.cuda.empty_cache()
+
+    # K1 alone at the step's shape, its plain version and the library's
+    # bf16 -> fp32 product (a yardstick the port never calls)
+    c0 = torch.zeros(n, n, device="cuda")
+    ms = _time_ms(torch, lambda: tg.gemm_update(a_dev, b_dev, c0), 3, 1)
+    plain_ms = _time_ms(torch, lambda: tg.gemm_update_plain(a_dev, b_dev,
+                                                            c0), 3, 1)
+    lib_ms = _time_ms(torch, lambda: torch.baddbmm(
+        c0[None], a_dev[None], b_dev[None], torch.float32), 3, 1)
+    flops = gemm_flops(n, n, n)
+    nbytes = 2 * n * n * 2 + 2 * n * n * 4
+    bound_ms, bound_by = _bound(flops, nbytes, "bfloat16")
+    rec = dict(n=n, nb=nb, mode=low.mode, layout="dense", lower_s=lower_s,
+               execute_wall_s=wall, materialize_s=materialize_s,
+               step_ms=step_ms,
+               gflops=flops / step_ms / 1e6,
+               execute_gflops=flops / wall / 1e9, gemm_launches=launches,
+               kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    _emit(card, phase="path", name="lowered_gemm", **rec)
+    del a_dev, b_dev, c0
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -553,10 +857,16 @@ def main() -> int:
     attn_rec = phase_attn_kernel(card, torch)
     llm = phase_llm(card, torch)
     phase_llm_trace(card, torch)
+    sten_rec = phase_stencil_kernel(card, torch)
+    sten = phase_lowered_stencil(card, torch)
+    phase_lowered_stencil2d(card, torch)
+    lgemm = phase_lowered_gemm(card, torch)
     kernels = [{"name": "gemm_update", "route": "cuda",
                 "source": "parsec_tpu_torch/csrc/gemm.cu",
                 "replaces": "parsec_tpu/ops/gemm.py:66",
-                "launches": path["gemm_launches"],
+                "launches": path["gemm_launches"] + lgemm["gemm_launches"],
+                "launches_by_path": {"gemm": path["gemm_launches"],
+                                     "lowered_gemm": lgemm["gemm_launches"]},
                 "max_abs_err": main_rec["max_abs_err"],
                 "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
                 "bound_ms": main_rec["bound_ms"],
@@ -570,7 +880,16 @@ def main() -> int:
                 "ms": attn_rec["ms"], "plain_ms": attn_rec["plain_ms"],
                 "bound_ms": attn_rec["bound_ms"],
                 "bound_by": attn_rec["bound_by"],
-                "library_ms": attn_rec["library_ms"]}]
+                "library_ms": attn_rec["library_ms"]},
+               {"name": "stencil1d", "route": "cuda",
+                "source": "parsec_tpu_torch/csrc/stencil.cu",
+                "replaces": "parsec_tpu/ops/stencil.py:54",
+                "launches": sten["stencil1d_launches"],
+                "max_abs_err": sten_rec["max_abs_err"],
+                "ms": sten_rec["ms"], "plain_ms": sten_rec["plain_ms"],
+                "bound_ms": sten_rec["bound_ms"],
+                "bound_by": sten_rec["bound_by"],
+                "library_ms": sten_rec["library_ms"]}]
     _check(all(math.isfinite(k["ms"]) for k in kernels), "a time is not finite")
     _emit(card, phase="done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ Port of ``parsec_tpu/data_dist/collection.py`` (the reference's
 owning rank (``rank_of``), the master :class:`Data` (``data_of``) and a
 virtual-process hint (``vpid_of``).  :class:`DictCollection` is the
 host-dict-backed collection the LLM pools keep their side tiles in.
-Left out: ``key_to_string``, ``open_key_space`` and ``enumerate_keys``
-(used by operators and the lowering, not ported yet).
+:func:`enumerate_keys` lists a collection's keys for the taskpool
+lowering.  Left out: ``key_to_string`` and ``open_key_space`` (no ported
+taskpool writes fresh keys into a lowered dict collection).
 """
 
 from __future__ import annotations
@@ -55,8 +56,11 @@ class DictCollection(DataCollection):
         super().__init__(name)
         self.default_dtt = dtt
         self._init_fn = init_fn
-        self._keys = None if keys is None else frozenset(
-            tuple(k) for k in keys)
+        # the declared key space, in declaration order (the lowering lays
+        # its store rows out in this order)
+        self._key_list = None if keys is None else list(dict.fromkeys(
+            tuple(k) for k in keys))
+        self._keys = None if keys is None else frozenset(self._key_list)
         self._store: dict[tuple, Data] = {}
         self._lock = threading.Lock()
 
@@ -97,9 +101,26 @@ class DictCollection(DataCollection):
             return self._store.pop(tuple(key), None) is not None
 
     def known_keys(self) -> list[tuple]:
-        """The declared key space if one was given, else the keys
-        materialized so far."""
-        if self._keys is not None:
-            return sorted(self._keys, key=repr)
+        """The declared key space (in declaration order) if one was
+        given, else the keys materialized so far."""
+        if self._key_list is not None:
+            return list(self._key_list)
         with self._lock:
             return sorted(self._store, key=repr)
+
+
+def enumerate_keys(dc: DataCollection) -> list[tuple]:
+    """Every key of a collection with an enumerable key space: tiled grids
+    (``mt``/``nt``), 1-D segmented vectors (``mt``), or a dict
+    collection's known keys.  What the taskpool lowering lays its store
+    rows out by."""
+    if hasattr(dc, "mt") and hasattr(dc, "nt"):
+        has = getattr(dc, "has_tile", lambda m, n: True)
+        return [(m, n) for m in range(dc.mt) for n in range(dc.nt)
+                if has(m, n)]
+    if hasattr(dc, "mt"):
+        return [(m,) for m in range(dc.mt)]
+    if isinstance(dc, DictCollection):
+        return dc.known_keys()   # [] for an empty collection, not an error
+    raise TypeError(f"cannot enumerate keys of {type(dc).__name__} "
+                    f"{dc.name!r}")

@@ -1,14 +1,17 @@
-"""Tiled-matrix descriptor.
+"""Tiled-matrix and segmented-vector descriptors.
 
-Port of :class:`TiledMatrix` from ``parsec_tpu/data_dist/matrix.py`` (the
-reference's ``parsec_tiled_matrix_t``): tile sizes mb x nb over an
-lm x ln matrix, mt x nt tiles, ragged edge tiles.  Tiles are CPU
-``torch.Tensor`` values created lazily on first touch; the device module
-stages them onto the card.
+Port of :class:`TiledMatrix` and :class:`VectorTwoDimCyclic` from
+``parsec_tpu/data_dist/matrix.py`` (the reference's
+``parsec_tiled_matrix_t`` and ``vector_two_dim_cyclic``): tile sizes
+mb x nb over an lm x ln matrix, mt x nt tiles, ragged edge tiles; or mb
+segments of an lm vector.  Tiles are CPU ``torch.Tensor`` values created
+lazily on first touch; the device module and the lowering move them onto
+the card.  :meth:`TiledMatrix.to_tensor` is ``to_dense`` without numpy:
+bf16 tiles stay bf16 on their way to the card.
 
-Left out: the block-cyclic, symmetric, band, tabular, vector, sub-tile
-and hash distributions — the port runs on one rank, and no ported model
-needs them yet.
+Left out: the block-cyclic, symmetric, band, tabular, sub-tile and hash
+distributions, and vectors over more than one rank — the port runs on
+one rank, and no ported model needs them yet.
 
 :meth:`TiledMatrix.from_numpy_tiles` / :meth:`to_numpy_tiles` carry the
 JAX package's ``{(i, j): np.ndarray}`` host tiles across, so both
@@ -98,6 +101,17 @@ class TiledMatrix(DataCollection):
                     n * self.nb:n * self.nb + t.shape[1]] = t
         return out
 
+    def to_tensor(self) -> torch.Tensor:
+        """The matrix as one CPU tensor of the matrix dtype (newest copy of
+        each tile, wherever it lives), built with no numpy crossing."""
+        out = torch.empty((self.lm, self.ln), dtype=self.dtype)
+        for m in range(self.mt):
+            for n in range(self.nt):
+                t = self.data_of(m, n).newest_copy().value
+                out[m * self.mb:m * self.mb + t.shape[0],
+                    n * self.nb:n * self.nb + t.shape[1]] = t
+        return out
+
     def to_numpy_tiles(self) -> dict[tuple[int, int], np.ndarray]:
         return {(m, n): to_numpy(self.data_of(m, n).newest_copy().value)
                 for m in range(self.mt) for n in range(self.nt)}
@@ -130,3 +144,48 @@ class TiledMatrix(DataCollection):
         if missing:
             raise KeyError(f"{name}: tiles {missing[:4]} missing")
         return out
+
+
+class VectorTwoDimCyclic(DataCollection):
+    """A vector of ``mt`` segments of ``mb`` elements (the last may be
+    shorter), keys ``(m,)``, on one rank.  ``init_fn(m, size)`` returns a
+    segment (tensor or array-like); segments without one start as zeros.
+    """
+
+    def __init__(self, name: str, lm: int, mb: int, P: int = 1,
+                 dtype: Any = torch.float32,
+                 init_fn: Callable | None = None) -> None:
+        if P != 1:
+            raise ValueError(f"{name}: vectors over {P} ranks are not "
+                             f"ported; the port runs on one rank")
+        super().__init__(name)
+        self.lm, self.mb = lm, mb
+        self.mt = (lm + mb - 1) // mb
+        self.dtype = torch_dtype(dtype)
+        self.default_dtt = TileType((mb,), self.dtype)
+        self._init_fn = init_fn
+        self._store: dict[tuple, Data] = {}
+        self._lock = threading.Lock()
+
+    def rank_of(self, m: int) -> int:
+        return 0
+
+    def has_key(self, *key) -> bool:
+        return len(key) == 1 and 0 <= key[0] < self.mt
+
+    def data_of(self, m: int) -> Data:
+        with self._lock:
+            d = self._store.get((m,))
+            if d is None:
+                size = min(self.mb, self.lm - m * self.mb)
+                value = (to_tensor(self._init_fn(m, size)).to(self.dtype)
+                         .contiguous() if self._init_fn
+                         else torch.zeros(size, dtype=self.dtype))
+                if tuple(value.shape) != (size,):
+                    raise ValueError(f"{self.name}({m}): init_fn gave "
+                                     f"{tuple(value.shape)}, segment is "
+                                     f"({size},)")
+                d = data_create(value, key=(self.name, m),
+                                dtt=TileType((size,), self.dtype), dc=self)
+                self._store[(m,)] = d
+            return d

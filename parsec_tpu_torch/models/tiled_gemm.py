@@ -8,9 +8,13 @@ chains along k, run through the dynamic runtime.  With ``devices="cuda"``
 device could fall through to.  ``devices="cpu"`` carries only the host
 body.
 
-Left out until later slices: the recursive variant and the fused
-single-program path (``tiled_gemm_fused``), which the lowering slice
-brings.
+:func:`tiled_gemm_fused` is the one-program form for dense operands
+(what ``lower_taskpool(tiled_gemm_ptg(A, B, C))`` runs on identity tile
+grids): one launch of the K1 kernel.
+
+Left out until later slices: the recursive variant, and the
+``precision=`` argument of ``tiled_gemm_fused`` (K1 accumulates in
+strict fp32).
 """
 
 from __future__ import annotations
@@ -68,6 +72,12 @@ def tiled_gemm_ptg(A: TiledMatrix, B: TiledMatrix, C: TiledMatrix,
 
 def _cpu_wrap(es: Any, task: Any, g: Any, l: Any) -> None:
     gemm_ops.gemm_cpu_body(es, task)
+
+
+def tiled_gemm_fused(a: Any, b: Any, c: Any) -> Any:
+    """``c + a@b`` on dense operands in one call: K1 on CUDA tensors, the
+    plain version on CPU tensors; fp32 accumulate, in ``c``'s dtype."""
+    return gemm_ops.gemm_update(a, b, c)
 
 
 def gemm_flops(M: int, N: int, K: int) -> float:

@@ -19,12 +19,20 @@ dimension for the device module's fused dispatch.
   ``gemm_update.launches``, since it is the same kernel.
 - :func:`matmul` ``(a, b) -> a@b`` in ``a.dtype``: the direct counterpart
   of ``matmul_pallas``, on the same kernel.
+- :func:`gemm_chain` ``(lhs, rhs, acc0)``: the chain-collapse lowering's
+  contraction ``acc0[m,n] + sum_k lhs[m,k] @ rhs[k,n]`` over tile stacks
+  ``[M,K,ta,tk]``, ``[K,N,tk,tb]``, ``[M,N,ta,tb]``, relaid out to whole
+  matrices and run as ONE launch (the JAX package's einsum,
+  ``parsec_tpu/ptg/lowering.py:138-158``).
 - The ``"gemm"`` incarnations for the ``cuda`` and ``cpu`` device types,
-  and the batched ``"gemm"`` body the device module hands its batches to.
+  and the ``"gemm"`` traceable: its list form (the device module's fused
+  dispatch and the lowering), its stacked form over a leading group axis
+  (:func:`gemm_update_stacked`, the wavefront pass) and its chain.
 
-The kernel computes strict fp32 products; the JAX package's
-``gemm_precision`` knob has no port until the kernel has a reduced-
-precision mode.  Left out: ``matmul_xla`` (the jitted XLA body has no
+The kernel computes strict fp32 products, so every path through it,
+the lowered chain included, accumulates in strict fp32; the JAX
+package's ``gemm_precision`` knob has no port until the kernel has a
+reduced-precision mode.  Left out: ``matmul_xla`` (the jitted XLA body has no
 port of its own: :func:`gemm_update` is the body).
 """
 
@@ -182,6 +190,30 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 matmul.launches = 0
 
 
+def gemm_update_stacked(a: torch.Tensor, b: torch.Tensor,
+                        c: torch.Tensor) -> torch.Tensor:
+    """``c + a@b`` over a leading group axis ``[G, ...]``, in one launch;
+    a tile shared by the group arrives as a broadcast view and is made
+    contiguous here."""
+    return gemm_update(a.contiguous(), b.contiguous(), c.contiguous())
+
+
+def gemm_chain(lhs: torch.Tensor, rhs: torch.Tensor,
+               acc0: torch.Tensor) -> torch.Tensor:
+    """``acc0[m,n] + sum_k lhs[m,k] @ rhs[k,n]`` over tile stacks
+    ``lhs [M,K,ta,tk]``, ``rhs [K,N,tk,tb]``, ``acc0 [M,N,ta,tb]``, in
+    ``acc0.dtype``.  The stacks are relaid out to ``[M*ta, K*tk]``,
+    ``[K*tk, N*tb]`` and ``[M*ta, N*tb]`` and contracted in ONE launch of
+    the kernel (fp32 accumulate), rather than one launch per (m, n)."""
+    M, K, ta, tk = lhs.shape
+    N, tb = rhs.shape[1], rhs.shape[3]
+    a = lhs.permute(0, 2, 1, 3).reshape(M * ta, K * tk)
+    b = rhs.permute(0, 2, 1, 3).reshape(K * tk, N * tb)
+    c = acc0.permute(0, 2, 1, 3).reshape(M * ta, N * tb)
+    out = gemm_update(a.contiguous(), b.contiguous(), c.contiguous())
+    return out.reshape(M, ta, N, tb).permute(0, 2, 1, 3)
+
+
 # ---------------------------------------------------------------------------
 # task-body incarnations
 # ---------------------------------------------------------------------------
@@ -206,5 +238,7 @@ def gemm_cpu_body(es: Any, task: Any) -> None:
 
 register_kernel("gemm", "cuda", gemm_cuda_body)
 register_kernel("gemm", "cpu", gemm_cpu_body)
-# the batched body: lists of A, B and C tiles -> list of new C tiles
-register_traceable("gemm", gemm_update_tiles, bilinear=True)
+# the batched body: lists of A, B and C tiles -> list of new C tiles; its
+# stacked form and its chain for the lowering
+register_traceable("gemm", gemm_update_tiles, bilinear=True,
+                   chain_combine=gemm_chain, stacked=gemm_update_stacked)

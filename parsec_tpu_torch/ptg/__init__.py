@@ -2,8 +2,10 @@
 
 from .dsl import (CTL, READ, RW, WRITE, FlowBuilder, PTGBuilder, PTGTaskpool,
                   TaskClassBuilder, span)
-from .lowering import Traceable, find_traceable, register_traceable
+from .lowering import (LoweredTaskpool, LoweringError, Traceable,
+                       find_traceable, lower_taskpool, register_traceable)
 
 __all__ = ["CTL", "READ", "RW", "WRITE", "FlowBuilder", "PTGBuilder",
-           "PTGTaskpool", "TaskClassBuilder", "Traceable", "find_traceable",
+           "PTGTaskpool", "TaskClassBuilder", "LoweredTaskpool",
+           "LoweringError", "Traceable", "find_traceable", "lower_taskpool",
            "register_traceable", "span"]

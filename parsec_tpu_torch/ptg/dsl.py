@@ -17,9 +17,15 @@ globals and locals.  The builder materializes
 :class:`PTGTaskpool` whose startup enumerates the execution space and
 schedules the tasks with an empty IN-dep mask.
 
+A taskpool may carry ``local_traceables``: batched incarnations scoped to
+it (a stencil's weights differ per build), which the lowering looks up
+before the process-wide registry.  ``output(wire=...)`` is stored on the
+dep and unused: the sub-view only matters across ranks.
+
 Left out: the JDF text front-ends, user-defined key/dep/startup
-overrides, SIMCOST, stage hooks, wire regions, ranged inputs, pool
-options, ``validate`` (graphcheck) and multi-rank affinity filtering.
+overrides, SIMCOST, stage hooks, the use of wire regions, ranged inputs,
+pool options, ``validate`` (graphcheck) and multi-rank affinity
+filtering.
 """
 
 from __future__ import annotations
@@ -90,9 +96,13 @@ class FlowBuilder:
         return self
 
     def output(self, succ: tuple | None = None, data: tuple | None = None,
-               guard: Callable | None = None,
-               dtt: Any = None) -> "FlowBuilder":
-        self._deps_out.append(self._tcb._mk_dep(succ, data, guard, dtt))
+               guard: Callable | None = None, dtt: Any = None,
+               wire: Any = None) -> "FlowBuilder":
+        """Add an output arrow to a task (``succ``) or a collection
+        (``data``).  ``wire`` names the sub-view of the tile a remote
+        successor would receive: slices, or ``wire_fn(g, l) -> slices``."""
+        self._deps_out.append(self._tcb._mk_dep(succ, data, guard, dtt,
+                                                wire=wire))
         return self
 
     def _build(self) -> Flow:
@@ -167,11 +177,15 @@ class TaskClassBuilder:
 
     def _mk_dep(self, ref: tuple | None, data: tuple | None,
                 guard: Callable | None, dtt: Any,
-                new: bool = False, null: bool = False) -> Dep:
+                new: bool = False, null: bool = False,
+                wire: Any = None) -> Dep:
         g_ns = self._ptg._g_ns
         gfn = None
         if guard is not None:
             gfn = lambda locals_: guard(g_ns(), _ns(locals_))
+        wfn = wire
+        if callable(wire):
+            wfn = lambda locals_: wire(g_ns(), _ns(locals_))
         if new or null:
             return Dep(guard=gfn, dtt=dtt, null=null)
         if ref is not None:
@@ -179,7 +193,7 @@ class TaskClassBuilder:
             return Dep(guard=gfn, target_class=cls_name,
                        target_flow=flow_name,
                        target_params=lambda locals_: params_fn(
-                           g_ns(), _ns(locals_)), dtt=dtt)
+                           g_ns(), _ns(locals_)), dtt=dtt, wire=wfn)
         if data is not None:
             collection, key_fn = data
             dc_get = self._ptg._dc_getter(collection)
@@ -188,7 +202,7 @@ class TaskClassBuilder:
                 key = key_fn(g_ns(), _ns(locals_))
                 return dc_get(), key if isinstance(key, tuple) else (key,)
 
-            return Dep(guard=gfn, data_ref=data_ref, dtt=dtt)
+            return Dep(guard=gfn, data_ref=data_ref, dtt=dtt, wire=wfn)
         raise ValueError("dep needs a task ref or a data ref")
 
     def _enumerate_space(self) -> Iterable[dict]:
@@ -240,6 +254,9 @@ class PTGTaskpool(Taskpool):
         super().__init__(name=name)
         self._builder = builder
         self._tc_builders: dict[str, TaskClassBuilder] = {}
+        # build-scoped batched incarnations, by dyld name (the lowering
+        # consults them before the process-wide registry)
+        self.local_traceables: dict[str, Any] = {}
 
     @property
     def globals(self) -> dict:

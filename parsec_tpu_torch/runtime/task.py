@@ -6,8 +6,9 @@ kind of task — its parameters, flows with guarded in/out deps, data
 affinity, priority and a list of incarnations ("chores") binding bodies
 to device types; a task is one instance with concrete locals.
 
-Left out: ranged (goal-counted) input deps, partial-tile wire regions,
-user-defined key functions (``make_key_fn``, ``find_deps_fn``,
+Left out: ranged (goal-counted) input deps, the use of partial-tile wire
+regions (a dep stores its ``wire`` view, which only a cross-rank edge
+would read), user-defined key functions (``make_key_fn``, ``find_deps_fn``,
 ``hash_struct``), custom startup, the simulation cost model and the
 index-array extents — the GEMM path uses none of them.
 """
@@ -44,11 +45,12 @@ class Dep:
     describe the predecessor symmetrically; ``target_class is None`` with
     a ``data_ref`` reads the collection.  With all targets None the dep is
     a NEW arrow (fresh tile of the flow's type) or, with ``null=True``, a
-    NULL arrow.
+    NULL arrow.  ``wire`` is the sub-view a remote successor would
+    receive; on one rank every edge carries the whole tile.
     """
 
     __slots__ = ("guard", "target_class", "target_flow", "target_params",
-                 "dtt", "data_ref", "null")
+                 "dtt", "data_ref", "null", "wire")
 
     def __init__(self, guard: Callable[[dict], bool] | None = None,
                  target_class: str | None = None,
@@ -56,7 +58,7 @@ class Dep:
                  target_params: Callable[[dict], Any] | None = None,
                  dtt: Any = None,
                  data_ref: Callable[[dict], tuple] | None = None,
-                 null: bool = False) -> None:
+                 null: bool = False, wire: Any = None) -> None:
         self.guard = guard
         self.target_class = target_class
         self.target_flow = target_flow
@@ -64,6 +66,7 @@ class Dep:
         self.dtt = dtt
         self.data_ref = data_ref
         self.null = null
+        self.wire = wire
 
     def active(self, locals_: dict) -> bool:
         return self.guard is None or bool(self.guard(locals_))
@@ -204,6 +207,22 @@ class Task:
     @property
     def key(self) -> tuple:
         return self.task_class.make_key(self.locals)
+
+    def flow_data(self, name: str) -> Any:
+        """The data copy bound to flow ``name`` (None if none is)."""
+        for f in self.task_class.flows:
+            if f.name == name:
+                return self.data[f.flow_index]
+        raise KeyError(name)
+
+    def set_flow_data(self, name: str, value: Any) -> None:
+        """Rebind flow ``name`` to another copy (a body that detaches its
+        output from an input its neighbours still read)."""
+        for f in self.task_class.flows:
+            if f.name == name:
+                self.data[f.flow_index] = value
+                return
+        raise KeyError(name)
 
     def __repr__(self) -> str:
         args = ", ".join(f"{p}={self.locals[p]}" for p in self.task_class.params)

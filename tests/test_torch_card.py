@@ -1,6 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (K1, the
-GEMM; K2, the ragged paged-attention page update), the device module and
-decode serving on the card.  They skip without one.
+GEMM; K2, the ragged paged-attention page update; K3, the 1-D stencil),
+the device module, decode serving and the lowered taskpools on the card.
+They skip without one.
 
 This file imports no JAX, so it also runs where JAX is not installed;
 there, skip ``tests/conftest.py`` (it sets JAX up)::
@@ -21,9 +22,13 @@ from parsec_tpu_torch.device import registry
 from parsec_tpu_torch.device.cuda import init_cuda_devices
 from parsec_tpu_torch.data_dist.matrix import TiledMatrix
 from parsec_tpu_torch.llm import ToyLM
+from parsec_tpu_torch.data_dist.matrix import VectorTwoDimCyclic
+from parsec_tpu_torch.models.stencil import stencil_1d_ptg, stencil_reference
 from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
 from parsec_tpu_torch.ops import gemm as tg
 from parsec_tpu_torch.ops import ragged_attention as ra
+from parsec_tpu_torch.ops import stencil as ks
+from parsec_tpu_torch.ptg.lowering import lower_taskpool
 from parsec_tpu_torch.runtime import Context
 from parsec_tpu_torch.serve import RuntimeServer
 
@@ -196,3 +201,80 @@ def test_streams_decode_on_the_card():
     dev = [d for d in registry.by_type("cuda") if d.is_cuda][0]
     assert dev.tasks_by_class["ATTN"] > 0 and dev.tasks_by_class["PF"] > 0
     assert ra.attn_page_update.launches > before
+
+
+# ---------------------------------------------------------------------------
+# K3: the 1-D stencil, and the lowered taskpools on the card
+# ---------------------------------------------------------------------------
+
+# fp32: the kernel fuses each tap's multiply-add, the plain version rounds
+# the product first (a few ulp); bf16 output: one bf16 ulp where the two
+# fp32 sums round to neighbouring values
+@pytest.mark.parametrize("shape,dtype,taps,tol", [
+    ((62, 4104), torch.float32, 9, 1e-5),
+    ((62, 4104), torch.bfloat16, 9, 4e-2),
+    ((1, (1 << 20) + 8), torch.float32, 9, 1e-5),   # past 2^17: no fallback
+    ((3, 5, 2051), torch.float32, 3, 1e-5),         # 3-D, ragged chunk
+    ((7, 64), torch.float32, 63, 1e-5)])
+def test_stencil_kernel_matches_plain(card, shape, dtype, taps, tol):
+    g = torch.Generator(device="cuda").manual_seed(9)
+    p = torch.randn(*shape, device="cuda", generator=g).to(dtype)
+    w = torch.randn(taps, generator=torch.Generator().manual_seed(taps))
+    before = ks.stencil1d.launches
+    got = ks.stencil1d(p, w)
+    torch.cuda.synchronize()
+    assert ks.stencil1d.launches == before + 1
+    want = ks.stencil1d_plain(p, w)
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("bad", ["float64", "taps", "noncontiguous"])
+def test_stencil_wrapper_raises_on_cuda_without_fallback(card, bad):
+    p = torch.randn(4, 128, device="cuda")
+    w = [0.25, 0.5, 0.25]
+    if bad == "float64":
+        p = p.double()
+    elif bad == "taps":
+        w = [0.01] * (ks.MAX_TAPS + 1)
+    else:
+        p = p[:, ::2]
+    before = ks.stencil1d.launches
+    with pytest.raises((TypeError, ValueError)):
+        ks.stencil1d(p, w)
+    assert ks.stencil1d.launches == before
+
+
+def test_lowered_stencil_on_the_card(card):
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal(8 * 4096).astype(np.float32)
+    V = VectorTwoDimCyclic("V", lm=len(base), mb=4096,
+                           init_fn=lambda m, s: base[m * 4096:m * 4096 + s])
+    w = np.full(9, 1.0 / 9)
+    low = lower_taskpool(stencil_1d_ptg(V, w, 5))
+    assert low.mode == "wavefront"
+    before = ks.stencil1d.launches
+    low.execute()
+    assert ks.stencil1d.launches == before + 3 * 5
+    got = torch.cat([V.data_of(i).newest_copy().value for i in range(8)])
+    np.testing.assert_allclose(got.numpy(),
+                               stencil_reference(base, w, 5).numpy(),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("ab_dtype", [torch.float32, torch.bfloat16])
+def test_lowered_gemm_on_the_card(card, ab_dtype):
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((512, 384), dtype=np.float32)
+    b = rng.standard_normal((384, 256), dtype=np.float32)
+    A = TiledMatrix.from_dense("A", torch.from_numpy(a).to(ab_dtype), 128, 128)
+    B = TiledMatrix.from_dense("B", torch.from_numpy(b).to(ab_dtype), 128, 128)
+    C = TiledMatrix("C", 512, 256, 128, 128)
+    low = lower_taskpool(tiled_gemm_ptg(A, B, C))
+    assert low.mode == "chain-collapse" and low.layout["C"] == "dense"
+    before = tg.gemm_update.launches
+    low.execute()
+    assert tg.gemm_update.launches == before + 1
+    want = A.to_tensor().double() @ B.to_tensor().double()
+    torch.testing.assert_close(C.to_tensor().double(), want, rtol=1e-4,
+                               atol=1e-3)

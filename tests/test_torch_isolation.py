@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither ``jax`` nor ``parsec_tpu``.
 
 Checked two ways: fresh interpreters import ``parsec_tpu_torch`` and run
-a 2x2x2-tile GEMM and a served LLM stream, then inspect ``sys.modules``
+a 2x2x2-tile GEMM, a served LLM stream, and a lowered stencil and GEMM,
+then inspect ``sys.modules``
 (subprocesses, because this test process already holds jax through
 ``conftest.py``); and an AST scan of every module of the package finds
 no such import.
@@ -94,10 +95,12 @@ def test_the_package_has_the_slice_modules():
                 "models/tiled_gemm.py", "core/future.py",
                 "data_dist/paged_kv.py", "ops/ragged_attention.py",
                 "llm/model.py", "llm/decode.py", "llm/batcher.py",
-                "serve/admission.py", "serve/fair.py", "serve/server.py"):
+                "serve/admission.py", "serve/fair.py", "serve/server.py",
+                "ops/stencil.py", "models/stencil.py",
+                "models/stencil2d.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
-    assert (PORT / "csrc" / "gemm.cu").is_file()
-    assert (PORT / "csrc" / "ragged_attn.cu").is_file()
+    for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu"):
+        assert (PORT / "csrc" / src).is_file(), src
 
 
 def test_serving_a_stream_loads_no_jax_and_no_parsec_tpu():
@@ -120,6 +123,51 @@ def test_serving_a_stream_loads_no_jax_and_no_parsec_tpu():
     assert out["ok"]
     assert "parsec_tpu_torch.ops.ragged_attention" in out["modules"]
     assert "parsec_tpu_torch.llm.batcher" in out["modules"]
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_lowering_loads_no_jax_and_no_parsec_tpu():
+    code = textwrap.dedent("""
+        import json, sys
+        import numpy as np
+        import torch
+        from parsec_tpu_torch.data_dist.matrix import (TiledMatrix,
+                                                       VectorTwoDimCyclic)
+        from parsec_tpu_torch.models.stencil import (stencil_1d_ptg,
+                                                     stencil_reference)
+        from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+        from parsec_tpu_torch.ptg.lowering import lower_taskpool
+        base = np.random.default_rng(0).standard_normal(64).astype(
+            np.float32)
+        V = VectorTwoDimCyclic("V", 64, 16,
+                               init_fn=lambda m, s: base[m * 16:m * 16 + s])
+        w = np.array([0.25, 0.5, 0.25])
+        low = lower_taskpool(stencil_1d_ptg(V, w, 3), device="cpu")
+        low.execute()
+        got = torch.cat([V.data_of(i).newest_copy().value
+                         for i in range(4)])
+        ok_st = bool(torch.allclose(got.double(),
+                                    stencil_reference(base, w, 3),
+                                    atol=1e-5))
+        a = np.random.default_rng(1).standard_normal((16, 16), np.float32)
+        A = TiledMatrix.from_dense("A", a, 8, 8)
+        B = TiledMatrix.from_dense("B", a.T.copy(), 8, 8)
+        C = TiledMatrix("C", 16, 16, 8, 8)
+        glow = lower_taskpool(tiled_gemm_ptg(A, B, C), device="cpu")
+        glow.execute()
+        ok_mm = bool(np.allclose(C.to_dense(), a @ a.T, atol=1e-4))
+        print(json.dumps({"ok": ok_st and ok_mm,
+                          "modes": [low.mode, glow.mode],
+                          "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"] and out["modes"] == ["wavefront", "chain-collapse"]
+    assert "parsec_tpu_torch.ops.stencil" in out["modules"]
+    assert "parsec_tpu_torch.ptg.lowering" in out["modules"]
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded
 
