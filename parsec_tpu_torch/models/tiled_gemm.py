@@ -12,9 +12,7 @@ body.
 (what ``lower_taskpool(tiled_gemm_ptg(A, B, C))`` runs on identity tile
 grids): one launch of the K1 kernel.
 
-Left out until later slices: the recursive variant, and the
-``precision=`` argument of ``tiled_gemm_fused`` (K1 accumulates in
-strict fp32).
+Left out until later slices: the recursive variant.
 """
 
 from __future__ import annotations
@@ -74,10 +72,13 @@ def _cpu_wrap(es: Any, task: Any, g: Any, l: Any) -> None:
     gemm_ops.gemm_cpu_body(es, task)
 
 
-def tiled_gemm_fused(a: Any, b: Any, c: Any) -> Any:
+def tiled_gemm_fused(a: Any, b: Any, c: Any,
+                     precision: str | None = None) -> Any:
     """``c + a@b`` on dense operands in one call: K1 on CUDA tensors, the
-    plain version on CPU tensors; fp32 accumulate, in ``c``'s dtype."""
-    return gemm_ops.gemm_update(a, b, c)
+    plain version on CPU tensors; fp32 accumulate, in ``c``'s dtype.
+    ``precision`` is ``"default"`` or ``"highest"`` (None: the
+    ``gemm_precision`` knob), as ``gemm_update`` takes it."""
+    return gemm_ops.gemm_update(a, b, c, precision=precision)
 
 
 def gemm_flops(M: int, N: int, K: int) -> float:

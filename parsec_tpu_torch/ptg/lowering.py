@@ -16,7 +16,9 @@ the card.
    rhs`` along one parameter, with a *bilinear* traceable, becomes one
    contraction: on dense stores one call of the kernel on the whole
    matrices (one K1 launch), else the traceable's ``chain_combine`` over
-   gathered ``[M, K, ta, tk]`` / ``[K, N, tk, tb]`` tile stacks.
+   gathered ``[M, K, ta, tk]`` / ``[K, N, tk, tb]`` tile stacks.  Both
+   honour the ``gemm_precision`` knob, which K1's wrappers read at call
+   time (``ops/gemm.py``).
 4. **Wavefront batching**: every flow value is resolved to a store row,
    tasks are grouped per (topological level, class, source signature),
    and each group is ONE batched call of the class's traceable over rows
@@ -58,8 +60,7 @@ Left out, each still in ``ROADMAP.md``: open stores (see
 cache and ``warm()`` (PyTorch has no compile step to cache);
 ``lowering_scan_min`` folding of identical levels into a ``lax.scan``
 (the levels run in a Python loop; CUDA-graph capture of the step is later
-work); the ``gemm_precision`` knob (the K1 chain is strict fp32
-accumulate); megakernel regions (``lower_regions``, ``warm_cache``, the
+work); megakernel regions (``lower_regions``, ``warm_cache``, the
 CLI); mesh SPMD and multi-rank lowering, which raise
 ``NotImplementedError``.
 """

@@ -8,16 +8,23 @@ there, skip ``tests/conftest.py`` (it sets JAX up)::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_card.py
 
-Tolerances: the kernel and its plain version (cuBLAS with TF32 off) both
-compute fp32 products and fp32 sums in different orders; with |C| of
-order sqrt(k), ``rtol=1e-4, atol=1e-3`` is rounding, a wrong element is
-off by O(1).
+Tolerances: each K1 variant is held against the plain version of its
+own arithmetic (cuBLAS with TF32 off): strict fp32 for ``simt_fp32``,
+exact bf16 products for ``wgmma_bf16``, and inputs first rounded to TF32
+(``gemm_update_plain(tf32=True)``, whose products are exact in fp32) for
+``mma_tf32``.  Both sides then sum fp32 products in different orders;
+with |C| of order sqrt(k), ``rtol=1e-4, atol=1e-3`` is rounding, a wrong
+element is off by O(1).  Where a TF32 result meets a float64 product of
+the unrounded inputs, the bound is elementwise, ``2e-3 * (|A| @ |B|) +
+1e-2``: each TF32 input is within 2^-11 of its value, so each product
+within about 2^-10 (1e-3) of its magnitude.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from parsec_tpu_torch.core.params import params
 from parsec_tpu_torch.device import registry
 from parsec_tpu_torch.device.cuda import init_cuda_devices
 from parsec_tpu_torch.data_dist.matrix import TiledMatrix
@@ -47,42 +54,152 @@ def card():
         d.device_index = i
 
 
-@pytest.mark.parametrize("shape,in_dtype,c_dtype", [
-    ((4, 256, 256, 256), torch.float32, torch.float32),
-    ((4, 256, 256, 256), torch.bfloat16, torch.float32),
-    ((3, 65, 130, 47), torch.float32, torch.float32),
-    ((1000, 700, 300), torch.float32, torch.float32),
-    ((1000, 700, 300), torch.bfloat16, torch.bfloat16)])
-def test_kernel_matches_plain(card, shape, in_dtype, c_dtype):
+@pytest.fixture
+def precision():
+    """Restores the ``gemm_precision`` knob after a test that sets it."""
+    before = params.get("gemm_precision")
+    yield
+    params.set("gemm_precision", before)
+
+
+def _variant_delta(before):
+    now = tg.gemm_update.launches_by_variant
+    return {v: now[v] - before[v] for v in now if now[v] != before[v]}
+
+
+def _want(a, b, c, variant):
+    return tg.gemm_update_plain(a, b, c, tf32=variant == "mma_tf32")
+
+
+def _tf32_close(got, a, b, c=None):
+    """A TF32 result against the float64 product of the unrounded inputs,
+    within ``2e-3 * (|A| @ |B|) + 1e-2`` elementwise."""
+    a, b = a.double(), b.double()
+    ref = a @ b if c is None else c.double() + a @ b
+    bound = 2e-3 * (a.abs() @ b.abs()) + 1e-2
+    err = (got.double() - ref).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+# (shape, A/B dtype, C dtype, precision, the variant k1_variant picks)
+K1_CASES = [
+    ((4, 256, 256, 256), torch.float32, torch.float32, "default", "mma_tf32"),
+    ((4, 256, 256, 256), torch.float32, torch.float32, "highest",
+     "simt_fp32"),
+    ((4, 256, 256, 256), torch.bfloat16, torch.float32, "default",
+     "wgmma_bf16"),
+    ((4, 256, 256, 256), torch.bfloat16, torch.float32, "highest",
+     "wgmma_bf16"),
+    ((3, 65, 130, 47), torch.float32, torch.float32, "default", "simt_fp32"),
+    ((1000, 700, 300), torch.float32, torch.float32, "default", "mma_tf32"),
+    ((1000, 700, 300), torch.float32, torch.float32, "highest", "simt_fp32"),
+    ((1000, 700, 300), torch.float32, torch.bfloat16, "default", "mma_tf32"),
+    ((1000, 700, 300), torch.bfloat16, torch.bfloat16, "default",
+     "simt_fp32"),                   # 600-byte pitch: no TMA
+    ((1000, 712, 304), torch.bfloat16, torch.float32, "default",
+     "wgmma_bf16"),                  # M/N edges and a K tail
+    ((3, 130, 264, 72), torch.bfloat16, torch.float32, "default",
+     "wgmma_bf16"),
+    ((3, 130, 264, 72), torch.bfloat16, torch.bfloat16, "default",
+     "wgmma_bf16"),                  # bf16 out
+    ((2, 64, 64, 0), torch.bfloat16, torch.float32, "default",
+     "wgmma_bf16"),                  # K = 0: out = C
+    ((2, 64, 64, 0), torch.float32, torch.float32, "default", "mma_tf32"),
+    ((1, 128, 256, 64), torch.bfloat16, torch.float32, "default",
+     "wgmma_bf16"),                  # one k-tile
+    ((2, 128, 256, 256), torch.bfloat16, torch.float32, "default",
+     "wgmma_bf16"),                  # K = 64 x the ring's 4 stages
+    ((1, 256, 512, 4160), torch.bfloat16, torch.float32, "default",
+     "wgmma_bf16"),                  # 65 k-tiles: 16 turns of the ring
+    ((1, 256, 256, 2052), torch.float32, torch.float32, "default",
+     "mma_tf32")]                    # 65 k-tiles of 32, a tail of 4
+
+
+@pytest.mark.parametrize("shape,in_dtype,c_dtype,prec,variant", K1_CASES)
+def test_kernel_matches_plain(card, precision, shape, in_dtype, c_dtype,
+                              prec, variant):
     g = torch.Generator(device="cuda").manual_seed(0)
     *lead, m, n, k = shape
     a = torch.randn(*lead, m, k, device="cuda", generator=g).to(in_dtype)
     b = torch.randn(*lead, k, n, device="cuda", generator=g).to(in_dtype)
     c = torch.randn(*lead, m, n, device="cuda", generator=g).to(c_dtype)
-    before = tg.gemm_update.launches
+    assert tg.k1_variant(in_dtype, c_dtype, m, n, k, True, prec) == variant
+    params.set("gemm_precision", prec)
+    before = dict(tg.gemm_update.launches_by_variant)
+    launches = tg.gemm_update.launches
     got = tg.gemm_update(a, b, c)
     torch.cuda.synchronize()
-    assert tg.gemm_update.launches == before + 1
+    assert tg.gemm_update.launches == launches + 1
+    assert _variant_delta(before) == {variant: 1}
     assert got.dtype == c_dtype
     tol = dict(rtol=1e-4, atol=1e-3) if c_dtype == torch.float32 \
         else dict(rtol=1e-2, atol=5e-2)   # bf16 output: 8 mantissa bits
-    torch.testing.assert_close(got.float(), tg.gemm_update_plain(a, b, c)
-                               .float(), **tol)
+    torch.testing.assert_close(got.float(), _want(a, b, c, variant).float(),
+                               **tol)
+    if k == 0:
+        assert torch.equal(got, c)
 
 
-@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
-def test_tile_list_kernel_matches_plain(card, in_dtype):
+@pytest.mark.parametrize("in_dtype,prec,variant", [
+    (torch.float32, "default", "mma_tf32"),
+    (torch.float32, "highest", "simt_fp32"),
+    (torch.bfloat16, "default", "wgmma_bf16")])
+def test_tile_list_kernel_matches_plain(card, precision, in_dtype, prec,
+                                        variant):
     g = torch.Generator(device="cuda").manual_seed(1)
     a = torch.randn(5, 96, 80, device="cuda", generator=g).to(in_dtype)
     b = torch.randn(5, 80, 112, device="cuda", generator=g).to(in_dtype)
     c = torch.randn(5, 96, 112, device="cuda", generator=g)
-    before = tg.gemm_update.launches
+    params.set("gemm_precision", prec)
+    before = dict(tg.gemm_update.launches_by_variant)
+    launches = tg.gemm_update.launches
     got = tg.gemm_update_tiles(list(a), list(b), list(c))
     torch.cuda.synchronize()
-    assert tg.gemm_update.launches == before + 1
+    assert tg.gemm_update.launches == launches + 1
+    assert _variant_delta(before) == {variant: 1}
     assert len({t.untyped_storage().data_ptr() for t in got}) == 5
-    torch.testing.assert_close(torch.stack(got), tg.gemm_update_plain(a, b, c),
+    torch.testing.assert_close(torch.stack(got), _want(a, b, c, variant),
                                rtol=1e-4, atol=1e-3)
+
+
+def test_tile_list_wgmma_reads_tiles_where_they_lie(card):
+    """Tiles from separate allocations, with the list's order unlike the
+    storage order: each tile gets its own pair of tensor maps."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    as_ = [torch.randn(200, 136, device="cuda", generator=g).bfloat16()
+           for _ in range(7)]
+    bs = [torch.randn(136, 264, device="cuda", generator=g).bfloat16()
+          for _ in range(7)][::-1]
+    cs = [torch.randn(200, 264, device="cuda", generator=g)
+          for _ in range(7)]
+    before = dict(tg.gemm_update.launches_by_variant)
+    got = tg.gemm_update_tiles(as_, bs, cs)
+    torch.cuda.synchronize()
+    assert _variant_delta(before) == {"wgmma_bf16": 1}
+    for x, a, b, c in zip(got, as_, bs, cs):
+        torch.testing.assert_close(x, tg.gemm_update_plain(a, b, c),
+                                   rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+def test_unaligned_tiles_land_on_simt(card, in_dtype):
+    """A tile that starts off a 16-byte boundary is neither TMA's nor
+    16-byte cp.async's: the rule sends the list to simt_fp32."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    m, n, k = 64, 96, 128
+    buf = torch.randn(3, m * k + 1, device="cuda", generator=g).to(in_dtype)
+    as_ = [row[1:].view(m, k) for row in buf]
+    bs = [torch.randn(k, n, device="cuda", generator=g).to(in_dtype)
+          for _ in range(3)]
+    cs = [torch.randn(m, n, device="cuda", generator=g) for _ in range(3)]
+    assert not tg._aligned(*as_)
+    before = dict(tg.gemm_update.launches_by_variant)
+    got = tg.gemm_update_tiles(as_, bs, cs)
+    torch.cuda.synchronize()
+    assert _variant_delta(before) == {"simt_fp32": 1}
+    for x, a, b, c in zip(got, as_, bs, cs):
+        torch.testing.assert_close(x, tg.gemm_update_plain(a, b, c),
+                                   rtol=1e-4, atol=1e-3)
 
 
 def test_wrapper_raises_on_a_mixed_device_call(card):
@@ -99,6 +216,7 @@ def test_tiled_gemm_on_the_card(card):
     B = TiledMatrix.from_dense("B", b, 128, 128)
     C = TiledMatrix("C", 512, 320, 128, 128)
     launches = tg.gemm_update.launches
+    tf32 = tg.gemm_update.launches_by_variant["mma_tf32"]
     ctx = Context(nb_cores=2)
     try:
         ctx.add_taskpool(tiled_gemm_ptg(A, B, C))
@@ -109,7 +227,11 @@ def test_tiled_gemm_on_the_card(card):
     card.flush_cache()
     assert card.executed_tasks == 4 * 3 * 3
     assert tg.gemm_update.launches > launches
-    np.testing.assert_allclose(C.to_dense(), a @ b, rtol=1e-4, atol=1e-3)
+    # fp32 tiles at the default knob: every launch on TF32 tensor cores
+    assert tg.gemm_update.launches_by_variant["mma_tf32"] - tf32 \
+        == tg.gemm_update.launches - launches
+    _tf32_close(torch.from_numpy(C.to_dense()), torch.from_numpy(a),
+                torch.from_numpy(b))
 
 
 # ---------------------------------------------------------------------------
@@ -272,9 +394,13 @@ def test_lowered_gemm_on_the_card(card, ab_dtype):
     C = TiledMatrix("C", 512, 256, 128, 128)
     low = lower_taskpool(tiled_gemm_ptg(A, B, C))
     assert low.mode == "chain-collapse" and low.layout["C"] == "dense"
-    before = tg.gemm_update.launches
+    before = dict(tg.gemm_update.launches_by_variant)
     low.execute()
-    assert tg.gemm_update.launches == before + 1
-    want = A.to_tensor().double() @ B.to_tensor().double()
-    torch.testing.assert_close(C.to_tensor().double(), want, rtol=1e-4,
-                               atol=1e-3)
+    variant = "mma_tf32" if ab_dtype == torch.float32 else "wgmma_bf16"
+    assert _variant_delta(before) == {variant: 1}
+    if ab_dtype == torch.float32:
+        _tf32_close(C.to_tensor(), A.to_tensor(), B.to_tensor())
+    else:
+        want = A.to_tensor().double() @ B.to_tensor().double()
+        torch.testing.assert_close(C.to_tensor().double(), want, rtol=1e-4,
+                                   atol=1e-3)
