@@ -30,13 +30,17 @@ any phase fails:
    ``gemm_precision``, so every launch is ``mma_tf32``; every element of
    C within ``2e-3 * (|A| @ |B|) + 1e-2`` of one float64 product on the
    card, with its phase walls.
-4. **kernel ragged_attn_page** — K2 against its plain PyTorch version on
-   the card through the tile-list wrapper the serving path calls: (a) the
-   path's shape, a batch of 64 ToyLM pages (3,16,4,8) with fills 0..16
-   and empty and non-empty accumulators; (b) a Llama-2-7B head geometry,
-   1024 pages (3,16,32,128), about 805 MB.  Kernel, plain and bound
-   times; no single PyTorch call computes the flash-state page update, so
-   there is no library time.
+4. **kernel ragged_attn_page** — K2 against its plain version on the
+   card through both forms of the tile-list entry (the functional one,
+   and the in-place one the serving path calls, held on a clone of the
+   accumulators) and the strided one: (a) the path's shape, a batch of 64
+   ToyLM pages (3,16,4,8) with fills 0..16 and empty and non-empty
+   accumulators; (b) a Llama-2-7B head geometry, 1024 pages
+   (3,16,32,128) fp32, about 805 MB; (c) the same pages in bf16.  For
+   each: the entry's time in both forms, its host time, the kernel's own
+   device time (``torch.profiler`` device events), the plain version's
+   time and the bound; no single PyTorch call computes the flash-state
+   page update, so there is no library time.
 5. **path llm** — LLM decode serving through ``RuntimeServer(nb_cores=2)``
    and ``submit_stream`` with no device argument, so the batcher decodes
    on the card: 32 concurrent streams of ToyLM (the only model the repo
@@ -48,7 +52,13 @@ any phase fails:
    launched and batched.
 6. **trace llm** — the same backlog with 16 new tokens a stream, under
    ``torch.profiler`` (device activity only): the card's busy time over
-   the serving wall, and the kernels that took it.
+   the serving wall, the kernels that took it, and K2's share.
+   Then **path llm_wide** and **trace llm_wide**: ToyLM at a Llama-2-7B
+   attention width (32 heads of 128, fp32 pages (3,16,32,128)) through a
+   ``ContinuousBatcher`` of its own on a ``RuntimeServer(nb_cores=2)``:
+   16 streams, prompts of 64-512 tokens from seed 11, 32 new tokens (8
+   traced), k=8, two tenants, held to the oracle and to the card like
+   the ``llm`` phase.
 7. **kernel stencil1d** — K3 against its plain PyTorch version on the
    card: the lowered stencil's interior group (62 rows of 2^18 + 8, fp32,
    9 taps), the same in bf16, one row of 2^20 + 8 (past the TPU kernel's
@@ -113,6 +123,17 @@ def _time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_ms(torch, fn, iters: int) -> float:
+    """A call's host time: the enqueue, with no synchronize inside."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    ms = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def _bound(flops: float, nbytes: int, in_dtype: str) -> tuple[float, str]:
@@ -253,12 +274,7 @@ def phase_kernel(card: str, torch) -> tuple[dict, list]:
                 a, b, c, tf32=tf32), iters)
             lib_ms = _time_ms(torch, lib, iters)
             # the wrapper's own host time a call (enqueue, no sync)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                run()
-            host_ms = (time.perf_counter() - t0) / iters * 1e3
-            torch.cuda.synchronize()
+            host_ms = _host_ms(torch, run, iters)
             batch = lead[0] if lead else 1
             flops = 2.0 * batch * m * n * k
             nbytes = sum(t.numel() * t.element_size() for t in (a, b, c, got))
@@ -416,35 +432,82 @@ def _attn_inputs(torch, batch: int, P: int, H: int, D: int, seed: int):
             q3, page, acc, int(fills.sum()))
 
 
-def phase_attn_kernel(card: str, torch) -> dict:
+def _kernel_device_ms(torch, fn, iters: int, name: str) -> float:
+    """Mean device time of the kernel named ``name`` over ``iters`` calls
+    of ``fn`` (one launch each), from ``torch.profiler``'s device events:
+    the kernel's own time, whatever the host spends enqueueing it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and name in e.name()]
+    _check(len(durs) == iters, f"{len(durs)} {name} device events for "
+           f"{iters} launches")
+    return sum(durs) / len(durs) / 1e6
+
+
+def phase_attn_kernel(card: str, torch) -> list:
     """K2 (``ragged_attn_page``) against its plain version at the serving
-    path's shape and at a Llama-2-7B head geometry; returns the path
-    shape's record for the kernels line."""
+    path's shape and at a Llama-2-7B head geometry in fp32 and bf16, in
+    both forms of the tile-list entry; returns every shape's record, the
+    path shape's first."""
     from parsec_tpu_torch.ops import ragged_attention as ra
     # fp32 sums in another order than the plain version: 1e-5 at D=8,
-    # 1e-4 at D=128 (scores sum 128 products); a wrong slot is O(1)
-    cases = [("ToyLM 64x(3,16,4,8)", 64, 16, 4, 8, 1e-5, 200),
-             ("Llama-2-7B heads 1024x(3,16,32,128)", 1024, 16, 32, 128,
-              1e-4, 20)]
-    main = None
-    for i, (label, batch, P, H, D, tol, iters) in enumerate(cases):
+    # 1e-4 at D=128 (scores sum 128 products); bf16 pages widen exactly
+    # to fp32 on both sides, so the fp32 tolerance holds; a wrong slot
+    # is O(1)
+    cases = [("ToyLM 64x(3,16,4,8) fp32", 64, 16, 4, 8, torch.float32,
+              1e-5, 200),
+             ("Llama-2-7B heads 1024x(3,16,32,128) fp32", 1024, 16, 32, 128,
+              torch.float32, 1e-4, 20),
+             ("Llama-2-7B heads 1024x(3,16,32,128) bf16", 1024, 16, 32, 128,
+              torch.bfloat16, 1e-4, 20)]
+    recs = []
+    for i, (label, batch, P, H, D, dtype, tol, iters) in enumerate(cases):
         qs, pages, accs, q3, page, acc, fill_sum = _attn_inputs(
-            torch, batch, P, H, D, 300 + i)
+            torch, batch, P, H, D, 300 + min(i, 1))
+        if dtype != torch.float32:
+            page = page.to(dtype)
+            pages = list(page.unbind(0))
         want = ra.attn_page_update_plain(q3, page, acc)
         got = torch.stack(ra.attn_page_update_tiles(qs, pages, accs))
+        # the in-place form on a clone: the timing loop below keeps
+        # updating the tiles it is given
+        accs_ = [a.clone() for a in accs]
+        got_ = ra.attn_page_update_tiles_(qs, pages, accs_)
+        _check(all(g is a for g, a in zip(got_, accs_)),
+               f"{label}: the in-place form returned other tiles")
+        got_ = torch.stack(got_)
         strided = ra.attn_page_update(q3, page, acc)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        err_strided = (strided - want).abs().max().item()
-        _check(err <= tol and err_strided <= tol,
-               f"ragged_attn_page {label}: max abs err {err} "
-               f"(strided {err_strided}) above {tol}")
+        errs = {k: (v - want).abs().max().item() for k, v in
+                (("tiles", got), ("inplace", got_), ("strided", strided))}
+        _check(max(errs.values()) <= tol,
+               f"ragged_attn_page {label}: max abs errs {errs} above {tol}")
         _check(bool(torch.isfinite(got).all()), f"{label}: not finite")
-        # the tile-list entry the path calls (it allocates one output per
-        # tile and builds the pointer array on the host), and the strided
-        # entry: one launch over stacked tensors, the kernel's own time
-        ms = _time_ms(torch, lambda: ra.attn_page_update_tiles(
-            qs, pages, accs), iters)
+        del got, got_, strided, accs_
+
+        def tiles():
+            return ra.attn_page_update_tiles(qs, pages, accs)
+
+        def inplace():
+            return ra.attn_page_update_tiles_(qs, pages, accs)
+
+        # the tile-list entry in both forms (CUDA events over a run of
+        # calls: where the host is slower than the kernel, this is the
+        # host's time), its host time alone, the kernel's own device time,
+        # the strided entry and the plain version
+        ms = _time_ms(torch, tiles, iters)
+        inplace_ms = _time_ms(torch, inplace, iters)
+        host_ms = _host_ms(torch, inplace, iters)
+        kernel_ms = _kernel_device_ms(torch, inplace, iters,
+                                      "ragged_attn_page_kernel")
         strided_ms = _time_ms(torch, lambda: ra.attn_page_update(
             q3, page, acc), iters)
         plain_ms = _time_ms(torch, lambda: ra.attn_page_update_plain(
@@ -457,18 +520,24 @@ def phase_attn_kernel(card: str, torch) -> dict:
                   + batch * esize + 2 * batch * H * (D + 2) * 4)
         bound_ms, bound_by = _bound(4.0 * fill_sum * H * D, nbytes,
                                     "float32")
-        rec = dict(shape=label, max_abs_err=err,
-                   strided_max_abs_err=err_strided, tol=tol, ms=ms,
+        rec = dict(shape=label, max_abs_err=errs["inplace"],
+                   tiles_max_abs_err=errs["tiles"],
+                   strided_max_abs_err=errs["strided"], tol=tol,
+                   plan=list(ra.plan(P, H, D, esize)), ms=inplace_ms,
+                   tiles_ms=ms, host_ms=host_ms, kernel_ms=kernel_ms,
                    strided_ms=strided_ms, plain_ms=plain_ms,
-                   library_ms=None, bound_ms=bound_ms,
-                   bound_by=bound_by, bytes=nbytes,
-                   strided_gbps=nbytes / strided_ms / 1e6)
+                   library_ms=None,
+                   library_none="no single PyTorch call computes the "
+                   "flash-state page update (scaled_dot_product_attention "
+                   "returns the normalized output, not m and l)",
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                   kernel_share_of_bound=bound_ms / kernel_ms,
+                   kernel_gbps=nbytes / kernel_ms / 1e6)
         _emit(card, phase="kernel", name="ragged_attn_page", **rec)
-        if main is None:
-            main = rec
-        del qs, pages, accs, q3, page, acc, want, got, strided
+        recs.append(rec)
+        del qs, pages, accs, q3, page, acc, want
         torch.cuda.empty_cache()
-    return main
+    return recs
 
 
 def _backlog(seed: int, n: int = 32, max_new: int = 64):
@@ -496,16 +565,38 @@ def _backlog(seed: int, n: int = 32, max_new: int = 64):
     return model, out
 
 
+def _wide_backlog(seed: int, n: int = 16):
+    """The llm_wide backlog: n streams of ToyLM at a Llama-2-7B attention
+    width (32 heads of 128; fp32 pages of 16 tokens, (3, 16, 32, 128),
+    768 KiB each), prompts of 64-512 tokens drawn from the seed, two
+    tenants, no fork and no EOS."""
+    import numpy as np
+
+    from parsec_tpu_torch.llm import ToyLM
+    model = ToyLM(num_heads=32, head_dim=128)
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        length = int(rng.integers(64, 513))
+        prompt = [int(t) for t in rng.integers(0, model.vocab, length)]
+        out.append((prompt, f"tenant{i % 2}", None, None))
+    return model, out
+
+
 def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
-              label: str = "llm") -> dict:
-    """LLM decode serving through the entry points, on the card."""
+              label: str = "llm", wide: bool = False) -> dict:
+    """LLM decode serving through the entry points, on the card.  With
+    ``wide``, the llm_wide backlog through a ``ContinuousBatcher`` of its
+    own on the server (the model is not the server's default)."""
     import statistics
 
     from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.llm import ContinuousBatcher
     from parsec_tpu_torch.ops import ragged_attention as ra
     from parsec_tpu_torch.serve import RuntimeServer
 
-    model, backlog = _backlog(seed, max_new=max_new)
+    model, backlog = (_wide_backlog(seed) if wide
+                      else _backlog(seed, max_new=max_new))
     want, margins = [], []
     for prompt, _, _, eos in backlog:
         m: list[float] = []
@@ -519,15 +610,21 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
     ra.attn_page_update.launches = 0     # counts from here are the path's
     t0 = time.perf_counter()
     with RuntimeServer(nb_cores=2) as server:
+        batcher = ContinuousBatcher(server, model=model) if wide else None
+        submit = batcher.submit_stream if wide else server.submit_stream
         tickets = []
         for prompt, tenant, fork_of, eos in backlog:
-            tickets.append(server.submit_stream(
+            tickets.append(submit(
                 prompt, max_new_tokens=max_new, tenant=tenant, eos=eos,
                 fork_from=None if fork_of is None else tickets[fork_of]))
         results = [tk.result(timeout=600) for tk in tickets]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        llm = server.stats()["llm"]
+        if wide:
+            llm = batcher.stats()
+            batcher.stop()
+        else:
+            llm = server.stats()["llm"]
     launches = ra.attn_page_update.launches
     devs = registry.by_type("cuda")
     _check(len(devs) == 1 and devs[0].is_cuda,
@@ -560,9 +657,12 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
     steps = sum(8 * -(-len(w) // 8) for w in want)
     pf = sum(-(-(len(p) - 1) // 16) for i, (p, _, f, _) in enumerate(backlog)
              if f is None)
-    _check(backlog[2][3] is not None and len(want[2]) < max_new,
-           "the EOS stream did not stop early")
-    _check(llm["forked_streams"] == 1, f"forked {llm['forked_streams']}")
+    if not wide:
+        _check(backlog[2][3] is not None and len(want[2]) < max_new,
+               "the EOS stream did not stop early")
+    forks = sum(f is not None for _, _, f, _ in backlog)
+    _check(llm["forked_streams"] == forks,
+           f"forked {llm['forked_streams']}, expected {forks}")
     _check(set(tasks) == {"ATTN", "OUT", "SAMPLE", "PF"},
            f"task classes on the card: {sorted(tasks)}")
     _check(tasks["SAMPLE"] == tasks["OUT"] == steps,
@@ -586,7 +686,8 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
     share = sorted(x for r in results for x in r["per_token_s"])
     ttft = sorted(tk.first_token_at - tk.submitted_at for tk in tickets)
     ntok = sum(len(r["tokens"]) for r in results)
-    rec = dict(streams=len(backlog), tokens=ntok, wall_s=wall,
+    rec = dict(streams=len(backlog), heads=model.num_heads,
+               head_dim=model.head_dim, tokens=ntok, wall_s=wall,
                tokens_per_s=ntok / wall,
                itl_ms_p50=1e3 * statistics.median(itl),
                itl_ms_p99=1e3 * p99(itl), itl_ms_max=1e3 * itl[-1],
@@ -610,10 +711,10 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
     return rec
 
 
-def _device_busy(prof) -> tuple[float, int, list]:
+def _device_busy(prof) -> tuple[float, int, list, dict]:
     """A profile's device busy seconds (the union of its kernel and copy
-    intervals), its device event count, and the five names that took the
-    most device time."""
+    intervals), its device event count, the five names that took the most
+    device time, and the device nanoseconds of every name."""
     from collections import Counter
 
     from torch.autograd import DeviceType
@@ -637,23 +738,31 @@ def _device_busy(prof) -> tuple[float, int, list]:
             end = b
     top = [{"name": n[:60], "count": count[n], "ms": dev_ns[n] / 1e6}
            for n, _ in dev_ns.most_common(5)]
-    return busy / 1e9, len(spans), top
+    return busy / 1e9, len(spans), top, dev_ns
 
 
-def phase_llm_trace(card: str, torch, max_new: int = 16) -> dict:
-    """The LLM path again, shorter (16 new tokens a stream), under
-    ``torch.profiler`` recording device activity only: the card's busy
-    time is the union of its kernel and copy intervals, and its idle
-    share is the rest of the serving wall."""
+def phase_llm_trace(card: str, torch, max_new: int = 16,
+                    wide: bool = False) -> dict:
+    """An LLM path again, shorter, under ``torch.profiler`` recording
+    device activity only: the card's busy time is the union of its kernel
+    and copy intervals, its idle share the rest of the serving wall, and
+    K2's share the part of the busy time its launches took."""
     from torch.profiler import ProfilerActivity, profile
 
+    name = "llm_wide" if wide else "llm"
+    kw = dict(seed=11, wide=True) if wide else {}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        rec = phase_llm(card, torch, max_new=max_new, label="llm traced")
-    busy, events, top = _device_busy(prof)
+        rec = phase_llm(card, torch, max_new=max_new,
+                        label=f"{name} traced", **kw)
+    busy, events, top, dev_ns = _device_busy(prof)
+    k2_s = sum(ns for n, ns in dev_ns.items()
+               if "ragged_attn_page_kernel" in n) / 1e9
     out = dict(wall_s=rec["wall_s"], device_busy_s=busy,
                idle_share=1.0 - busy / rec["wall_s"],
+               k2_device_s=k2_s, k2_share_of_busy=k2_s / busy,
+               k2_launches=rec["ragged_attn_page_launches"],
                device_events=events, top_device_time=top)
-    _emit(card, phase="trace", name="llm", **out)
+    _emit(card, phase="trace", name=name, **out)
     return out
 
 
@@ -785,7 +894,7 @@ def phase_lowered_stencil(card: str, torch, n: int = 1 << 24,
         low.step_fn(stores)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
-    busy, events, top = _device_busy(prof)
+    busy, events, top, _ = _device_busy(prof)
     # the ideal step reads and writes the vector once a level
     nbytes = 2.0 * 4 * n * iterations
     rec = dict(n=n, mb=mb, radius=radius, iterations=iterations,
@@ -962,9 +1071,13 @@ def main() -> int:
     phase_build(card)
     main_rec, k1_recs = phase_kernel(card, torch)
     path = phase_path(card, torch)
-    attn_rec = phase_attn_kernel(card, torch)
+    attn_recs = phase_attn_kernel(card, torch)
+    attn_rec = attn_recs[0]
     llm = phase_llm(card, torch)
     phase_llm_trace(card, torch)
+    wide = phase_llm(card, torch, seed=11, max_new=32, label="llm_wide",
+                     wide=True)
+    phase_llm_trace(card, torch, max_new=8, wide=True)
     sten_rec = phase_stencil_kernel(card, torch)
     sten = phase_lowered_stencil(card, torch)
     phase_lowered_stencil2d(card, torch)
@@ -1001,7 +1114,16 @@ def main() -> int:
                {"name": "ragged_attn_page", "route": "cuda",
                 "source": "parsec_tpu_torch/csrc/ragged_attn.cu",
                 "replaces": "parsec_tpu/ops/ragged_attention.py:448",
-                "launches": llm["ragged_attn_page_launches"],
+                "launches": llm["ragged_attn_page_launches"]
+                + wide["ragged_attn_page_launches"],
+                "launches_by_path": {
+                    "llm": llm["ragged_attn_page_launches"],
+                    "llm_wide": wide["ragged_attn_page_launches"]},
+                "shapes": [
+                    {key: r[key] for key in (
+                        "shape", "max_abs_err", "ms", "tiles_ms", "host_ms",
+                        "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")} for r in attn_recs],
                 "max_abs_err": attn_rec["max_abs_err"],
                 "ms": attn_rec["ms"], "plain_ms": attn_rec["plain_ms"],
                 "bound_ms": attn_rec["bound_ms"],

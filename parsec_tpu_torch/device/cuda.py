@@ -334,6 +334,24 @@ class CUDADevice(Device):
             landed[k] = dev_copy
         for task, fi, k in assigns:
             task.data[fi] = landed[k]
+        if not self.is_cuda:
+            self._own_written(tasks)
+
+    def _own_written(self, tasks: list[Any]) -> None:
+        """On the host stand-in a tile lands by sharing its host copy's
+        tensor.  A tile a task writes gets a tensor of its own, as on a
+        card, so a body that updates it in place (the decode ACC chain)
+        cannot change a host copy that holds an older version."""
+        for task in tasks:
+            for f in task.task_class.flows:
+                if f.is_ctl or not (f.access & ACCESS_WRITE):
+                    continue
+                c = task.data[f.flow_index]
+                if c is None or c.device_index != self.device_index:
+                    continue
+                host = c.original.get_copy(0)
+                if host is not None and host.value is c.value:
+                    c.value = c.value.clone()
 
     def _prefetch_upcoming(self) -> None:
         """Stage queued tasks beyond the current batch: the H2D copies are
@@ -480,7 +498,9 @@ class CUDADevice(Device):
                    for v in vals[1:]):
                 return False
             cols.append(vals)
-        out = tr.apply(*cols)
+        # the in-place form where the class has one: the batch's written
+        # tiles are this device's own copies
+        out = (tr.inplace or tr.apply)(*cols)
         written = [f for f in data_flows if f.access & ACCESS_WRITE]
         # one written flow returns its list of tiles; several, a tuple
         outs = (out,) if len(written) == 1 else tuple(out)

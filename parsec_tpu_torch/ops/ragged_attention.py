@@ -18,9 +18,23 @@ count at ``page[2, 0, 0, 0]``.
   tensor it takes :func:`attn_page_update_plain`.
 - :func:`attn_page_update_tiles` ``(qs, pages, accs) -> [acc', ...]``: the
   same kernel over lists of tiles in ONE launch that reads each tile
-  where it lies (a device array of tile pointers), each result in storage
-  of its own.  It is the batched ``"ragged_attn_page"`` body the device
-  module hands its fused batches to.
+  where it lies, each result in storage of its own.
+- :func:`attn_page_update_` and :func:`attn_page_update_tiles_`: the same,
+  written into the given ``acc`` tiles (PyTorch's trailing-underscore
+  idiom).  They are the ATTN class's per-task body and the batched body
+  the device module hands its fused batches to.  Up to 64 tasks a launch
+  (``device_cuda_batch_max``) the tile pointers travel in the kernel's
+  parameters, so a launch makes no tensor, no pinned buffer and no H2D:
+  it reads each tile's address and makes one ctypes call.
+
+  Updating ACC in place is safe because the ACC flow is RW and each of its
+  versions has exactly one consumer, ``ATTN(p+1)`` or ``OUT``
+  (``llm/decode.py``): no task reads a version after the update.  A NEW
+  ACC tile lands on the card by an H2D into a tensor of its own, and the
+  device module's host stand-in gives every tile a task writes a tensor
+  of its own too (``CUDADevice._own_written``), so an in-place write never
+  shows through a host copy that holds an older version.  The JAX package
+  has no in-place form: its arrays are immutable.
 - :func:`finalize_acc`, :func:`attn_out`, :func:`sample_step` and the
   prefill copy: the OUT, SAMPLE and PF bodies.  The JAX package computes
   them in jnp, not in Pallas, so here they are PyTorch ops that run on
@@ -40,7 +54,9 @@ CPU) and the ``llm_use_pallas`` switch (the device body is always K2).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import threading
 from typing import Any, Sequence
 
 import torch
@@ -52,8 +68,6 @@ NEG_INF = -1e30          # finite sentinel: exp(x - m) underflows to 0.0
 
 _PAGE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BATCH = 65535       # gridDim.y
-_MAX_D = 1024            # threads of one block
-_MAX_SMEM_FLOATS = 12 * 1024   # query row + scores in 48 KiB of shared memory
 
 
 # ---------------------------------------------------------------------------
@@ -169,6 +183,46 @@ def ragged_attention_reference(q: torch.Tensor, ks: torch.Tensor,
 # K2: the hand-written kernel behind attn_page_update
 # ---------------------------------------------------------------------------
 
+_MAX_BYVAL = 64               # tasks whose tile pointers ride by value
+# one block's staged K and V: small blocks keep many resident on an SM and
+# spread a few tasks over the SMs (the budget that measured best at 1024
+# Llama-2-7B pages in fp32, ``scripts/k2_compare.py --kv-bytes``)
+_KV_SMEM_BYTES = 16 * 1024
+_SMEM_OPTIN = 227 * 1024      # one block's shared memory on an H100
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(hg: int, cs: int, D: int, esize: int) -> int:
+    """Shared memory of one K2 block of ``hg`` heads staging ``cs`` slots
+    (``layout`` in ``csrc/ragged_attn.cu``): K and V rows, query rows, the
+    running state, the chunk's weights, each head's alpha."""
+    return (2 * cs * _round16(hg * D * esize) + _round16(hg * D * 4)
+            + _round16(hg * (D + 2) * 4) + _round16(hg * cs * 4)
+            + _round16(hg * 4))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(P: int, H: int, D: int, esize: int) -> tuple[int, int]:
+    """K2's blocking ``(hg, cs)`` for pages ``(3, P, H, D)`` of
+    ``esize``-byte elements: ``hg`` heads a block, ``cs`` slots staged a
+    chunk.  A block takes as many heads as keep a whole page's K and V of
+    them within ``_KV_SMEM_BYTES`` of shared memory, balanced over the
+    groups; where one head's page does not fit, it takes one head and
+    walks the filled slots in chunks of ``cs``."""
+    def staged(hg: int, cs: int) -> int:
+        return 2 * cs * _round16(hg * D * esize)
+
+    if staged(1, P) <= _KV_SMEM_BYTES:
+        hg = max(h for h in range(1, H + 1)
+                 if staged(h, P) <= _KV_SMEM_BYTES)
+        groups = -(-H // hg)
+        return -(-H // groups), P
+    return 1, max(1, min(P, _KV_SMEM_BYTES // staged(1, 1)))
+
+
 def _check(q3: torch.Tensor, page: torch.Tensor,
            acc: torch.Tensor) -> tuple[int, int, int, int]:
     """Validate what K2 takes; return (batch, P, H, D)."""
@@ -196,8 +250,9 @@ def _check(q3: torch.Tensor, page: torch.Tensor,
             or page.dtype not in _PAGE_DTYPE_CODE:
         raise TypeError(f"ragged_attn: want fp32 q3 and acc, fp32 or bf16 "
                         f"page; got {q3.dtype}, {page.dtype}, {acc.dtype}")
-    if batch < 1 or batch > _MAX_BATCH or P < 1 or H < 1 \
-            or not 1 <= D <= _MAX_D or D + P > _MAX_SMEM_FLOATS:
+    esize = page.element_size()
+    if batch < 1 or batch > _MAX_BATCH or P < 1 or H < 1 or D < 1 \
+            or smem_bytes(*plan(P, H, D, esize), D, esize) > _SMEM_OPTIN:
         raise ValueError(f"ragged_attn: batch={batch} P={P} H={H} D={D} "
                          f"outside the kernel's range")
     if any(not t.is_contiguous() for t in ts):
@@ -205,29 +260,100 @@ def _check(q3: torch.Tensor, page: torch.Tensor,
     return batch, P, H, D
 
 
+@functools.cache
+def _entry() -> Any:
+    """K2's C entry point, built at first use and bound once."""
+    from ._build import load
+    fn = load("ragged_attn").parsec_ragged_attn_page
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    return fn
+
+
+_tls = threading.local()
+
+
+def _host_ptrs() -> Any:
+    """This thread's host array for the pointers of a by-value batch,
+    made once: the C entry copies it into the launch's parameters."""
+    buf = getattr(_tls, "ptrs", None)
+    if buf is None:
+        buf = _tls.ptrs = (ctypes.c_uint64 * (4 * _MAX_BYVAL))()
+    return buf
+
+
+class _PointerRing:
+    """Device arrays of tile pointers for batches past ``_MAX_BYVAL``, on
+    one card: two pinned host + device buffer pairs, used in turn.  A
+    pair is refilled only once the event recorded behind its last launch
+    has passed, so neither that launch's H2D nor its kernel still reads
+    it; a pair grows when a batch outgrows it."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._pairs: list[Any] = [None, None]
+        self._turn = 0
+
+    def launch(self, ptrs: list[int], device: torch.device, stream: Any,
+               call: Any) -> int:
+        """Copy ``ptrs`` to the card on ``stream`` and return
+        ``call(device_address)``, the launch's return code."""
+        n = len(ptrs)
+        with self._lock:
+            i, self._turn = self._turn, self._turn ^ 1
+            pair = self._pairs[i]
+            if pair is None or pair[0].numel() < n:
+                host = torch.empty(n, dtype=torch.int64, pin_memory=True)
+                pair = self._pairs[i] = [
+                    host, host.numpy(),
+                    torch.empty(n, dtype=torch.int64, device=device), None]
+            elif pair[3] is not None:
+                pair[3].synchronize()
+            host, host_np, dev, _ = pair
+            host_np[:n] = ptrs
+            dev[:n].copy_(host[:n], non_blocking=True)
+            rc = call(dev.data_ptr())
+            pair[3] = torch.cuda.Event()
+            pair[3].record(stream)
+            return rc
+
+
+_rings: dict[int, _PointerRing] = {}
+
+
 def _launch(q3: torch.Tensor, page: torch.Tensor, acc: torch.Tensor,
             out: torch.Tensor, batch: int, P: int, H: int, D: int,
-            ptrs: torch.Tensor | None = None) -> None:
-    """One K2 launch on the current stream.  With ``ptrs`` (a device
-    int64 array of 4*batch tile pointers: q3 tiles, then pages, accs,
-    outs) the batch is read through it and the tensors give only the
-    page dtype and the device."""
-    if q3.device.type != "cuda":
-        raise ValueError(f"ragged_attn: no kernel for device {q3.device}")
-    from ._build import load
-    lib = load("ragged_attn")
-    fn = lib.parsec_ragged_attn_page
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    with torch.cuda.device(q3.device):
-        stream = torch.cuda.current_stream(q3.device).cuda_stream
-        if ptrs is None:
-            bufs = (q3.data_ptr(), page.data_ptr(), acc.data_ptr(),
-                    out.data_ptr(), None)
-        else:
-            bufs = (None, None, None, None, ptrs.data_ptr())
-        rc = fn(*bufs, batch, P, H, D, _PAGE_DTYPE_CODE[page.dtype], stream)
+            tile_ptrs: list[int] | None = None) -> None:
+    """One K2 launch on the current stream of the operands' card: a
+    strided batch at ``q3``, ``page``, ``acc`` and ``out`` (``out`` may be
+    ``acc``), or, with ``tile_ptrs`` (4*batch tile pointers: q3 tiles,
+    then pages, accs, outs), a batch of tiles where they lie; the tensors
+    then give only the card and the page dtype."""
+    dev = q3.device
+    if dev.type != "cuda":
+        raise ValueError(f"ragged_attn: no kernel for device {dev}")
+    if dev.index is not None and dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(q3, page, acc, out, batch, P, H, D, tile_ptrs)
+    fn = _entry()
+    code = _PAGE_DTYPE_CODE[page.dtype]
+    hg, cs = plan(P, H, D, page.element_size())
+    stream = torch.cuda.current_stream(dev)
+    shape = (batch, P, H, D, code, hg, cs, stream.cuda_stream)
+    if tile_ptrs is None:
+        rc = fn(q3.data_ptr(), page.data_ptr(), acc.data_ptr(),
+                out.data_ptr(), None, None, *shape)
+    elif batch <= _MAX_BYVAL:
+        buf = _host_ptrs()
+        buf[:4 * batch] = tile_ptrs
+        rc = fn(None, None, None, None, ctypes.addressof(buf), None, *shape)
+    else:
+        ring = _rings.get(dev.index)
+        if ring is None:
+            ring = _rings.setdefault(dev.index, _PointerRing())
+        rc = ring.launch(tile_ptrs, dev, stream, lambda ptrs: fn(
+            None, None, None, None, None, ptrs, *shape))
     if rc != 0:
         raise RuntimeError(f"ragged_attn: kernel launch failed (cudaError "
                            f"{rc}) at batch={batch} P={P} H={H} D={D} "
@@ -251,37 +377,84 @@ def attn_page_update(q3: torch.Tensor, page: torch.Tensor,
 attn_page_update.launches = 0
 
 
+def attn_page_update_(q3: torch.Tensor, page: torch.Tensor,
+                      acc: torch.Tensor) -> torch.Tensor:
+    """:func:`attn_page_update` written into ``acc``, which it returns:
+    the per-task ATTN body (a batch of one)."""
+    batch, P, H, D = _check(q3, page, acc)
+    if q3.device.type == "cpu":
+        return acc.copy_(attn_page_update_plain(q3, page, acc))
+    _launch(q3, page, acc, acc, batch, P, H, D)
+    attn_page_update.launches += 1
+    return acc
+
+
+def _check_tiles(qs: Sequence[torch.Tensor], pages: Sequence[torch.Tensor],
+                 accs: Sequence[torch.Tensor]) -> tuple[int, int, int]:
+    """Validate tile lists; return (P, H, D).  The tiles of a list must
+    share the first tile's shape, dtype and device, and be contiguous;
+    only the first tiles are checked, since the device module's batched
+    dispatch already checks that a batch's shapes and dtypes agree, and
+    its tiles are contiguous tiles of its card."""
+    if not (len(qs) == len(pages) == len(accs)) or not qs:
+        raise ValueError(f"ragged_attn: tile lists of lengths {len(qs)}, "
+                         f"{len(pages)}, {len(accs)}")
+    _, P, H, D = _check(qs[0], pages[0], accs[0])
+    if qs[0].dim() != 3:
+        raise ValueError("ragged_attn: tile lists hold unbatched tiles")
+    if len(qs) > _MAX_BATCH:
+        raise ValueError(f"ragged_attn: {len(qs)} tiles in one launch, at "
+                         f"most {_MAX_BATCH}")
+    return P, H, D
+
+
+def _launch_tiles(qs: Sequence[torch.Tensor], pages: Sequence[torch.Tensor],
+                  accs: Sequence[torch.Tensor], outs: Sequence[torch.Tensor],
+                  P: int, H: int, D: int) -> None:
+    """One K2 launch over lists of tiles: reads each tile's address and
+    makes no tensor."""
+    ptr = torch.Tensor.data_ptr
+    ptrs = list(map(ptr, qs))
+    ptrs += map(ptr, pages)
+    acc_ptrs = list(map(ptr, accs))
+    ptrs += acc_ptrs
+    ptrs += acc_ptrs if outs is accs else map(ptr, outs)
+    _launch(qs[0], pages[0], accs[0], outs[0], len(qs), P, H, D, ptrs)
+    attn_page_update.launches += 1
+
+
 def attn_page_update_tiles(qs: Sequence[torch.Tensor],
                            pages: Sequence[torch.Tensor],
                            accs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     """``[attn_page_update(q, page, acc) for each task]`` in ONE K2
     launch over lists of tiles.  Each result is a new tile with storage of
-    its own.  The tiles of a list must share the first tile's shape,
-    dtype and device, and be contiguous; only the first tiles are
-    checked, since the device module's batched dispatch already checks
-    that a batch's shapes and dtypes agree, and its tiles are contiguous
-    tiles of its card."""
-    if not (len(qs) == len(pages) == len(accs)) or not qs:
-        raise ValueError(f"ragged_attn: tile lists of lengths {len(qs)}, "
-                         f"{len(pages)}, {len(accs)}")
-    q0, p0, a0 = qs[0], pages[0], accs[0]
-    _, P, H, D = _check(q0, p0, a0)
-    if q0.dim() != 3:
-        raise ValueError("ragged_attn: tile lists hold unbatched tiles")
-    if q0.device.type == "cpu":
+    its own; no input is modified."""
+    P, H, D = _check_tiles(qs, pages, accs)
+    if qs[0].device.type == "cpu":
         return [attn_page_update_plain(q, p, a)
                 for q, p, a in zip(qs, pages, accs)]
-    batch = len(qs)
-    if batch > _MAX_BATCH:
-        raise ValueError(f"ragged_attn: {batch} tiles in one launch, at "
-                         f"most {_MAX_BATCH}")
     outs = [torch.empty_like(a) for a in accs]
-    host = torch.tensor([t.data_ptr() for col in (qs, pages, accs, outs)
-                         for t in col], dtype=torch.int64, pin_memory=True)
-    ptrs = host.to(q0.device, non_blocking=True)
-    _launch(q0, p0, a0, outs[0], batch, P, H, D, ptrs=ptrs)
-    attn_page_update.launches += 1
+    _launch_tiles(qs, pages, accs, outs, P, H, D)
     return outs
+
+
+def attn_page_update_tiles_(qs: Sequence[torch.Tensor],
+                            pages: Sequence[torch.Tensor],
+                            accs: Sequence[torch.Tensor]
+                            ) -> list[torch.Tensor]:
+    """:func:`attn_page_update_tiles` written into the ``accs`` tiles,
+    which it returns: the batched ATTN body.  Up to 64 tiles (the device
+    module's ``device_cuda_batch_max``) a launch makes no tensor, no
+    pinned buffer and no H2D: the tile pointers travel in the kernel's
+    parameters."""
+    P, H, D = _check_tiles(qs, pages, accs)
+    accs = list(accs)
+    if qs[0].device.type == "cpu":
+        for q, p, a in zip(qs, pages, accs):
+            a.copy_(attn_page_update_plain(q, p, a))
+        return accs
+    _launch_tiles(qs, pages, accs, accs, P, H, D)
+    return accs
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +505,10 @@ def prefill_copy_tiles(chunks: Sequence[torch.Tensor],
     return _owned(torch.stack(list(chunks)))
 
 
-register_traceable("ragged_attn_page", attn_page_update_tiles)
+# the device module's fused ATTN dispatch runs the in-place form; the
+# lowering's steps keep the functional one
+register_traceable("ragged_attn_page", attn_page_update_tiles,
+                   inplace=attn_page_update_tiles_)
 register_traceable("ragged_attn_out", attn_out_tiles)
 register_traceable("llm_sample", sample_tiles)
 register_traceable("llm_prefill_copy", prefill_copy_tiles)
@@ -345,10 +521,10 @@ register_traceable("llm_prefill_copy", prefill_copy_tiles)
 # ---------------------------------------------------------------------------
 
 def _page_body(es: Any, task: Any, device: Any = None) -> Any:
-    """ATTN(Q, KV, ACC): ACC folds in one page."""
+    """ATTN(Q, KV, ACC): ACC folds in one page, in place."""
     acc = task.data[2]
-    acc.value = attn_page_update(task.data[0].value, task.data[1].value,
-                                 acc.value)
+    acc.value = attn_page_update_(task.data[0].value, task.data[1].value,
+                                  acc.value)
     acc.version += 1
     return acc.value
 

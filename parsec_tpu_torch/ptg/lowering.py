@@ -114,18 +114,27 @@ class Traceable:
     ``chain_combine(lhs [M,K,ta,tk], rhs [K,N,tk,tb], acc0 [M,N,ta,tb])``
     computes the collapsed chain (by default on K1, :func:`ops.gemm.
     gemm_chain`).
+
+    ``inplace(*flow_lists)``, optional, is ``apply`` writing each writable
+    flow's new values into the tiles it was given and returning them.
+    Only the device module's fused dispatch calls it, on tiles it owns,
+    and only for a class whose every written version has one consumer
+    (the decode ATTN class's ACC chain); the lowering's steps keep
+    ``apply``, whose results never share a store's memory.
     """
 
-    __slots__ = ("apply", "bilinear", "chain_combine", "stacked")
+    __slots__ = ("apply", "bilinear", "chain_combine", "stacked", "inplace")
 
     def __init__(self, apply: Callable, bilinear: bool = False,
                  chain_combine: Callable | None = None,
-                 stacked: Callable | None = None) -> None:
+                 stacked: Callable | None = None,
+                 inplace: Callable | None = None) -> None:
         self.apply = apply
         self.bilinear = bilinear
         self.chain_combine = chain_combine or (
             _default_bilinear_chain if bilinear else None)
         self.stacked = stacked
+        self.inplace = inplace
 
 
 def _default_bilinear_chain(lhs: torch.Tensor, rhs: torch.Tensor,
@@ -141,9 +150,10 @@ _traceables: dict[str, Traceable] = {}
 
 def register_traceable(name: str, apply: Callable, *, bilinear: bool = False,
                        chain_combine: Callable | None = None,
-                       stacked: Callable | None = None) -> Traceable:
+                       stacked: Callable | None = None,
+                       inplace: Callable | None = None) -> Traceable:
     t = Traceable(apply, bilinear=bilinear, chain_combine=chain_combine,
-                  stacked=stacked)
+                  stacked=stacked, inplace=inplace)
     with _lock:
         _traceables[name] = t
     return t

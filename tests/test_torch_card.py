@@ -282,6 +282,63 @@ def test_ragged_attn_kernel_takes_bf16_pages(card):
                                rtol=0, atol=1e-5)
 
 
+# a Llama-2-7B head geometry, fp32 and bf16 pages (bf16 widens exactly to
+# fp32 on both sides, so the fp32 tolerance holds); batch 1 and 5 are the
+# serving path's, 64 the largest by-value batch, 1024 past it (a device
+# array of pointers)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 5, 64, 1024])
+def test_ragged_attn_both_forms_at_llama_width(card, batch, dtype):
+    q3, page, acc = _attn_case(batch, 16, 32, 128, 8)
+    page = page.to(dtype)
+    want = ra.attn_page_update_plain(q3, page, acc)
+    qs, pages = list(q3), list(page)
+    before = ra.attn_page_update.launches
+    functional = ra.attn_page_update_tiles(qs, pages, list(acc))
+    accs = [a.clone() for a in acc]
+    ptrs = [a.data_ptr() for a in accs]
+    inplace = ra.attn_page_update_tiles_(qs, pages, accs)
+    torch.cuda.synchronize()
+    assert ra.attn_page_update.launches == before + 2
+    # in place: the very ACC tiles; functional: each in storage of its own
+    assert [t.data_ptr() for t in inplace] == ptrs
+    assert all(t is a for t, a in zip(inplace, accs))
+    assert len({t.untyped_storage().data_ptr() for t in functional}
+               | {t.untyped_storage().data_ptr() for t in acc}) \
+        == batch + 1
+    torch.testing.assert_close(torch.stack(functional), want, rtol=0,
+                               atol=1e-4)
+    torch.testing.assert_close(torch.stack(inplace), want, rtol=0, atol=1e-4)
+    one = acc[batch - 1].clone()
+    assert ra.attn_page_update_(q3[batch - 1], page[batch - 1], one) is one
+    torch.testing.assert_close(one, want[batch - 1], rtol=0, atol=1e-4)
+
+
+# pages whose filled K/V outgrows one block (P=1024: 1 MiB a head) walk the
+# slots in chunks; odd widths stage with 4-byte (72-byte runs) and 2-byte
+# (bf16, 30-byte runs) copies in place of 16-byte ones
+@pytest.mark.parametrize("P,H,D,dtype", [
+    (1024, 2, 128, torch.float32),
+    (1024, 2, 128, torch.bfloat16),
+    (16, 3, 6, torch.float32),
+    (16, 3, 5, torch.bfloat16)])
+def test_ragged_attn_chunks_and_narrow_copies(card, P, H, D, dtype):
+    q3, page, acc = _attn_case(8, P, H, D, 9)
+    page = page.to(dtype)
+    page[:, 2, 0, 0, 0] = torch.tensor([P, P - 1, 700 % (P + 1), 0, 1,
+                                        65 % (P + 1), 2 * 64 % (P + 1), 3],
+                                       device="cuda", dtype=dtype)
+    hg, cs = ra.plan(P, H, D, page.element_size())
+    if P > 16:
+        assert (hg, cs) == (1, 16 if dtype == torch.float32 else 32)
+    want = ra.attn_page_update_plain(q3, page, acc)
+    got = ra.attn_page_update_tiles_(list(q3), list(page), list(acc.clone()))
+    torch.cuda.synchronize()
+    # P = 1024 slots: 1024-term sums, chunked in another order
+    torch.testing.assert_close(torch.stack(got), want, rtol=0,
+                               atol=1e-4 if P > 16 else 1e-5)
+
+
 @pytest.mark.parametrize("bad", ["q3_dtype", "acc_shape", "page_heads",
                                  "mixed_device", "noncontiguous"])
 def test_ragged_attn_wrapper_raises_on_cuda_without_fallback(card, bad):
@@ -300,6 +357,10 @@ def test_ragged_attn_wrapper_raises_on_cuda_without_fallback(card, bad):
     before = ra.attn_page_update.launches
     with pytest.raises((TypeError, ValueError)):
         ra.attn_page_update(q3, page, acc)
+    with pytest.raises((TypeError, ValueError)):
+        ra.attn_page_update_(q3, page, acc)
+    with pytest.raises((TypeError, ValueError)):
+        ra.attn_page_update_tiles_([q3], [page], [acc])
     assert ra.attn_page_update.launches == before
 
 

@@ -21,6 +21,7 @@ from parsec_tpu.data_dist.collection import DictCollection as JDict
 from parsec_tpu.data_dist.paged_kv import PagedKVCollection as JPagedKV
 from parsec_tpu.llm import ToyLM as JToyLM
 from parsec_tpu.llm import decode as jdec
+from parsec_tpu.llm.batcher import ContinuousBatcher as JContinuousBatcher
 from parsec_tpu.runtime import Context as JContext
 from parsec_tpu.serve import RuntimeServer as JRuntimeServer
 from parsec_tpu_torch.core.params import params as port_params
@@ -429,3 +430,103 @@ def test_step_timeout_defers_page_release_until_pool_terminates(
         zombie.terminated()
         assert b.stats()["kv"]["physical_pages"] == 0
         b.stop()
+
+
+# ---------------------------------------------------------------------------
+# the ACC chain updated in place, and a Llama-2-7B head width
+# ---------------------------------------------------------------------------
+
+def test_acc_tiles_own_their_tensor_on_the_host_stand_in(cpu_cuda_device):
+    """The host stand-in lands a host tile by sharing its tensor.  Every
+    ACC tile an ATTN task updates in place must be the device's own: right
+    after stage-in no host copy shares its storage, and after the run
+    every host copy still holds what it held (a NEW tile's zeros)."""
+    prompts = _prompts(6, 3)
+    steps = {s: 5 for s in prompts}
+    pside = _port_side()
+    _seed_port(pside, prompts, steps)
+    seen = []
+    dev = cpu_cuda_device
+    real = dev.stage_in_many
+
+    def stage_in_many(tasks):
+        real(tasks)
+        for t in tasks:
+            if t.task_class.name != "ATTN":
+                continue
+            c = t.data[2]
+            host = c.original.get_copy(0)
+            assert c.device_index == dev.device_index
+            if host is not None and host is not c:
+                assert host.value.untyped_storage().data_ptr() \
+                    != c.value.untyped_storage().data_ptr()
+                seen.append((host, host.version, host.value.clone()))
+
+    dev.stage_in_many = stage_in_many
+    try:
+        tp = pdec.decode_superpool_ptg(*pside, list(prompts), [5, 5, 5])
+        _run_port(tp, nb_cores=2)
+    finally:
+        del dev.stage_in_many
+    assert dev.batched_dispatches > 0
+    # every chain's first ATTN stages a NEW tile: a host zero tile, v1
+    assert sum(1 for _, v, x in seen if v == 1 and not x.any()) >= 15
+    for host, version, value in seen:
+        assert host.version == version and torch.equal(host.value, value)
+    got = pdec.read_token_chains(pside[3], steps)
+    for seq, prompt in prompts.items():
+        assert got[seq][0] == MODEL.reference_generate(prompt, 5), seq
+
+
+def _counting(server):
+    """Record the task count of every pool the server is handed."""
+    counts = []
+    real = server.submit
+
+    def submit(tp, *args, **kwargs):
+        counts.append(tp.nb_local_tasks())
+        return real(tp, *args, **kwargs)
+
+    server.submit = submit
+    return counts
+
+
+def test_wide_heads_match_the_jax_batcher(cpu_cuda_device):
+    """ToyLM at a Llama-2-7B head width (32 heads of 128, pages of
+    (3, 16, 32, 128)) through both packages' ContinuousBatcher: the same
+    tokens, the oracle's, and the same number of tasks, every one of the
+    port's through the device module."""
+    rng = np.random.default_rng(3)
+    model = ToyLM(num_heads=32, head_dim=128)
+    jmodel = JToyLM(num_heads=32, head_dim=128)
+    prompts = [[int(t) for t in rng.integers(0, model.vocab,
+                                             int(rng.integers(10, 40)))]
+               for _ in range(3)]
+    out = {}
+    for name, server_cls, batcher_cls, m in (
+            ("jax", JRuntimeServer, JContinuousBatcher, jmodel),
+            ("port", RuntimeServer, ContinuousBatcher, model)):
+        before = cpu_cuda_device.executed_tasks
+        with server_cls(nb_cores=2) as server:
+            counts = _counting(server)
+            b = batcher_cls(server, model=m)
+            tks = [b.submit_stream(p, max_new_tokens=6, tenant=f"t{i % 2}")
+                   for i, p in enumerate(prompts)]
+            toks = [tk.result(timeout=120)["tokens"] for tk in tks]
+            b.stop()
+        out[name] = (toks, sum(counts),
+                     cpu_cuda_device.executed_tasks - before)
+    (jtoks, jtasks, jdev), (ptoks, ptasks, pdev) = out["jax"], out["port"]
+    margins = []
+    for p in prompts:
+        m: list[float] = []
+        model.reference_generate(p, 6, margins=m)
+        margins += m
+    assert min(margins) > 1e-2          # no near-tie for fp32 to flip
+    assert ptoks == jtoks == [model.reference_generate(p, 6)
+                              for p in prompts]
+    assert ptasks == jtasks == pdev and jdev == 0
+    # PF a prompt page, then a step's ATTN over its pages, OUT, SAMPLE
+    assert set(cpu_cuda_device.tasks_by_class) == {"PF", "ATTN", "OUT",
+                                                   "SAMPLE"}
+    assert cpu_cuda_device.batched_dispatches > 0

@@ -250,3 +250,97 @@ def test_k2_source_is_a_kernel_of_the_build():
     src = (_build.CSRC / "ragged_attn.cu").read_text()
     assert "build_pallas_page_update" in src and "__global__" in src
     assert "parsec_ragged_attn_page" in src
+
+
+# ---------------------------------------------------------------------------
+# the in-place forms: the ATTN bodies the device module runs
+# ---------------------------------------------------------------------------
+
+WIDE = (32, 128)          # a Llama-2-7B head geometry: H=32, D=128
+
+
+def _shaped_case(seed, fill, acc_kind, heads, dim):
+    """``_case`` at any head geometry (pages of P slots)."""
+    rng = np.random.default_rng(seed)
+    q3 = rng.standard_normal((3, heads, dim)).astype(np.float32)
+    page = rng.standard_normal((3, P, heads, dim)).astype(np.float32)
+    page[2] = 0.0
+    page[2, 0, 0, 0] = fill
+    acc = np.zeros((heads, dim + 2), np.float32)
+    if acc_kind == "warm":
+        warm = rng.standard_normal((3, P, heads, dim)).astype(np.float32)
+        warm[2, 0, 0, 0] = P
+        acc = np.asarray(jra._page_update_jnp(q3, warm, acc))
+    return q3, page, acc
+
+
+# fp32 on both sides, only the summation order differs: 1e-5 at D=8,
+# 1e-4 at D=128 (128-term scores)
+@pytest.mark.parametrize("acc_kind", ["empty", "warm"])
+@pytest.mark.parametrize("fill", [0, 1, P - 1, P])
+@pytest.mark.parametrize("heads,dim,tol", [(H, D, TOL), (*WIDE, 1e-4)])
+def test_inplace_update_matches_jax_incarnations(heads, dim, tol, fill,
+                                                 acc_kind):
+    q3, page, acc = _shaped_case(30 + fill, fill, acc_kind, heads, dim)
+    qt, pt, at = _t(q3, page, acc)
+    got = ra.attn_page_update_tiles_([qt], [pt], [at])[0]
+    assert got is at
+    want_jnp = np.asarray(jra._page_update_jnp(q3, page, acc))
+    want_pallas = np.asarray(PALLAS(q3, page, acc))
+    assert np.abs(got.numpy() - want_jnp).max() <= tol
+    assert np.abs(got.numpy() - want_pallas).max() <= tol
+    one = _t(acc)[0]
+    assert ra.attn_page_update_(qt, pt, one) is one
+    assert torch.equal(one, got)
+
+
+def test_inplace_tiles_write_into_the_given_acc_tiles():
+    qs, pages, accs = _batch(6, 14)
+    accs[1].copy_(ra.attn_page_update_plain(qs[1], pages[1], accs[1]))
+    q_before = [q.clone() for q in qs]
+    p_before = [p.clone() for p in pages]
+    want = ra.attn_page_update_tiles(qs, pages, accs)
+    got = ra.attn_page_update_tiles_(qs, pages, accs)
+    assert all(g is a for g, a in zip(got, accs))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for q, qb, p, pb in zip(qs, q_before, pages, p_before):
+        assert torch.equal(q, qb) and torch.equal(p, pb)
+
+
+def test_in_place_bodies_are_registered():
+    """The fused ATTN dispatch runs the in-place tile-list form, the
+    lowering keeps the functional one, and the per-task body returns the
+    ACC tile it was given, updated."""
+    from types import SimpleNamespace
+
+    from parsec_tpu_torch.ptg.lowering import find_traceable
+    tr = find_traceable("ragged_attn_page")
+    assert tr.inplace is ra.attn_page_update_tiles_
+    assert tr.apply is ra.attn_page_update_tiles
+    qs, pages, accs = _batch(1, 15)
+    pages[0][2, 0, 0, 0] = P
+    acc = SimpleNamespace(value=accs[0], version=3)
+    task = SimpleNamespace(data=[SimpleNamespace(value=qs[0]),
+                                 SimpleNamespace(value=pages[0]), acc])
+    want = ra.attn_page_update_plain(qs[0], pages[0], accs[0])
+    assert ra._page_body(None, task) is accs[0]
+    assert acc.value is accs[0] and acc.version == 4
+    assert torch.equal(accs[0], want)
+
+
+@pytest.mark.parametrize("shape,esize,want", [
+    ((16, 4, 8), 4, (4, 16)),           # ToyLM: every head in one block
+    ((16, 32, 128), 4, (1, 16)),        # Llama fp32: 16 KiB of K/V a block
+    ((16, 32, 128), 2, (2, 16)),        # Llama bf16
+    ((16, 5, 8), 4, (5, 16)),
+    ((1024, 2, 128), 4, (1, 16))])      # one head's page outgrows a block
+def test_plan_fits_each_block_in_shared_memory(shape, esize, want):
+    Pp, Hh, Dd = shape
+    hg, cs = ra.plan(Pp, Hh, Dd, esize)
+    assert (hg, cs) == want
+    assert 2 * cs * ra._round16(hg * Dd * esize) <= ra._KV_SMEM_BYTES
+    assert ra.smem_bytes(hg, cs, Dd, esize) <= ra._SMEM_OPTIN
+    # balanced groups: no group of fewer heads than the blocks need
+    groups = -(-Hh // hg)
+    assert hg * (groups - 1) < Hh <= hg * groups
