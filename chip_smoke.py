@@ -79,6 +79,39 @@ any phase fails:
    step timed with stores resident, ``execute()`` end to end, all of C
    against a float64 product of the same bf16 inputs on the card, and
    K1 (``wgmma_bf16``, its one launch) and ``torch.baddbmm`` at that shape.
+11. **kernel gemm_update forms** — K1's forms for the factorizations
+   (``nt``: B transposed, ``-sub``: ``c - a@b``, ``-noc``: no C) against
+   their plain version: ``nt-sub`` (Cholesky's GEMM and SYRK), ``nt-noc``
+   (its TRSM), ``nn-sub`` and ``nn-noc`` (LU's GEMM and TRSMs) as tile
+   lists of 64 1024^3 fp32 tiles (the dynamic paths' batch) on
+   ``mma_tf32``, on TF32-rounded inputs; ``nt-sub`` and ``nt-noc`` on
+   ``simt_fp32`` under ``highest`` (the ``dynamic_cholesky_highest``
+   path's) against the strict plain version; ``nt-sub`` as a strided batch
+   of 465 and ``nn-sub`` of 225 512^3 tiles (the lowered groups' shapes).
+   Each with the kernel's, the plain version's and the library call's
+   times (``torch.baddbmm(c, a, b, alpha=-1)``, or ``torch.bmm`` with no
+   C, TF32 on for that call alone under ``default``) and the bound.
+12. **path dynamic_cholesky** — ``tiled_cholesky_ptg`` through
+   ``Context`` on the card at n=8192, nb=1024, fp32 (the JAX bench's
+   ``dynamic_cholesky`` stage), under ``gemm_precision`` ``default``
+   (TF32) and again under ``highest``; **path dynamic_lu** — the nopiv
+   LU at the same size (each after a 2x2-tile run of the same pool off
+   the clock, so the library's first-call set-up is not timed).  **path
+   lowered_cholesky** at n=16384, nb=512 and **path lowered_lu** at
+   n=8192, nb=512 (the JAX bench's ``lowered_*`` stages): the wavefront
+   pass, its step on resident stores (mean of 3), ``execute()`` end to
+   end, one step under ``torch.profiler``.  The SPD input is
+   ``make_spd_fast`` at both sizes (the JAX bench's dynamic stage takes
+   ``make_spd``, an n^3 host Gram product), the LU input ``make_dd``.
+   Each factor is held in float64 on the card against the float64
+   factor of the same input, tile by tile (``ops/factor.py:tile_error``)
+   under ``FACTOR_TOL``; its backward error ``||A - L·Lᵀ||_F / ||A||_F``
+   (``L·U`` for LU) under ``BACKWARD_TOL``, and tile (0,0) under
+   ``TILE00_TOL``.  **control** — each default path once more with one
+   trailing update dropped (the first C tile its GEMM forms are given
+   passes through): its tile error must exceed the gate; and the TF32
+   run's readings must exceed the ``highest`` gates.  So every run shows
+   that its gates can fail.
 
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
@@ -98,6 +131,29 @@ import time
 # NVIDIA H100 SXM data sheet, dense, at the 700 W limit
 PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
+
+# The factorizations' gates.  A diagonally dominant input carries nearly
+# all of its norm on the diagonal, so a whole-matrix error cannot see one
+# wrong tile; the discriminating gate is ``tile_error``: each tile's parts
+# below, on and above the diagonal, apart, against the float64 factor.
+# Under ``default`` every product rounds its inputs to TF32 (2^-11), and
+# the TRSMs carry that rounding of the panel into every tile: the four
+# paths read 2.4e-4 to 3.0e-4 on an H100.  One dropped trailing update
+# moves its tile by about sqrt(nb)/n (1.25 sqrt(nb)/n on make_spd_fast):
+# 1.76e-3 at n=16384, nb=512, the least of the four paths' controls.  The
+# gate is their geometric mean, 2.3x from each.  Under ``highest`` all is
+# strict fp32 (2.4e-7); the TF32 run (2.6e-4) is the control, and the gate
+# again sits at the geometric mean.  Both controls run in every run
+# (phase ``control``).
+FACTOR_TOL = {"default": 7e-4, "highest": 8e-6}
+# The backward error ||A - L·Lᵀ||_F / ||A||_F is reported and gated, but
+# it sees only gross faults under ``default`` (a dropped update moves it
+# by 1e-7 to 9e-6 on these paths, from about 3e-6); under ``highest`` it sits between strict fp32 (about
+# 3e-7) and the TF32 run (about 3e-6), which is its control.
+BACKWARD_TOL = {"default": 2e-3, "highest": 1e-6}
+# tile (0,0) is the first POTRF/GETRF alone (no TF32 product reaches it):
+# fp32 library factors of a tile, relative to its largest entry
+TILE00_TOL = 1e-4
 
 
 def _check(cond: bool, what: str) -> None:
@@ -185,6 +241,7 @@ def _k1_reset(tg) -> None:
     """Zero K1's launch counts: what follows is a path's own."""
     tg.gemm_update.launches = 0
     tg.gemm_update.launches_by_variant = dict.fromkeys(tg.K1_VARIANTS, 0)
+    tg.gemm_update.launches_by_form = {}
 
 
 def phase_kernel(card: str, torch) -> tuple[dict, list]:
@@ -1049,6 +1106,385 @@ def phase_lowered_gemm(card: str, torch, n: int = 16384,
     return rec
 
 
+def phase_k1_forms(card: str, torch) -> list:
+    """K1's forms for the factorizations at their paths' shapes and
+    variants, each against its plain version (TF32-rounded inputs on
+    ``mma_tf32``, strict on ``simt_fp32``); returns the records for the
+    kernels line."""
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.ops import gemm as tg
+    big, tile_list = (64, 1024, 1024, 1024), True
+    # (form, shape, tile list, precision, iterations)
+    cases = [("nt-sub", big, tile_list, "default", 5),
+             ("nt-sub", (465, 512, 512, 512), False, "default", 5),
+             ("nt-noc", big, tile_list, "default", 5),
+             ("nn-sub", big, tile_list, "default", 5),
+             ("nn-sub", (225, 512, 512, 512), False, "default", 5),
+             ("nn-noc", big, tile_list, "default", 5),
+             ("nt-sub", big, tile_list, "highest", 3),
+             ("nt-noc", big, tile_list, "highest", 3)]
+    # as phase_kernel: fp32 sums in other orders, |C| ~ sqrt(k)
+    tol = dict(rtol=1e-4, atol=1e-3)
+    recs = []
+    try:
+        for i, (form, (batch, m, n, k), tiles, precision, iters) \
+                in enumerate(cases):
+            params.set("gemm_precision", precision)
+            tf32 = precision == "default"
+            variant = "mma_tf32" if tf32 else "simt_fp32"
+            trans_b, with_c = form.startswith("nt"), not form.endswith("-noc")
+            kw = dict(trans_b=trans_b, subtract="-sub" in form)
+            label = (f"batch{batch}x{m}^3 fp32 {form} "
+                     f"{'tile list' if tiles else 'strided'}")
+            g = torch.Generator(device="cuda").manual_seed(700 + i)
+            a = torch.randn(batch, m, k, device="cuda", generator=g)
+            b = torch.randn(batch, *((n, k) if trans_b else (k, n)),
+                            device="cuda", generator=g)
+            c = torch.randn(batch, m, n, device="cuda", generator=g) \
+                if with_c else None
+            want = tg.gemm_update_plain(a, b, c, tf32=tf32, **kw)
+            before = dict(tg.gemm_update.launches_by_variant)
+            if tiles:
+                lists = (list(a.unbind(0)), list(b.unbind(0)),
+                         None if c is None else list(c.unbind(0)))
+                run = lambda: tg.gemm_update_tiles(*lists, **kw)  # noqa: E731
+                got = torch.stack(run())
+            else:
+                run = lambda: tg.gemm_update(a, b, c, **kw)  # noqa: E731
+                got = run()
+            strided = tg.gemm_update(a, b, c, **kw)
+            bt = b.mT if trans_b else b
+
+            def lib():
+                # the library's batched call, a yardstick the port never
+                # calls, at the variant's precision
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                try:
+                    if c is None:
+                        return torch.bmm(a, bt)
+                    return torch.baddbmm(c, a, bt, alpha=-1)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+
+            lib_out = lib()
+            torch.cuda.synchronize()
+            after = dict(tg.gemm_update.launches_by_variant)
+            ran = {v: after[v] - before[v] for v in after
+                   if after[v] != before[v]}
+            _check(ran == {variant: 2},
+                   f"gemm_update {label}: ran {ran}, expected {variant}")
+            err = (got - want).abs().max().item()
+            torch.testing.assert_close(got, want, **tol)
+            torch.testing.assert_close(strided, want, **tol)
+            lib_err = (lib_out - want).abs().max().item()
+            ms = _time_ms(torch, run, iters)
+            strided_ms = _time_ms(torch, lambda: tg.gemm_update(a, b, c, **kw),
+                                  iters)
+            plain_ms = _time_ms(torch, lambda: tg.gemm_update_plain(
+                a, b, c, tf32=tf32, **kw), iters)
+            lib_ms = _time_ms(torch, lib, iters)
+            host_ms = _host_ms(torch, run, iters)
+            flops = 2.0 * batch * m * n * k
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in (a, b, c, got) if t is not None)
+            bound_ms, bound_by = _bound(flops, nbytes,
+                                        "tfloat32" if tf32 else "float32")
+            rec = dict(shape=label, precision=precision, variant=variant,
+                       form=form, max_abs_err=err, ms=ms,
+                       strided_ms=strided_ms, host_ms=host_ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       library_tf32=tf32, bound_ms=bound_ms,
+                       bound_by=bound_by, tflops=flops / ms / 1e9,
+                       library_max_abs_err=lib_err)
+            _emit(card, phase="kernel", name="gemm_update", **rec)
+            recs.append(rec)
+            del a, b, c, got, want, strided, lib_out
+            torch.cuda.empty_cache()
+    finally:
+        params.set("gemm_precision", "default")
+    return recs
+
+
+def _factor_matrix(kind: str, a, nb: int):
+    """The tiled matrix over a copy of ``a``, every stored tile made: the
+    lower symmetric distribution for Cholesky, a square grid for LU."""
+    from parsec_tpu_torch.data_dist.collection import enumerate_keys
+    from parsec_tpu_torch.data_dist.matrix import (SymTwoDimBlockCyclic,
+                                                   TwoDimBlockCyclic)
+    cls = SymTwoDimBlockCyclic if kind == "cholesky" else TwoDimBlockCyclic
+    A = cls.from_dense("A", a.copy(), nb, nb)
+    for key in enumerate_keys(A):
+        A.data_of(*key)
+    return A
+
+
+def _factor_input(kind: str, n: int, nb: int):
+    """The factorization's input on the host (set-up, before any clock):
+    ``make_spd_fast(n)`` for Cholesky, ``make_dd(n, seed=1)`` for LU (the
+    JAX bench's constructors), and its tiled matrix."""
+    from parsec_tpu_torch.models.cholesky import make_spd_fast
+    from parsec_tpu_torch.models.lu import make_dd
+    a = make_spd_fast(n) if kind == "cholesky" else make_dd(n, seed=1)
+    return a, _factor_matrix(kind, a, nb)
+
+
+def _factor_ptg(kind: str, A):
+    from parsec_tpu_torch.models.cholesky import tiled_cholesky_ptg
+    from parsec_tpu_torch.models.lu import tiled_lu_ptg
+    return (tiled_cholesky_ptg if kind == "cholesky" else tiled_lu_ptg)(A)
+
+
+def _factor_flops(kind: str, n: int) -> float:
+    from parsec_tpu_torch.models.cholesky import cholesky_flops
+    from parsec_tpu_torch.models.lu import lu_flops
+    return (cholesky_flops if kind == "cholesky" else lu_flops)(n)
+
+
+def _factor_readings(torch, kind: str, A, a, nb: int) -> dict:
+    """The factored matrix in float64 on the card, against the float64
+    factor of ``a``: its tile error (``tile_error``), its backward error
+    and tile (0,0)'s largest error relative to the tile's largest
+    entry."""
+    from parsec_tpu_torch.ops.factor import tile_error
+    f = torch.from_numpy(A.to_dense()).cuda().double()
+    _check(bool(torch.isfinite(f).all()), f"{kind}: the factor is not finite")
+    ref = torch.from_numpy(a).cuda().double()
+    if kind == "cholesky":
+        got = torch.tril(f)
+        prod = got @ got.T
+        want = torch.linalg.cholesky(ref)
+    else:
+        got = f
+        unit = torch.tril(f, -1)
+        unit.diagonal().fill_(1.0)
+        prod = unit @ torch.triu(f)
+        del unit
+        want = torch.linalg.lu_factor_ex(ref, pivot=False)[0]
+    backward = (torch.linalg.norm(ref - prod)
+                / torch.linalg.norm(ref)).item()
+    del prod, ref
+    tile00 = ((got[:nb, :nb] - want[:nb, :nb]).abs().max()
+              / want[:nb, :nb].abs().max()).item()
+    err = tile_error(got, want, nb)
+    del f, got, want
+    torch.cuda.empty_cache()
+    return dict(tile_error=err, backward_error=backward,
+                tile00_rel_err=tile00)
+
+
+def _factor_check(torch, kind: str, A, a, nb: int, precision: str) -> dict:
+    """:func:`_factor_readings` under the gates of ``precision``."""
+    r = _factor_readings(torch, kind, A, a, nb)
+    n = len(a)
+    _check(r["tile_error"] <= FACTOR_TOL[precision],
+           f"{kind} n={n}: tile error {r['tile_error']} above "
+           f"{FACTOR_TOL[precision]} ({precision})")
+    _check(r["backward_error"] <= BACKWARD_TOL[precision],
+           f"{kind} n={n}: backward error {r['backward_error']} above "
+           f"{BACKWARD_TOL[precision]} ({precision})")
+    _check(r["tile00_rel_err"] <= TILE00_TOL,
+           f"{kind} n={n}: tile (0,0) off its float64 factor by "
+           f"{r['tile00_rel_err']} (relative) above {TILE00_TOL}")
+    return dict(r, tile_tol=FACTOR_TOL[precision],
+                backward_tol=BACKWARD_TOL[precision])
+
+
+def _factor_control(card: str, torch, kind: str, a, nb: int, run,
+                    label: str) -> dict:
+    """The path ``run(A)`` once more on ``a`` with one trailing update
+    dropped: its tile error must exceed the ``default`` gate."""
+    from parsec_tpu_torch.models import cholesky, lu
+    from parsec_tpu_torch.ops.factor import one_update_dropped
+    name, mod = ("gemm_nt", cholesky) if kind == "cholesky" \
+        else ("lu_gemm", lu)
+    A = _factor_matrix(kind, a, nb)
+    with one_update_dropped(name, *mod._FORMS[name]) as dropped:
+        run(A)
+    torch.cuda.synchronize()
+    _check(dropped == [1], f"control {label}: no update was dropped")
+    r = _factor_readings(torch, kind, A, a, nb)
+    _check(r["tile_error"] > FACTOR_TOL["default"],
+           f"control {label}: one dropped update reads a tile error of "
+           f"{r['tile_error']}, within the gate {FACTOR_TOL['default']}")
+    rec = dict(path=label, dropped="the first C tile of the trailing "
+               "update's first call", tile_tol=FACTOR_TOL["default"], **r)
+    _emit(card, phase="control", name=f"{label}_one_update_dropped", **rec)
+    return rec
+
+
+def _expected_tasks(kind: str, nt: int) -> dict:
+    tri = nt * (nt - 1) // 2
+    if kind == "cholesky":
+        return {"POTRF": nt, "TRSM": tri, "SYRK": tri,
+                "GEMM": nt * (nt - 1) * (nt - 2) // 6}
+    return {"GETRF": nt, "TRSM_L": tri, "TRSM_U": tri,
+            "GEMM": sum(j * j for j in range(1, nt))}
+
+
+# the K1 forms each factorization's bodies launch: TRSM with no C, the
+# trailing update subtracting
+K1_FORMS = {"cholesky": {"nt-noc", "nt-sub"}, "lu": {"nn-noc", "nn-sub"}}
+
+
+def _run_pool(tp, timeout: float = 600) -> None:
+    from parsec_tpu_torch.runtime import Context
+    ctx = Context(nb_cores=0)
+    try:
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=timeout)
+    finally:
+        ctx.fini(timeout=60)
+
+
+def phase_dynamic_factor(card: str, torch, kind: str, n: int = 8192,
+                         nb: int = 1024, precision: str = "default") -> dict:
+    """``tiled_cholesky_ptg`` or ``tiled_lu_ptg`` through ``Context`` and
+    the device module on the card (the JAX bench's ``dynamic_cholesky``
+    stage, ``bench.py:264-298``, and LU at the same size).  A 2x2-tile
+    run of the same pool first is set-up: the library's first calls
+    (cuSOLVER and cuBLAS handles, workspaces) stay off the clock."""
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.ops import gemm as tg
+
+    params.set("gemm_precision", precision)
+    try:
+        a, A = _factor_input(kind, n, nb)
+        dev = init_cuda_devices()[0]
+        _run_pool(_factor_ptg(kind, _factor_input(kind, 2 * nb, nb)[1]))
+        dev.sync()
+        dev.flush_cache()
+        tp = _factor_ptg(kind, A)
+        chores = {c.device_type for tc in tp.task_classes for c in tc.chores}
+        cpu = registry.get(0)
+        cpu_before = cpu.executed_tasks
+        before = dev.stats()
+        _k1_reset(tg)                    # counts from here are the path's
+        t0 = time.perf_counter()
+        _run_pool(tp)
+        dev.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tg.gemm_update.launches
+        by_variant = dict(tg.gemm_update.launches_by_variant)
+        by_form = dict(tg.gemm_update.launches_by_form)
+        dev.flush_cache()
+        s = dev.stats()
+
+        def delta(key):
+            return s[key] - before[key]
+
+        tasks = {c: k - before["tasks_by_class"].get(c, 0)
+                 for c, k in s["tasks_by_class"].items()
+                 if k - before["tasks_by_class"].get(c, 0)}
+        want = _expected_tasks(kind, A.mt)
+        variant = "mma_tf32" if precision == "default" else "simt_fp32"
+        _check(chores == {"cuda"}, f"{kind}: chores {chores}")
+        _check(tasks == want, f"{kind}: tasks {tasks}, expected {want}")
+        _check(cpu.executed_tasks == cpu_before, f"{kind}: a CPU chore ran")
+        _check(launches > 0 and by_variant[variant] == launches,
+               f"{kind} ({precision}): K1 ran {by_variant}, expected "
+               f"{variant} only")
+        _check(set(by_form) == K1_FORMS[kind],
+               f"{kind}: K1 forms {by_form}, expected {K1_FORMS[kind]}")
+        _check(dev.enabled, "the device was disabled")
+        rec = dict(n=n, nb=nb, precision=precision, wall_s=wall,
+                   gflops=_factor_flops(kind, n) / wall / 1e9,
+                   tasks=sum(tasks.values()), tasks_by_class=tasks,
+                   gemm_launches=launches, gemm_launches_by_variant=by_variant,
+                   gemm_launches_by_form=by_form,
+                   stage_in_s=delta("t_stage_in"),
+                   dispatch_s=delta("t_dispatch"),
+                   complete_s=delta("t_complete"),
+                   manager_s=delta("t_manager"),
+                   device_dispatches=delta("kernel_launches"),
+                   batched_dispatches=delta("batched_dispatches"),
+                   mean_batch=delta("executed_tasks")
+                   / max(1, delta("kernel_launches")),
+                   h2d_mb=delta("bytes_in") / 1e6,
+                   **_factor_check(torch, kind, A, a, nb, precision))
+        name = f"dynamic_{kind}" + ("" if precision == "default"
+                                    else f"_{precision}")
+        _emit(card, phase="path", name=name, **rec)
+        if precision == "default":
+
+            def run(B):
+                _run_pool(_factor_ptg(kind, B))
+                dev.sync()
+                dev.flush_cache()
+
+            rec["control"] = _factor_control(card, torch, kind, a, nb, run,
+                                             name)
+        return rec
+    finally:
+        params.set("gemm_precision", "default")
+
+
+def phase_lowered_factor(card: str, torch, kind: str, n: int,
+                         nb: int = 512) -> dict:
+    """``lower_taskpool`` of the factorization on the card (the JAX
+    bench's ``lowered_cholesky`` and ``lowered_lu`` stages,
+    ``bench.py:562-583,651-675``): the wavefront pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.ptg.lowering import lower_taskpool
+
+    params.set("gemm_precision", "default")
+    a, A = _factor_input(kind, n, nb)
+    t0 = time.perf_counter()
+    low = lower_taskpool(_factor_ptg(kind, A))
+    lower_s = time.perf_counter() - t0
+    _check(low.mode == "wavefront", f"lowered {kind} mode {low.mode}")
+    _k1_reset(tg)                        # counts from here are the path's
+    t0 = time.perf_counter()
+    low.execute()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tg.gemm_update.launches
+    by_variant = dict(tg.gemm_update.launches_by_variant)
+    by_form = dict(tg.gemm_update.launches_by_form)
+    _check(launches > 0 and by_variant["mma_tf32"] == launches,
+           f"lowered {kind}: K1 ran {by_variant}, expected mma_tf32 only")
+    _check(set(by_form) == K1_FORMS[kind],
+           f"lowered {kind}: K1 forms {by_form}, expected {K1_FORMS[kind]}")
+    checks = _factor_check(torch, kind, A, a, nb, "default")
+
+    t0 = time.perf_counter()
+    stores = low.initial_stores()
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t0
+    step_s = _step_wall(torch, low.step_fn, stores, reps=3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        low.step_fn(stores)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    busy, events, top, dev_ns = _device_busy(prof)
+    k1_s = sum(ns for nm, ns in dev_ns.items() if "gemm_update_kernel" in nm)
+    flops = _factor_flops(kind, n)
+    rec = dict(n=n, nb=nb, mode=low.mode, levels=low.levels,
+               groups=low.groups, lower_s=lower_s, execute_wall_s=wall,
+               materialize_s=materialize_s, step_s=step_s,
+               gflops=flops / step_s / 1e9, execute_gflops=flops / wall / 1e9,
+               gemm_launches=launches, gemm_launches_by_variant=by_variant,
+               gemm_launches_by_form=by_form,
+               launches_per_level=launches / low.levels,
+               traced_step_s=traced_s, device_busy_s=busy,
+               idle_share=1.0 - busy / traced_s, device_events=events,
+               k1_device_s=k1_s / 1e9, top_device_time=top, **checks)
+    _emit(card, phase="path", name=f"lowered_{kind}", **rec)
+    del stores, low
+    torch.cuda.empty_cache()
+    rec["control"] = _factor_control(
+        card, torch, kind, a, nb,
+        lambda B: lower_taskpool(_factor_ptg(kind, B)).execute(),
+        f"lowered_{kind}")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1082,30 +1518,55 @@ def main() -> int:
     sten = phase_lowered_stencil(card, torch)
     phase_lowered_stencil2d(card, torch)
     lgemm = phase_lowered_gemm(card, torch)
+    form_recs = phase_k1_forms(card, torch)
+    factor_paths = {
+        "dynamic_cholesky": phase_dynamic_factor(card, torch, "cholesky"),
+        "dynamic_cholesky_highest": phase_dynamic_factor(
+            card, torch, "cholesky", precision="highest"),
+        "dynamic_lu": phase_dynamic_factor(card, torch, "lu"),
+        "lowered_cholesky": phase_lowered_factor(card, torch, "cholesky",
+                                                 16384),
+        "lowered_lu": phase_lowered_factor(card, torch, "lu", 8192)}
+    # the TF32 run is the control of the ``highest`` gates
+    tf32_run = factor_paths["dynamic_cholesky"]
+    for key, tol in (("tile_error", FACTOR_TOL), ("backward_error",
+                                                  BACKWARD_TOL)):
+        _check(tf32_run[key] > tol["highest"],
+               f"control: the TF32 Cholesky's {key} {tf32_run[key]} is "
+               f"within the highest gate {tol['highest']}")
+    _emit(card, phase="control", name="dynamic_cholesky_tf32_vs_highest",
+          tile_error=tf32_run["tile_error"],
+          tile_tol=FACTOR_TOL["highest"],
+          backward_error=tf32_run["backward_error"],
+          backward_tol=BACKWARD_TOL["highest"])
+    k1_paths = {"gemm": path, "lowered_gemm": lgemm, **factor_paths}
+    row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "gemm_update", "route": "cuda",
                 "source": "parsec_tpu_torch/csrc/gemm.cu",
                 "replaces": "parsec_tpu/ops/gemm.py:66",
-                "launches": path["gemm_launches"] + lgemm["gemm_launches"],
-                "launches_by_path": {"gemm": path["gemm_launches"],
-                                     "lowered_gemm": lgemm["gemm_launches"]},
+                "launches": sum(p["gemm_launches"]
+                                for p in k1_paths.values()),
+                "launches_by_path": {name: p["gemm_launches"]
+                                     for name, p in k1_paths.items()},
                 "launches_by_variant": {
-                    v: path["gemm_launches_by_variant"][v]
-                    + lgemm["gemm_launches_by_variant"][v]
+                    v: sum(p["gemm_launches_by_variant"][v]
+                           for p in k1_paths.values())
                     for v in path["gemm_launches_by_variant"]},
                 "variant": main_rec["variant"],
                 "variants": [
-                    {key: r[key] for key in (
-                        "variant", "shape", "precision", "max_abs_err",
-                        "ms", "plain_ms", "bound_ms", "bound_by",
-                        "library_ms")} for r in k1_recs]
-                + [{"variant": "wgmma_bf16",
+                    {"form": "nn", **{key: r[key] for key in row_keys}}
+                    for r in k1_recs]
+                + [{"form": "nn", "variant": "wgmma_bf16",
                     "shape": f"{lgemm['n']}^3 bf16->fp32",
                     "precision": "default",
                     "max_abs_err": lgemm["max_abs_err"],
                     "ms": lgemm["kernel_ms"], "plain_ms": lgemm["plain_ms"],
                     "bound_ms": lgemm["bound_ms"],
                     "bound_by": lgemm["bound_by"],
-                    "library_ms": lgemm["library_ms"]}],
+                    "library_ms": lgemm["library_ms"]}]
+                + [{"form": r["form"], **{key: r[key] for key in row_keys}}
+                   for r in form_recs],
                 "max_abs_err": main_rec["max_abs_err"],
                 "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
                 "bound_ms": main_rec["bound_ms"],

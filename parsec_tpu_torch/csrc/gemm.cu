@@ -9,9 +9,16 @@
 // (parsec_tpu/device/tpu.py:_run_vmapped).  Edges are masked, so ragged
 // edge tiles and dims that no block size divides work.
 //
-//   out[b] = (ADD_C ? C[b] : 0) + A[b] @ B[b]
-//   A[b] (M, K), B[b] (K, N), C[b] and out[b] (M, N), each row-major and
-//   contiguous; inputs fp32 or bf16, C/out fp32 or bf16; sums in fp32.
+//   out[b] = (ADD_C ? C[b] : 0) + s * A[b] @ op(B[b]),  s = -1 if SUB else 1
+//   A[b] (M, K), op(B[b]) (K, N): B[b] itself (K, N), or with TRANS_B
+//   B[b] given as (N, K) and op(B) its transpose; C[b] and out[b] (M, N);
+//   each row-major and contiguous; inputs fp32 or bf16, C/out fp32 or
+//   bf16; sums in fp32.  The subtracting form negates the finished sum in
+//   the epilogue, so C - A@B rounds once, as the JAX bodies' ``c - a@b``
+//   does.  The transposed and subtracting forms are what the Cholesky and
+//   LU trailing updates call (parsec_tpu/models/cholesky.py:
+//   gemm_nt/syrk_ln, models/lu.py: lu_gemm); simt_fp32 and mma_tf32 take
+//   them, wgmma_bf16 refuses them.
 //   The batch is either strided (one (batch, M, K) tensor per operand) or
 //   given as a device array of 4*batch tile pointers (A tiles, then B, C,
 //   out): the device module's fused dispatch passes its tiles that way,
@@ -51,7 +58,10 @@
 //   mma.sync.m16n8k8 TF32, fed by a 3-stage cp.async ring of 128x32 A
 //   and 32x128 B tiles (padded rows: the fragment reads are free of bank
 //   conflicts), each input rounded with cvt.rna.tf32.f32 as its fragment
-//   is read.  128 threads in 4 warps of 64x64; two blocks fit an SM.
+//   is read.  128 threads in 4 warps of 64x64; two blocks fit an SM.  A
+//   transposed B is K-major, as A is: its 128x32 tile is staged like A's
+//   (rows padded to 36 floats) and read straight into the .col B
+//   fragment, so nothing is transposed in shared memory.
 // - simt_fp32: strict fp32 FMAs off the tensor cores, 64x64 tiles and a
 //   single shared-memory stage: fp32 at strict precision, and every shape
 //   the other two refuse (pitches TMA or 16-byte cp.async cannot take).
@@ -106,12 +116,12 @@ constexpr int TM = 4;
 constexpr int TN = 4;
 constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
 
-template <typename TI, typename TO, bool ADD_C>
+template <typename TI, typename TO, bool ADD_C, bool TRANS_B>
 __global__ void __launch_bounds__(THREADS)
     gemm_update_kernel(const TI* __restrict__ A, const TI* __restrict__ B,
                        const TO* __restrict__ C, TO* __restrict__ Out,
                        const void* const* __restrict__ ptrs, int M, int N,
-                       int K) {
+                       int K, bool sub) {
   __shared__ float As[BK][BM + 4];  // k-major: a column of A is a row here
   __shared__ float Bs[BK][BN + 4];
 
@@ -150,13 +160,16 @@ __global__ void __launch_bounds__(THREADS)
       const int gr = row0 + r, gk = k0 + kk;
       As[kk][r] = (gr < M && gk < K) ? to_f32(A[(size_t)gr * K + gk]) : 0.f;
     }
-    // B slice BK x BN: consecutive threads walk n along one row of B
+    // B slice BK x BN: consecutive threads walk n along one row of B, or
+    // k along one row of a transposed B
 #pragma unroll
     for (int i = 0; i < (BK * BN) / THREADS; ++i) {
       const int idx = tid + i * THREADS;
-      const int kk = idx / BN, c = idx % BN;
+      const int kk = TRANS_B ? idx % BK : idx / BN;
+      const int c = TRANS_B ? idx / BK : idx % BN;
       const int gk = k0 + kk, gc = col0 + c;
-      Bs[kk][c] = (gk < K && gc < N) ? to_f32(B[(size_t)gk * N + gc]) : 0.f;
+      const size_t o = TRANS_B ? (size_t)gc * K + gk : (size_t)gk * N + gc;
+      Bs[kk][c] = (gk < K && gc < N) ? to_f32(B[o]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -183,7 +196,7 @@ __global__ void __launch_bounds__(THREADS)
       const int c = col0 + tx * TN + j;
       if (c >= N) continue;
       const size_t o = (size_t)r * N + c;
-      float v = acc[i][j];
+      float v = sub ? -acc[i][j] : acc[i][j];
       if (ADD_C) v += to_f32(C[o]);
       Out[o] = from_f32<TO>(v);
     }
@@ -193,18 +206,17 @@ __global__ void __launch_bounds__(THREADS)
 template <typename TI, typename TO>
 void launch(const void* a, const void* b, const void* c, void* out,
             const void* const* ptrs, int batch, int m, int n, int k,
-            int add_c, cudaStream_t stream) {
+            int add_c, int trans_b, int sub, cudaStream_t stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, batch);
   const TI* A = static_cast<const TI*>(a);
   const TI* B = static_cast<const TI*>(b);
   const TO* C = static_cast<const TO*>(c);
   TO* O = static_cast<TO*>(out);
-  if (add_c)
-    gemm_update_kernel<TI, TO, true>
-        <<<grid, THREADS, 0, stream>>>(A, B, C, O, ptrs, m, n, k);
-  else
-    gemm_update_kernel<TI, TO, false>
-        <<<grid, THREADS, 0, stream>>>(A, B, C, O, ptrs, m, n, k);
+  auto kernel = add_c ? (trans_b ? gemm_update_kernel<TI, TO, true, true>
+                                 : gemm_update_kernel<TI, TO, true, false>)
+                      : (trans_b ? gemm_update_kernel<TI, TO, false, true>
+                                 : gemm_update_kernel<TI, TO, false, false>);
+  kernel<<<grid, THREADS, 0, stream>>>(A, B, C, O, ptrs, m, n, k, sub != 0);
 }
 
 }  // namespace simt
@@ -267,7 +279,7 @@ struct Chunk {
   }
 };
 
-// out[m0 + r, n0 + c] = C[...] + stage[r * LD + c] over a BM x BN tile
+// out[m0 + r, n0 + c] = C[...] +/- stage[r * LD + c] over a BM x BN tile
 // staged in shared memory as fp32, in chunks of VEC elements; N is a
 // multiple of VEC, so a chunk is wholly inside the matrix or wholly out
 template <typename TO, bool ADD_C, int BM, int BN, int LD, int VEC,
@@ -275,7 +287,8 @@ template <typename TO, bool ADD_C, int BM, int BN, int LD, int VEC,
 __device__ __forceinline__ void store_tile(const float* stage,
                                            const TO* __restrict__ C,
                                            TO* __restrict__ Out, int m0,
-                                           int n0, int M, int N, int tid) {
+                                           int n0, int M, int N, int tid,
+                                           bool sub) {
   constexpr int CHUNKS = BN / VEC;
 #pragma unroll 4
   for (int idx = tid; idx < BM * CHUNKS; idx += NTHREADS) {
@@ -288,6 +301,7 @@ __device__ __forceinline__ void store_tile(const float* stage,
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
       float v = stage[r * LD + c + j];
+      if (sub) v = -v;
       if constexpr (ADD_C) v += in.get(j);
       res.set(j, v);
     }
@@ -314,9 +328,15 @@ constexpr int LDA = BK + 4;   // floats a row of the A tile: row r starts
 constexpr int LDB = BN + 8;   // likewise for B: bank 8k + n
 constexpr int LDO = BN + 8;   // the epilogue's staging rows
 constexpr int A_FLOATS = BM * LDA;
-constexpr int STAGE_FLOATS = A_FLOATS + BK * LDB;
-constexpr int SMEM = STAGES * STAGE_FLOATS * 4;  // 107,520 B: two blocks an SM
-static_assert(BM * LDO <= STAGES * STAGE_FLOATS, "staging fits the ring");
+// a transposed B tile is BN rows of BK, padded like A's
+template <bool TRANS_B>
+constexpr int STAGE_FLOATS = A_FLOATS + (TRANS_B ? BN * LDA : BK * LDB);
+// 107,520 B (110,592 B with a transposed B): two blocks an SM
+template <bool TRANS_B>
+constexpr int SMEM = STAGES * STAGE_FLOATS<TRANS_B> * 4;
+static_assert(BM * LDO <= STAGES * STAGE_FLOATS<false>,
+              "staging fits the ring");
+static_assert(2 * (SMEM<true> + 1024) <= 233472, "two blocks fit an SM");
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
@@ -341,12 +361,13 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-template <typename TO, bool ADD_C>
+template <typename TO, bool ADD_C, bool TRANS_B>
 __global__ void __launch_bounds__(THREADS, 2)
     gemm_update_kernel(const float* __restrict__ A,
                        const float* __restrict__ B, const TO* C, TO* Out,
                        const void* const* __restrict__ ptrs, int M, int N,
-                       int K, int tiles_m, int tiles_n) {
+                       int K, int tiles_m, int tiles_n, bool sub) {
+  constexpr int STAGE = STAGE_FLOATS<TRANS_B>;
   extern __shared__ __align__(16) float smem[];
   const size_t bz = blockIdx.z;
   if (ptrs) {
@@ -371,13 +392,16 @@ __global__ void __launch_bounds__(THREADS, 2)
   const int KT = (K + BK - 1) / BK;
 
   // each thread moves A_CHUNKS 16-byte chunks of A and B_CHUNKS of B a
-  // stage: chunk i of A is row a_r + i * A_STEP, columns a_c..a_c+3
+  // stage: chunk i of A is row a_r + i * A_STEP, columns a_c..a_c+3; a
+  // transposed B's tile (BN rows of BK) is cut as A's is
   constexpr int A_CHUNKS = BM * BK / 4 / THREADS, A_STEP = THREADS * 4 / BK;
-  constexpr int B_CHUNKS = BK * BN / 4 / THREADS, B_STEP = THREADS * 4 / BN;
+  constexpr int B_CHUNKS = BK * BN / 4 / THREADS;
+  constexpr int B_STEP = TRANS_B ? A_STEP : THREADS * 4 / BN;
   const int a_r = tid / (BK / 4), a_c = (tid % (BK / 4)) * 4;
-  const int b_r = tid / (BN / 4), b_c = (tid % (BN / 4)) * 4;
+  const int b_r = TRANS_B ? a_r : tid / (BN / 4);
+  const int b_c = TRANS_B ? a_c : (tid % (BN / 4)) * 4;
   auto load_stage = [&](int stage, int kt) {
-    float* As = smem + stage * STAGE_FLOATS;
+    float* As = smem + stage * STAGE;
     float* Bs = As + A_FLOATS;
     const int k0 = kt * BK;
 #pragma unroll
@@ -390,9 +414,15 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
     for (int i = 0; i < B_CHUNKS; ++i) {
       const int r = b_r + i * B_STEP;
-      const bool ok = k0 + r < K && n0 + b_c < N;
-      cp_async16(smem_u32(Bs + r * LDB + b_c),
-                 ok ? B + (size_t)(k0 + r) * N + n0 + b_c : B, ok);
+      if constexpr (TRANS_B) {   // row n0 + r of B, columns k0 + b_c..
+        const bool ok = n0 + r < N && k0 + b_c < K;
+        cp_async16(smem_u32(Bs + r * LDA + b_c),
+                   ok ? B + (size_t)(n0 + r) * K + k0 + b_c : B, ok);
+      } else {
+        const bool ok = k0 + r < K && n0 + b_c < N;
+        cp_async16(smem_u32(Bs + r * LDB + b_c),
+                   ok ? B + (size_t)(k0 + r) * N + n0 + b_c : B, ok);
+      }
     }
   };
 
@@ -420,7 +450,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     if (next < KT) load_stage(next % STAGES, next);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-    const float* As = smem + (kt % STAGES) * STAGE_FLOATS;
+    const float* As = smem + (kt % STAGES) * STAGE;
     const float* Bs = As + A_FLOATS;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 8) {
@@ -435,9 +465,15 @@ __global__ void __launch_bounds__(THREADS, 2)
       }
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const float* p = Bs + (kk + t) * LDB + wn + j * 8 + g;
-        bf[j][0] = to_tf32(p[0]);
-        bf[j][1] = to_tf32(p[4 * LDB]);
+        if constexpr (TRANS_B) {   // B[k][n] sits at Bs[n * LDA + k]
+          const float* p = Bs + (wn + j * 8 + g) * LDA + kk + t;
+          bf[j][0] = to_tf32(p[0]);
+          bf[j][1] = to_tf32(p[4]);
+        } else {
+          const float* p = Bs + (kk + t) * LDB + wn + j * 8 + g;
+          bf[j][0] = to_tf32(p[0]);
+          bf[j][1] = to_tf32(p[4 * LDB]);
+        }
       }
 #pragma unroll
       for (int i = 0; i < MT; ++i)
@@ -461,27 +497,38 @@ __global__ void __launch_bounds__(THREADS, 2)
     }
   __syncthreads();
   store_tile<TO, ADD_C, BM, BN, LDO, 4, THREADS>(stage, C, Out, m0, n0, M, N,
-                                                 tid);
+                                                 tid, sub);
+}
+
+template <typename TO, bool TRANS_B>
+int launch(const void* a, const void* b, const void* c, void* out,
+           const void* const* ptrs, int batch, int m, int n, int k,
+           int add_c, int sub, cudaStream_t stream) {
+  const long long tiles_m = (m + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
+  if (tiles_m * tiles_n > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = add_c ? gemm_update_kernel<TO, true, TRANS_B>
+                      : gemm_update_kernel<TO, false, TRANS_B>;
+  constexpr int smem = SMEM<TRANS_B>;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const dim3 grid(static_cast<unsigned>(tiles_m * tiles_n), 1, batch);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<const TO*>(c), static_cast<TO*>(out), ptrs, m, n, k,
+      static_cast<int>(tiles_m), static_cast<int>(tiles_n), sub != 0);
+  return 0;
 }
 
 template <typename TO>
 int launch(const void* a, const void* b, const void* c, void* out,
            const void* const* ptrs, int batch, int m, int n, int k,
-           int add_c, cudaStream_t stream) {
-  const long long tiles_m = (m + BM - 1) / BM, tiles_n = (n + BN - 1) / BN;
-  if (tiles_m * tiles_n > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = add_c ? gemm_update_kernel<TO, true>
-                      : gemm_update_kernel<TO, false>;
-  const cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (rc != cudaSuccess) return static_cast<int>(rc);
-  const dim3 grid(static_cast<unsigned>(tiles_m * tiles_n), 1, batch);
-  kernel<<<grid, THREADS, SMEM, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const TO*>(c), static_cast<TO*>(out), ptrs, m, n, k,
-      static_cast<int>(tiles_m), static_cast<int>(tiles_n));
-  return 0;
+           int add_c, int trans_b, int sub, cudaStream_t stream) {
+  return trans_b ? launch<TO, true>(a, b, c, out, ptrs, batch, m, n, k,
+                                    add_c, sub, stream)
+                 : launch<TO, false>(a, b, c, out, ptrs, batch, m, n, k,
+                                     add_c, sub, stream);
 }
 
 }  // namespace tf32
@@ -712,7 +759,7 @@ __global__ void __launch_bounds__(THREADS, 1)
             make_float2(d[4 * j + 2 * i], d[4 * j + 2 * i + 1]);
     asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS * 128) : "memory");
     store_tile<TO, ADD_C, BM, BN, LDO, 16 / sizeof(TO), CONSUMERS * 128>(
-        stage, C, Out, m0, n0, M, N, tid);
+        stage, C, Out, m0, n0, M, N, tid, false);
   }
 }
 
@@ -809,19 +856,24 @@ bool aligned16(const void* p) {
 // Variant codes: 0 = simt_fp32, 1 = mma_tf32, 2 = wgmma_bf16.
 // dtype codes: 0 = float32, 1 = bfloat16.  ptrs is null for a strided
 // batch, else a device array of 4*batch tile pointers (a, b, c and out
-// are then ignored); wgmma_bf16 then also needs tile_maps, the device
-// copy of 2*batch tensor maps from parsec_gemm_encode_tiles.  A variant
-// that cannot take the call is refused, never replaced.  Returns 0 when
-// the kernel was launched, else a cudaError_t; the caller raises on it.
+// are then ignored; the C pointers too when add_c is 0); wgmma_bf16 then
+// also needs tile_maps, the device copy of 2*batch tensor maps from
+// parsec_gemm_encode_tiles.  trans_b: B is given as (n, k); subtract:
+// out = C - A@op(B) (-A@op(B) with no C); wgmma_bf16 takes neither.  A
+// variant that cannot take the call is refused, never replaced.  Returns
+// 0 when the kernel was launched, else a cudaError_t; the caller raises
+// on it.
 extern "C" int parsec_gemm_update(const void* a, const void* b, const void* c,
                                   void* out, const void* const* ptrs,
                                   const void* tile_maps, int batch, int m,
                                   int n, int k, int in_dtype, int out_dtype,
-                                  int add_c, int variant, void* stream) {
+                                  int add_c, int trans_b, int subtract,
+                                  int variant, void* stream) {
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || batch > 65535 || m <= 0 || n <= 0 || k < 0 ||
       in_dtype < 0 || in_dtype > 1 || out_dtype < 0 || out_dtype > 1)
     return bad;
+  const int tb = trans_b != 0, sub = subtract != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // the tensor-core variants move 16-byte chunks: their strided operands
   // must sit on 16-byte boundaries (the caller checks the tiles of a list)
@@ -831,26 +883,26 @@ extern "C" int parsec_gemm_update(const void* a, const void* b, const void* c,
   if (variant == 0) {
     if (in_dtype == 0 && out_dtype == 0)
       simt::launch<float, float>(a, b, c, out, ptrs, batch, m, n, k, add_c,
-                                 s);
+                                 tb, sub, s);
     else if (in_dtype == 1 && out_dtype == 0)
       simt::launch<__nv_bfloat16, float>(a, b, c, out, ptrs, batch, m, n, k,
-                                         add_c, s);
+                                         add_c, tb, sub, s);
     else if (in_dtype == 0 && out_dtype == 1)
       simt::launch<float, __nv_bfloat16>(a, b, c, out, ptrs, batch, m, n, k,
-                                         add_c, s);
+                                         add_c, tb, sub, s);
     else
       simt::launch<__nv_bfloat16, __nv_bfloat16>(a, b, c, out, ptrs, batch, m,
-                                                 n, k, add_c, s);
+                                                 n, k, add_c, tb, sub, s);
     rc = 0;
   } else if (variant == 1) {
     if (in_dtype != 0 || k % 4 || n % 4 || !vec_ok) return bad;
     rc = out_dtype == 0
              ? tf32::launch<float>(a, b, c, out, ptrs, batch, m, n, k, add_c,
-                                   s)
+                                   tb, sub, s)
              : tf32::launch<__nv_bfloat16>(a, b, c, out, ptrs, batch, m, n,
-                                           k, add_c, s);
+                                           k, add_c, tb, sub, s);
   } else if (variant == 2) {
-    if (in_dtype != 1 || k % 8 || n % 8 || !vec_ok) return bad;
+    if (in_dtype != 1 || k % 8 || n % 8 || !vec_ok || tb || sub) return bad;
     rc = out_dtype == 0
              ? wg::launch<float>(a, b, c, out, ptrs, tile_maps, batch, m, n,
                                  k, add_c, s)

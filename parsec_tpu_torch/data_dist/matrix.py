@@ -1,22 +1,31 @@
 """Tiled-matrix and segmented-vector descriptors.
 
-Port of :class:`TiledMatrix` and :class:`VectorTwoDimCyclic` from
+Port of :class:`TiledMatrix`, :class:`TwoDimBlockCyclic`,
+:class:`SymTwoDimBlockCyclic` and :class:`VectorTwoDimCyclic` from
 ``parsec_tpu/data_dist/matrix.py`` (the reference's
-``parsec_tiled_matrix_t`` and ``vector_two_dim_cyclic``): tile sizes
-mb x nb over an lm x ln matrix, mt x nt tiles, ragged edge tiles; or mb
-segments of an lm vector.  Tiles are CPU ``torch.Tensor`` values created
-lazily on first touch; the device module and the lowering move them onto
-the card.  :meth:`TiledMatrix.to_tensor` is ``to_dense`` without numpy:
-bf16 tiles stay bf16 on their way to the card.
+``parsec_tiled_matrix_t``, ``two_dim_rectangle_cyclic``,
+``sym_two_dim_rectangle_cyclic`` and ``vector_two_dim_cyclic``): tile
+sizes mb x nb over an lm x ln matrix, mt x nt tiles, ragged edge tiles;
+or mb segments of an lm vector.  Tiles are CPU ``torch.Tensor`` values
+created lazily on first touch; the device module and the lowering move
+them onto the card.  :meth:`TiledMatrix.to_tensor` is ``to_dense``
+without numpy: bf16 tiles stay bf16 on their way to the card.
 
-Left out: the block-cyclic, symmetric, band, tabular, sub-tile and hash
-distributions, and vectors over more than one rank — the port runs on
-one rank, and no ported model needs them yet.
+The symmetric distribution stores one triangle (``uplo``): a tile of the
+other raises ``KeyError``, and ``has_tile`` is False there, so the
+lowering lays its store rows over the stored tiles only
+(:func:`~parsec_tpu_torch.data_dist.collection.enumerate_keys`), and the
+whole-matrix conversions leave the missing triangle's tiles as zeros.
+
+Left out: block-cyclic grids over more than one rank (the ``P``, ``Q``,
+``kp`` and ``kq`` parameters: the port runs on one rank), the band,
+tabular, sub-tile and hash distributions, and vectors over more than one
+rank.
 
 :meth:`TiledMatrix.from_numpy_tiles` / :meth:`to_numpy_tiles` carry the
-JAX package's ``{(i, j): np.ndarray}`` host tiles across, so both
-packages run on the same bytes (bf16 through its 16-bit pattern, see
-:mod:`parsec_tpu_torch.data.datatype`).
+JAX package's ``{(i, j): np.ndarray}`` host tiles of the stored tiles
+across, so both packages run on the same bytes (bf16 through its 16-bit
+pattern, see :mod:`parsec_tpu_torch.data.datatype`).
 """
 
 from __future__ import annotations
@@ -29,7 +38,7 @@ import torch
 
 from ..data.data import Data, data_create
 from ..data.datatype import TileType, to_numpy, to_tensor, torch_dtype
-from .collection import DataCollection
+from .collection import DataCollection, enumerate_keys
 
 
 class TiledMatrix(DataCollection):
@@ -89,61 +98,103 @@ class TiledMatrix(DataCollection):
 
     # -- whole-matrix conversion ---------------------------------------------
     def to_dense(self) -> np.ndarray:
-        """The matrix as one host numpy array (newest copy of each tile,
-        wherever it lives)."""
+        """The matrix as one host numpy array (newest copy of each stored
+        tile, wherever it lives; zeros where no tile is stored)."""
         out = None
-        for m in range(self.mt):
-            for n in range(self.nt):
-                t = to_numpy(self.data_of(m, n).newest_copy().value)
-                if out is None:
-                    out = np.zeros((self.lm, self.ln), dtype=t.dtype)
-                out[m * self.mb:m * self.mb + t.shape[0],
-                    n * self.nb:n * self.nb + t.shape[1]] = t
+        for m, n in enumerate_keys(self):
+            t = to_numpy(self.data_of(m, n).newest_copy().value)
+            if out is None:
+                out = np.zeros((self.lm, self.ln), dtype=t.dtype)
+            out[m * self.mb:m * self.mb + t.shape[0],
+                n * self.nb:n * self.nb + t.shape[1]] = t
         return out
 
     def to_tensor(self) -> torch.Tensor:
         """The matrix as one CPU tensor of the matrix dtype (newest copy of
-        each tile, wherever it lives), built with no numpy crossing."""
-        out = torch.empty((self.lm, self.ln), dtype=self.dtype)
-        for m in range(self.mt):
-            for n in range(self.nt):
-                t = self.data_of(m, n).newest_copy().value
-                out[m * self.mb:m * self.mb + t.shape[0],
-                    n * self.nb:n * self.nb + t.shape[1]] = t
+        each stored tile, wherever it lives; zeros where no tile is
+        stored), built with no numpy crossing."""
+        out = torch.zeros((self.lm, self.ln), dtype=self.dtype)
+        for m, n in enumerate_keys(self):
+            t = self.data_of(m, n).newest_copy().value
+            out[m * self.mb:m * self.mb + t.shape[0],
+                n * self.nb:n * self.nb + t.shape[1]] = t
         return out
 
     def to_numpy_tiles(self) -> dict[tuple[int, int], np.ndarray]:
-        return {(m, n): to_numpy(self.data_of(m, n).newest_copy().value)
-                for m in range(self.mt) for n in range(self.nt)}
+        return {k: to_numpy(self.data_of(*k).newest_copy().value)
+                for k in enumerate_keys(self)}
 
     @classmethod
-    def from_dense(cls, name: str, a: Any, mb: int, nb: int) -> "TiledMatrix":
+    def from_dense(cls, name: str, a: Any, mb: int, nb: int,
+                   **kw) -> "TiledMatrix":
         t = to_tensor(a)
 
         def init(m, n, shape):
             return t[m * mb:m * mb + shape[0], n * nb:n * nb + shape[1]]
 
         return cls(name, t.shape[0], t.shape[1], mb, nb, dtype=t.dtype,
-                   init_fn=init)
+                   init_fn=init, **kw)
 
     @classmethod
     def from_numpy_tiles(cls, name: str,
                          tiles: dict[tuple[int, int], np.ndarray],
-                         m: int, n: int, mb: int, nb: int) -> "TiledMatrix":
+                         m: int, n: int, mb: int, nb: int,
+                         **kw) -> "TiledMatrix":
         """A matrix over ``{(i, j): array}`` host tiles (the values the
         JAX package's ``TiledMatrix.data_of(i, j).newest_copy().value``
-        holds).  Every tile of the m x n matrix must be present."""
+        holds).  Every stored tile of the m x n matrix must be present;
+        ``kw`` goes to the constructor (``uplo=`` of the symmetric
+        distribution)."""
         conv = {k: to_tensor(v) for k, v in tiles.items()}
         dtypes = {v.dtype for v in conv.values()}
         if len(dtypes) != 1:
             raise ValueError(f"{name}: tiles of mixed dtypes {dtypes}")
         out = cls(name, m, n, mb, nb, dtype=dtypes.pop(),
-                  init_fn=lambda i, j, shape: conv[(i, j)])
-        missing = [(i, j) for i in range(out.mt) for j in range(out.nt)
-                   if (i, j) not in conv]
+                  init_fn=lambda i, j, shape: conv[(i, j)], **kw)
+        missing = [k for k in enumerate_keys(out) if k not in conv]
         if missing:
             raise KeyError(f"{name}: tiles {missing[:4]} missing")
         return out
+
+
+class TwoDimBlockCyclic(TiledMatrix):
+    """The block-cyclic distribution on one rank, where every tile lies on
+    rank 0: a :class:`TiledMatrix` (its ``P x Q`` grid is not ported)."""
+
+
+class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
+    """Symmetric/triangular storage on one rank: only the tiles with
+    m >= n (``uplo=LOWER``) or m <= n (``UPPER``) exist
+    (``sym_two_dim_rectangle_cyclic.c``); any other raises ``KeyError``."""
+
+    LOWER, UPPER = 0, 1
+
+    def __init__(self, *args, uplo: int = 0, **kw) -> None:
+        if uplo not in (self.LOWER, self.UPPER):
+            raise ValueError(f"uplo must be LOWER (0) or UPPER (1), "
+                             f"got {uplo!r}")
+        super().__init__(*args, **kw)
+        self.uplo = uplo
+
+    def _check(self, m: int, n: int) -> None:
+        if self.uplo == self.LOWER and n > m:
+            raise KeyError(f"upper tile ({m},{n}) of a lower-sym matrix")
+        if self.uplo == self.UPPER and m > n:
+            raise KeyError(f"lower tile ({m},{n}) of an upper-sym matrix")
+
+    def data_of(self, m: int, n: int) -> Data:
+        self._check(m, n)
+        return super().data_of(m, n)
+
+    def rank_of(self, m: int, n: int) -> int:
+        self._check(m, n)
+        return super().rank_of(m, n)
+
+    def has_tile(self, m: int, n: int) -> bool:
+        if not super().has_tile(m, n):
+            return False
+        return not (self.uplo == self.LOWER and n > m
+                    or self.uplo == self.UPPER and m > n)
 
 
 class VectorTwoDimCyclic(DataCollection):

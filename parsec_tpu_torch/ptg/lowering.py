@@ -916,6 +916,8 @@ def _build_wavefront(tp, infos, stores: _Stores) -> Callable:
             st[name][idx.on(st[name].device)] = saved[name]
         return st
 
+    step_fn.levels = len(levels)
+    step_fn.groups = sum(len(specs) for specs in levels)
     return step_fn
 
 
@@ -1124,6 +1126,10 @@ class LoweredTaskpool:
         self._stores = stores
         self.mode = mode    # "chain-collapse" | "wavefront" | "unrolled"
         self.device = device
+        # the wavefront plan's size: its levels, and its batched calls
+        # (groups) over all levels; None for the other passes
+        self.levels = getattr(step_fn, "levels", None)
+        self.groups = getattr(step_fn, "groups", None)
 
     def initial_stores(self) -> dict[str, torch.Tensor]:
         return self._stores.materialize(self.device)

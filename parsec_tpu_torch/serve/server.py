@@ -22,7 +22,9 @@ one Context's workers running and gives every client thread::
   generation stream on the server's continuous batcher
   (:mod:`parsec_tpu_torch.llm.batcher`), which decodes on the card.
 
-Left out: ``submit_lowered`` (the lowering is not ported), the
+Left out: ``submit_lowered`` (the lowering itself is ported,
+:func:`~parsec_tpu_torch.ptg.lowering.lower_taskpool`; the server's
+entry for lowered pools and its lowering cache are not), the
 task-budget admission cost (see :mod:`.admission`), spans, PINS
 events, the flight recorder's stall section, the SLO metrics plane
 (``metrics()``) and the tuning-DB consult.

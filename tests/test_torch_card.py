@@ -1,7 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (K1, the
-GEMM; K2, the ragged paged-attention page update; K3, the 1-D stencil),
-the device module, decode serving and the lowered taskpools on the card.
-They skip without one.
+GEMM, with its transposed and subtracting forms; K2, the ragged
+paged-attention page update; K3, the 1-D stencil), the device module,
+decode serving, the tiled Cholesky and LU, and the lowered taskpools on
+the card.  They skip without one.
 
 This file imports no JAX, so it also runs where JAX is not installed;
 there, skip ``tests/conftest.py`` (it sets JAX up)::
@@ -27,11 +28,15 @@ import torch
 from parsec_tpu_torch.core.params import params
 from parsec_tpu_torch.device import registry
 from parsec_tpu_torch.device.cuda import init_cuda_devices
-from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+from parsec_tpu_torch.data_dist.matrix import (SymTwoDimBlockCyclic,
+                                               TiledMatrix,
+                                               VectorTwoDimCyclic)
 from parsec_tpu_torch.llm import ToyLM
-from parsec_tpu_torch.data_dist.matrix import VectorTwoDimCyclic
+from parsec_tpu_torch.models import cholesky as chol
+from parsec_tpu_torch.models import lu
 from parsec_tpu_torch.models.stencil import stencil_1d_ptg, stencil_reference
 from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+from parsec_tpu_torch.ops import factor
 from parsec_tpu_torch.ops import gemm as tg
 from parsec_tpu_torch.ops import ragged_attention as ra
 from parsec_tpu_torch.ops import stencil as ks
@@ -465,3 +470,272 @@ def test_lowered_gemm_on_the_card(card, ab_dtype):
         want = A.to_tensor().double() @ B.to_tensor().double()
         torch.testing.assert_close(C.to_tensor().double(), want, rtol=1e-4,
                                    atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K1's transposed and subtracting forms; tiled Cholesky and LU on the card
+# ---------------------------------------------------------------------------
+
+# (trans_b, subtract, with C): the forms the factorizations call
+K1_FORMS = {"nt_sub": (True, True, True),     # gemm_nt, syrk_ln
+            "nt": (True, False, False),       # trsm_rlt
+            "nn_sub": (False, True, True),    # lu_gemm
+            "nt_add": (True, False, True),
+            "nn_sub_noc": (False, True, False)}
+
+
+def _form_inputs(shape, form, in_dtype=torch.float32, seed=20):
+    trans_b, subtract, with_c = K1_FORMS[form]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    *lead, m, n, k = shape
+    a = torch.randn(*lead, m, k, device="cuda", generator=g).to(in_dtype)
+    b = torch.randn(*lead, *((n, k) if trans_b else (k, n)), device="cuda",
+                    generator=g).to(in_dtype)
+    c = torch.randn(*lead, m, n, device="cuda", generator=g) \
+        if with_c else None
+    return a, b, c, dict(trans_b=trans_b, subtract=subtract)
+
+
+@pytest.mark.parametrize("entry", ["strided", "tiles"])
+@pytest.mark.parametrize("prec,variant", [("default", "mma_tf32"),
+                                          ("highest", "simt_fp32")])
+@pytest.mark.parametrize("shape", [(3, 130, 264, 72), (2, 256, 192, 2052)])
+@pytest.mark.parametrize("form", sorted(K1_FORMS))
+def test_k1_forms_match_plain(card, precision, form, shape, prec, variant,
+                              entry):
+    """Each form on both fp32 variants, strided and as a tile list, held
+    against the plain version of the variant's arithmetic (TF32-rounded
+    inputs for ``mma_tf32``): M/N edges, and 65 k-tiles of 32 with a tail
+    of 4."""
+    a, b, c, kw = _form_inputs(shape, form)
+    *_, m, n, k = shape
+    assert tg.k1_variant(a.dtype, torch.float32, m, n, k, True, prec,
+                         **kw) == variant
+    params.set("gemm_precision", prec)
+    before = dict(tg.gemm_update.launches_by_variant)
+    if entry == "strided":
+        got = tg.gemm_update(a, b, c, **kw)
+    else:
+        got = torch.stack(tg.gemm_update_tiles(
+            list(a), list(b), None if c is None else list(c), **kw))
+    torch.cuda.synchronize()
+    assert _variant_delta(before) == {variant: 1}
+    want = tg.gemm_update_plain(a, b, c, tf32=variant == "mma_tf32", **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("form", ["nt_sub", "nn_sub"])
+def test_bf16_forms_run_on_simt(card, form):
+    """``wgmma_bf16`` takes neither new form: the rule sends bf16 with
+    ``trans_b`` or ``subtract`` to ``simt_fp32``."""
+    a, b, c, kw = _form_inputs((2, 128, 256, 64), form, torch.bfloat16)
+    assert tg.k1_variant(a.dtype, c.dtype, 128, 256, 64, True, "default",
+                         **kw) == "simt_fp32"
+    before = dict(tg.gemm_update.launches_by_variant)
+    got = tg.gemm_update(a, b, c, **kw)
+    torch.cuda.synchronize()
+    assert _variant_delta(before) == {"simt_fp32": 1}
+    torch.testing.assert_close(got, tg.gemm_update_plain(a, b, c, **kw),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_syrk_tile_list_reads_one_tile_as_a_and_b(card, precision):
+    params.set("gemm_precision", "highest")
+    g = torch.Generator(device="cuda").manual_seed(21)
+    as_ = [torch.randn(128, 128, device="cuda", generator=g)
+           for _ in range(4)]
+    ts = [torch.randn(128, 128, device="cuda", generator=g)
+          for _ in range(4)]
+    got = chol.syrk_tiles(as_, ts)
+    for x, a, t in zip(got, as_, ts):
+        torch.testing.assert_close(x, t - a @ a.T, rtol=1e-4, atol=1e-3)
+
+
+def _spd_tiles(n, count, seed):
+    a = torch.from_numpy(np.stack([chol.make_spd_fast(n, seed + i)
+                                   for i in range(count)])).cuda()
+    return a
+
+
+@pytest.mark.parametrize("prec", ["default", "highest"])
+def test_cholesky_bodies_match_plain(card, precision, prec):
+    """The batched POTRF, TRSM, SYRK and GEMM bodies on the card against
+    the same list forms on the CPU (the plain route of every operation).
+    Under ``highest`` both sides are strict fp32: ``rtol=1e-4, atol=1e-4``
+    (the library's factor and solve differ in order only); under
+    ``default`` the products are TF32, within 2^-10 of each product's
+    size: ``rtol=5e-3, atol=5e-3`` at nb=256 with unit-scale factors."""
+    params.set("gemm_precision", prec)
+    tol = dict(rtol=1e-4, atol=1e-4) if prec == "highest" \
+        else dict(rtol=5e-3, atol=5e-3)
+    nb = 256
+    spd = _spd_tiles(nb, 3, 30)
+    L = chol.potrf_tiles(list(spd))
+    for x, s in zip(L, spd):
+        torch.testing.assert_close(x.cpu(), factor.potrf(s.cpu()), **tol)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    cs = [torch.randn(nb, nb, device="cuda", generator=g) for _ in range(5)]
+    ls = [L[0], L[0], L[1], L[2], L[0]]         # a shared diagonal tile
+    for got, want in zip(chol.trsm_tiles(ls, cs),
+                         chol.trsm_tiles([x.cpu() for x in ls],
+                                         [c.cpu() for c in cs])):
+        torch.testing.assert_close(got.cpu(), want, **tol)
+    a, b, c = (torch.randn(4, nb, nb, device="cuda", generator=g)
+               for _ in range(3))
+    for got, want in ((chol.syrk_tiles(list(a), list(c)),
+                       chol.syrk_tiles(list(a.cpu()), list(c.cpu()))),
+                      (chol.gemm_nt_tiles(list(a), list(b), list(c)),
+                       chol.gemm_nt_tiles(list(a.cpu()), list(b.cpu()),
+                                          list(c.cpu())))):
+        torch.testing.assert_close(torch.stack(got).cpu(),
+                                   torch.stack(want), rtol=tol["rtol"],
+                                   atol=tol["atol"] * nb)
+    # the stacked forms, a broadcast diagonal tile among them
+    ls_b = L[1][None].expand(4, nb, nb)
+    torch.testing.assert_close(
+        chol.trsm_stacked(ls_b, a).cpu(),
+        torch.stack(chol.trsm_tiles([L[1].cpu()] * 4, list(a.cpu()))),
+        **tol)
+
+
+def test_lu_bodies_match_plain(card, precision):
+    """GETRF on the card (``lu_factor_ex`` without pivoting) against the
+    rank-1 loop on the same tile, and the TRSM_L/TRSM_U/GEMM bodies
+    against their CPU routes, in strict fp32 (``highest``):
+    ``rtol=1e-4, atol=1e-4``; a diagonally dominant tile keeps the
+    factors well scaled."""
+    params.set("gemm_precision", "highest")
+    nb = 256
+    t = torch.from_numpy(np.stack([lu.make_dd(nb, 40 + i)
+                                   for i in range(2)])).cuda()
+    got = lu.getrf_tiles(list(t))
+    for x, s in zip(got, t):
+        torch.testing.assert_close(x, factor.getrf_nopiv_plain(s),
+                                   rtol=1e-4, atol=1e-4)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    cs = [torch.randn(nb, nb, device="cuda", generator=g) for _ in range(3)]
+    ks = [got[0], got[1], got[0]]
+    for fn in (lu.trsm_l_tiles, lu.trsm_u_tiles):
+        for x, want in zip(fn(ks, cs), fn([k.cpu() for k in ks],
+                                          [c.cpu() for c in cs])):
+            torch.testing.assert_close(x.cpu(), want, rtol=1e-4, atol=1e-4)
+    a, b, c = (torch.randn(3, nb, nb, device="cuda", generator=g)
+               for _ in range(3))
+    torch.testing.assert_close(
+        torch.stack(lu.gemm_tiles(list(a), list(b), list(c))).cpu(),
+        torch.stack(lu.gemm_tiles(list(a.cpu()), list(b.cpu()),
+                                  list(c.cpu()))), rtol=1e-4, atol=1e-2)
+
+
+# the tile-error gate of TF32 products (chip_smoke.py's FACTOR_TOL): the
+# TRSMs' rounding of the panel (2^-11) reads about 4e-4; one dropped
+# trailing update reads about sqrt(nb)/n, 2e-2 at n=1024, nb=256
+TF32_TILE_TOL = 1e-3
+
+
+def _tile_error(factored: np.ndarray, a: np.ndarray, kind: str,
+                nb: int) -> float:
+    """The factor against the float64 factor of ``a``, tile by tile."""
+    f = torch.from_numpy(factored).cuda().double()
+    ref = torch.from_numpy(a).cuda().double()
+    if kind == "cholesky":
+        return factor.tile_error(torch.tril(f), torch.linalg.cholesky(ref),
+                                 nb)
+    return factor.tile_error(
+        f, torch.linalg.lu_factor_ex(ref, pivot=False)[0], nb)
+
+
+def _backward_error(factored: np.ndarray, a: np.ndarray, kind: str) -> float:
+    f = torch.from_numpy(factored).cuda().double()
+    if kind == "cholesky":
+        L = torch.tril(f)
+        prod = L @ L.T
+    else:
+        prod = (torch.tril(f, -1) + torch.eye(len(f), device="cuda",
+                                              dtype=torch.float64)) \
+            @ torch.triu(f)
+    ref = torch.from_numpy(a).cuda().double()
+    return float(torch.linalg.norm(ref - prod) / torch.linalg.norm(ref))
+
+
+def test_dynamic_cholesky_syncs_no_host(card):
+    """A small dynamic Cholesky with the card's sync debug mode at
+    ``error``: no body (POTRF's ``cholesky_ex``, the inverses, K1's tile
+    lists) may wait on the card from the host."""
+    n, nb = 1024, 256
+    a = chol.make_spd(n, seed=5)
+    A = SymTwoDimBlockCyclic.from_dense("A", a, nb, nb)
+    launches = tg.gemm_update.launches
+    ctx = Context(nb_cores=2)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ctx.add_taskpool(chol.tiled_cholesky_ptg(A))
+        ctx.wait(timeout=120)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        ctx.fini(timeout=30)
+    card.sync()
+    card.flush_cache()
+    assert tg.gemm_update.launches > launches
+    # TF32 products: the backward error is a few 2^-11
+    assert _backward_error(A.to_dense(), a, "cholesky") < 5e-3
+    assert _tile_error(A.to_dense(), a, "cholesky", nb) < TF32_TILE_TOL
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu"])
+@pytest.mark.parametrize("path", ["dynamic", "lowered"])
+def test_factorization_on_the_card(card, kind, path):
+    """Both factorizations through both paths at n=1024, nb=256, fp32 at
+    the default knob; every tile product on K1 (``mma_tf32``), the
+    backward error within a few TF32 roundings (2^-11): under 5e-3, and
+    each tile within ``TF32_TILE_TOL`` of the float64 factor."""
+    n, nb = 1024, 256
+    a, A = _factor_run(card, kind, path, n, nb)
+    assert _backward_error(A.to_dense(), a, kind) < 5e-3
+    assert _tile_error(A.to_dense(), a, kind, nb) < TF32_TILE_TOL
+
+
+def _factor_run(card, kind, path, n, nb):
+    """One factorization of ``make_spd_fast``/``make_dd(seed=6)`` on the
+    card through the dynamic or lowered path; every product on K1's
+    ``mma_tf32``.  Returns the input and the factored matrix."""
+    if kind == "cholesky":
+        a = chol.make_spd_fast(n, seed=6)
+        A = SymTwoDimBlockCyclic.from_dense("A", a.copy(), nb, nb)
+        tp = chol.tiled_cholesky_ptg(A)
+    else:
+        a = lu.make_dd(n, seed=6)
+        A = TiledMatrix.from_dense("A", a.copy(), nb, nb)
+        tp = lu.tiled_lu_ptg(A)
+    before = dict(tg.gemm_update.launches_by_variant)
+    if path == "lowered":
+        low = lower_taskpool(tp)
+        assert low.mode == "wavefront"
+        low.execute()
+    else:
+        ctx = Context(nb_cores=2)
+        try:
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=120)
+            card.sync()
+        finally:
+            ctx.fini(timeout=30)
+        card.flush_cache()
+    ran = _variant_delta(before)
+    assert set(ran) == {"mma_tf32"}, ran
+    return a, A
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu"])
+@pytest.mark.parametrize("path", ["dynamic", "lowered"])
+def test_factor_gate_sees_a_dropped_update(card, kind, path):
+    """The control of ``TF32_TILE_TOL``: the same run with the first C
+    tile of the trailing update's first call passed through (one GEMM
+    task's update dropped) reads above the gate."""
+    mod, name = (chol, "gemm_nt") if kind == "cholesky" else (lu, "lu_gemm")
+    n, nb = 1024, 256
+    with factor.one_update_dropped(name, *mod._FORMS[name]) as dropped:
+        a, A = _factor_run(card, kind, path, n, nb)
+    assert dropped == [1]
+    assert _tile_error(A.to_dense(), a, kind, nb) > TF32_TILE_TOL

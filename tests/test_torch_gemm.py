@@ -462,3 +462,177 @@ def test_lowered_gemm_under_both_settings_matches_jax(knobs, ab_dtype):
             outs[prec], a.astype(np.float64) @ b.astype(np.float64),
             **FP32_TOL)
     np.testing.assert_array_equal(outs["default"], outs["highest"])
+
+
+# ---------------------------------------------------------------------------
+# the transposed and subtracting forms (the Cholesky and LU updates)
+# ---------------------------------------------------------------------------
+
+# form -> (trans_b, subtract, with C); each against the JAX body it serves
+FORMS = {"nt-sub": (True, True, True),      # gemm_nt, syrk_ln
+         "nt-noc": (True, False, False),    # trsm_rlt's product
+         "nn-sub": (False, True, True),     # lu_gemm
+         "nn-noc": (False, False, False),   # lu_trsm_l/u's products
+         "nt": (True, False, True),
+         "nn-sub-noc": (False, True, False)}
+
+
+def _form_inputs(seed, batch, m, n, k, form):
+    trans_b, subtract, with_c = FORMS[form]
+    a, b, c = _inputs(seed, batch, m, n, k, "fp32")
+    if trans_b:
+        b = np.ascontiguousarray(np.swapaxes(b, -1, -2))
+    return a, b, (c if with_c else None), dict(trans_b=trans_b,
+                                               subtract=subtract)
+
+
+def _jax_form(a, b, c, trans_b, subtract):
+    """The JAX package's arithmetic for a form: ``c ± a @ op(b)`` with
+    fp32 products (``parsec_tpu/models/cholesky.py:_gemm_nt_traceable``,
+    ``models/lu.py:_gemm_nn_traceable``)."""
+    bb = jnp.swapaxes(jnp.asarray(b), -1, -2) if trans_b else jnp.asarray(b)
+    p = jnp.matmul(jnp.asarray(a), bb,
+                   precision=jax.lax.Precision.HIGHEST)
+    if c is None:
+        return -p if subtract else p
+    return jnp.asarray(c) - p if subtract else jnp.asarray(c) + p
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("kind", sorted(SHAPES))
+def test_forms_plain_and_wrappers_match_jax(form, kind):
+    """Each form's plain version, and the three CPU wrappers that take
+    it (strided, tile list, stacked), against the JAX arithmetic."""
+    batch, m, n, k = SHAPES[kind]
+    a, b, c, kw = _form_inputs(6, batch, m, n, k, form)
+    if FORMS[form] == (True, True, True):
+        ref = (jax.vmap(jchol_gemm_nt) if batch else jchol_gemm_nt)(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(c))
+    else:
+        ref = _jax_form(a, b, c, **kw)
+    ta, tb = to_tensor(a), to_tensor(b)
+    tc = None if c is None else to_tensor(c)
+    got = tg.gemm_update_plain(ta, tb, tc, **kw)
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    np.testing.assert_allclose(to_numpy(got), _f32(ref), **FP32_TOL)
+    assert torch.equal(tg.gemm_update(ta, tb, tc, **kw), got)
+    assert torch.equal(tg.gemm_update_stacked(ta, tb, tc, **kw), got)
+    lead = ta.reshape(-1, m, k), tb.reshape(-1, *tb.shape[-2:])
+    tiles = tg.gemm_update_tiles(
+        list(lead[0]), list(lead[1]),
+        None if tc is None else list(tc.reshape(-1, m, n)), **kw)
+    assert torch.equal(torch.stack(tiles).reshape(got.shape), got)
+
+
+def jchol_gemm_nt(a, b, c):
+    from parsec_tpu.models.cholesky import _gemm_nt_traceable
+    return _gemm_nt_traceable(a, b, c)
+
+
+def test_plain_tf32_rounds_both_operands_of_a_transposed_form():
+    a, b, c, kw = _form_inputs(7, None, 32, 48, 64, "nt-sub")
+    ta, tb, tc = to_tensor(a), to_tensor(b), to_tensor(c)
+    got = tg.gemm_update_plain(ta, tb, tc, tf32=True, **kw)
+    want = tc.double() - tg.round_tf32(ta).double() \
+        @ tg.round_tf32(tb).double().T
+    torch.testing.assert_close(got.double(), want, **FP32_TOL)
+
+
+def test_transposed_form_checks_the_transposed_shape():
+    a, b, c = torch.randn(8, 4), torch.randn(6, 4), torch.randn(8, 6)
+    tg.gemm_update(a, b, c, trans_b=True)
+    for bad in (dict(b=torch.randn(4, 6)), dict(c=torch.randn(6, 8))):
+        args = dict(a=a, b=b, c=c) | bad
+        with pytest.raises(ValueError):
+            tg.gemm_update(args["a"], args["b"], args["c"], trans_b=True)
+
+
+@pytest.mark.parametrize("a_dtype,m,n,k,aligned,prec,trans_b,sub,variant", [
+    # the factorizations' tiles: the dynamic paths' 1024, the lowered 512
+    (F32, 1024, 1024, 1024, True, "default", True, True, "mma_tf32"),
+    (F32, 1024, 1024, 1024, True, "default", True, False, "mma_tf32"),
+    (F32, 1024, 1024, 1024, True, "default", False, True, "mma_tf32"),
+    (F32, 512, 512, 512, True, "default", True, True, "mma_tf32"),
+    (F32, 1024, 1024, 1024, True, "highest", True, True, "simt_fp32"),
+    (F32, 512, 512, 512, True, "highest", False, True, "simt_fp32"),
+    # tests/test_torch_card.py
+    (F32, 130, 264, 72, True, "default", True, True, "mma_tf32"),
+    (F32, 256, 192, 2052, True, "default", True, False, "mma_tf32"),
+    (F32, 130, 264, 72, True, "highest", False, True, "simt_fp32"),
+    # the ragged edge tiles of n=200/nb=64: 8-wide panels
+    (F32, 8, 64, 64, True, "default", True, True, "mma_tf32"),
+    (F32, 64, 8, 64, True, "default", True, True, "mma_tf32"),
+    (F32, 64, 64, 8, True, "default", True, True, "mma_tf32"),
+    (F32, 64, 66, 64, True, "default", True, True, "simt_fp32"),
+    (F32, 64, 64, 66, True, "default", True, True, "simt_fp32"),
+    (F32, 64, 64, 64, False, "default", True, True, "simt_fp32"),
+    # wgmma_bf16 takes neither new form
+    (BF16, 128, 256, 64, True, "default", True, True, "simt_fp32"),
+    (BF16, 128, 256, 64, True, "default", True, False, "simt_fp32"),
+    (BF16, 128, 256, 64, True, "default", False, True, "simt_fp32"),
+    (BF16, 128, 256, 64, True, "default", False, False, "wgmma_bf16")])
+def test_k1_variant_rule_for_the_new_forms(a_dtype, m, n, k, aligned, prec,
+                                           trans_b, sub, variant):
+    assert tg.k1_variant(a_dtype, F32, m, n, k, aligned, prec, trans_b,
+                         sub) == variant
+
+
+def test_wrappers_pass_the_form_and_count_it(knobs, monkeypatch):
+    """The forms reach the launch (meta tensors standing in for the
+    card; the tile-list entry needs pinned memory, which only a card
+    gives, and goes through the same ``_launch``), pick their variant by
+    the rule, and count by form."""
+    seen = []
+    monkeypatch.setattr(tg, "_require_cuda", lambda t: None)
+    monkeypatch.setattr(tg, "_launch", lambda *a, **kw: seen.append(
+        (a[8], kw.get("trans_b"), kw.get("subtract"), a[2] is None)))
+    monkeypatch.setattr(tg.gemm_update, "launches", 0)
+    monkeypatch.setattr(tg.gemm_update, "launches_by_variant",
+                        dict.fromkeys(tg.K1_VARIANTS, 0))
+    monkeypatch.setattr(tg.gemm_update, "launches_by_form", {})
+    params.set("gemm_precision", "default")
+    a = torch.empty(2, 8, 8, device="meta")
+    tg.gemm_update(a, a, a, trans_b=True, subtract=True)
+    tg.gemm_update(a, a, None, trans_b=True)
+    tg.gemm_update_stacked(a, a, a, subtract=True)
+    tg.gemm_update(a.bfloat16(), a.bfloat16(), a, trans_b=True)
+    tg.gemm_update(a, a, a)
+    assert seen == [("mma_tf32", True, True, False),
+                    ("mma_tf32", True, False, True),
+                    ("mma_tf32", False, True, False),
+                    ("simt_fp32", True, False, False),
+                    ("mma_tf32", False, False, False)]
+    assert tg.gemm_update.launches_by_form == {
+        "nt-sub": 1, "nt-noc": 1, "nn-sub": 1, "nt": 1, "nn": 1}
+    assert tg.gemm_update.launches == 5
+
+
+@pytest.mark.parametrize("case", ["trsm_rlt", "lu_trsm_l"])
+def test_stacked_form_lists_a_shared_tile_without_copying(case, monkeypatch):
+    """A group's shared tile (a broadcast view, as the wavefront pass
+    hands a TRSM group its inverse) goes to the tile-list launch as one
+    pointer repeated, and the result matches the copied operand's."""
+    g = torch.Generator().manual_seed(12)
+    inv = torch.randn(1, 12, 12, generator=g)
+    cs = torch.randn(5, 12, 12, generator=g)
+    shared = inv.expand(5, 12, 12)
+    args = (cs, shared) if case == "trsm_rlt" else (shared, cs)
+    kw = dict(trans_b=case == "trsm_rlt")
+    seen = []
+    real = tg.gemm_update_tiles
+
+    def spy(as_, bs, cs=None, **kw):
+        seen.append([{t.data_ptr() for t in col} for col in (as_, bs)])
+        return real(as_, bs, cs, **kw)
+
+    monkeypatch.setattr(tg, "gemm_update_tiles", spy)
+    got = tg.gemm_update_stacked(*args, **kw)
+    want = tg.gemm_update_plain(*(t.contiguous() for t in args), **kw)
+    assert got.shape == (5, 12, 12) and got.is_contiguous()
+    # fp32 products of 12 terms, summed in per-tile order: a few ulps
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    shared_col = 1 if case == "trsm_rlt" else 0
+    assert len(seen) == 1 and seen[0][shared_col] == {inv.data_ptr()}
+    assert len(seen[0][1 - shared_col]) == 5
+    with pytest.raises(ValueError, match="out"):
+        real(list(cs), [inv[0]] * 5, out=torch.empty(4, 12, 12))

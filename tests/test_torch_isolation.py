@@ -1,8 +1,8 @@
 """The port stands alone: it imports neither ``jax`` nor ``parsec_tpu``.
 
 Checked two ways: fresh interpreters import ``parsec_tpu_torch`` and run
-a 2x2x2-tile GEMM, a served LLM stream, and a lowered stencil and GEMM,
-then inspect ``sys.modules``
+a 2x2x2-tile GEMM, a served LLM stream, a lowered stencil and GEMM, and
+a tiled Cholesky (dynamic and lowered), then inspect ``sys.modules``
 (subprocesses, because this test process already holds jax through
 ``conftest.py``); and an AST scan of every module of the package finds
 no such import.
@@ -97,7 +97,8 @@ def test_the_package_has_the_slice_modules():
                 "llm/model.py", "llm/decode.py", "llm/batcher.py",
                 "serve/admission.py", "serve/fair.py", "serve/server.py",
                 "ops/stencil.py", "models/stencil.py",
-                "models/stencil2d.py"):
+                "models/stencil2d.py", "ops/factor.py", "models/cholesky.py",
+                "models/lu.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu"):
         assert (PORT / "csrc" / src).is_file(), src
@@ -168,6 +169,45 @@ def test_lowering_loads_no_jax_and_no_parsec_tpu():
     assert out["ok"] and out["modes"] == ["wavefront", "chain-collapse"]
     assert "parsec_tpu_torch.ops.stencil" in out["modules"]
     assert "parsec_tpu_torch.ptg.lowering" in out["modules"]
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_a_cholesky_loads_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter builds and runs a port Cholesky (the dynamic
+    pool on the device module around the host, then the lowered pool)
+    with ``jax`` and ``parsec_tpu`` absent from ``sys.modules``."""
+    code = textwrap.dedent("""
+        import json, sys
+        import numpy as np
+        from parsec_tpu_torch.data_dist.matrix import SymTwoDimBlockCyclic
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.models.cholesky import (make_spd,
+                                                      tiled_cholesky_ptg)
+        from parsec_tpu_torch.ptg.lowering import lower_taskpool
+        from parsec_tpu_torch.runtime import Context
+        dev = init_cuda_devices(device="cpu")[0]
+        a = make_spd(64, seed=0)
+        ref = np.linalg.cholesky(a.astype(np.float64))
+        A = SymTwoDimBlockCyclic.from_dense("A", a, 16, 16)
+        ctx = Context(nb_cores=2)
+        ctx.add_taskpool(tiled_cholesky_ptg(A))
+        ctx.wait(timeout=60)
+        ctx.fini(timeout=30)
+        ok = bool(np.allclose(np.tril(A.to_dense()), ref, atol=1e-4))
+        B = SymTwoDimBlockCyclic.from_dense("B", a, 16, 16)
+        low = lower_taskpool(tiled_cholesky_ptg(B), device="cpu")
+        low.execute()
+        ok = ok and bool(np.allclose(np.tril(B.to_dense()), ref, atol=1e-4))
+        print(json.dumps({"ok": ok, "tasks": dev.executed_tasks,
+                          "mode": low.mode, "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"] and out["tasks"] == 20 and out["mode"] == "wavefront"
+    assert "parsec_tpu_torch.models.cholesky" in out["modules"]
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded
 
