@@ -112,6 +112,23 @@ any phase fails:
    passes through): its tile error must exceed the gate; and the TF32
    run's readings must exceed the ``highest`` gates.  So every run shows
    that its gates can fail.
+13. **path dtd_gemm** (after **path**) — the JAX bench's ``dtd_gemm``
+   stage at full size: n=8192, nb=1024, fp32, 512 ``insert_task(gemm,
+   (A[m][k], INPUT), (B[k][n], INPUT), (C[m][n], INOUT),
+   cuda_kernel="gemm")`` calls through ``Context`` and
+   ``init_cuda_devices()``, after a 2x2-tile run off the clock: the wall
+   from the first insertion to the last kernel's completion, the time
+   inside ``insert_task``, K1's launches by variant and the mean batch;
+   every task on the card (the host body never called), and all of C, home
+   after ``data_flush_all``, within the TF32 bound of a float64 product.
+   The PTG GEMM's wall stands beside it: phase **path**'s cold first run,
+   and a run on the same tiles after the DTD run, under the same bound.
+14. **dispatch** — per-task dispatch on the card machine's host: the EP
+   pool of ``models/ep.py`` (50 lanes, 10,000 CTL-only tasks with
+   empty bodies), median of 5: ``dispatch_us`` on the compiled-DAG
+   executor (it fails unless the executor and the native core engaged)
+   and ``dynamic_dispatch_us`` under each of the eleven schedulers,
+   beside the host CPU.
 
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
@@ -124,6 +141,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -470,6 +488,278 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
     return rec
 
 
+def _dtd_gemm_run(torch, dev, nt: int, nb: int, seed: int) -> dict:
+    """One DTD GEMM through ``Context(nb_cores=0)``: host tiles made from
+    ``seed`` (set-up, off the clock), then the ``nt**3`` insertions of
+    ``models/tiled_gemm.py:insert_dtd_gemm`` (``cuda_kernel="gemm"``, the
+    bench's order).  The wall runs from the first insertion to the last
+    kernel's completion (the caller drives the pool until no task is in
+    flight, then synchronizes); ``data_flush_all`` and the pool's wait
+    follow, off the clock."""
+    from parsec_tpu_torch.dtd import DTDTaskpool
+    from parsec_tpu_torch.models.tiled_gemm import insert_dtd_gemm
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.runtime import Context
+
+    g = torch.Generator().manual_seed(seed)
+    A = [[torch.randn(nb, nb, generator=g) for _ in range(nt)]
+         for _ in range(nt)]
+    B = [[torch.randn(nb, nb, generator=g) for _ in range(nt)]
+         for _ in range(nt)]
+    C = [[torch.zeros(nb, nb) for _ in range(nt)] for _ in range(nt)]
+    host_calls = []
+
+    def gemm(a, b, c):                 # the host body: must never run
+        host_calls.append(1)
+        c += a @ b
+
+    _k1_reset(tg)                        # counts from here are the run's
+    before = dict(tasks=dev.tasks_by_class["gemm"],
+                  dispatches=dev.dispatches_by_class["gemm"],
+                  batched=dev.batched_dispatches, stage_in=dev.t_stage_in,
+                  pin=dev.t_pin, manager=dev.t_manager, h2d=dev.bytes_in)
+    ctx = Context(nb_cores=0)
+    tp = DTDTaskpool()
+    try:
+        ctx.add_taskpool(tp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        insert_s = insert_dtd_gemm(tp, A, B, C, body=gemm)
+        ctx._drive_until(lambda: tp._inflight == 0, timeout=600)
+        dev.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        tp.data_flush_all()
+        tp.wait(timeout=600)
+        flush_s = time.perf_counter() - t1
+    finally:
+        ctx.fini(timeout=60)
+    dispatches = dev.dispatches_by_class["gemm"] - before["dispatches"]
+    tasks = dev.tasks_by_class["gemm"] - before["tasks"]
+    return dict(A=A, B=B, C=C, wall_s=wall, insert_s=insert_s,
+                flush_s=flush_s, tasks=tasks, host_calls=len(host_calls),
+                dispatches=dispatches,
+                batched=dev.batched_dispatches - before["batched"],
+                stage_in_s=dev.t_stage_in - before["stage_in"],
+                pin_s=dev.t_pin - before["pin"],
+                manager_s=dev.t_manager - before["manager"],
+                h2d_mb=(dev.bytes_in - before["h2d"]) / 1e6,
+                gemm_launches=tg.gemm_update.launches,
+                gemm_launches_by_variant=dict(
+                    tg.gemm_update.launches_by_variant))
+
+
+def _ptg_gemm_warm(torch, dev, A: list, B: list, nb: int) -> dict:
+    """The PTG dynamic GEMM (phase ``path``'s pool) on the DTD run's host
+    tiles, run after it: the same set-up (``Context(nb_cores=0)``, tiles
+    made before the clock, the device module and the pinned host
+    allocator as the DTD run left them), so its wall compares with the
+    DTD wall, which phase ``path``'s cold first run does not.  Returns
+    its wall, manager and stage-in times and C on the card in float64."""
+    from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+    from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+    from parsec_tpu_torch.runtime import Context
+
+    nt = len(A)
+    n = nt * nb
+    TA = TiledMatrix("A", n, n, nb, nb, init_fn=lambda m, k, _: A[m][k])
+    TB = TiledMatrix("B", n, n, nb, nb, init_fn=lambda k, n_, _: B[k][n_])
+    TC = TiledMatrix("C", n, n, nb, nb)
+    for M in (TA, TB, TC):
+        for i in range(nt):
+            for j in range(nt):
+                M.data_of(i, j)
+    tasks0, manager0, stage0 = dev.executed_tasks, dev.t_manager, \
+        dev.t_stage_in
+    tp = tiled_gemm_ptg(TA, TB, TC)
+    ctx = Context(nb_cores=0)
+    t0 = time.perf_counter()
+    try:
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=600)
+        dev.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.fini(timeout=60)
+    dev.flush_cache()
+    _check(dev.executed_tasks - tasks0 == nt ** 3,
+           f"warm PTG GEMM: {dev.executed_tasks - tasks0} tasks on the card")
+    return dict(wall_s=wall, manager_s=dev.t_manager - manager0,
+                stage_in_s=dev.t_stage_in - stage0,
+                C=torch.from_numpy(TC.to_dense()).cuda().double())
+
+
+def phase_dtd_gemm(card: str, torch, path: dict, n: int = 8192,
+                   nb: int = 1024, seed: int = 9) -> dict:
+    """The JAX bench's ``dtd_gemm`` stage (``bench.py:707-769``) on the
+    card at its full size: n=8192, nb=1024, fp32, 512 DTD GEMM tasks
+    with ``cuda_kernel="gemm"`` through ``Context`` and
+    ``init_cuda_devices()`` at the default ``gemm_precision``, after a
+    2x2-tile run of the same kind off the clock.  Every task must run on
+    the card as K1 (``mma_tf32``), the host body never called, and all of
+    C, brought home by ``data_flush_all``, within ``2e-3 * (|A| @ |B|) +
+    1e-2`` of one float64 product on the card.  The PTG dynamic GEMM's
+    wall at the same size stands beside it twice: phase ``path``'s cold
+    first run, and a run on the same tiles after the DTD run (its C
+    under the same bound), the one that compares."""
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops
+
+    params.set("gemm_precision", "default")
+    dev = init_cuda_devices()[0]
+    warm = _dtd_gemm_run(torch, dev, 2, nb, seed + 1)
+    _check(warm["tasks"] == 8 and warm["host_calls"] == 0,
+           f"dtd warm-up: {warm['tasks']} tasks on the card, "
+           f"{warm['host_calls']} on the host")
+    del warm
+    nt = n // nb
+    r = _dtd_gemm_run(torch, dev, nt, nb, seed)
+    ntasks = nt ** 3
+    launches = r["gemm_launches"]
+    by_variant = r["gemm_launches_by_variant"]
+    _check(r["tasks"] == ntasks == 512,
+           f"{r['tasks']} DTD GEMM tasks ran on the card, expected 512")
+    _check(r["host_calls"] == 0,
+           f"{r['host_calls']} DTD GEMM tasks called the host body")
+    _check(launches > 0 and by_variant["mma_tf32"] == launches,
+           f"fp32 DTD tiles at the default gemm_precision ran {by_variant}")
+    _check(launches == r["dispatches"],
+           f"{launches} K1 launches for {r['dispatches']} dispatches")
+    A, B, C = r["A"], r["B"], r["C"]
+    for i in range(nt):
+        for j in range(nt):
+            t = C[i][j]
+            _check(t.device.type == "cpu" and tuple(t.shape) == (nb, nb)
+                   and t.dtype == torch.float32,
+                   f"C tile ({i},{j}) is {t.device} {tuple(t.shape)} "
+                   f"{t.dtype}")
+    warm = _ptg_gemm_warm(torch, dev, A, B, nb)
+    got = torch.cat([torch.cat(row, 1) for row in C]).cuda().double()
+    a64 = torch.cat([torch.cat(row, 1) for row in A]).cuda().double()
+    b64 = torch.cat([torch.cat(row, 1) for row in B]).cuda().double()
+    ref = a64 @ b64
+    bound = 2e-3 * (a64.abs() @ b64.abs()) + 1e-2
+    del a64, b64
+    worst = {}
+    for what, c in (("DTD", got), ("warm PTG", warm.pop("C"))):
+        _check(bool(torch.isfinite(c).all()), f"{what} C is not finite")
+        err = (c - ref).abs()
+        worst[what] = err.max().item()
+        bad = err > bound
+        if bool(bad.any()):
+            r_, c_ = (int(x) for x in bad.nonzero()[0])
+            raise RuntimeError(f"chip_smoke: {what} C wrong in tile "
+                               f"({r_ // nb},{c_ // nb}); max abs err "
+                               f"{worst[what]}")
+        del c, err, bad
+    del got, ref, bound
+    rec = dict(n=n, nb=nb, tasks=r["tasks"], host_body_calls=r["host_calls"],
+               wall_s=r["wall_s"], insert_s=r["insert_s"],
+               insert_us_per_task=r["insert_s"] / ntasks * 1e6,
+               gflops=gemm_flops(n, n, n) / r["wall_s"] / 1e9,
+               flush_s=r["flush_s"], stage_in_s=r["stage_in_s"],
+               pin_s=r["pin_s"], manager_s=r["manager_s"],
+               h2d_mb=r["h2d_mb"], gemm_launches=launches,
+               gemm_launches_by_variant=by_variant,
+               batched_dispatches=r["batched"],
+               mean_batch=r["tasks"] / max(1, launches),
+               ptg_wall_s=path["wall_s"], ptg_gflops=path["gflops"],
+               ptg_gemm_launches=path["gemm_launches"],
+               ptg_warm_wall_s=warm["wall_s"],
+               ptg_warm_gflops=(gemm_flops(n, n, n) / warm["wall_s"]
+                                / 1e9),
+               ptg_warm_manager_s=warm["manager_s"],
+               ptg_warm_stage_in_s=warm["stage_in_s"],
+               max_abs_err=worst["DTD"],
+               ptg_warm_max_abs_err=worst["warm PTG"])
+    _emit(card, phase="path", name="dtd_gemm", **rec)
+    return rec
+
+
+def _drain_us(builder, ntasks: int, reps: int, compiled: bool,
+              scheduler: str = "lfq") -> tuple[float, bool]:
+    """Median enqueue-to-drain wall per task in µs over ``reps`` fresh
+    pools, and whether the compiled-DAG executor took every one."""
+    import statistics
+
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.runtime import Context
+
+    saved = params.get("runtime_dag_compile")
+    params.set("runtime_dag_compile", compiled)
+    times, engaged = [], True
+    try:
+        for _ in range(reps):
+            tp = builder.build()
+            ctx = Context(nb_cores=0, scheduler=scheduler)
+            t0 = time.perf_counter()
+            ctx.add_taskpool(tp)
+            engaged &= getattr(tp, "_compiled_dag", None) is not None
+            ctx.wait(timeout=600)
+            times.append(time.perf_counter() - t0)
+            ctx.fini(timeout=60)
+    finally:
+        params.set("runtime_dag_compile", saved)
+    return statistics.median(times) / ntasks * 1e6, engaged
+
+
+def _host_cpu() -> str:
+    """The host CPU from ``/proc/cpuinfo``: its model name, or, where the
+    machine hides it, vendor, family, model number and clock."""
+    info: dict[str, str] = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break                     # the first processor is enough
+            key, _, value = line.partition(":")
+            info[key.strip()] = value.strip()
+    name = info.get("model name", "unknown")
+    if name != "unknown":
+        return name
+    return (f"{info.get('vendor_id', '?')} family {info.get('cpu family', '?')}"
+            f" model {info.get('model', '?')} at {info.get('cpu MHz', '?')}"
+            f" MHz")
+
+
+def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 5) -> dict:
+    """Per-task dispatch cost on the host of the card's machine: the EP
+    pool (50 lanes, 10,000 tasks, empty bodies) drained by the caller,
+    median of ``reps``; ``dispatch_us`` on the compiled-DAG executor (the
+    phase fails unless it and the native tier engaged), and
+    ``dynamic_dispatch_us`` under each of the eleven schedulers with
+    ``runtime_dag_compile`` off."""
+    from parsec_tpu_torch import native
+    from parsec_tpu_torch.models.ep import ep_pool
+    from parsec_tpu_torch.runtime import Context
+
+    _check(native.available(),
+           f"the native core did not build: {native.build_error}")
+    ctx = Context(nb_cores=0)
+    native_deps = ctx.deps.native_enabled
+    ctx.fini()
+    _check(native_deps, "the native dep table is off")
+    nt = 50
+    builder = ep_pool(nt, ntasks // nt)
+    us, engaged = _drain_us(builder, ntasks, reps, compiled=True)
+    _check(engaged, "the EP pool did not run on the compiled DAG")
+    dynamic = {}
+    for name in ("lfq", "ap", "spq", "ip", "gd", "rnd", "ll", "llp", "pbq",
+                 "ltq", "lhq"):
+        dyn_us, dyn_engaged = _drain_us(builder, ntasks, reps,
+                                        compiled=False, scheduler=name)
+        _check(not dyn_engaged, f"{name}: the dynamic run was compiled")
+        dynamic[name] = dyn_us
+    rec = dict(ntasks=ntasks, reps=reps, dispatch_us=us,
+               dispatch_path="compiled", dynamic_dispatch_us=dynamic,
+               native_lib=native.loaded_path(), host_cpu=_host_cpu(),
+               host_cpus=len(os.sched_getaffinity(0)))
+    _emit(card, phase="dispatch", **rec)
+    return rec
+
+
 def _attn_inputs(torch, batch: int, P: int, H: int, D: int, seed: int):
     """Tile lists for K2: fills cycle 0..P (so 0 and P occur), odd tasks
     carry a non-empty accumulator (one plain update on another page)."""
@@ -489,24 +779,45 @@ def _attn_inputs(torch, batch: int, P: int, H: int, D: int, seed: int):
             q3, page, acc, int(fills.sum()))
 
 
-def _kernel_device_ms(torch, fn, iters: int, name: str) -> float:
+def _kernel_device_ms(torch, fn, iters: int, name: str,
+                      counter) -> tuple[float, list]:
     """Mean device time of the kernel named ``name`` over ``iters`` calls
     of ``fn`` (one launch each), from ``torch.profiler``'s device events:
-    the kernel's own time, whatever the host spends enqueueing it."""
+    the kernel's own time, whatever the host spends enqueueing it.
+
+    ``counter`` is the wrapper's launch count, as a function object with
+    a ``launches`` attribute; it is set to 0 before each session and must
+    read ``iters`` after it, or the phase fails.  The profiler has been
+    seen to drop a device event of a session: only a session in which
+    the wrapper counted every launch and the profiler held fewer events
+    is taken again, up to three in all.  Returns the time and, for every
+    session, ``[wrapper launches, device events]``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA and name in e.name()]
-    _check(len(durs) == iters, f"{len(durs)} {name} device events for "
-           f"{iters} launches")
-    return sum(durs) / len(durs) / 1e6
+    sessions = []
+    for _ in range(3):
+        counter.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        launched = counter.launches
+        durs = [e.duration_ns()
+                for e in prof.profiler.kineto_results.events()
+                if e.device_type() == DeviceType.CUDA and name in e.name()]
+        sessions.append([launched, len(durs)])
+        _check(launched == iters,
+               f"{name}: the wrapper counted {launched} launches for "
+               f"{iters} calls (sessions {sessions})")
+        if len(durs) == iters:
+            return sum(durs) / len(durs) / 1e6, sessions
+        _check(len(durs) < iters,
+               f"{name}: {len(durs)} device events for {iters} launches")
+    raise RuntimeError(f"chip_smoke: {name} sessions [launches, device "
+                       f"events]: {sessions}")
 
 
 def phase_attn_kernel(card: str, torch) -> list:
@@ -563,8 +874,9 @@ def phase_attn_kernel(card: str, torch) -> list:
         ms = _time_ms(torch, tiles, iters)
         inplace_ms = _time_ms(torch, inplace, iters)
         host_ms = _host_ms(torch, inplace, iters)
-        kernel_ms = _kernel_device_ms(torch, inplace, iters,
-                                      "ragged_attn_page_kernel")
+        kernel_ms, kernel_sessions = _kernel_device_ms(
+            torch, inplace, iters, "ragged_attn_page_kernel",
+            ra.attn_page_update)
         strided_ms = _time_ms(torch, lambda: ra.attn_page_update(
             q3, page, acc), iters)
         plain_ms = _time_ms(torch, lambda: ra.attn_page_update_plain(
@@ -582,6 +894,7 @@ def phase_attn_kernel(card: str, torch) -> list:
                    strided_max_abs_err=errs["strided"], tol=tol,
                    plan=list(ra.plan(P, H, D, esize)), ms=inplace_ms,
                    tiles_ms=ms, host_ms=host_ms, kernel_ms=kernel_ms,
+                   kernel_ms_sessions=kernel_sessions,
                    strided_ms=strided_ms, plain_ms=plain_ms,
                    library_ms=None,
                    library_none="no single PyTorch call computes the "
@@ -1507,6 +1820,8 @@ def main() -> int:
     phase_build(card)
     main_rec, k1_recs = phase_kernel(card, torch)
     path = phase_path(card, torch)
+    dtd = phase_dtd_gemm(card, torch, path)
+    phase_dispatch(card)
     attn_recs = phase_attn_kernel(card, torch)
     attn_rec = attn_recs[0]
     llm = phase_llm(card, torch)
@@ -1539,7 +1854,8 @@ def main() -> int:
           tile_tol=FACTOR_TOL["highest"],
           backward_error=tf32_run["backward_error"],
           backward_tol=BACKWARD_TOL["highest"])
-    k1_paths = {"gemm": path, "lowered_gemm": lgemm, **factor_paths}
+    k1_paths = {"gemm": path, "dtd_gemm": dtd, "lowered_gemm": lgemm,
+                **factor_paths}
     row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "gemm_update", "route": "cuda",

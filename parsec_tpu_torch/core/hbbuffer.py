@@ -1,8 +1,9 @@
-"""Sharded per-stream ready queue for the LFQ scheduler.
+"""Bounded per-stream ready queues that spill to a parent store.
 
-Port of :class:`StealDeque` from ``parsec_tpu/core/hbbuffer.py``.  The
-locked ``HBBuffer`` variant is left out: only the schedulers not ported
-yet use it.
+Port of ``parsec_tpu/core/hbbuffer.py`` (the reference's
+``class/hbbuffer``): :class:`StealDeque`, the lock-free-common-path
+queue of the LFQ scheduler, and :class:`HBBuffer`, the locked buffer of
+the PBQ/LTQ/LHQ schedulers.  Nothing of the original is left out.
 """
 
 from __future__ import annotations
@@ -84,3 +85,54 @@ class StealDeque:
                 return self._dq.popleft()
             except IndexError:
                 return None
+
+
+class HBBuffer:
+    """Fixed-capacity task buffer: pushes that do not fit spill their
+    tail to ``parent_push``; the owner pops the newest item or the best
+    by priority, thieves the oldest.  Every operation holds ``_lock``."""
+
+    def __init__(self, capacity: int,
+                 parent_push: Callable[[list[Any], int], None]) -> None:
+        if capacity <= 0:
+            raise ValueError("capacity must be positive")
+        self.capacity = capacity
+        self._parent_push = parent_push
+        self._items: list[Any] = []
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._items)
+
+    def push_all(self, items: list[Any], distance: int = 0) -> None:
+        """Keep the head of ``items`` as far as room allows; spill the
+        rest to the parent one distance further out."""
+        overflow: list[Any] = []
+        with self._lock:
+            room = self.capacity - len(self._items)
+            if room >= len(items):
+                self._items.extend(items)
+            else:
+                if room > 0:
+                    self._items.extend(items[:room])
+                overflow = items[max(room, 0):]
+        if overflow:
+            self._parent_push(overflow, distance + 1)
+
+    def try_pop_best(self, priority: Callable[[Any], float] | None = None
+                     ) -> Any | None:
+        with self._lock:
+            if not self._items:
+                return None
+            if priority is None:
+                return self._items.pop()
+            best_i = max(range(len(self._items)),
+                         key=lambda i: priority(self._items[i]))
+            return self._items.pop(best_i)
+
+    def steal(self) -> Any | None:
+        """Victim-side pop from the oldest end."""
+        with self._lock:
+            if not self._items:
+                return None
+            return self._items.pop(0)

@@ -12,15 +12,21 @@ body.
 (what ``lower_taskpool(tiled_gemm_ptg(A, B, C))`` runs on identity tile
 grids): one launch of the K1 kernel.
 
+:func:`insert_dtd_gemm` is the same product through DTD insertion (the
+reference's ``dtd_test_simple_gemm.c``): one task per (m, n, k), each on
+the card as K1.
+
 Left out until later slices: the recursive variant.
 """
 
 from __future__ import annotations
 
-from typing import Any
+import time
+from typing import Any, Callable
 
 from .. import ptg
 from ..data_dist.matrix import TiledMatrix
+from ..dtd.insert import INOUT, INPUT
 from ..ops import gemm as gemm_ops
 
 
@@ -83,3 +89,29 @@ def tiled_gemm_fused(a: Any, b: Any, c: Any,
 
 def gemm_flops(M: int, N: int, K: int) -> float:
     return 2.0 * M * N * K
+
+
+def _dtd_gemm_body(a: Any, b: Any, c: Any) -> None:
+    """The DTD GEMM class's host body.  It names the class; a task
+    inserted with ``cuda_kernel="gemm"`` runs K1 and never calls it."""
+    c += a @ b
+
+
+def insert_dtd_gemm(tp: Any, A: list, B: list, C: list,
+                    body: Callable = _dtd_gemm_body) -> float:
+    """Insert ``C += A @ B`` into the DTD pool ``tp`` (enqueued in a
+    context): ``A``, ``B`` and ``C`` are square grids (lists of rows) of
+    host tiles, and each ``(m, n, k)``, in that order, is one
+    ``insert_task(body, (A[m][k], INPUT), (B[k][n], INPUT), (C[m][n],
+    INOUT), cuda_kernel="gemm")``.  Returns the seconds the calling
+    thread spent inside ``insert_task``."""
+    nt = len(C)
+    spent = 0.0
+    for m in range(nt):
+        for n in range(nt):
+            for k in range(nt):
+                t0 = time.perf_counter()
+                tp.insert_task(body, (A[m][k], INPUT), (B[k][n], INPUT),
+                               (C[m][n], INOUT), cuda_kernel="gemm")
+                spent += time.perf_counter() - t0
+    return spent

@@ -173,6 +173,11 @@ class TaskClassBuilder:
             rc = f(es, task, g_ns(), _ns(task.locals))
             return HOOK_RETURN_DONE if rc is None else rc
 
+        # the compiled-DAG executor (runtime/dagrun.py) bypasses this
+        # wrapper and calls the body with a namespace it builds once per
+        # task
+        hook.ptg_body = f
+        hook.ptg_gns = g_ns
         return hook
 
     def _mk_dep(self, ref: tuple | None, data: tuple | None,
@@ -230,6 +235,28 @@ class TaskClassBuilder:
                        time_estimate=self._time_estimate)
         g_ns = self._ptg._g_ns
         ranges = self.param_ranges
+
+        class _Poison:
+            def __getattr__(self, k):
+                raise LookupError(k)
+
+            def __getitem__(self, k):
+                raise LookupError(k)
+
+        def extents_fn() -> tuple | None:
+            """The static box of the space for the index-array dep
+            tier: every range locals-independent with unit step, else
+            None."""
+            try:
+                st = tuple(rngfn(g_ns(), _Poison())
+                           for rngfn in ranges.values())
+            except (LookupError, AttributeError, TypeError):
+                return None
+            if all(isinstance(r, range) and r.step == 1 for r in st):
+                return tuple((r.start, r.stop) for r in st)
+            return None
+
+        tc.space_extents_fn = extents_fn
 
         def in_space(locals_: dict) -> bool:
             """Parameters validate in declaration order against their

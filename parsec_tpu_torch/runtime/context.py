@@ -16,7 +16,15 @@ surfaces from ``wait()``; ``fini()`` re-raises a failure no caller has
 seen yet.  :meth:`add_taskpool` is live: it may be called from any thread
 while the workers run.
 
-Left out: the compiled-DAG incarnation, the comm engine and remote deps,
+**Compiled incarnation.**  At enqueue, an enumerable single-rank PTG
+pool of host chores is compiled to the native DAG executor
+(:mod:`.dagrun`, the ``runtime_dag_compile`` param); such a pool skips
+the scheduler.  One thread claims it and drives it: the waiter, or an
+idle worker.  A deadline leaves it unclaimed and resumable; a body's
+exception poisons the context and retires the pool's task count, so
+``fini`` does not wait on it.
+
+Left out: the comm engine and remote deps,
 multiple virtual processes and vpmaps, thread binding, the flight
 recorder and stall dump, live properties, tuned-knob consults and the
 enqueue-time graph check.
@@ -28,8 +36,10 @@ import threading
 import time
 from typing import Callable
 
+from ..core.backoff import Backoff
 from ..core.params import params as _params
 from ..sched import open_scheduler
+from .dagrun import compile_taskpool_dag
 from .deps import DependencyTracking
 from .scheduling import (ExecutionStream, VirtualProcess, schedule_tasks,
                          select_task, task_progress)
@@ -42,23 +52,6 @@ _params.register("sched", "lfq", "scheduler module to use")
 
 class ContextWaitTimeout(TimeoutError):
     """Deadline expiry of a bounded :meth:`Context.wait` / :meth:`fini`."""
-
-
-class _Backoff:
-    """Exponential backoff for idle workers (cf. ``utils/backoff.h``)."""
-
-    def __init__(self, base_s: float = 1e-6, max_s: float = 2e-3) -> None:
-        self.base_s, self.max_s, self._cur = base_s, max_s, 0.0
-
-    def reset(self) -> None:
-        self._cur = 0.0
-
-    def wait(self) -> None:
-        if self._cur == 0.0:
-            self._cur = self.base_s
-            return  # first miss: just yield
-        time.sleep(self._cur)
-        self._cur = min(self._cur * 2, self.max_s)
 
 
 class Context:
@@ -117,6 +110,17 @@ class Context:
             tp.tdm.monitor_taskpool(tp, tp.terminated)
             with self._lock:
                 self._active_taskpools.append(tp)
+            dag = compile_taskpool_dag(tp, self)
+            if dag is not None:
+                # count BEFORE publishing: an idle worker may claim and
+                # finish the dag the instant it is visible, and its
+                # -ntasks must not land on a zero counter
+                tp.tdm.taskpool_addto_nb_tasks(dag.ntasks)
+                tp.tdm.ready()
+                tp._compiled_dag = dag
+                with self._cond:
+                    self._cond.notify_all()   # wake a mid-wait driver
+                return
             n = tp.nb_local_tasks()
             if n >= 0:
                 tp.tdm.taskpool_addto_nb_tasks(n)
@@ -205,11 +209,13 @@ class Context:
     def _worker_main(self, es: ExecutionStream) -> None:
         es.owner_ident = threading.get_ident()
         self._start_barrier.wait()
-        backoff = _Backoff()
+        backoff = Backoff()
         while not self._shutdown:
             try:
                 task, distance = select_task(es)
                 if task is None:
+                    # idle: claim a compiled-DAG pool if one waits
+                    self._run_compiled_dags(es)
                     backoff.wait()
                     continue
                 backoff.reset()
@@ -236,8 +242,9 @@ class Context:
             self.start()
         deadline = None if timeout is None else time.monotonic() + timeout
         if self._threads:
-            with self._cond:
-                while True:
+            while True:
+                self._run_compiled_dags(deadline=deadline)
+                with self._cond:
                     if self._worker_error is not None:
                         raise RuntimeError(
                             "a worker thread failed") from self._worker_error
@@ -248,12 +255,15 @@ class Context:
                     if rem is not None and rem <= 0:
                         raise ContextWaitTimeout(
                             f"context wait timed out ({self._live_desc()})")
+                    # wake on termination, a worker error, or a freshly
+                    # enqueued compiled pool that needs this driver
                     self._cond.wait_for(
-                        lambda: predicate() or self._worker_error is not None,
-                        rem)
+                        lambda: predicate() or self._worker_error is not None
+                        or self._has_pending_dag(), rem)
+        self._run_compiled_dags(deadline=deadline)
         es = self._submit_es
         es.owner_ident = threading.get_ident()
-        backoff = _Backoff()
+        backoff = Backoff()
         while not predicate():
             if self._worker_error is not None:
                 raise RuntimeError(
@@ -264,15 +274,64 @@ class Context:
             try:
                 task, distance = select_task(es)
                 if task is None:
+                    # pools enqueued mid-drive
+                    self._run_compiled_dags(deadline=deadline)
+                    if predicate():
+                        return
                     backoff.wait()
                     continue
                 backoff.reset()
                 task_progress(es, task, distance)
+            except ContextWaitTimeout:
+                raise    # deadline expiry is not a context poison
             except BaseException as e:
                 # poison the context so a later fini() tears down instead
                 # of re-draining a pool that can never complete
                 self.record_failure(e)
                 raise
+
+    def _has_pending_dag(self) -> bool:
+        """A compiled pool still waiting for a driver (a claimed pool's
+        driver notifies on completion).  Binds each dag once: a driver
+        may clear ``_compiled_dag`` concurrently."""
+        return any(dag is not None and dag.pending
+                   for dag in (getattr(tp, "_compiled_dag", None)
+                               for tp in list(self._active_taskpools)))
+
+    def _run_compiled_dags(self, es: ExecutionStream | None = None,
+                           deadline: float | None = None) -> None:
+        """Drive every compiled-DAG pool this thread can claim to its
+        end.  A pool is funneled through one driver: Python bodies hold
+        the GIL, so one driver loses nothing over the worker pool.  At a
+        ``deadline`` the pool stays unclaimed and resumable, and
+        :class:`ContextWaitTimeout` is raised; a failure is recorded
+        before the pool's task count is retired."""
+        with self._lock:
+            pending = [tp for tp in self._active_taskpools
+                       if getattr(tp, "_compiled_dag", None) is not None]
+        for tp in pending:
+            dag = getattr(tp, "_compiled_dag", None)
+            if dag is None or not dag.claim():
+                continue
+            try:
+                finished = dag.run(
+                    es if es is not None else self._submit_es, deadline)
+            except BaseException as e:
+                # record BEFORE terminating the pool: a waiter woken by
+                # the termination must see the error, not success
+                self.record_failure(e)
+                tp._compiled_dag = None
+                tp.tdm.taskpool_addto_nb_tasks(-dag.ntasks)
+                raise
+            if not finished:
+                # yielded: the deadline, or an all-AGAIN pass waiting on
+                # another pool; the pool stays pending either way
+                if deadline is not None and time.monotonic() > deadline:
+                    raise ContextWaitTimeout(
+                        f"context wait timed out ({self._live_desc()})")
+                continue
+            tp._compiled_dag = None
+            tp.tdm.taskpool_addto_nb_tasks(-dag.ntasks)
 
     def _live_desc(self) -> str:
         with self._lock:

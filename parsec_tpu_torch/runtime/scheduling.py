@@ -121,7 +121,10 @@ def task_progress(es: ExecutionStream, task: Task, distance: int) -> int:
 def resolve_data_inputs(task: Task) -> None:
     """Bind flows read directly from a data collection to their current
     copies, at task creation: a ``<- A(k)`` read observes the collection
-    as of the moment the task came into existence."""
+    as of the moment the task came into existence.  A class with its own
+    ``prepare_input`` owns this (DTD binds at insertion)."""
+    if task.task_class.prepare_input is not None:
+        return
     for f in task.task_class.flows:
         if f.is_ctl or task.data[f.flow_index] is not None:
             continue
@@ -141,7 +144,11 @@ def resolve_data_inputs(task: Task) -> None:
 def prepare_input(es: ExecutionStream, task: Task) -> None:
     """Generic data lookup: predecessor flows already carry their copies;
     collection reads were bound at creation (re-run here as a safety net);
-    WRITE-only / NEW flows allocate scratch."""
+    WRITE-only / NEW flows allocate scratch.  A class's own
+    ``prepare_input`` replaces all of this."""
+    if task.task_class.prepare_input is not None:
+        task.task_class.prepare_input(es, task)
+        return
     resolve_data_inputs(task)
     for f in task.task_class.flows:
         if f.is_ctl or task.data[f.flow_index] is not None:
@@ -168,7 +175,10 @@ def _find_input_dep(succ_tc: TaskClass, flow_name: str, src_class: str,
 
 def complete_execution(es: ExecutionStream, task: Task) -> None:
     """Outputs -> repo/collection, successor release, input-repo
-    consumption, task retirement."""
+    consumption, task retirement.  A class's own ``complete_execution``
+    runs first (DTD releases its instance successors there)."""
+    if task.task_class.complete_execution is not None:
+        task.task_class.complete_execution(es, task)
     release_deps(es, task)
     for ref in task.repo_entries:
         if ref is not None:

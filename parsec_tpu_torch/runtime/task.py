@@ -6,11 +6,15 @@ kind of task — its parameters, flows with guarded in/out deps, data
 affinity, priority and a list of incarnations ("chores") binding bodies
 to device types; a task is one instance with concrete locals.
 
+A class may carry its own ``prepare_input`` and ``complete_execution``
+(DTD binds data at insertion and releases through per-instance
+records), and ``space_extents``: the static box of its execution space
+that the index-array dep tier indexes.
+
 Left out: ranged (goal-counted) input deps, the use of partial-tile wire
 regions (a dep stores its ``wire`` view, which only a cross-rank edge
 would read), user-defined key functions (``make_key_fn``, ``find_deps_fn``,
-``hash_struct``), custom startup, the simulation cost model and the
-index-array extents — the GEMM path uses none of them.
+``hash_struct``), custom startup and the simulation cost model.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ DEV_CPU = "cpu"
 DEV_CUDA = "cuda"
 
 _task_counter = itertools.count()
+_UNSET = object()   # lazy-attribute sentinel (space_extents)
 
 
 class Dep:
@@ -123,8 +128,9 @@ class TaskClass:
                  task_class_id: int = -1,
                  affinity: Callable[[dict], tuple] | None = None,
                  priority: Callable[[dict], int] | None = None,
-                 time_estimate: Callable[[Any, Any], float] | None = None
-                 ) -> None:
+                 time_estimate: Callable[[Any, Any], float] | None = None,
+                 prepare_input: Callable | None = None,
+                 complete_execution: Callable | None = None) -> None:
         self.name = name
         self.params = list(params)
         self.flows = list(flows)
@@ -135,6 +141,15 @@ class TaskClass:
         self.affinity = affinity
         self.priority = priority
         self.time_estimate = time_estimate
+        # (es, task) overrides of the generic data lookup and of the
+        # successor walk (DTD's per-instance release)
+        self.prepare_input = prepare_input
+        self.complete_execution = complete_execution
+        # static execution-space box ((lo, stop) per param) for the
+        # index-array dep tier, computed lazily at first use so globals
+        # bound between build and execution count
+        self.space_extents_fn: Callable[[], tuple | None] | None = None
+        self._space_extents: Any = _UNSET
         # execution-space membership (locals -> bool), set by the PTG
         # builder: out-of-space successor edges are dropped at release
         self.in_space: Callable[[dict], bool] | None = None
@@ -156,6 +171,13 @@ class TaskClass:
 
     def make_key(self, locals_: dict) -> tuple:
         return self._keyget(locals_)
+
+    @property
+    def space_extents(self) -> tuple | None:
+        if self._space_extents is _UNSET:
+            fn = self.space_extents_fn
+            self._space_extents = fn() if fn is not None else None
+        return self._space_extents
 
     def input_dep_mask(self, locals_: dict) -> int:
         """Bitmask of the task-predecessor input deps active for these

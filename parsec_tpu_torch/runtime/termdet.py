@@ -4,10 +4,10 @@ Port of ``parsec_tpu/runtime/termdet.py`` (the reference's
 ``termdet/local``): a taskpool holds a monitor through which every update
 to ``nb_tasks`` / ``nb_pending_actions`` flows; the detector walks
 NOT_READY -> BUSY -> TERMINATED and fires the taskpool's termination
-callback exactly once.  Left out: the user-trigger detector, the
-distributed four-counter wave (no comm layer yet) and
-``taskpool_addto_nb_pa``, which only DTD, comm and recursive bodies call
-(``nb_pending_actions`` stays 0).
+callback exactly once.  ``nb_pending_actions`` moves through
+:meth:`LocalTermDet.taskpool_addto_nb_pa`: DTD holds one pending action
+from its startup until ``close()``.  Left out: the user-trigger detector
+and the distributed four-counter wave (no comm layer yet).
 """
 
 from __future__ import annotations
@@ -53,6 +53,17 @@ class LocalTermDet:
                 raise RuntimeError("nb_tasks went negative")
             fire = self._check_idle_locked()
             n = self.nb_tasks
+        if fire:
+            self._on_terminated()
+        return n
+
+    def taskpool_addto_nb_pa(self, delta: int) -> int:
+        with self._lock:
+            self.nb_pending_actions += delta
+            if self.nb_pending_actions < 0:
+                raise RuntimeError("nb_pending_actions went negative")
+            fire = self._check_idle_locked()
+            n = self.nb_pending_actions
         if fire:
             self._on_terminated()
         return n

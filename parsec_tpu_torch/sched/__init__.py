@@ -1,6 +1,6 @@
-"""Schedulers (port of ``parsec_tpu/sched``; LFQ only for now)."""
+"""Schedulers (port of ``parsec_tpu/sched``: all eleven modules)."""
 
 from .api import SchedulerModule
-from .modules import LFQModule, open_scheduler
+from .modules import open_scheduler
 
-__all__ = ["LFQModule", "SchedulerModule", "open_scheduler"]
+__all__ = ["SchedulerModule", "open_scheduler"]

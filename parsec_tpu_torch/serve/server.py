@@ -206,13 +206,13 @@ class RuntimeServer:
         queued for admission sheds, expiry after start only flags
         ``ticket.deadline_missed``.  ``block`` picks backpressure vs
         immediate shed.  ``result_fn(tp)`` computes the ticket's value at
-        completion (default: the taskpool).  Every pool runs on the
-        dynamic scheduler: the compiled-DAG executor is not ported (the
-        JAX package runs device pools dynamically too), so
-        ``compiled=True`` raises."""
-        if compiled:
-            raise ValueError("compiled=True: the compiled-DAG executor is "
-                             "not ported; submit with compiled=False")
+        completion (default: the taskpool).
+
+        Served pools run the dynamic scheduler path by default, so the
+        weighted-fair shim interleaves tenants task by task;
+        ``compiled=True`` lets a host pool take the compiled-DAG
+        executor (the least per-task cost, but the whole pool dispatches
+        as one unit the fair shim cannot see into)."""
         deadline_at = None if deadline is None \
             else time.monotonic() + deadline
         ticket = Ticket(self, tp.name, tenant, priority, deadline_at)
@@ -235,6 +235,8 @@ class RuntimeServer:
             raise
         sub = _Submission(tenant, priority, deadline_at, ticket, result_fn)
         tp._serve_sub = sub
+        if not compiled:
+            tp._serve_no_dag = True     # dagrun.compile_taskpool_dag gate
         # check-and-register atomically: a drain that began while this
         # thread sat in admit() either sees the ticket in flight (and
         # waits for it) or sheds it here

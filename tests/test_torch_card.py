@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: the CUDA kernels (K1, the
 GEMM, with its transposed and subtracting forms; K2, the ragged
 paged-attention page update; K3, the 1-D stencil), the device module,
-decode serving, the tiled Cholesky and LU, and the lowered taskpools on
-the card.  They skip without one.
+decode serving, the tiled Cholesky and LU, the lowered taskpools, DTD
+task insertion and the compiled-DAG executor on the card.  They skip
+without one.
 
 This file imports no JAX, so it also runs where JAX is not installed;
 there, skip ``tests/conftest.py`` (it sets JAX up)::
@@ -739,3 +740,66 @@ def test_factor_gate_sees_a_dropped_update(card, kind, path):
         a, A = _factor_run(card, kind, path, n, nb)
     assert dropped == [1]
     assert _tile_error(A.to_dense(), a, kind, nb) > TF32_TILE_TOL
+
+
+@pytest.mark.parametrize("nb_cores", [0, 2])
+def test_dtd_gemm_on_the_card(card, precision, nb_cores):
+    """DTD GEMM with ``cuda_kernel="gemm"`` on the card: every task is a
+    K1 launch (fused batches, ``mma_tf32`` under ``default``), the host
+    body never runs, and after ``data_flush_all`` every C tile, home on
+    the host, is within the TF32 bound of a float64 product."""
+    from parsec_tpu_torch.dtd import DTDTaskpool
+    from parsec_tpu_torch.models.tiled_gemm import insert_dtd_gemm
+    params.set("gemm_precision", "default")
+    nt, nb = 3, 256
+    g = torch.Generator().manual_seed(21)
+    A = [[torch.randn(nb, nb, generator=g) for _ in range(nt)]
+         for _ in range(nt)]
+    B = [[torch.randn(nb, nb, generator=g) for _ in range(nt)]
+         for _ in range(nt)]
+    C = [[torch.zeros(nb, nb) for _ in range(nt)] for _ in range(nt)]
+    host_calls = []
+
+    def gemm(a, b, c):
+        host_calls.append(1)
+
+    before = dict(tg.gemm_update.launches_by_variant)
+    tasks0 = card.tasks_by_class["gemm"]
+    ctx = Context(nb_cores=nb_cores)
+    tp = DTDTaskpool()
+    try:
+        ctx.add_taskpool(tp)
+        insert_dtd_gemm(tp, A, B, C, body=gemm)
+        tp.data_flush_all()
+        tp.wait(timeout=120)
+    finally:
+        ctx.fini(timeout=30)
+    ran = _variant_delta(before)
+    assert set(ran) == {"mma_tf32"} and 0 < ran["mma_tf32"] < nt ** 3, ran
+    assert host_calls == []
+    assert card.tasks_by_class["gemm"] - tasks0 == nt ** 3
+    a64 = torch.cat([torch.cat(r, 1) for r in A]).double()
+    b64 = torch.cat([torch.cat(r, 1) for r in B]).double()
+    got = torch.cat([torch.cat(r, 1) for r in C]).double()
+    assert got.device.type == "cpu"
+    bound = 2e-3 * (a64.abs() @ b64.abs()) + 1e-2
+    assert bool(((got - a64 @ b64).abs() <= bound).all())
+
+
+def test_ep_pool_engages_the_compiled_executor(card):
+    """On the card's machine the native core builds with ``g++`` and a
+    host EP pool runs on the compiled DAG, every task once."""
+    from parsec_tpu_torch import native
+    from parsec_tpu_torch.models.ep import ep_pool
+    assert native.available(), native.build_error
+    done = []
+    p = ep_pool(50, 20, lambda d, n: done.append((d, n)))
+    tp = p.build()
+    ctx = Context(nb_cores=0)
+    try:
+        ctx.add_taskpool(tp)
+        assert type(tp._compiled_dag).__name__ == "VecCompiledDag"
+        ctx.wait(timeout=60)
+    finally:
+        ctx.fini(timeout=30)
+    assert sorted(done) == [(d, n) for d in range(20) for n in range(50)]

@@ -98,9 +98,12 @@ def test_the_package_has_the_slice_modules():
                 "serve/admission.py", "serve/fair.py", "serve/server.py",
                 "ops/stencil.py", "models/stencil.py",
                 "models/stencil2d.py", "ops/factor.py", "models/cholesky.py",
-                "models/lu.py"):
+                "models/lu.py", "native/__init__.py", "runtime/dagrun.py",
+                "dtd/__init__.py", "dtd/insert.py", "dtd/from_ptg.py",
+                "core/topology.py", "core/backoff.py", "models/ep.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
-    for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu"):
+    for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu",
+                "native_core.cpp"):
         assert (PORT / "csrc" / src).is_file(), src
 
 
@@ -208,6 +211,64 @@ def test_a_cholesky_loads_no_jax_and_no_parsec_tpu():
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert out["ok"] and out["tasks"] == 20 and out["mode"] == "wavefront"
     assert "parsec_tpu_torch.models.cholesky" in out["modules"]
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_dtd_and_the_compiled_dag_load_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter runs a DTD GEMM on the device module around
+    the host and drains a compiled EP pool under each of the eleven
+    schedulers, with ``jax`` and ``parsec_tpu`` absent from
+    ``sys.modules``; the native library it loaded is the port's own
+    build from ``parsec_tpu_torch/csrc``."""
+    code = textwrap.dedent("""
+        import json, sys
+        import torch
+        from parsec_tpu_torch import native
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.dtd import DTDTaskpool
+        from parsec_tpu_torch.models.ep import ep_pool
+        from parsec_tpu_torch.models.tiled_gemm import insert_dtd_gemm
+        from parsec_tpu_torch.runtime import Context
+        dev = init_cuda_devices(device="cpu")[0]
+        g = torch.Generator().manual_seed(0)
+        A, B = ([[torch.randn(8, 8, generator=g) for _ in range(2)]
+                 for _ in range(2)] for _ in range(2))
+        C = [[torch.zeros(8, 8) for _ in range(2)] for _ in range(2)]
+        ctx = Context(nb_cores=0)
+        tp = DTDTaskpool()
+        ctx.add_taskpool(tp)
+        insert_dtd_gemm(tp, A, B, C)
+        tp.data_flush_all()
+        tp.wait(timeout=60)
+        ctx.fini(timeout=30)
+        ok = all(bool(torch.allclose(C[m][n], A[m][0] @ B[0][n]
+                                     + A[m][1] @ B[1][n], atol=1e-4))
+                 for m in range(2) for n in range(2))
+        kinds = []
+        for name in ("lfq", "ap", "spq", "ip", "gd", "rnd", "ll", "llp",
+                     "pbq", "ltq", "lhq"):
+            pool = ep_pool(4, 3).build()
+            ctx = Context(nb_cores=2, scheduler=name)
+            ctx.add_taskpool(pool)
+            kinds.append(type(pool._compiled_dag).__name__)
+            ctx.wait(timeout=60)
+            ctx.fini(timeout=30)
+        print(json.dumps({"ok": ok, "tasks": dev.executed_tasks,
+                          "kinds": kinds, "lib": native.loaded_path(),
+                          "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"] and out["tasks"] == 8
+    assert out["kinds"] == ["VecCompiledDag"] * 11
+    lib = Path(out["lib"]).resolve().relative_to(REPO)
+    assert lib.parts[:3] == ("parsec_tpu_torch", "csrc", "build"), lib
+    assert lib.parts[0] != "parsec_tpu"
+    assert "parsec_tpu_torch.dtd.insert" in out["modules"]
+    assert "parsec_tpu_torch.runtime.dagrun" in out["modules"]
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded
 

@@ -88,14 +88,77 @@ def test_admission_sheds_deadlines_and_cancels():
         server.submit(_chain_pool(nb=2)[0])
 
 
-def test_compiled_submission_is_refused_not_ignored():
+def _jax_chain_value(nb: int, compiled: bool) -> float:
+    """The same chain through the JAX package's server: its tile after
+    ``nb`` increments."""
+    import numpy as np
+
+    from parsec_tpu import ptg as jptg
+    from parsec_tpu.data.data import TileType as JTileType
+    from parsec_tpu.data_dist.collection import DictCollection as JDict
+    from parsec_tpu.serve import RuntimeServer as JServer
+
+    coll = JDict("jchain", dtt=JTileType((1,), np.float32))
+    p = jptg.PTGBuilder("jchain", A=coll, NB=nb)
+    t = p.task("T", i=jptg.span(0, lambda g, l: g.NB - 1))
+    f = t.flow("V", jptg.RW)
+    f.input(data=("A", lambda g, l: (0,)), guard=lambda g, l: l.i == 0)
+    f.input(pred=("T", "V", lambda g, l: {"i": l.i - 1}),
+            guard=lambda g, l: l.i > 0)
+    f.output(succ=("T", "V", lambda g, l: {"i": l.i + 1}),
+             guard=lambda g, l: l.i < g.NB - 1)
+    f.output(data=("A", lambda g, l: (0,)),
+             guard=lambda g, l: l.i == g.NB - 1)
+
+    def body(es, task, g, l):
+        v = task.data[0]
+        v.value = v.value + 1
+
+    t.body(body)
+    with JServer(nb_cores=1) as server:
+        server.submit(p.build(), compiled=compiled).result(timeout=30)
+    return float(coll.data_of(0).newest_copy().value[0])
+
+
+def _served_chain(compiled: bool, nb: int = 6):
+    """Serve a chain pool whose body records whether its pool ran on the
+    compiled DAG; returns (tile value, engaged flags, fair dispatches)."""
+    tp, check = _chain_pool(nb=nb)
+    tc = tp.task_classes[0]
+    inner = tc.chores[0].hook.ptg_body
+    engaged = []
+
+    def body(es, task, g, l):
+        engaged.append(getattr(task.taskpool, "_compiled_dag", None)
+                       is not None)
+        return inner(es, task, g, l)
+
+    tc.chores[0].hook = ptg.dsl.TaskClassBuilder._wrap_cpu_body(
+        tp._tc_builders["T"], body)
     with RuntimeServer(nb_cores=1) as server:
-        tp, check = _chain_pool(nb=3)
-        with pytest.raises(ValueError, match="compiled"):
-            server.submit(tp, compiled=True)
-        assert server.stats()["submitted"] == 0
-        assert server.submit(tp, compiled=False).result(timeout=30) is tp
-        check()
+        assert server.submit(tp, compiled=compiled).result(timeout=30) is tp
+        dispatched = sum(server.stats()["fair_dispatched"].values())
+    check()
+    coll = tp.globals["A"]
+    return float(coll.data_of(0).newest_copy().value[0]), engaged, dispatched
+
+
+def test_compiled_submission_runs_on_the_compiled_dag():
+    """``compiled=True`` puts a host pool on the compiled-DAG executor:
+    every body ran while the pool held its compiled DAG, no task went
+    through the fair scheduler, and the tile equals the JAX server's
+    (exactly: six fp32 increments of an integer)."""
+    got, engaged, dispatched = _served_chain(compiled=True)
+    assert engaged == [True] * 6 and dispatched == 0
+    assert got == _jax_chain_value(6, compiled=True) == 6.0
+
+
+def test_served_pool_stays_dynamic_by_default():
+    """``compiled=False``, the default, keeps a served pool on the
+    dynamic scheduler: the fair shim dispatches every task."""
+    got, engaged, dispatched = _served_chain(compiled=False)
+    assert engaged == [False] * 6 and dispatched == 6
+    assert got == _jax_chain_value(6, compiled=False) == 6.0
 
 
 class _StubInner(SchedulerModule):
