@@ -129,6 +129,22 @@ any phase fails:
    executor (it fails unless the executor and the native core engaged)
    and ``dynamic_dispatch_us`` under each of the eleven schedulers,
    beside the host CPU.
+15. **path multirank_gemm, multirank_cholesky, multirank_lu** (after the
+   factorizations) — the dynamic GEMM, Cholesky and LU of phases
+   **path** and **dynamic_*** at the same sizes across 4 ranks: threads
+   of this process, one ``Context`` each, on a 2 x 2 block-cyclic grid,
+   sharing the card through the device fabric
+   (``run_multirank(4, ..., transport="device", devices=[cuda:0] * 4)``,
+   ``nb_cores=0``), each after a 2 x 2-tile run off the clock; Cholesky
+   under the four-counter detector.  Per-rank task counts must sum to
+   512, 120 and 204, every tile product be a K1 launch (``mma_tf32``),
+   C lie within the TF32 bound and each factor pass the gates of its
+   single-rank phase with its dropped-update control; the factorizations
+   must move tiles between the ranks on the card (``bytes_got``).  Each
+   line carries the wall from the first ``add_taskpool`` to the last
+   rank's ``wait``, each rank's tasks and comm counters, K1's launches
+   by variant and form, the mean batch and the single-rank wall beside
+   it.
 
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
@@ -454,20 +470,8 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
             t = C.data_of(i, j).newest_copy().value
             _check(tuple(t.shape) == (nb, nb) and t.dtype == torch.float32,
                    f"tile ({i},{j}) is {tuple(t.shape)} {t.dtype}")
-    got = torch.from_numpy(C.to_dense()).cuda().double()
-    _check(bool(torch.isfinite(got).all()), "C is not finite")
-    a64 = torch.from_numpy(A.to_dense()).cuda().double()
-    b64 = torch.from_numpy(B.to_dense()).cuda().double()
-    ref = a64 @ b64
-    err = (got - ref).abs()
-    bad = err > 2e-3 * (a64.abs() @ b64.abs()) + 1e-2
-    del a64, b64
-    worst = err.max().item()
-    if bool(bad.any()):
-        r, c_ = (int(x) for x in bad.nonzero()[0])
-        raise RuntimeError(f"chip_smoke: C wrong in tile ({r // nb},"
-                           f"{c_ // nb}); max abs err {worst}")
-    del got, ref, err, bad
+    worst = _check_c(torch, C.to_dense(), A.to_dense(), B.to_dense(), nb,
+                     "path")
     s = dev.stats()
     rec = dict(n=n, nb=nb, tasks=dev.executed_tasks, wall_s=wall,
                gflops=gemm_flops(n, n, n) / wall / 1e9,
@@ -486,6 +490,28 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
                host_tile_gen_s=t_gen, max_abs_err=worst)
     _emit(card, phase="path", **rec)
     return rec
+
+
+def _check_c(torch, c, a, b, nb: int, what: str) -> float:
+    """All of C (host arrays ``c``, ``a``, ``b``) against one float64
+    product on the card under the TF32 bound ``2e-3 * (|A| @ |B|) +
+    1e-2``; returns the largest error."""
+    got = torch.from_numpy(c).cuda().double()
+    _check(bool(torch.isfinite(got).all()), f"{what}: C is not finite")
+    a64 = torch.from_numpy(a).cuda().double()
+    b64 = torch.from_numpy(b).cuda().double()
+    ref = a64 @ b64
+    err = (got - ref).abs()
+    bad = err > 2e-3 * (a64.abs() @ b64.abs()) + 1e-2
+    del a64, b64
+    worst = err.max().item()
+    if bool(bad.any()):
+        r, c_ = (int(x) for x in bad.nonzero()[0])
+        raise RuntimeError(f"chip_smoke: {what}: C wrong in tile "
+                           f"({r // nb},{c_ // nb}); max abs err {worst}")
+    del got, ref, err, bad
+    torch.cuda.empty_cache()
+    return worst
 
 
 def _dtd_gemm_run(torch, dev, nt: int, nb: int, seed: int) -> dict:
@@ -1427,6 +1453,9 @@ def phase_k1_forms(card: str, torch) -> list:
     from parsec_tpu_torch.core.params import params
     from parsec_tpu_torch.ops import gemm as tg
     big, tile_list = (64, 1024, 1024, 1024), True
+    # the multi-rank paths' batches: a rank's k-step of 16 GEMM chains,
+    # and 1-4 trailing-update or TRSM tiles a launch in the factorizations
+    rank16, rank4 = (16, 1024, 1024, 1024), (4, 1024, 1024, 1024)
     # (form, shape, tile list, precision, iterations)
     cases = [("nt-sub", big, tile_list, "default", 5),
              ("nt-sub", (465, 512, 512, 512), False, "default", 5),
@@ -1435,7 +1464,12 @@ def phase_k1_forms(card: str, torch) -> list:
              ("nn-sub", (225, 512, 512, 512), False, "default", 5),
              ("nn-noc", big, tile_list, "default", 5),
              ("nt-sub", big, tile_list, "highest", 3),
-             ("nt-noc", big, tile_list, "highest", 3)]
+             ("nt-noc", big, tile_list, "highest", 3),
+             ("nn", rank16, tile_list, "default", 5),
+             ("nt-sub", rank4, tile_list, "default", 5),
+             ("nt-noc", rank4, tile_list, "default", 5),
+             ("nn-sub", rank4, tile_list, "default", 5),
+             ("nn-noc", rank4, tile_list, "default", 5)]
     # as phase_kernel: fp32 sums in other orders, |C| ~ sqrt(k)
     tol = dict(rtol=1e-4, atol=1e-3)
     recs = []
@@ -1475,7 +1509,8 @@ def phase_k1_forms(card: str, torch) -> list:
                 try:
                     if c is None:
                         return torch.bmm(a, bt)
-                    return torch.baddbmm(c, a, bt, alpha=-1)
+                    return torch.baddbmm(c, a, bt,
+                                         alpha=-1 if kw["subtract"] else 1)
                 finally:
                     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1553,13 +1588,14 @@ def _factor_flops(kind: str, n: int) -> float:
     return (cholesky_flops if kind == "cholesky" else lu_flops)(n)
 
 
-def _factor_readings(torch, kind: str, A, a, nb: int) -> dict:
-    """The factored matrix in float64 on the card, against the float64
-    factor of ``a``: its tile error (``tile_error``), its backward error
-    and tile (0,0)'s largest error relative to the tile's largest
-    entry."""
+def _factor_readings(torch, kind: str, dense, a, nb: int) -> dict:
+    """The factored matrix (``dense``, on the host: one rank's
+    ``to_dense``, or the sum of every rank's) in float64 on the card,
+    against the float64 factor of ``a``: its tile error
+    (``tile_error``), its backward error and tile (0,0)'s largest error
+    relative to the tile's largest entry."""
     from parsec_tpu_torch.ops.factor import tile_error
-    f = torch.from_numpy(A.to_dense()).cuda().double()
+    f = torch.from_numpy(dense).cuda().double()
     _check(bool(torch.isfinite(f).all()), f"{kind}: the factor is not finite")
     ref = torch.from_numpy(a).cuda().double()
     if kind == "cholesky":
@@ -1585,9 +1621,10 @@ def _factor_readings(torch, kind: str, A, a, nb: int) -> dict:
                 tile00_rel_err=tile00)
 
 
-def _factor_check(torch, kind: str, A, a, nb: int, precision: str) -> dict:
+def _factor_check(torch, kind: str, dense, a, nb: int,
+                  precision: str) -> dict:
     """:func:`_factor_readings` under the gates of ``precision``."""
-    r = _factor_readings(torch, kind, A, a, nb)
+    r = _factor_readings(torch, kind, dense, a, nb)
     n = len(a)
     _check(r["tile_error"] <= FACTOR_TOL[precision],
            f"{kind} n={n}: tile error {r['tile_error']} above "
@@ -1604,18 +1641,18 @@ def _factor_check(torch, kind: str, A, a, nb: int, precision: str) -> dict:
 
 def _factor_control(card: str, torch, kind: str, a, nb: int, run,
                     label: str) -> dict:
-    """The path ``run(A)`` once more on ``a`` with one trailing update
-    dropped: its tile error must exceed the ``default`` gate."""
+    """The path ``run(a)`` (which returns the factor on the host) once
+    more with one trailing update dropped: its tile error must exceed
+    the ``default`` gate."""
     from parsec_tpu_torch.models import cholesky, lu
     from parsec_tpu_torch.ops.factor import one_update_dropped
     name, mod = ("gemm_nt", cholesky) if kind == "cholesky" \
         else ("lu_gemm", lu)
-    A = _factor_matrix(kind, a, nb)
     with one_update_dropped(name, *mod._FORMS[name]) as dropped:
-        run(A)
+        dense = run(a)
     torch.cuda.synchronize()
     _check(dropped == [1], f"control {label}: no update was dropped")
-    r = _factor_readings(torch, kind, A, a, nb)
+    r = _factor_readings(torch, kind, dense, a, nb)
     _check(r["tile_error"] > FACTOR_TOL["default"],
            f"control {label}: one dropped update reads a tile error of "
            f"{r['tile_error']}, within the gate {FACTOR_TOL['default']}")
@@ -1716,16 +1753,19 @@ def phase_dynamic_factor(card: str, torch, kind: str, n: int = 8192,
                    mean_batch=delta("executed_tasks")
                    / max(1, delta("kernel_launches")),
                    h2d_mb=delta("bytes_in") / 1e6,
-                   **_factor_check(torch, kind, A, a, nb, precision))
+                   **_factor_check(torch, kind, A.to_dense(), a, nb,
+                                   precision))
         name = f"dynamic_{kind}" + ("" if precision == "default"
                                     else f"_{precision}")
         _emit(card, phase="path", name=name, **rec)
         if precision == "default":
 
-            def run(B):
+            def run(a_):
+                B = _factor_matrix(kind, a_, nb)
                 _run_pool(_factor_ptg(kind, B))
                 dev.sync()
                 dev.flush_cache()
+                return B.to_dense()
 
             rec["control"] = _factor_control(card, torch, kind, a, nb, run,
                                              name)
@@ -1763,7 +1803,7 @@ def phase_lowered_factor(card: str, torch, kind: str, n: int,
            f"lowered {kind}: K1 ran {by_variant}, expected mma_tf32 only")
     _check(set(by_form) == K1_FORMS[kind],
            f"lowered {kind}: K1 forms {by_form}, expected {K1_FORMS[kind]}")
-    checks = _factor_check(torch, kind, A, a, nb, "default")
+    checks = _factor_check(torch, kind, A.to_dense(), a, nb, "default")
 
     t0 = time.perf_counter()
     stores = low.initial_stores()
@@ -1791,11 +1831,240 @@ def phase_lowered_factor(card: str, torch, kind: str, n: int,
     _emit(card, phase="path", name=f"lowered_{kind}", **rec)
     del stores, low
     torch.cuda.empty_cache()
-    rec["control"] = _factor_control(
-        card, torch, kind, a, nb,
-        lambda B: lower_taskpool(_factor_ptg(kind, B)).execute(),
-        f"lowered_{kind}")
+    def run(a_):
+        B = _factor_matrix(kind, a_, nb)
+        lower_taskpool(_factor_ptg(kind, B)).execute()
+        return B.to_dense()
+
+    rec["control"] = _factor_control(card, torch, kind, a, nb, run,
+                                     f"lowered_{kind}")
     return rec
+
+
+# the multi-rank paths: 4 ranks as threads of this process, one context
+# each, on a 2 x 2 block-cyclic grid, sharing the one card through the
+# device fabric (run_multirank(transport="device") with devices=[cuda:0]*4)
+MR_RANKS, MR_P, MR_Q = 4, 2, 2
+
+
+def _mr_grid(rank: int) -> dict:
+    return dict(P=MR_P, Q=MR_Q, myrank=rank)
+
+
+def _mr_gemm_mats(n: int, nb: int, seed: int):
+    """Each rank's A, B and C (set-up, off the clock) with the tiles it
+    reads made: C's local tiles, the A rows and B columns they take.
+    The ranks share the host A and B tiles (read-only), made once from
+    ``seed`` as phase ``path`` makes its own.  Returns the dense A and B
+    and the per-rank triples."""
+    import numpy as np
+
+    from parsec_tpu_torch.data_dist.matrix import TwoDimBlockCyclic
+    tiles: dict = {}
+
+    def init(tag):
+        def fn(m, k, shape):
+            t = tiles.get((tag, m, k))
+            if t is None:
+                rng = np.random.default_rng((seed, tag, m, k))
+                t = tiles[(tag, m, k)] = rng.standard_normal(
+                    shape, dtype=np.float32)
+            return t
+        return fn
+
+    nt = n // nb
+    mats = []
+    for r in range(MR_RANKS):
+        A, B = (TwoDimBlockCyclic(x, n, n, nb, nb, init_fn=init(tag),
+                                  **_mr_grid(r))
+                for x, tag in (("A", 1), ("B", 2)))
+        C = TwoDimBlockCyclic("C", n, n, nb, nb, **_mr_grid(r))
+        for i in range(nt):
+            for j in range(nt):
+                if C.is_local(i, j):
+                    C.data_of(i, j)
+                    for k in range(nt):
+                        A.data_of(i, k)
+                        B.data_of(k, j)
+        mats.append((A, B, C))
+    dense = [np.block([[tiles[(tag, i, j)] for j in range(nt)]
+                       for i in range(nt)]) for tag in (1, 2)]
+    return dense, mats
+
+
+def _mr_factor_mats(kind: str, a, nb: int):
+    """Each rank's matrix over one copy of ``a`` (set-up, off the clock),
+    its own tiles made."""
+    from parsec_tpu_torch.data_dist.collection import enumerate_keys
+    from parsec_tpu_torch.data_dist.matrix import (SymTwoDimBlockCyclic,
+                                                   TwoDimBlockCyclic)
+    cls = SymTwoDimBlockCyclic if kind == "cholesky" else TwoDimBlockCyclic
+    a = a.copy()
+    mats = []
+    for r in range(MR_RANKS):
+        A = cls.from_dense("A", a, nb, nb, **_mr_grid(r))
+        for key in enumerate_keys(A):
+            if A.is_local(*key):
+                A.data_of(*key)
+        mats.append((A,))
+    return mats
+
+
+def _mr_run(torch, kind: str, mats: list, timeout: float = 600) -> tuple:
+    """One run of ``kind``'s pool on every rank (device chores) through
+    ``run_multirank``.  Returns the first rank's ``add_taskpool`` time,
+    the last rank's return from ``wait`` (after the card synchronized),
+    and each rank's record: its local tasks, its detector and its comm
+    counters."""
+    from parsec_tpu_torch.comm import run_multirank
+    from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+    t_add, t_wait = [], []
+
+    def body(ctx, rank, nranks):
+        m = mats[rank]
+        tp = tiled_gemm_ptg(*m) if kind == "gemm" else _factor_ptg(kind, m[0])
+        t_add.append(time.perf_counter())
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=timeout)
+        torch.cuda.synchronize()
+        t_wait.append(time.perf_counter())
+        ctx.comm_barrier()
+        eng = ctx.comm_engine
+        return dict(tasks=tp.nb_local_tasks(), termdet=tp.tdm.name,
+                    ranks_per_card=eng.ce.fabric.ranks_per_device,
+                    **eng.stats())
+
+    recs = run_multirank(MR_RANKS, body, timeout=timeout, transport="device",
+                         devices=[torch.device("cuda", 0)] * MR_RANKS)
+    return min(t_add), max(t_wait), recs
+
+
+def _mr_dense(mats: list):
+    """The whole result: the sum of every rank's own tiles."""
+    return sum(m[-1].to_dense() for m in mats)
+
+
+def phase_multirank(card: str, torch, kind: str, single: dict,
+                    n: int = 8192, nb: int = 1024, seed: int = 0) -> dict:
+    """``tiled_gemm_ptg``, ``tiled_cholesky_ptg`` or ``tiled_lu_ptg``
+    across 4 ranks on the card (``run_multirank`` over the device fabric,
+    ``devices=[cuda:0] * 4``, a 2 x 2 grid, ``nb_cores=0``, fp32 under
+    ``gemm_precision=default``) at the single-rank phase's size, after a
+    2 x 2-tile run of the same kind off the clock.  The wall runs from
+    the first rank's ``add_taskpool`` to the last rank's return from
+    ``wait`` (the card synchronized).  Cholesky runs under the
+    four-counter detector, GEMM and LU under the local one with a comm
+    barrier.  Per-rank task counts must sum to the single-rank count,
+    every task run on the card, every tile product on K1 (``mma_tf32``);
+    C within the TF32 bound of a float64 product, a factor under the
+    gates of phase ``dynamic_*`` with its dropped-update control, and
+    tiles moved between the ranks' copies on the card (``bytes_got``)."""
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.cholesky import make_spd_fast
+    from parsec_tpu_torch.models.lu import make_dd
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops
+    from parsec_tpu_torch.ops import gemm as tg
+
+    params.set("gemm_precision", "default")
+    params.set("termdet", "fourcounter" if kind == "cholesky" else "")
+    try:
+        dev = init_cuda_devices()[0]
+
+        def mats_for(size, sd):
+            if kind == "gemm":
+                return _mr_gemm_mats(size, nb, sd)
+            a = make_spd_fast(size) if kind == "cholesky" \
+                else make_dd(size, seed=1)
+            return (a, None), _mr_factor_mats(kind, a, nb)
+
+        _mr_run(torch, kind, mats_for(2 * nb, seed + 1)[1])
+        dev.sync()
+        dev.flush_cache()
+        (a, b), mats = mats_for(n, seed)
+        cpu = registry.get(0)
+        cpu_before = cpu.executed_tasks
+        before = dev.stats()
+        _k1_reset(tg)                    # counts from here are the path's
+        t0, t1, recs = _mr_run(torch, kind, mats)
+        wall = t1 - t0
+        launches = tg.gemm_update.launches
+        by_variant = dict(tg.gemm_update.launches_by_variant)
+        by_form = dict(tg.gemm_update.launches_by_form)
+        dev.flush_cache()
+        s = dev.stats()
+        tasks = {c: k - before["tasks_by_class"].get(c, 0)
+                 for c, k in s["tasks_by_class"].items()
+                 if k - before["tasks_by_class"].get(c, 0)}
+        want = {"GEMM": (n // nb) ** 3} if kind == "gemm" \
+            else _expected_tasks(kind, n // nb)
+        per_rank = [r["tasks"] for r in recs]
+        name = f"multirank_{kind}"
+        _check(sum(per_rank) == sum(want.values()) == single["tasks"],
+               f"{name}: per-rank tasks {per_rank} do not sum to the "
+               f"single-rank {single['tasks']}")
+        _check(tasks == want, f"{name}: tasks on the card {tasks}, "
+               f"expected {want}")
+        _check(cpu.executed_tasks == cpu_before, f"{name}: a CPU chore ran")
+        _check(launches > 0 and by_variant["mma_tf32"] == launches,
+               f"{name}: K1 ran {by_variant}, expected mma_tf32 only")
+        forms = {"nn"} if kind == "gemm" else K1_FORMS[kind]
+        _check(set(by_form) == forms,
+               f"{name}: K1 forms {by_form}, expected {forms}")
+        termdet = "fourcounter" if kind == "cholesky" else "local"
+        _check({r["termdet"] for r in recs} == {termdet},
+               f"{name}: detectors {[r['termdet'] for r in recs]}")
+        got = sum(r["bytes_got"] for r in recs)
+        if kind != "gemm":
+            _check(got > 0, f"{name}: no tile moved between the ranks")
+        _check(dev.enabled, "the device was disabled")
+        dispatches = s["kernel_launches"] - before["kernel_launches"]
+        executed = s["executed_tasks"] - before["executed_tasks"]
+        flops = gemm_flops(n, n, n) if kind == "gemm" \
+            else _factor_flops(kind, n)
+        dense = _mr_dense(mats)
+        checks = dict(max_abs_err=_check_c(torch, dense, a, b, nb, name)) \
+            if kind == "gemm" else \
+            _factor_check(torch, kind, dense, a, nb, "default")
+        del dense
+        rec = dict(n=n, nb=nb, ranks=MR_RANKS, grid=[MR_P, MR_Q],
+                   ranks_per_card=recs[0]["ranks_per_card"],
+                   termdet=termdet, wall_s=wall,
+                   gflops=flops / wall / 1e9,
+                   single_wall_s=single["wall_s"],
+                   single_gflops=single["gflops"],
+                   tasks=sum(per_rank), tasks_by_rank=per_rank,
+                   tasks_by_class=tasks,
+                   **{f"{key}_by_rank": [r[key] for r in recs] for key in (
+                       "activations_sent", "activations_received", "gets",
+                       "bytes_put", "bytes_got", "payload_bytes_received")},
+                   gemm_launches=launches,
+                   gemm_launches_by_variant=by_variant,
+                   gemm_launches_by_form=by_form,
+                   device_dispatches=dispatches,
+                   mean_batch=executed / max(1, dispatches),
+                   single_mean_batch=single["mean_batch"],
+                   stage_in_s=s["t_stage_in"] - before["t_stage_in"],
+                   manager_s=s["t_manager"] - before["t_manager"],
+                   h2d_mb=(s["bytes_in"] - before["bytes_in"]) / 1e6,
+                   **checks)
+        _emit(card, phase="path", name=name, **rec)
+        if kind != "gemm":
+
+            def run(a_):
+                ms = _mr_factor_mats(kind, a_, nb)
+                _mr_run(torch, kind, ms)
+                dev.flush_cache()
+                return _mr_dense(ms)
+
+            rec["control"] = _factor_control(card, torch, kind, a, nb, run,
+                                             name)
+        torch.cuda.empty_cache()
+        return rec
+    finally:
+        params.set("termdet", "")
+        params.set("gemm_precision", "default")
 
 
 def main() -> int:
@@ -1854,8 +2123,14 @@ def main() -> int:
           tile_tol=FACTOR_TOL["highest"],
           backward_error=tf32_run["backward_error"],
           backward_tol=BACKWARD_TOL["highest"])
+    multirank = {
+        "multirank_gemm": phase_multirank(card, torch, "gemm", path),
+        "multirank_cholesky": phase_multirank(
+            card, torch, "cholesky", factor_paths["dynamic_cholesky"]),
+        "multirank_lu": phase_multirank(card, torch, "lu",
+                                        factor_paths["dynamic_lu"])}
     k1_paths = {"gemm": path, "dtd_gemm": dtd, "lowered_gemm": lgemm,
-                **factor_paths}
+                **factor_paths, **multirank}
     row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "gemm_update", "route": "cuda",

@@ -3,7 +3,8 @@
 Port of ``parsec_tpu/core/params.py``: parameters are registered at point
 of use with a type, default and help text, and resolved from the
 environment (``PARSEC_MCA_<name>``) or else the registered default;
-``set`` overrides either.
+``set`` overrides either.  :class:`MCAParamValueError` names a param
+whose value lies outside its legal set.
 
 Left out of this copy: ``--mca`` command-line parsing, the param file,
 the autotuner's knob declarations (``declare_knob``/``knob_space``),
@@ -86,6 +87,16 @@ class ParamRegistry:
             if p.read_only:
                 raise PermissionError(f"param {name} is read-only")
             p.value, p.source = _TYPES[p.type](str(value)), "set"
+
+
+class MCAParamValueError(ValueError):
+    """A param value outside its legal set, naming the param and the set."""
+
+    def __init__(self, param: str, value: Any, allowed: tuple) -> None:
+        super().__init__(f"{param}={value!r} is not one of {list(allowed)}")
+        self.param = param
+        self.value = value
+        self.allowed = tuple(allowed)
 
 
 params = ParamRegistry()

@@ -1,9 +1,10 @@
 """Tile type descriptors, and the numpy <-> tensor crossing.
 
 Port of ``parsec_tpu/data/datatype.py``: a logical tile type is a shape
-and an element dtype (here a ``torch.dtype``).  Left out: layout tags and
-``convert`` (reshape beyond identity), and the partial-tile
-``WireRegion`` of remote edges — the port has no comm layer yet.
+and an element dtype (here a ``torch.dtype``).  :func:`wire_slice_key`
+names the partial-tile view a remote edge ships (its ``wire=`` slices),
+hashable for grouping and the activation message.  Left out: layout tags
+and ``convert`` (reshape beyond identity) with the ``WireRegion`` class.
 
 Added: :func:`to_tensor` / :func:`to_numpy`, the one place tiles cross
 between numpy and torch.  bf16 host tiles of the JAX package are
@@ -70,3 +71,11 @@ class TileType:
         for s in self.shape:
             n *= s
         return n * torch.empty(0, dtype=self.dtype).element_size()
+
+
+def wire_slice_key(slices: tuple | None) -> tuple | None:
+    """Hashable identity of a wire view (grouping + message metadata)."""
+    if slices is None:
+        return None
+    return tuple((s.start, s.stop, s.step) if isinstance(s, slice) else s
+                 for s in slices)

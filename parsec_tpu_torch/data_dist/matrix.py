@@ -17,10 +17,16 @@ lowering lays its store rows over the stored tiles only
 (:func:`~parsec_tpu_torch.data_dist.collection.enumerate_keys`), and the
 whole-matrix conversions leave the missing triangle's tiles as zeros.
 
-Left out: block-cyclic grids over more than one rank (the ``P``, ``Q``,
-``kp`` and ``kq`` parameters: the port runs on one rank), the band,
-tabular, sub-tile and hash distributions, and vectors over more than one
-rank.
+:class:`TwoDimBlockCyclic` spreads the tiles over a ``P x Q`` grid of
+ranks with ``kp x kq`` supertiles (``rank_of``); each rank builds its own
+descriptor with its ``myrank``, and a multi-rank run assembles the whole
+matrix from every rank's :meth:`TiledMatrix.to_dense`, which holds that
+rank's own tiles only.  :class:`VectorTwoDimCyclic` deals its segments
+over ``P`` ranks.  A rank may still read a tile another rank owns through
+``data_of`` (the GEMM reads A and B on C's rank): the tile is made from
+``init_fn`` where it is read.
+
+Left out: the band, tabular, sub-tile and hash distributions.
 
 :meth:`TiledMatrix.from_numpy_tiles` / :meth:`to_numpy_tiles` carry the
 JAX package's ``{(i, j): np.ndarray}`` host tiles of the stored tiles
@@ -42,16 +48,18 @@ from .collection import DataCollection, enumerate_keys
 
 
 class TiledMatrix(DataCollection):
-    """Tiled matrix on one rank; keys are tile coordinates ``(m, n)``.
+    """Tiled matrix; keys are tile coordinates ``(m, n)``.
 
     ``init_fn(m, n, shape)`` returns a tile (tensor or array-like); tiles
-    without one start as zeros.
+    without one start as zeros.  ``nodes`` ranks share it, this one being
+    ``myrank``; the base class puts every tile on rank 0.
     """
 
     def __init__(self, name: str, lm: int, ln: int, mb: int, nb: int,
                  dtype: Any = torch.float32,
-                 init_fn: Callable | None = None) -> None:
-        super().__init__(name)
+                 init_fn: Callable | None = None, nodes: int = 1,
+                 myrank: int = 0) -> None:
+        super().__init__(name, nodes, myrank)
         self.lm, self.ln = lm, ln
         self.mb, self.nb = mb, nb
         self.mt = (lm + mb - 1) // mb
@@ -96,25 +104,39 @@ class TiledMatrix(DataCollection):
                 self._store[(m, n)] = d
             return d
 
+    def is_local(self, m: int, n: int) -> bool:
+        """Whether this rank owns tile (m, n) (always, on one rank)."""
+        return self.nodes <= 1 or self.rank_of(m, n) == self.myrank
+
     # -- whole-matrix conversion ---------------------------------------------
     def to_dense(self) -> np.ndarray:
         """The matrix as one host numpy array (newest copy of each stored
-        tile, wherever it lives; zeros where no tile is stored)."""
+        tile, wherever it lives; zeros where no tile is stored).  Over
+        several ranks it holds this rank's tiles only, zeros elsewhere:
+        the ranks' arrays sum to the whole matrix."""
         out = None
         for m, n in enumerate_keys(self):
+            if not self.is_local(m, n):
+                continue
             t = to_numpy(self.data_of(m, n).newest_copy().value)
             if out is None:
                 out = np.zeros((self.lm, self.ln), dtype=t.dtype)
             out[m * self.mb:m * self.mb + t.shape[0],
                 n * self.nb:n * self.nb + t.shape[1]] = t
+        if out is None:       # a rank that owns no tile
+            out = np.zeros((self.lm, self.ln), dtype=to_numpy(
+                torch.empty(0, dtype=self.dtype)).dtype)
         return out
 
     def to_tensor(self) -> torch.Tensor:
         """The matrix as one CPU tensor of the matrix dtype (newest copy of
         each stored tile, wherever it lives; zeros where no tile is
-        stored), built with no numpy crossing."""
+        stored, and, over several ranks, where another rank owns the
+        tile), built with no numpy crossing."""
         out = torch.zeros((self.lm, self.ln), dtype=self.dtype)
         for m, n in enumerate_keys(self):
+            if not self.is_local(m, n):
+                continue
             t = self.data_of(m, n).newest_copy().value
             out[m * self.mb:m * self.mb + t.shape[0],
                 n * self.nb:n * self.nb + t.shape[1]] = t
@@ -158,8 +180,23 @@ class TiledMatrix(DataCollection):
 
 
 class TwoDimBlockCyclic(TiledMatrix):
-    """The block-cyclic distribution on one rank, where every tile lies on
-    rank 0: a :class:`TiledMatrix` (its ``P x Q`` grid is not ported)."""
+    """``P x Q`` block-cyclic distribution with ``kp x kq`` supertiles
+    (``parsec_matrix_block_cyclic_init``): tile (m, n) lies on rank
+    ``((m // kp) % P) * Q + (n // kq) % Q``."""
+
+    def __init__(self, name: str, lm: int, ln: int, mb: int, nb: int,
+                 P: int = 1, Q: int = 1, kp: int = 1, kq: int = 1,
+                 **kw) -> None:
+        if min(P, Q, kp, kq) < 1:
+            raise ValueError(f"{name}: P, Q, kp and kq must be positive, "
+                             f"got {P}, {Q}, {kp}, {kq}")
+        kw.setdefault("nodes", P * Q)
+        super().__init__(name, lm, ln, mb, nb, **kw)
+        self.P, self.Q = P, Q
+        self.kp, self.kq = kp, kq
+
+    def rank_of(self, m: int, n: int) -> int:
+        return ((m // self.kp) % self.P) * self.Q + (n // self.kq) % self.Q
 
 
 class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
@@ -199,18 +236,21 @@ class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
 
 class VectorTwoDimCyclic(DataCollection):
     """A vector of ``mt`` segments of ``mb`` elements (the last may be
-    shorter), keys ``(m,)``, on one rank.  ``init_fn(m, size)`` returns a
-    segment (tensor or array-like); segments without one start as zeros.
+    shorter), keys ``(m,)``, dealt cyclically over ``P`` ranks (segment m
+    on rank ``m % P``).  ``init_fn(m, size)`` returns a segment (tensor or
+    array-like); segments without one start as zeros.
     """
 
     def __init__(self, name: str, lm: int, mb: int, P: int = 1,
                  dtype: Any = torch.float32,
-                 init_fn: Callable | None = None) -> None:
-        if P != 1:
-            raise ValueError(f"{name}: vectors over {P} ranks are not "
-                             f"ported; the port runs on one rank")
-        super().__init__(name)
+                 init_fn: Callable | None = None, nodes: int | None = None,
+                 myrank: int = 0) -> None:
+        if P < 1:
+            raise ValueError(f"{name}: P must be a positive number of "
+                             f"ranks, got {P}")
+        super().__init__(name, P if nodes is None else nodes, myrank)
         self.lm, self.mb = lm, mb
+        self.P = P
         self.mt = (lm + mb - 1) // mb
         self.dtype = torch_dtype(dtype)
         self.default_dtt = TileType((mb,), self.dtype)
@@ -219,7 +259,7 @@ class VectorTwoDimCyclic(DataCollection):
         self._lock = threading.Lock()
 
     def rank_of(self, m: int) -> int:
-        return 0
+        return m % self.P
 
     def has_key(self, *key) -> bool:
         return len(key) == 1 and 0 <= key[0] < self.mt

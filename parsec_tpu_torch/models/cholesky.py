@@ -35,8 +35,14 @@ where the same list forms take the CPU route of every operation (the
 JAX package's host bodies solve the TRSM directly; here the host chore
 uses the inverse as the device does).
 
-Left out: ``devices="auto"`` (a class with both chores), the upper
-distribution (``uplo=UPPER`` raises), multi-rank runs.
+Over several ranks (a ``SymTwoDimBlockCyclic`` with ``P``, ``Q`` and
+``myrank``, one pool a rank through :func:`parsec_tpu_torch.comm.run_multirank`)
+each task runs on its tile's rank: POTRF's factor reaches the TRSMs, and
+the TRSMs' panels the SYRKs and GEMMs, by the comm layer; each rank's
+``to_dense`` holds its own tiles, and their sum is the factor.
+
+Left out: ``devices="auto"`` (a class with both chores) and the upper
+distribution (``uplo=UPPER`` raises).
 """
 
 from __future__ import annotations

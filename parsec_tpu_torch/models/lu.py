@@ -25,7 +25,13 @@ in :mod:`parsec_tpu_torch.models.cholesky`:
   launch with no C (``inv(L)·C``, ``C·inv(U)``);
 - GEMM: K1's subtracting form, ``C - A·B``.
 
-Left out: ``devices="auto"``, multi-rank runs.
+Over several ranks (a ``TwoDimBlockCyclic`` with ``P``, ``Q`` and
+``myrank``, one pool a rank through :func:`parsec_tpu_torch.comm.run_multirank`)
+each task runs on its tile's rank: GETRF's factor reaches the panels, and
+the panels reach the trailing updates, by the comm layer; each rank's
+``to_dense`` holds its own tiles, and their sum is the packed factor.
+
+Left out: ``devices="auto"``.
 """
 
 from __future__ import annotations

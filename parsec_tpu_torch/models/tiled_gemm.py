@@ -16,6 +16,11 @@ grids): one launch of the K1 kernel.
 reference's ``dtd_test_simple_gemm.c``): one task per (m, n, k), each on
 the card as K1.
 
+Over several ranks (``TwoDimBlockCyclic`` grids, one pool a rank through
+:func:`parsec_tpu_torch.comm.run_multirank`) each GEMM runs on C's rank,
+which reads its A and B tiles through their collections: no tile crosses
+ranks, and the ranks' ``to_dense`` of C sum to the product.
+
 Left out until later slices: the recursive variant.
 """
 

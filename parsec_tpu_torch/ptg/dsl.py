@@ -19,13 +19,15 @@ schedules the tasks with an empty IN-dep mask.
 
 A taskpool may carry ``local_traceables``: batched incarnations scoped to
 it (a stencil's weights differ per build), which the lowering looks up
-before the process-wide registry.  ``output(wire=...)`` is stored on the
-dep and unused: the sub-view only matters across ranks.
+before the process-wide registry.  ``output(wire=...)`` names the
+sub-view of the tile a remote successor receives (the comm layer cuts it
+before the send); same-rank successors share the whole tile.  On a
+multi-rank context a pool counts and starts only the tasks whose affinity
+lies on this rank (``nb_local_tasks``, ``startup``).
 
 Left out: the JDF text front-ends, user-defined key/dep/startup
-overrides, SIMCOST, stage hooks, the use of wire regions, ranged inputs,
-pool options, ``validate`` (graphcheck) and multi-rank affinity
-filtering.
+overrides, SIMCOST, stage hooks, ranged inputs, pool options and
+``validate`` (graphcheck).
 """
 
 from __future__ import annotations
@@ -289,17 +291,34 @@ class PTGTaskpool(Taskpool):
     def globals(self) -> dict:
         return self._builder.globals
 
+    def _foreign(self, context: Any) -> Callable[[Any, dict], bool]:
+        """``foreign(tc, locals)``: whether the task runs on another rank
+        of ``context`` (never, on one rank or for a rank-private pool)."""
+        if context is None or self.local_only or context.nb_ranks <= 1:
+            return lambda tc, locals_: False
+        from ..runtime.scheduling import _rank_of_task
+
+        def foreign(tc: TaskClass, locals_: dict) -> bool:
+            rank = _rank_of_task(tc, locals_)
+            return rank is not None and rank != context.my_rank
+
+        return foreign
+
     def nb_local_tasks(self) -> int:
-        return sum(sum(1 for _ in self._tc_builders[tc.name]._enumerate_space())
+        """Tasks whose affinity lands on this rank."""
+        foreign = self._foreign(self.context)
+        return sum(sum(1 for l in self._tc_builders[tc.name]._enumerate_space()
+                       if not foreign(tc, l))
                    for tc in self.task_classes)
 
     def startup(self, context: Any) -> list:
-        """Initially-ready tasks: those whose IN-dep mask is empty."""
+        """Initially-ready local tasks: those whose IN-dep mask is empty."""
         from ..runtime.scheduling import resolve_data_inputs
+        foreign = self._foreign(context)
         out = []
         for tc in self.task_classes:
             for locals_ in self._tc_builders[tc.name]._enumerate_space():
-                if tc.input_dep_mask(locals_):
+                if tc.input_dep_mask(locals_) or foreign(tc, locals_):
                     continue
                 prio = tc.priority(locals_) if tc.priority else 0
                 t = Task(self, tc, dict(locals_), priority=prio)

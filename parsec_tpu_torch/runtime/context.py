@@ -24,17 +24,32 @@ idle worker.  A deadline leaves it unclaimed and resumable; a body's
 exception poisons the context and retires the pool's task count, so
 ``fini`` does not wait on it.
 
-Left out: the comm engine and remote deps,
-multiple virtual processes and vpmaps, thread binding, the flight
-recorder and stall dump, live properties, tuned-knob consults and the
-enqueue-time graph check.
+**Several ranks.**  ``Context(nb_ranks=N, my_rank=r)`` is rank r of N
+(one context per rank; :func:`parsec_tpu_torch.comm.run_multirank` runs
+them as threads of one process).  A pool enqueued on the wire takes the
+next rank-agreed ``comm_id`` (every rank enqueues its pools in the same
+order), so activation messages name it; a ``local_only`` pool takes none
+and stays off the wire.  The comm engine a
+:class:`~parsec_tpu_torch.comm.remote_dep.RemoteDepEngine` installs as
+``comm_engine`` is enabled by :meth:`start`, progressed by the idle
+worker of stream 0 (and by a busy one while fragments are in flight) or
+by the caller-driven loop, and finalized by :meth:`fini`;
+:meth:`comm_barrier` fences until the fabric is silent, and the release
+path reaches it through :meth:`remote_dep_accumulate` /
+:meth:`remote_dep_activate`.  The detector of a pool is the
+``termdet`` param (``local`` when empty); a rank-private pool always
+takes ``local``.
+
+Left out: multiple virtual processes and vpmaps, thread binding, the
+flight recorder and stall dump, live properties, tuned-knob consults and
+the enqueue-time graph check.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable
+from typing import Any, Callable
 
 from ..core.backoff import Backoff
 from ..core.params import params as _params
@@ -44,7 +59,7 @@ from .deps import DependencyTracking
 from .scheduling import (ExecutionStream, VirtualProcess, schedule_tasks,
                          select_task, task_progress)
 from .taskpool import Taskpool
-from .termdet import LocalTermDet
+from .termdet import open_termdet
 
 _params.register("runtime_num_cores", 0, "worker threads (0 = caller-driven)")
 _params.register("sched", "lfq", "scheduler module to use")
@@ -56,13 +71,23 @@ class ContextWaitTimeout(TimeoutError):
 
 class Context:
     def __init__(self, nb_cores: int | None = None,
-                 scheduler: str | None = None) -> None:
+                 scheduler: str | None = None, nb_ranks: int = 1,
+                 my_rank: int = 0) -> None:
         from ..device.device import registry as device_registry
         if nb_cores is None:
             nb_cores = _params.get("runtime_num_cores")
+        if not 0 <= my_rank < nb_ranks:
+            raise ValueError(f"rank {my_rank} outside [0, {nb_ranks})")
         self.nb_cores = nb_cores
-        self.nb_ranks = 1
-        self.my_rank = 0
+        self.nb_ranks = nb_ranks
+        self.my_rank = my_rank
+        self.comm_engine: Any = None
+        # rank-agreed wire ids: a monotonic counter (a live context
+        # retires terminated pools, so a length-derived id would recycle);
+        # the comm engine publishes pools here, and keeps terminated ones
+        # (late wire messages still resolve)
+        self._tp_by_comm_id: dict[int, Taskpool] = {}
+        self._next_comm_id = 0
         self.started = False
         self._shutdown = False
         self._lock = threading.RLock()
@@ -101,15 +126,23 @@ class Context:
             t.start()
 
     # ------------------------------------------------------------------ API
-    def add_taskpool(self, tp: Taskpool) -> None:
-        """Enqueue a taskpool; thread-safe, and live while workers run."""
+    def add_taskpool(self, tp: Taskpool, local_only: bool = False) -> None:
+        """Enqueue a taskpool; thread-safe, and live while workers run.
+        ``local_only`` marks a rank-private pool: no comm id, the local
+        detector, so ranks may enqueue different numbers of them."""
         with self._submit_lock:
             tp.context = self
+            tp.local_only = local_only = tp.local_only or local_only
             if tp.tdm is None:
-                tp.tdm = LocalTermDet()
+                name = "local" if local_only else \
+                    (_params.get("termdet") or "local")
+                tp.tdm = open_termdet(name, self)
             tp.tdm.monitor_taskpool(tp, tp.terminated)
             with self._lock:
                 self._active_taskpools.append(tp)
+                if not local_only:
+                    self._next_comm_id += 1
+                    tp.comm_id = self._next_comm_id
             dag = compile_taskpool_dag(tp, self)
             if dag is not None:
                 # count BEFORE publishing: an idle worker may claim and
@@ -118,6 +151,7 @@ class Context:
                 tp.tdm.taskpool_addto_nb_tasks(dag.ntasks)
                 tp.tdm.ready()
                 tp._compiled_dag = dag
+                self._publish(tp)
                 with self._cond:
                     self._cond.notify_all()   # wake a mid-wait driver
                 return
@@ -126,8 +160,17 @@ class Context:
                 tp.tdm.taskpool_addto_nb_tasks(n)
             startup = tp.startup(self)
             tp.tdm.ready()
+            self._publish(tp)
             if startup:
                 schedule_tasks(self._submit_es, list(startup), 0)
+
+    def _publish(self, tp: Taskpool) -> None:
+        """Make a counted pool reachable by its comm id.  The comm engine
+        publishes it under its own lock and replays the activations and
+        wave tokens that arrived first: an activation released before the
+        pool's tasks were counted would drive its counter negative."""
+        if tp.comm_id is not None and self.comm_engine is not None:
+            self.comm_engine.taskpool_registered(tp)
 
     def record_failure(self, e: BaseException) -> None:
         """Record a fatal background failure (first one wins) and wake
@@ -157,6 +200,8 @@ class Context:
     def start(self) -> None:
         with self._lock:
             self.started = True
+        if self.comm_engine is not None:
+            self.comm_engine.enable()
         self._start_barrier.set()
         with self._cond:
             self._cond.notify_all()
@@ -181,6 +226,8 @@ class Context:
             except ContextWaitTimeout:
                 pass   # tear down abort-style below
         self.abort()
+        if self.comm_engine is not None:
+            self.comm_engine.fini()
         if self._worker_error is not None and not self._error_surfaced:
             self._error_surfaced = True
             raise RuntimeError(
@@ -213,13 +260,20 @@ class Context:
         while not self._shutdown:
             try:
                 task, distance = select_task(es)
+                ce = self.comm_engine
                 if task is None:
                     # idle: claim a compiled-DAG pool if one waits
                     self._run_compiled_dags(es)
+                    if ce is not None and es.th_id == 0:
+                        ce.progress()
                     backoff.wait()
                     continue
                 backoff.reset()
                 task_progress(es, task, distance)
+                # fragmented GETs in flight: a busy worker still advances
+                # them between tasks (one int read when there are none)
+                if ce is not None and es.th_id == 0 and ce.ce.frag_active:
+                    ce.progress()
             except BaseException as e:   # surface to waiters, don't hang
                 self.record_failure(e)
                 return
@@ -273,15 +327,20 @@ class Context:
                     f"context wait timed out ({self._live_desc()})")
             try:
                 task, distance = select_task(es)
+                ce = self.comm_engine
                 if task is None:
                     # pools enqueued mid-drive
                     self._run_compiled_dags(deadline=deadline)
+                    if ce is not None:
+                        ce.progress()
                     if predicate():
                         return
                     backoff.wait()
                     continue
                 backoff.reset()
                 task_progress(es, task, distance)
+                if ce is not None and ce.ce.frag_active:
+                    ce.progress()
             except ContextWaitTimeout:
                 raise    # deadline expiry is not a context poison
             except BaseException as e:
@@ -345,3 +404,24 @@ class Context:
                 self._active_taskpools.remove(tp)
             self._cond.notify_all()
         self.deps.purge_taskpool(tp.taskpool_id)
+
+    # ------------------------------------------------------------ comm seams
+    def comm_barrier(self) -> None:
+        """Collective fence: progress until the fabric is globally silent.
+        Needed before reading what a remote rank's write-back edge wrote
+        under the local detector: local termination covers this rank's
+        tasks and its own sends only."""
+        if self.comm_engine is not None:
+            self.comm_engine.quiesce()
+
+    def remote_dep_accumulate(self, remote, task, flow, dep, succ_tc,
+                              succ_locals, rank):
+        if self.comm_engine is None:
+            raise RuntimeError(
+                f"rank {self.my_rank}: {task} has a successor on rank "
+                f"{rank} but no comm engine is installed")
+        return self.comm_engine.accumulate(remote, task, flow, dep, succ_tc,
+                                           succ_locals, rank)
+
+    def remote_dep_activate(self, es, task, remote) -> None:
+        self.comm_engine.activate(es, task, remote)

@@ -24,8 +24,9 @@ Compilation is an optimization that falls back to the dynamic scheduler
 (same taskpool object, same results) on any structural surprise: device
 chores, a class's own ``prepare_input``/``complete_execution``,
 multi-chore classes, multi-dep data flows, typed edges, non-enumerable
-spaces, a served pool (``_serve_no_dag``), more than one rank, or no
-native tier.
+spaces, a served pool (``_serve_no_dag``), a pool on the wire of a
+multi-rank context (a rank-private ``local_only`` pool still compiles),
+or no native tier.
 
 Left out: PINS events (the port has no ``prof/``) and the user-defined
 key/dep/startup and SIMCOST gates (the port's task classes have none of
@@ -366,8 +367,9 @@ def compile_taskpool_dag(tp, context) -> CompiledDag | None:
     # scheduler's per-task tenant interleaving
     if getattr(tp, "_serve_no_dag", False):
         return None
-    # multi-rank release would go through remote deps
-    if getattr(context, "nb_ranks", 1) > 1:
+    # multi-rank release goes through the remote deps, but a rank-private
+    # pool is single-rank by construction and stays eligible
+    if getattr(context, "nb_ranks", 1) > 1 and not tp.local_only:
         return None
     builders = getattr(tp, "_tc_builders", None)
     if builders is None:

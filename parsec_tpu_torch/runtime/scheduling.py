@@ -8,8 +8,14 @@ released task kept as the stream's ``next_task``.  Device chores return
 ``HOOK_RETURN_ASYNC`` and complete through :func:`complete_execution`
 from the device manager.
 
-Left out: PINS hooks, typed-edge reshape, remote (cross-rank) deps, the
-simulation cost model and the paranoid write-back checks.
+On several ranks, a successor whose affinity lies on another rank, or a
+write-back whose home tile does, is not released here: it accumulates
+into a remote-deps record that the context's comm engine activates
+(``remote_dep_accumulate`` / ``remote_dep_activate``, the remote branch of
+``parsec_release_dep_fct``).
+
+Left out: PINS hooks, typed-edge reshape, the simulation cost model and
+the paranoid write-back checks.
 """
 
 from __future__ import annotations
@@ -191,17 +197,28 @@ def complete_execution(es: ExecutionStream, task: Task) -> None:
 def release_deps(es: ExecutionStream, task: Task) -> None:
     """Walk active out-deps: write-back edges update the collection;
     successor edges update dep trackers; the ready set goes to the
-    scheduler in one call."""
+    scheduler in one call.  Edges to another rank accumulate into one
+    remote-deps record, activated through the comm engine after the
+    walk."""
     tc = task.task_class
     tp = task.taskpool
+    ctx = tp.context
     entry = None
     nconsumers = 0
     pending: list[tuple] = []
+    remote = None
+    multi = ctx.nb_ranks > 1   # one rank asks no owner
 
     def visitor(t: Task, flow, dep) -> None:
-        nonlocal entry, nconsumers
+        nonlocal entry, nconsumers, remote
         out_copy = None if flow.is_ctl else t.data[flow.flow_index]
         if dep.target_class is None:
+            home = _rank_of_data(dep, t.locals) if multi else None
+            if home is not None and home != ctx.my_rank:
+                # the home tile lives on another rank: ship the version
+                remote = ctx.remote_dep_accumulate(remote, t, flow, dep,
+                                                   None, None, home)
+                return
             if out_copy is not None and dep.data_ref is not None:
                 dc, key = dep.data_ref(t.locals)
                 apply_writeback_to_home(dc, key, out_copy)
@@ -211,6 +228,11 @@ def release_deps(es: ExecutionStream, task: Task) -> None:
             if succ_tc.in_space is not None \
                     and not succ_tc.in_space(succ_locals):
                 continue   # out-of-space edge: the generated bounds check
+            rank = _rank_of_task(succ_tc, succ_locals) if multi else None
+            if rank is not None and rank != ctx.my_rank:
+                remote = ctx.remote_dep_accumulate(remote, t, flow, dep,
+                                                   succ_tc, succ_locals, rank)
+                continue
             fi, di = _find_input_dep(succ_tc, dep.target_flow, tc.name,
                                      succ_locals)
             repo_ref = None
@@ -225,8 +247,10 @@ def release_deps(es: ExecutionStream, task: Task) -> None:
     tc.iterate_successors(task, visitor)
     if entry is not None:
         entry.addto_usage_limit(nconsumers)
+    if remote is not None:
+        ctx.remote_dep_activate(es, task, remote)
     if pending:
-        schedule_tasks(es, tp.context.deps.release_many(tp, pending), 0)
+        schedule_tasks(es, ctx.deps.release_many(tp, pending), 0)
 
 
 def apply_writeback_to_home(dc: Any, key: tuple, out_copy: Any) -> None:
@@ -238,3 +262,20 @@ def apply_writeback_to_home(dc: Any, key: tuple, out_copy: Any) -> None:
         return
     home.value = out_copy.value
     home.version = max(home.version, out_copy.version) + 1
+
+
+def _rank_of_task(tc: TaskClass, locals_: dict) -> int | None:
+    """The rank a task runs on (None for a class with no affinity)."""
+    if tc.affinity is None:
+        return None
+    dc, key = tc.affinity(locals_)
+    return dc.rank_of(*(key if isinstance(key, tuple) else (key,)))
+
+
+def _rank_of_data(dep: Any, locals_: dict) -> int | None:
+    """The rank holding a write-back's home tile (None for an edge with no
+    home)."""
+    if dep.data_ref is None:
+        return None
+    dc, key = dep.data_ref(locals_)
+    return dc.rank_of(*key)

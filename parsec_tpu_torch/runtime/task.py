@@ -11,10 +11,9 @@ A class may carry its own ``prepare_input`` and ``complete_execution``
 records), and ``space_extents``: the static box of its execution space
 that the index-array dep tier indexes.
 
-Left out: ranged (goal-counted) input deps, the use of partial-tile wire
-regions (a dep stores its ``wire`` view, which only a cross-rank edge
-would read), user-defined key functions (``make_key_fn``, ``find_deps_fn``,
-``hash_struct``), custom startup and the simulation cost model.
+Left out: ranged (goal-counted) input deps, user-defined key functions
+(``make_key_fn``, ``find_deps_fn``, ``hash_struct``), custom startup and
+the simulation cost model.
 """
 
 from __future__ import annotations
@@ -50,8 +49,9 @@ class Dep:
     describe the predecessor symmetrically; ``target_class is None`` with
     a ``data_ref`` reads the collection.  With all targets None the dep is
     a NEW arrow (fresh tile of the flow's type) or, with ``null=True``, a
-    NULL arrow.  ``wire`` is the sub-view a remote successor would
-    receive; on one rank every edge carries the whole tile.
+    NULL arrow.  ``wire`` is the sub-view a remote successor receives
+    (slices, or a function of the locals); same-rank edges carry the
+    whole tile.
     """
 
     __slots__ = ("guard", "target_class", "target_flow", "target_params",
@@ -72,6 +72,11 @@ class Dep:
         self.data_ref = data_ref
         self.null = null
         self.wire = wire
+
+    def wire_slices(self, locals_: dict) -> tuple | None:
+        if self.wire is None:
+            return None
+        return self.wire(locals_) if callable(self.wire) else self.wire
 
     def active(self, locals_: dict) -> bool:
         return self.guard is None or bool(self.guard(locals_))

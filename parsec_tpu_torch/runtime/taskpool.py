@@ -4,9 +4,11 @@ Port of ``parsec_tpu/runtime/taskpool.py`` (the reference's
 ``parsec_taskpool_t``): a taskpool owns task classes and their data
 repos, a termination-detection monitor (the only path to ``nb_tasks``),
 startup enumeration and completion listeners
-(:meth:`Taskpool.add_completion_listener`).  Left out:
-the process-wide taskpool registry, sequential composition (``compose``),
-per-pool termdet selection, region plans and the simulation date.
+(:meth:`Taskpool.add_completion_listener`).  On several ranks a pool
+carries the rank-agreed ``comm_id`` its context gives it at enqueue (None
+for a rank-private ``local_only`` pool).  Left out: the process-wide
+taskpool registry, sequential composition (``compose``), region plans and
+the simulation date.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Any, Callable, Sequence
 
 from ..data.datarepo import DataRepo
 from .task import Task, TaskClass
-from .termdet import LocalTermDet
+from .termdet import TermDetMonitor
 
 _taskpool_ids = itertools.count(1)
 
@@ -28,7 +30,10 @@ class Taskpool:
         self.taskpool_id = next(_taskpool_ids)
         self.name = name or f"taskpool{self.taskpool_id}"
         self.context: Any = None
-        self.tdm: LocalTermDet | None = None
+        self.tdm: TermDetMonitor | None = None
+        # wire identity, set at enqueue (None: never on the wire)
+        self.comm_id: int | None = None
+        self.local_only = False
         self.task_classes: list[TaskClass] = []
         self.task_classes_by_name: dict[str, TaskClass] = {}
         for tc in task_classes:

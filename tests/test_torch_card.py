@@ -2,8 +2,9 @@
 GEMM, with its transposed and subtracting forms; K2, the ragged
 paged-attention page update; K3, the 1-D stencil), the device module,
 decode serving, the tiled Cholesky and LU, the lowered taskpools, DTD
-task insertion and the compiled-DAG executor on the card.  They skip
-without one.
+task insertion, the compiled-DAG executor, and the comm layer's device
+fabric with the factorizations across four ranks sharing the card.  They
+skip without one.
 
 This file imports no JAX, so it also runs where JAX is not installed;
 there, skip ``tests/conftest.py`` (it sets JAX up)::
@@ -803,3 +804,62 @@ def test_ep_pool_engages_the_compiled_executor(card):
     finally:
         ctx.fini(timeout=30)
     assert sorted(done) == [(d, n) for d in range(20) for n in range(50)]
+
+
+def test_device_fabric_snapshots_and_lands_on_the_card(card):
+    """Registration snapshots a tile on the card (a device-side clone,
+    counted in ``bytes_put``); a tile written in place afterwards still
+    reaches its consumer as registered, landed on the card and counted
+    in ``bytes_got``."""
+    from parsec_tpu_torch.comm import DeviceFabric
+    fab = DeviceFabric(2, [torch.device("cuda", 0)] * 2)
+    e0, e1 = fab.attach(0), fab.attach(1)
+    tile = torch.arange(1 << 12, dtype=torch.float32, device="cuda")
+    h = e0.mem_register(tile, refcount=2)
+    assert h.value.is_cuda and h.value.data_ptr() != tile.data_ptr()
+    tile.add_(1.0)
+    got = []
+    for e in (e1, e1):
+        e.get(h.wire(), got.append)
+    while len(got) < 2:
+        e0.progress()
+        e1.progress()
+    want = torch.arange(1 << 12, dtype=torch.float32, device="cuda")
+    for g in got:
+        assert g.is_cuda
+        torch.testing.assert_close(g, want, rtol=0, atol=0)
+    assert got[0].data_ptr() != got[1].data_ptr()
+    assert e0.bytes_put == 1 << 14 and e1.bytes_got == 2 << 14
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu"])
+def test_factorization_across_four_ranks_on_the_card(card, kind):
+    """Four ranks sharing the card (``devices=[cuda:0] * 4``, a 2 x 2
+    grid) factor n=1024, nb=256 with every tile product on K1
+    (``mma_tf32``) and tiles moving between the ranks on the card, under
+    the gates of ``test_factorization_on_the_card``."""
+    from parsec_tpu_torch.comm import run_multirank
+    from parsec_tpu_torch.data_dist.matrix import TwoDimBlockCyclic
+    n, nb = 1024, 256
+    a = chol.make_spd_fast(n, seed=6) if kind == "cholesky" \
+        else lu.make_dd(n, seed=6)
+    cls = SymTwoDimBlockCyclic if kind == "cholesky" else TwoDimBlockCyclic
+    build = chol.tiled_cholesky_ptg if kind == "cholesky" \
+        else lu.tiled_lu_ptg
+    before = dict(tg.gemm_update.launches_by_variant)
+
+    def body(ctx, rank, nranks):
+        A = cls.from_dense("A", a.copy(), nb, nb, P=2, Q=2, myrank=rank)
+        ctx.add_taskpool(build(A))
+        ctx.wait(timeout=120)
+        ctx.comm_barrier()
+        return A.to_dense(), ctx.comm_engine.ce.bytes_got
+
+    res = run_multirank(4, body, timeout=240, transport="device",
+                        devices=[torch.device("cuda", 0)] * 4)
+    card.flush_cache()
+    assert set(_variant_delta(before)) == {"mma_tf32"}
+    assert sum(r[1] for r in res) > 0
+    f = sum(r[0] for r in res)
+    assert _backward_error(f, a, kind) < 5e-3
+    assert _tile_error(f, a, kind, nb) < TF32_TILE_TOL

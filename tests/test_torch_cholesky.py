@@ -331,10 +331,17 @@ def test_symmetric_tiles_round_trip_through_the_jax_package():
 @pytest.mark.parametrize("kw", [dict(P=2), dict(Q=2), dict(kp=2),
                                 dict(uplo=2)])
 def test_distributions_refuse_more_than_one_rank(kw):
-    # the grid parameters are not ported (TypeError), uplo is checked
-    cls = SymTwoDimBlockCyclic if "uplo" in kw else TwoDimBlockCyclic
-    with pytest.raises(ValueError if "uplo" in kw else TypeError):
-        cls("A", 32, 32, 8, 8, **kw)
+    # the P x Q grid is ported: a grid of 2 spreads the tiles over two
+    # ranks, and a grid parameter below 1 is refused; uplo is checked
+    if "uplo" in kw:
+        with pytest.raises(ValueError):
+            SymTwoDimBlockCyclic("A", 32, 32, 8, 8, **kw)
+        return
+    grid = dict(P=2, **kw) if "kp" in kw else kw      # kp groups P's rows
+    A = TwoDimBlockCyclic("A", 32, 32, 8, 8, **grid)
+    assert {A.rank_of(m, n) for m in range(4) for n in range(4)} == {0, 1}
+    with pytest.raises(ValueError):
+        TwoDimBlockCyclic("A", 32, 32, 8, 8, **{k: 0 for k in kw})
 
 
 def test_block_cyclic_is_a_tiled_matrix_on_rank_0():

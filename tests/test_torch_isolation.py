@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither ``jax`` nor ``parsec_tpu``.
 
 Checked two ways: fresh interpreters import ``parsec_tpu_torch`` and run
-a 2x2x2-tile GEMM, a served LLM stream, a lowered stencil and GEMM, and
-a tiled Cholesky (dynamic and lowered), then inspect ``sys.modules``
+a 2x2x2-tile GEMM, a served LLM stream, a lowered stencil and GEMM, a
+tiled Cholesky (dynamic and lowered) and a 2-rank Cholesky over the comm
+layer, then inspect ``sys.modules``
 (subprocesses, because this test process already holds jax through
 ``conftest.py``); and an AST scan of every module of the package finds
 no such import.
@@ -100,7 +101,11 @@ def test_the_package_has_the_slice_modules():
                 "models/stencil2d.py", "ops/factor.py", "models/cholesky.py",
                 "models/lu.py", "native/__init__.py", "runtime/dagrun.py",
                 "dtd/__init__.py", "dtd/insert.py", "dtd/from_ptg.py",
-                "core/topology.py", "core/backoff.py", "models/ep.py"):
+                "core/topology.py", "core/backoff.py", "models/ep.py",
+                "comm/__init__.py", "comm/engine.py",
+                "comm/device_fabric.py", "comm/remote_dep.py",
+                "comm/termdet_fourcounter.py", "comm/multirank.py",
+                "comm/collectives.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu",
                 "native_core.cpp"):
@@ -271,6 +276,58 @@ def test_dtd_and_the_compiled_dag_load_no_jax_and_no_parsec_tpu():
     assert "parsec_tpu_torch.runtime.dagrun" in out["modules"]
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded
+
+
+def test_a_multirank_cholesky_loads_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter factors a matrix over 2 ranks of the port's
+    ``run_multirank`` (device fabric over two CPU devices, the device
+    module around the host serving both ranks, every tile by rendezvous
+    GET, the four-counter detector), with ``jax`` and ``parsec_tpu`` absent from
+    ``sys.modules``."""
+    code = textwrap.dedent("""
+        import json, sys
+        import numpy as np
+        from parsec_tpu_torch.comm import run_multirank
+        from parsec_tpu_torch.core.params import params
+        from parsec_tpu_torch.data_dist.matrix import SymTwoDimBlockCyclic
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.models.cholesky import (make_spd,
+                                                      tiled_cholesky_ptg)
+        dev = init_cuda_devices(device="cpu")[0]
+        a = make_spd(64, seed=0)
+        params.set("termdet", "fourcounter")
+        params.set("comm_short_limit", 0)     # every tile by GET
+
+        def body(ctx, rank, nranks):
+            A = SymTwoDimBlockCyclic.from_dense("A", a, 16, 16, P=1, Q=2,
+                                                myrank=rank)
+            ctx.add_taskpool(tiled_cholesky_ptg(A))
+            ctx.wait(timeout=60)
+            return (A.to_dense(), ctx.comm_engine.ce.bytes_got)
+
+        res = run_multirank(2, body, transport="device",
+                            devices=["cpu", "cpu"])
+        got = np.tril(sum(r[0] for r in res))
+        ok = bool(np.allclose(got, np.linalg.cholesky(
+            a.astype(np.float64)), atol=1e-4))
+        print(json.dumps({"ok": ok, "tasks": dev.executed_tasks,
+                          "moved": all(r[1] > 0 for r in res),
+                          "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"] and out["tasks"] == 20 and out["moved"]
+    assert "parsec_tpu_torch.comm.remote_dep" in out["modules"]
+    assert "parsec_tpu_torch.comm.termdet_fourcounter" in out["modules"]
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_the_ast_scan_covers_the_comm_layer():
+    comm = [f for f in PORT_FILES if f.startswith("parsec_tpu_torch/comm/")]
+    assert len(comm) == 7, comm
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)

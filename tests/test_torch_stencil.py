@@ -196,4 +196,7 @@ def test_bad_stencil_arguments_raise():
     with pytest.raises(ValueError, match="radius"):
         stencil_1d_ptg(V, np.ones(11), 1)
     with pytest.raises(ValueError, match="ranks"):
-        VectorTwoDimCyclic("V", lm=16, mb=4, P=2)
+        VectorTwoDimCyclic("V", lm=16, mb=4, P=0)
+    # vectors over several ranks are ported: segment m on rank m % P
+    assert [VectorTwoDimCyclic("V", lm=16, mb=4, P=2).rank_of(m)
+            for m in range(4)] == [0, 1, 0, 1]
