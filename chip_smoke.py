@@ -146,6 +146,38 @@ any phase fails:
    by variant and form, the mean batch and the single-rank wall beside
    it.
 
+16. **path multiproc_gemm, multiproc_cholesky, multiproc_lu** (after the
+   multi-rank paths) — the same three pools at the same sizes across 4
+   rank *processes* (``run_multiproc(4, ..., transport="device",
+   distributed=True)``: each rank an interpreter of its own with its own
+   CUDA context and device module on ``cuda:0``, the ranks joined by the
+   TCP socket fabric and a gloo process group; tiles cross by D2H, TCP and
+   H2D), one launch running the three kinds in turn through
+   ``parsec_tpu_torch/comm/mp_bodies.py:pool_body``, each after a 2 x
+   2-tile run off the clock.  Every rank joins at a barrier and stamps
+   ``time.monotonic()`` before ``add_taskpool`` and after ``wait`` (its
+   card synchronized); the wall runs from the first stamp to the last.
+   Per-rank task counts must sum to the single-rank count, every tile
+   product be K1 (``mma_tf32``) in its rank and no task a host chore; C
+   within the TF32 bound, a factor under the ``dynamic_*`` gates; the
+   GETs and landed payload bytes of each rank equal the in-process
+   phase's, the payload served over the ranks equal the payload landed;
+   no rank holds ``jax`` or ``parsec_tpu``, and the group spans 4.  Each
+   line carries the wall, each rank's ``manager_s``, GETs, payload bytes
+   and bytes by tier, the host seconds of each hop (D2H to its event,
+   frames sent, frames received, H2D enqueued, and the GETs from request to
+   landing), K1's launches by variant and form, and whether the readings
+   equal the in-process phase's to every digit.
+17. **path multirank_dtd_gemm** — the distributed DTD GEMM of
+   ``parsec_tpu_torch/dtd/multirank_check.py`` (``AFFINITY`` on C, A and
+   B tiles pushed between the ranks) at n=8192, nb=1024 across 4 rank
+   threads on the card (``run_multirank(4, transport="device",
+   devices=[cuda:0] * 4)``) with ``cuda_kernel="gemm"``, after a 2 x
+   2-tile run off the clock: every GEMM on K1, C within the TF32 bound,
+   each rank's tasks and received pushes equal to a rehearsal of the same
+   insertion program on the host at 8 x 8 small tiles; the line carries
+   the wall, each rank's pushes and their bytes, and K1's launches.
+
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
 yardstick call of ``mma_tf32``.  Every printed number stands beside the card's name and
@@ -2067,6 +2099,233 @@ def phase_multirank(card: str, torch, kind: str, single: dict,
         params.set("gemm_precision", "default")
 
 
+def _by_variant(counts: dict) -> dict:
+    """K1 launch counts by variant, every variant keyed."""
+    from parsec_tpu_torch.ops import gemm as tg
+    out = dict.fromkeys(tg.K1_VARIANTS, 0)
+    for v, k in counts.items():
+        out[v] += k
+    return out
+
+
+def _sum_counts(dicts) -> dict:
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+MP_KINDS = ("gemm", "cholesky", "lu")
+
+
+def phase_multiproc(card: str, torch, multirank: dict, n: int = 8192,
+                    nb: int = 1024, seed: int = 0) -> dict:
+    """GEMM, Cholesky and LU across 4 rank processes on the card (see
+    the module docstring, phase 16): one ``run_multiproc`` launch with
+    ``distributed=True``; returns each kind's path record."""
+    import numpy as np
+
+    from parsec_tpu_torch.comm import run_multiproc
+    from parsec_tpu_torch.comm.mp_bodies import factor_input, gemm_dense
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops
+
+    dev = init_cuda_devices()[0]
+    dev.flush_cache()
+    torch.cuda.empty_cache()       # the ranks' contexts share the card
+    env = {"PARSEC_MP_KINDS": ",".join(MP_KINDS), "PARSEC_MP_N": str(n),
+           "PARSEC_MP_NB": str(nb), "PARSEC_MP_SEED": str(seed),
+           "PARSEC_MP_CHORES": "cuda", "PARSEC_MP_WARMUP": "1",
+           "PARSEC_MCA_gemm_precision": "default"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        res = run_multiproc(MR_RANKS,
+                            "parsec_tpu_torch.comm.mp_bodies:pool_body",
+                            timeout=420, transport="device",
+                            distributed=True)
+        launch_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    _check([r["modules"] for r in res] == [[]] * MR_RANKS,
+           f"multiproc: ranks hold {[r['modules'] for r in res]}")
+    _check([r["world_size"] for r in res] == [MR_RANKS] * MR_RANKS,
+           f"multiproc: process groups of {[r['world_size'] for r in res]}")
+    out = {}
+    for kind in MP_KINDS:
+        name = f"multiproc_{kind}"
+        inproc = multirank[f"multirank_{kind}"]
+        recs = [r["kinds"][kind] for r in res]
+        wall = max(r["t_wait"] for r in recs) - min(r["t_add"] for r in recs)
+        per_rank = [r["tasks"] for r in recs]
+        want = {"GEMM": (n // nb) ** 3} if kind == "gemm" \
+            else _expected_tasks(kind, n // nb)
+        tasks = _sum_counts(r["dev"]["tasks_by_class"] for r in recs)
+        by_variant = _by_variant(_sum_counts(r["k1_by_variant"]
+                                             for r in recs))
+        by_form = _sum_counts(r["k1_by_form"] for r in recs)
+        launches = sum(r["k1"] for r in recs)
+        gets = [r["gets"] for r in recs]
+        tiers = [r["tiers"] for r in recs]
+        got = [t["payload_in"] for t in tiers]
+        _check(sum(per_rank) == sum(want.values()) == inproc["tasks"],
+               f"{name}: per-rank tasks {per_rank} do not sum to "
+               f"{inproc['tasks']}")
+        _check(tasks == want, f"{name}: tasks on the card {tasks}, "
+               f"expected {want}")
+        _check(all(r["cpu_tasks"] == 0 for r in recs),
+               f"{name}: a host chore ran")
+        _check(launches > 0 and by_variant["mma_tf32"] == launches
+               and all(r["k1"] > 0 for r in recs),
+               f"{name}: K1 ran {by_variant} ({[r['k1'] for r in recs]} "
+               f"by rank), expected mma_tf32 in every rank")
+        forms = {"nn"} if kind == "gemm" else K1_FORMS[kind]
+        _check(set(by_form) == forms,
+               f"{name}: K1 forms {by_form}, expected {forms}")
+        _check(gets == inproc["gets_by_rank"],
+               f"{name}: GETs {gets}, in process "
+               f"{inproc['gets_by_rank']}")
+        _check(got == inproc["bytes_got_by_rank"],
+               f"{name}: payload landed {got}, in process "
+               f"{inproc['bytes_got_by_rank']}")
+        _check(sum(t["payload_out"] for t in tiers) == sum(got),
+               f"{name}: payload served {[t['payload_out'] for t in tiers]}"
+               f" != landed {got}")
+        dense = np.zeros((n, n), np.float32)
+        for r in recs:
+            for (i, j), tile in r["tiles"].items():
+                dense[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb] = tile
+        if kind == "gemm":
+            a, b = gemm_dense(n, nb, seed)
+            checks = dict(max_abs_err=_check_c(torch, dense, a, b, nb, name))
+            reading = "max_abs_err"
+            flops = gemm_flops(n, n, n)
+        else:
+            a = factor_input(kind, n)
+            checks = _factor_check(torch, kind, dense, a, nb, "default")
+            reading = "tile_error"
+            flops = _factor_flops(kind, n)
+        del dense
+        rec = dict(n=n, nb=nb, ranks=MR_RANKS, grid=[MR_P, MR_Q],
+                   processes=MR_RANKS, world_size=res[0]["world_size"],
+                   termdet=recs[0]["termdet"], wall_s=wall,
+                   gflops=flops / wall / 1e9,
+                   multirank_wall_s=inproc["wall_s"],
+                   single_wall_s=inproc["single_wall_s"],
+                   launch_s=launch_s, tasks=sum(per_rank),
+                   tasks_by_rank=per_rank, tasks_by_class=tasks,
+                   manager_s_by_rank=[r["dev"]["t_manager"] for r in recs],
+                   stage_in_s_by_rank=[r["dev"]["t_stage_in"]
+                                       for r in recs],
+                   gets_by_rank=gets, payload_in_by_rank=got,
+                   payload_out_by_rank=[t["payload_out"] for t in tiers],
+                   wire_sent_by_rank=[t["wire_total_sent"] for t in tiers],
+                   control_sent_by_rank=[t["control_sent"] for t in tiers],
+                   **{f"{hop}_by_rank": [r["tier_s"][hop] for r in recs]
+                      for hop in ("d2h_s", "send_s", "recv_s", "h2d_s",
+                                  "get_s")},
+                   get_ms_mean=(sum(r["tier_s"]["get_s"] for r in recs)
+                                / max(1, sum(gets)) * 1e3),
+                   gemm_launches=launches,
+                   gemm_launches_by_rank=[r["k1"] for r in recs],
+                   gemm_launches_by_variant=by_variant,
+                   gemm_launches_by_form=by_form,
+                   mean_batch=sum(per_rank) / max(1, launches),
+                   **checks, **{f"{reading}_equals_multirank":
+                                checks[reading] == inproc[reading],
+                                f"multirank_{reading}": inproc[reading]})
+        _emit(card, phase="path", name=name, **rec)
+        out[name] = rec
+    return out
+
+
+def _dtd_rehearsal(nranks: int, nt: int) -> list:
+    """The DTD GEMM's insertion program on host chores at ``nt`` x ``nt``
+    tiles of 8 (ranks as threads): each rank's tasks and pushes."""
+    import numpy as np
+
+    from parsec_tpu_torch.comm import run_multirank
+    from parsec_tpu_torch.dtd.multirank_check import dtd_gemm_rank_body
+    a = np.ones((8 * nt, 8 * nt), np.float32)
+    return run_multirank(nranks, dtd_gemm_rank_body(a, a, 8, MR_P, MR_Q))
+
+
+def phase_multirank_dtd(card: str, torch, n: int = 8192, nb: int = 1024,
+                        seed: int = 5) -> dict:
+    """The distributed DTD GEMM on the card (phase 17 of the module
+    docstring)."""
+    from parsec_tpu_torch.comm import run_multirank
+    from parsec_tpu_torch.comm.mp_bodies import gemm_dense
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.dtd.multirank_check import dtd_gemm_rank_body
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops
+    from parsec_tpu_torch.ops import gemm as tg
+
+    params.set("gemm_precision", "default")
+    dev = init_cuda_devices()[0]
+    cuda0 = [torch.device("cuda", 0)] * MR_RANKS
+
+    def run(a, b):
+        return run_multirank(
+            MR_RANKS, dtd_gemm_rank_body(a, b, nb, MR_P, MR_Q,
+                                         cuda_kernel="gemm", timeout=600),
+            timeout=600, transport="device", devices=cuda0)
+
+    run(*gemm_dense(2 * nb, nb, seed + 1))
+    dev.flush_cache()
+    a, b = gemm_dense(n, nb, seed)
+    before = dev.stats()
+    _k1_reset(tg)                       # counts from here are the path's
+    recs = run(a, b)
+    launches = tg.gemm_update.launches
+    by_variant = dict(tg.gemm_update.launches_by_variant)
+    s = dev.stats()
+    wall = max(r["t_wait"] for r in recs) - min(r["t_start"] for r in recs)
+    tasks = {c: k - before["tasks_by_class"].get(c, 0)
+             for c, k in s["tasks_by_class"].items()
+             if k - before["tasks_by_class"].get(c, 0)}
+    rehearsal = _dtd_rehearsal(MR_RANKS, n // nb)
+    per_rank = [r["tasks"] for r in recs]
+    pushes = [r["pushes"] for r in recs]
+    name = "multirank_dtd_gemm"
+    _check(tasks == {"gemm": (n // nb) ** 3},
+           f"{name}: tasks on the card {tasks}")
+    _check(per_rank == [r["tasks"] for r in rehearsal],
+           f"{name}: per-rank tasks {per_rank}, rehearsal "
+           f"{[r['tasks'] for r in rehearsal]}")
+    _check(pushes == [r["pushes"] for r in rehearsal] and sum(pushes) > 0,
+           f"{name}: pushes {pushes}, rehearsal "
+           f"{[r['pushes'] for r in rehearsal]}")
+    _check(launches > 0 and by_variant["mma_tf32"] == launches,
+           f"{name}: K1 ran {by_variant}, expected mma_tf32 only")
+    dense = sum(r["C"] for r in recs)
+    err = _check_c(torch, dense, a, b, nb, name)
+    del dense
+    rec = dict(n=n, nb=nb, ranks=MR_RANKS, grid=[MR_P, MR_Q], wall_s=wall,
+               gflops=gemm_flops(n, n, n) / wall / 1e9,
+               insert_s_by_rank=[r["insert_s"] for r in recs],
+               tasks_by_rank=per_rank, tasks_by_class=tasks,
+               pushes_by_rank=pushes,
+               push_bytes_by_rank=[r["push_bytes"] for r in recs],
+               gemm_launches=launches,
+               gemm_launches_by_variant=by_variant,
+               mean_batch=tasks["gemm"] / max(1, launches),
+               manager_s=s["t_manager"] - before["t_manager"],
+               h2d_mb=(s["bytes_in"] - before["bytes_in"]) / 1e6,
+               max_abs_err=err)
+    _emit(card, phase="path", name=name, **rec)
+    dev.flush_cache()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2129,8 +2388,11 @@ def main() -> int:
             card, torch, "cholesky", factor_paths["dynamic_cholesky"]),
         "multirank_lu": phase_multirank(card, torch, "lu",
                                         factor_paths["dynamic_lu"])}
+    multiproc = phase_multiproc(card, torch, multirank)
+    mr_dtd = phase_multirank_dtd(card, torch)
     k1_paths = {"gemm": path, "dtd_gemm": dtd, "lowered_gemm": lgemm,
-                **factor_paths, **multirank}
+                **factor_paths, **multirank, **multiproc,
+                "multirank_dtd_gemm": mr_dtd}
     row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "gemm_update", "route": "cuda",

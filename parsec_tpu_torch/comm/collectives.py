@@ -17,8 +17,10 @@ registered op (:func:`register_reduce_op`) before forwarding, so each
 edge carries one tile and the root writes the final combine.
 
 The ops combine ``torch.Tensor`` tiles (``torch.add``, ``torch.mul``,
-``torch.maximum``, ``torch.minimum``).  Left out: the multi-process bench
-body (``_mp_collective_body``), which waits for the multi-process tier.
+``torch.maximum``, ``torch.minimum``).  :func:`_mp_collective_body` is the
+rank body of one staged broadcast and one tree reduction across rank
+processes (``run_multiproc``), returning each rank's payload digest and
+the fabric's per-peer ledgers.  Nothing of the original is left out.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..core.params import params as _params
 from ..data.data import data_create
 from .remote_dep import (TREE_KINDS, resolve_tree_kind, tree_children,
                          tree_parent)
@@ -177,3 +180,55 @@ def reduce_taskpool(V: Any, OUT: Any, *, op: str = "sum", root: int = 0,
             "P", data_create(acc, key=(name, "partial", l.p)).get_copy(0))
 
     return p_.build()
+
+
+_params.register("comm_coll_bench_bytes", 4 << 20,
+                 "payload size of the multi-process collective body's "
+                 "broadcast tile")
+
+
+def _mp_collective_body(ctx, rank, nranks):
+    """One broadcast of a ``comm_coll_bench_bytes`` tile and one tree
+    reduction, timed; returns each rank's payload digest, its times, the
+    reduction (on rank 0) and the socket fabric's per-peer ledgers, so the
+    caller can hold the root's egress to O(children(root))."""
+    import hashlib
+    import time
+
+    import numpy as np
+
+    from ..data_dist.matrix import VectorTwoDimCyclic
+
+    nbytes = int(_params.get("comm_coll_bench_bytes"))
+    mb = max(nbytes // 4, 1)                       # float32 elements
+    V = VectorTwoDimCyclic(
+        "V", lm=mb * nranks, mb=mb, P=nranks, myrank=rank,
+        init_fn=lambda m, size: (
+            np.arange(size, dtype=np.float32) * 0.5 + 7.0 if m == 0
+            else np.zeros(size, np.float32)))
+    t0 = time.perf_counter()
+    ctx.add_taskpool(bcast_taskpool(V, n=nranks))
+    ctx.wait(timeout=120)
+    ctx.comm_barrier()
+    bcast_s = time.perf_counter() - t0
+    mine = V.data_of(rank).newest_copy().value.cpu().contiguous()
+    digest = hashlib.sha256(mine.numpy().tobytes()).hexdigest()
+
+    # reduction: every rank contributes rank+1 over a small tile
+    R = VectorTwoDimCyclic(
+        "R", lm=64 * nranks, mb=64, P=nranks, myrank=rank,
+        init_fn=lambda m, size: np.full(size, float(m + 1), np.float32))
+    O = VectorTwoDimCyclic("O", lm=64, mb=64, P=1, myrank=rank,
+                           init_fn=lambda m, size:
+                           np.zeros(size, np.float32))
+    t0 = time.perf_counter()
+    ctx.add_taskpool(reduce_taskpool(R, O, op="sum", n=nranks))
+    ctx.wait(timeout=120)
+    ctx.comm_barrier()
+    reduce_s = time.perf_counter() - t0
+    red = float(O.data_of(0).newest_copy().value[0]) if rank == 0 else None
+    fab = ctx.comm_engine.ce.fabric
+    stats = fab.peer_stats() if hasattr(fab, "peer_stats") else {}
+    return {"rank": rank, "digest": digest, "bcast_s": bcast_s,
+            "reduce_s": reduce_s, "reduce0": red, "peer_stats": stats,
+            "tree": _params.get("comm_bcast_tree")}

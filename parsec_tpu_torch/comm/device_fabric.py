@@ -49,6 +49,7 @@ import torch
 from ..core.params import params as _params
 from ..data.data import nbytes_of
 from ..data.datatype import to_tensor
+from .codec import dtype_name
 from .engine import InprocCommEngine, InprocFabric, MemHandle, _LandingZone
 
 
@@ -104,7 +105,8 @@ class DeviceCommEngine(InprocCommEngine):
         self.bytes_got = 0      # landed on this rank's device by GETs
 
     def mem_register(self, value: Any, refcount: int = 1,
-                     owned: bool = False) -> MemHandle:
+                     owned: bool = False,
+                     peers: set[int] | None = None) -> MemHandle:
         """Place ``value`` on this rank's device and publish it: a copy
         there when it lies elsewhere, a device-side snapshot when it lies
         there already, unless ``owned``."""
@@ -116,7 +118,8 @@ class DeviceCommEngine(InprocCommEngine):
         with self._mem_lock:     # registrations come from several threads
             self.bytes_put += nbytes_of(value)
         # the copy above settled the ownership
-        return super().mem_register(value, refcount, owned=True)
+        return super().mem_register(value, refcount, owned=True,
+                                    peers=peers)
 
     def _land_value(self, value: Any) -> Any:
         """Land the payload on MY device."""
@@ -142,9 +145,9 @@ class DeviceCommEngine(InprocCommEngine):
             piece = flat[e0:e0 + per]
             pieces.append((e0 * value.element_size(), nbytes_of(piece),
                            piece))
-        meta = {"shape": tuple(value.shape), "dtype": value.dtype,
-                "nbytes": nbytes_of(value), "nfrags": len(pieces),
-                "tier": "device"}
+        meta = {"shape": tuple(value.shape),
+                "dtype": dtype_name(value.dtype), "nbytes": nbytes_of(value),
+                "nfrags": len(pieces), "tier": "device"}
         return pieces, meta
 
     def _zone_write(self, zone: _LandingZone, offset: int,

@@ -32,10 +32,18 @@ tensor nobody else holds, and a GET serves each consumer its own tensor:
 a copy while other consumers are still to pull, the registered snapshot
 itself to the last one.
 
-Left out: PINS events and trace spans (the port has no ``prof/``), the
-socket tier's receive-thread landings (``landing_view``/``landing_commit``),
-resumed and prefetch GETs, and per-peer failure handling
-(``on_peer_failed``), which only the multi-process tier needs.
+The socket tier's hooks live here too: ``_serve_value`` (what a GET
+serves; the device socket tier stages its D2H there), ``_transport_frag``
+(how one fragment travels), ``landing_view``/``landing_commit`` (the
+socket receive thread lands a fragment's bytes by ``recv_into`` straight
+into the landing zone's flat host buffer), ``on_peer_failed`` (a dead peer's
+registration shares, send windows and landing zones are released) and
+``mem_release(peer=)``.  A fragment's meta names its dtype as a string
+(:func:`~parsec_tpu_torch.comm.codec.dtype_name`), so it rides the wire.
+
+Left out: PINS events and trace spans (the port has no ``prof/``),
+resumed and prefetch GETs (``resume_get``, ``prefetch_get``), the
+``Capabilities`` record and ``on_drained`` callbacks.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ import torch
 from ..core.backoff import Backoff
 from ..core.params import params as _params
 from ..data.data import nbytes_of
+from .codec import dtype_name, torch_dtype_of
 
 # Reserved AM tags (cf. parsec_comm_engine.h:24-40).
 AM_TAG_GET_REQ = 1       # internal: rendezvous pull request
@@ -59,6 +68,7 @@ AM_TAG_GET_ACK = 3       # remote-completion notification (activation ack)
 AM_TAG_ACTIVATE = 4      # remote-dep activation
 AM_TAG_TERMDET = 5       # termination-detection waves (fourcounter)
 AM_TAG_BARRIER = 6       # context-level sync barrier
+AM_TAG_DTD = 7           # DTD cross-rank tile pushes and flushes
 AM_TAG_GET_FRAG = 8      # internal: one rendezvous payload fragment
 AM_TAG_GET_FRAG_ACK = 9  # internal: fragment credit (windowed pipelining)
 
@@ -72,17 +82,24 @@ _params.register("comm_get_window", 4,
 
 class MemHandle:
     """A published local buffer.  ``refcount`` counts the peers still
-    expected to pull; the registration drops when it reaches zero."""
+    expected to pull; the registration drops when it reaches zero.
+    ``peers`` optionally names the consumer ranks, so a peer that dies
+    before its GET releases its share (:meth:`CommEngine.on_peer_failed`).
+    ``ready`` is the CUDA event after which a device tier's value is
+    complete (None elsewhere)."""
 
-    __slots__ = ("handle_id", "rank", "value", "refcount")
+    __slots__ = ("handle_id", "rank", "value", "refcount", "peers", "ready")
 
     _ids = itertools.count(1)
 
-    def __init__(self, rank: int, value: Any, refcount: int = 1) -> None:
+    def __init__(self, rank: int, value: Any, refcount: int = 1,
+                 peers: set[int] | None = None) -> None:
         self.handle_id = next(MemHandle._ids)
         self.rank = rank
         self.value = value
         self.refcount = refcount
+        self.peers = set(peers) if peers is not None else None
+        self.ready = None
 
     def wire(self) -> tuple[int, int]:
         """The on-the-wire form: (owner rank, handle id)."""
@@ -178,12 +195,13 @@ class CommEngine:
 
     # -- registered memory / one-sided ---------------------------------------
     def mem_register(self, value: Any, refcount: int = 1,
-                     owned: bool = False) -> MemHandle:
+                     owned: bool = False,
+                     peers: set[int] | None = None) -> MemHandle:
         """Publish a buffer for one-sided GETs.  A tensor is snapshotted
         (see the module docstring) unless ``owned``."""
         if not owned and isinstance(value, torch.Tensor):
             value = value.clone()
-        h = MemHandle(self.rank, value, refcount)
+        h = MemHandle(self.rank, value, refcount, peers=peers)
         with self._mem_lock:
             self._mem[h.handle_id] = h
         return h
@@ -192,15 +210,40 @@ class CommEngine:
         with self._mem_lock:
             return self._mem.get(handle_id)
 
-    def mem_release(self, handle_id: int) -> None:
-        """Drop one reference; unregister when drained."""
+    def mem_release(self, handle_id: int, peer: int | None = None) -> None:
+        """Drop one reference (``peer``'s, which leaves the expected-peer
+        set, so its later death releases nothing); unregister when
+        drained."""
         with self._mem_lock:
             h = self._mem.get(handle_id)
             if h is None:
                 return
             h.refcount -= 1
+            if peer is not None and h.peers is not None:
+                h.peers.discard(peer)
             if h.refcount <= 0:
                 del self._mem[handle_id]
+
+    def on_peer_failed(self, rank: int) -> int:
+        """Release every registration share held for the dead peer
+        ``rank``; returns the number of registrations that drained."""
+        drained = 0
+        with self._mem_lock:
+            for hid in list(self._mem):
+                h = self._mem[hid]
+                if h.peers is None or rank not in h.peers:
+                    continue
+                h.peers.discard(rank)
+                h.refcount -= 1
+                if h.refcount <= 0:
+                    del self._mem[hid]
+                    drained += 1
+        return drained
+
+    def snapshot_value(self, value: Any) -> Any:
+        """A stable copy of ``value`` to send in a message (a DTD push):
+        a tensor of its own, on the device it lies on."""
+        return value.clone() if isinstance(value, torch.Tensor) else value
 
     def get(self, rwire: tuple[int, int],
             on_complete: Callable[[Any], None]) -> int:
@@ -281,24 +324,22 @@ class InprocCommEngine(CommEngine):
         if h is None:
             raise RuntimeError(
                 f"rank {self.rank}: GET for unknown handle {msg['handle']}")
-        plan = self._plan_frags(h.value)
+        value = self._serve_value(h)
+        plan = self._plan_frags(value)
         if plan is not None:
             # the receiver copies each fragment into a destination of its
             # own, so the pieces may be views of the registered snapshot
             self._start_frag_send(msg["reply_to"], msg["get_id"],
                                   msg["handle"], plan)
             return
-        self.send_am(AM_TAG_GET_REPLY, msg["reply_to"],
-                     {"get_id": msg["get_id"], "value": self._reply_value(h)})
-        self.mem_release(msg["handle"])
-
-    def _reply_value(self, h: MemHandle) -> Any:
-        """What one consumer receives: a tensor of its own.  The snapshot
-        is private to the engine, so the LAST consumer takes it as is."""
-        value = h.value
-        if isinstance(value, torch.Tensor) and h.refcount > 1:
+        # each consumer receives a tensor of its own; the snapshot is
+        # private to the engine, so the LAST consumer takes it as is
+        if value is h.value and isinstance(value, torch.Tensor) \
+                and h.refcount > 1:
             value = value.clone()
-        return value
+        self.send_am(AM_TAG_GET_REPLY, msg["reply_to"],
+                     {"get_id": msg["get_id"], "value": value})
+        self.mem_release(msg["handle"], peer=msg["reply_to"])
 
     def _finish_get(self, eng: CommEngine, src: int, msg: dict) -> None:
         cb = self._pending_gets.pop(msg["get_id"], None)
@@ -307,7 +348,11 @@ class InprocCommEngine(CommEngine):
             return
         cb(self._land_value(msg["value"]))
 
-    # -- fragmentation hooks (overridden by the device tier) ------------------
+    # -- fragmentation hooks (overridden by the device tiers) -----------------
+    def _serve_value(self, h: MemHandle) -> Any:
+        """What a GET of ``h`` serves (the device socket tier's D2H)."""
+        return h.value
+
     def _land_value(self, value: Any) -> Any:
         """Final landing of every completed GET (the device tier moves it
         to its device and counts it)."""
@@ -325,9 +370,18 @@ class InprocCommEngine(CommEngine):
         n = flat.numel()
         pieces = [(off, min(fb, n - off), flat[off:off + fb])
                   for off in range(0, n, fb)]
-        meta = {"shape": tuple(value.shape), "dtype": value.dtype,
-                "nbytes": n, "nfrags": len(pieces), "tier": "host"}
+        meta = {"shape": tuple(value.shape),
+                "dtype": dtype_name(value.dtype), "nbytes": n,
+                "nfrags": len(pieces), "tier": "host"}
         return pieces, meta
+
+    def _transport_frag(self, dst: int, get_id: int, offset: int,
+                        nbytes: int, data: Any, meta: dict | None,
+                        last: bool) -> None:
+        """Ship one fragment: in process, the inbox carries a view of the
+        registered buffer (the socket tier sends a DATA frame)."""
+        self.fabric.deliver(dst, AM_TAG_GET_FRAG, self.rank,
+                            (get_id, offset, nbytes, meta, data))
 
     # -- fragmentation: sender side -------------------------------------------
     def _start_frag_send(self, dst: int, get_id: int, handle_id: int,
@@ -348,16 +402,15 @@ class InprocCommEngine(CommEngine):
         fs.next = i + 1
         off, n, data = fs.pieces[i]
         last = fs.next == len(fs.pieces)
-        self.fabric.deliver(fs.dst, AM_TAG_GET_FRAG, self.rank,
-                            (fs.get_id, off, n, fs.meta if i == 0 else None,
-                             data))
+        self._transport_frag(fs.dst, fs.get_id, off, n, data,
+                             fs.meta if i == 0 else None, last)
         self.frags_out += 1
         self.frag_bytes_out += n
         if last:
             with self._frag_lock:
                 self._frag_sends.pop((fs.dst, fs.get_id), None)
                 self.frag_active -= 1
-            self.mem_release(fs.handle_id)
+            self.mem_release(fs.handle_id, peer=fs.dst)
         return True
 
     def _on_frag_ack(self, eng: CommEngine, src: int, payload: Any) -> None:
@@ -372,9 +425,47 @@ class InprocCommEngine(CommEngine):
         if meta["tier"] == "device":
             zone.frags = {}
         else:
-            zone.dest = torch.empty(meta["shape"], dtype=meta["dtype"])
+            zone.dest = self._host_buffer(meta["shape"],
+                                          torch_dtype_of(meta["dtype"]))
             zone.flat = zone.dest.view(-1).view(torch.uint8)
         return zone
+
+    def _host_buffer(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+        """A host landing zone's destination (the device socket tier pins
+        it, for an asynchronous H2D)."""
+        return torch.empty(shape, dtype=dtype)
+
+    def landing_view(self, get_id: int, src: int, offset: int, nbytes: int,
+                     meta: dict | None) -> memoryview | None:
+        """The writable destination slice of a DATA frame's bytes, for the
+        socket receive thread's ``recv_into``; None for a fragment of a
+        finished GET or one already landed (the caller discards it).
+
+        The offset is marked landed only by :meth:`landing_commit`, after
+        the bytes arrived: a receive that dies mid-body leaves no mark,
+        and a replay on a fresh connection may be handed the same slice
+        (identical bytes; exactly one commit wins)."""
+        with self._frag_lock:
+            zone = self._landing.get(get_id)
+            if zone is None:
+                if meta is None:
+                    return None
+                zone = self._zone_alloc(get_id, src, meta)
+                self._landing[get_id] = zone
+                self.frag_active += 1
+            if offset in zone.landed:
+                return None
+        return memoryview(zone.flat[offset:offset + nbytes].numpy())
+
+    def landing_commit(self, get_id: int, offset: int) -> bool:
+        """Mark a fully received fragment landed; False when another
+        delivery already committed it or the zone is gone."""
+        with self._frag_lock:
+            zone = self._landing.get(get_id)
+            if zone is None or offset in zone.landed:
+                return False
+            zone.landed.add(offset)
+            return True
 
     def _zone_write(self, zone: _LandingZone, offset: int,
                     data: torch.Tensor) -> None:
@@ -388,18 +479,24 @@ class InprocCommEngine(CommEngine):
         with self._frag_lock:
             zone = self._landing.get(get_id)
             if zone is None:
-                if meta is None:
-                    self.dup_frags += 1    # a fragment of a finished GET
+                if data is None or meta is None:
+                    # a fragment of a finished GET (in process), or one
+                    # the socket receive thread landed into a zone that
+                    # has retired since
+                    self.dup_frags += 1
                     return
                 zone = self._zone_alloc(get_id, src, meta)
                 self._landing[get_id] = zone
                 self.frag_active += 1
-            if offset in zone.landed:
-                self.dup_frags += 1
-                return
-            zone.landed.add(offset)
-        # the copy into the final destination, interleaved with tasks
-        self._zone_write(zone, offset, data)
+            if data is not None:
+                if offset in zone.landed:
+                    self.dup_frags += 1
+                    return
+                zone.landed.add(offset)
+        if data is not None:
+            # in process, the copy into the final destination, interleaved
+            # with tasks; on the socket tier the receive thread landed it
+            self._zone_write(zone, offset, data)
         zone.remaining -= nbytes
         self.frags_in += 1
         self.frag_bytes_in += nbytes
@@ -415,6 +512,20 @@ class InprocCommEngine(CommEngine):
             self.dup_get_replies += 1
             return
         cb(value)
+
+    def on_peer_failed(self, rank: int) -> int:
+        # a dead consumer's send windows never see their credits, and a
+        # dead owner's landing zones never fill: drop both, or frag_active
+        # stays up for good
+        with self._frag_lock:
+            for key in [k for k in self._frag_sends if k[0] == rank]:
+                del self._frag_sends[key]
+                self.frag_active -= 1
+            for gid in [g for g, z in self._landing.items()
+                        if z.src == rank]:
+                del self._landing[gid]
+                self.frag_active -= 1
+        return super().on_peer_failed(rank)
 
     # -- progress -------------------------------------------------------------
     def pending(self) -> int:

@@ -38,11 +38,16 @@ The counters ``payload_bytes_staged`` (payload bytes this rank sent as a
 tree root, once per receiving peer) and ``payload_bytes_received`` stay
 plain attributes.
 
+The DTD message channel (:meth:`RemoteDepEngine.dtd_send`, tag
+``AM_TAG_DTD``) carries the tile pushes and flushes of multi-rank DTD
+(:mod:`parsec_tpu_torch.dtd.insert`); each message holds a pending action
+of its pool until acknowledged, and a message for a pool not registered
+here yet waits for its registration, as an activation does.
+
 Left out: typed-edge reshape on a remote edge (the port raises
 ``NotImplementedError`` where the JAX package repacks, ``ROADMAP.md`` §1
-item 10), the DTD message channel (multi-rank DTD is a later slice), the
-dedicated comm thread (``comm_thread``), the switches that turn
-coalescing and wire views off (``comm_coalesce``,
+item 10), the dedicated comm thread (``comm_thread``), the switches that
+turn coalescing and wire views off (``comm_coalesce``,
 ``comm_wire_datatypes``: nothing in the port turns them off), PINS
 events, trace spans, and the counters' live gauges.
 """
@@ -65,8 +70,9 @@ from ..runtime.scheduling import (ExecutionStream, _find_input_dep,
                                   _rank_of_task, apply_writeback_to_home,
                                   schedule_tasks)
 from ..runtime.task import Task
-from .engine import AM_TAG_ACTIVATE, AM_TAG_GET_ACK, AM_TAG_TERMDET, \
-    CommEngine
+from .codec import dtype_name
+from .engine import (AM_TAG_ACTIVATE, AM_TAG_DTD, AM_TAG_GET_ACK,
+                     AM_TAG_TERMDET, CommEngine)
 
 _params.register("comm_short_limit", 4096,
                  "payloads at most this many bytes ride inside the "
@@ -291,6 +297,7 @@ class RemoteDepEngine:
         ce.tag_register(AM_TAG_ACTIVATE, self._on_activate)
         ce.tag_register(AM_TAG_GET_ACK, self._on_ack)
         ce.tag_register(AM_TAG_TERMDET, self._on_termdet)
+        ce.tag_register(AM_TAG_DTD, self._on_dtd)
         ce.flush_hook = self.flush_outgoing
 
     # ------------------------------------------------------------ lifecycle
@@ -432,12 +439,13 @@ class RemoteDepEngine:
                     else:
                         parts = [self.my_rank] + ranks
                         children = tree_children(tree_kind, 0, len(parts))
-                        h = self.ce.mem_register(value,
-                                                 refcount=len(children),
-                                                 owned=owned)
+                        # peers= lets a dead child's share be released
+                        h = self.ce.mem_register(
+                            value, refcount=len(children), owned=owned,
+                            peers={parts[c] for c in children})
                         desc["wire"] = h.wire()
                         desc["shape"] = tuple(value.shape)
-                        desc["dtype"] = value.dtype
+                        desc["dtype"] = dtype_name(value.dtype)
                 outputs.append(desc)
             msg = {"tp": tp.comm_id, "tc": task.task_class.task_class_id,
                    "locals": dict(task.locals), "outputs": outputs,
@@ -528,6 +536,25 @@ class RemoteDepEngine:
                 if tp is None:
                     self._pending_unknown_tp.append((handler, src, msg))
         return tp
+
+    # ------------------------------------------------ DTD cross-rank channel
+    def dtd_send(self, tp: Any, dst: int, msg: dict) -> None:
+        """Ship a DTD message (a tile push or flush) to ``dst``, holding a
+        pending action of ``tp`` until its ack lands."""
+        seq = next(self._seq)
+        with self._iflock:
+            self._inflight[seq] = tp
+        tp.tdm.taskpool_addto_nb_pa(+1)
+        tp.tdm.on_comm_sent()
+        self.ce.send_am(AM_TAG_DTD, dst, dict(msg, tp=tp.comm_id, seq=seq))
+
+    def _on_dtd(self, eng, src: int, msg: dict) -> None:
+        tp = self._lookup_or_pend(self._on_dtd, src, msg)
+        if tp is None:
+            return
+        tp.tdm.on_comm_recv()
+        tp._on_dtd_message(self, src, msg)
+        self.ce.send_am(AM_TAG_GET_ACK, src, {"seq": msg["seq"]})
 
     # ------------------------------------------------- consumer (receiver) side
     def _on_activate(self, eng, src: int, msg: Any) -> None:
@@ -640,8 +667,9 @@ class RemoteDepEngine:
                 if "wire" in d:
                     # a snapshot: the landed tensor is also handed to the
                     # local successors, which may write it in place
-                    h = self.ce.mem_register(landed[d["flow_index"]],
-                                             refcount=len(children))
+                    h = self.ce.mem_register(
+                        landed[d["flow_index"]], refcount=len(children),
+                        peers={msg["ranks"][p] for p in children})
                     d["wire"] = h.wire()
             self._send_to_children(tp, fwd, my_pos=my_pos)
             self.flush_outgoing()

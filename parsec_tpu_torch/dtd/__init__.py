@@ -1,8 +1,10 @@
-"""DTD: Dynamic Task Discovery (port of ``parsec_tpu/dtd``, one rank).
+"""DTD: Dynamic Task Discovery (port of ``parsec_tpu/dtd``).
 
 Tasks are inserted at run time (``parsec_dtd_insert_task``) and the
 dependency graph is discovered from per-tile last-user / last-writer
-access chains (RAW/WAR/WAW), with a sliding insertion window.
+access chains (RAW/WAR/WAW), with a sliding insertion window; across
+ranks, ``AFFINITY`` routes each task and tiles cross as pushes
+(:mod:`.insert`, :mod:`.multirank_check`).
 """
 
 from .from_ptg import ptg_to_dtd

@@ -1,7 +1,7 @@
 """DTD engine: runtime task insertion with discovered dependencies.
 
 Port of ``parsec_tpu/dtd/insert.py`` (the reference's
-``interfaces/dtd/insert_function.c``), on one rank:
+``interfaces/dtd/insert_function.c``):
 
 - ``insert_task(body, (tile, INOUT), (x, VALUE), ...)``, the analog of
   ``parsec_dtd_insert_task``: flags give each argument's role; data
@@ -34,11 +34,41 @@ replacement tensors for the written flows in order.  SCRATCH arguments
 are tensors allocated per execution on the executing device, which is
 the host: a class with SCRATCH arguments takes no ``cuda_kernel``.
 
-Left out: multi-rank DTD (shells, snapshot pushes, arrivals, the flush
-to a remote owner and the ``AFFINITY``-routed rank, which wait for a comm
-layer), ``validate()`` (graphcheck) and PINS events.
-``AFFINITY``/``PUSHOUT``/``PULLIN`` are accepted and change nothing on
-one rank, as in the JAX package.
+**Across ranks** every rank runs the same insertion program (SPMD), and
+a task's insertion seq names it on the wire.  The ``AFFINITY``
+argument's tile decides the executing rank (rank 0 without one); a task
+routed elsewhere is an inert *shell* in the local accessor chains, and
+cross-rank dataflow moves as snapshot **pushes** over the comm engine's
+DTD channel (:meth:`~parsec_tpu_torch.comm.remote_dep.RemoteDepEngine.
+dtd_send`), keyed by (tile, writer's insertion seq; -1 for the tile's
+value before any writer):
+
+- a local reader after a shell writer, or of a remote tile no task has
+  written, waits for that push (an :class:`_Arrival`, which may land
+  before or after the reader's insertion) and runs on the pushed copy;
+- a shell reader after a local writer is recorded on the writer, whose
+  completion snapshots the written tile and ships it *before* releasing
+  its successors (a later local writer cannot change a payload in
+  flight: the WAR discipline), and a shell reader of a local tile no task
+  has written gets the home value at once, once per rank;
+- shells in ``last_users`` take no WAR edge from later local writers
+  (their data was snapshotted).
+
+A push may land early: a remote writer may run ahead of a local reader
+of an older version.  So a local task that accesses a newer version of a
+tile than the local tasks before it (one fed by a push, or a writer)
+waits for all of them, across shells (:meth:`DTDTaskpool._join_group`),
+and a pushed copy joins the tile's record only when a local task that
+writes it starts: nothing of the newer version, in the record or in its
+device copy, reaches the older reader.  A push of a tile on the card
+snapshots the device tensor: one device-side copy in process, the D2H
+over the socket tier.  ``data_flush`` runs on the rank of the tile's last
+writer and ships the final version to its home rank when they differ.
+Only collection-backed tiles cross ranks (a bare tensor has no
+rank-stable name).  ``PUSHOUT``/``PULLIN`` are accepted and change
+nothing, as in the JAX package.
+
+Left out: ``validate()`` (graphcheck) and PINS events.
 """
 
 from __future__ import annotations
@@ -50,7 +80,7 @@ import torch
 
 from ..core.params import params as _params
 from ..data.data import (ACCESS_READ, ACCESS_RW, ACCESS_WRITE,
-                         COHERENCY_SHARED, DataCopy, data_create)
+                         COHERENCY_SHARED, DataCopy, data_create, nbytes_of)
 from ..data.datatype import torch_dtype
 from ..runtime.scheduling import schedule_tasks
 from ..runtime.task import DEV_CPU, DEV_CUDA, HOOK_RETURN_DONE, Chore, Flow
@@ -97,10 +127,12 @@ class DTDTile:
 
     A new reader depends on the last writer and joins ``last_users``; a
     new writer depends on the last writer (WAW) and every reader since
-    (WAR), then resets the chain.  The chain mutates under ``_lock``."""
+    (WAR), then resets the chain.  Across ranks the chain holds shells
+    too.  The chain mutates under ``_lock``."""
 
     __slots__ = ("data", "dc", "key", "last_writer", "last_users", "_lock",
-                 "flushed")
+                 "flushed", "wire_key", "_pristine_sent", "_group_key",
+                 "_group")
 
     def __init__(self, data: Any, dc: Any = None, key: tuple = ()) -> None:
         self.data = data              # the master Data record
@@ -110,6 +142,19 @@ class DTDTile:
         self.last_users: list[tuple[DTDTask, int]] = []
         self._lock = threading.Lock()
         self.flushed = False
+        # the rank-stable name on the wire (a collection's name and key)
+        self.wire_key: tuple = ((dc.name,) + key if dc is not None
+                                else ("arr",) + key)
+        self._pristine_sent: set[int] = set()   # ranks sent the home value
+        # across ranks: the local tasks that access the tile's current
+        # local version, and that version's key (see _link_tile)
+        self._group_key: tuple = ("home",)
+        self._group: list[DTDTask] = []
+
+    @property
+    def rank(self) -> int:
+        """The tile's home rank."""
+        return self.dc.rank_of(*self.key) if self.dc is not None else 0
 
     def __repr__(self) -> str:
         return f"<DTDTile {self.key or self.data.key}>"
@@ -127,11 +172,15 @@ class _ArgSpec:
 
 class DTDTask(Task):
     """A dynamically inserted task with per-instance discovered deps.
-    ``deps_pending``, ``successors`` and ``completed`` change under
-    ``_dlock``."""
+    ``deps_pending``, ``successors``, ``completed`` and ``push_records``
+    change under ``_dlock``.  ``dtd_seq`` is the pool's insertion seq (the
+    same on every rank); ``is_shell`` marks a task routed to another
+    rank; ``push_records`` holds the (flow, rank) pushes its completion
+    ships; ``arrived`` the flows that run on a pushed copy."""
 
     __slots__ = ("body", "args", "deps_pending", "successors", "completed",
-                 "_dlock", "tiles")
+                 "_dlock", "tiles", "dtd_seq", "is_shell", "rank",
+                 "push_records", "arrived")
 
     def __init__(self, taskpool: Any, task_class: TaskClass, body: Callable,
                  args: list[_ArgSpec], priority: int = 0) -> None:
@@ -145,6 +194,11 @@ class DTDTask(Task):
         self.completed = False
         self._dlock = threading.Lock()
         self.tiles: list[DTDTile | None] = [None] * len(task_class.flows)
+        self.dtd_seq = -1
+        self.is_shell = False
+        self.rank = 0
+        self.push_records: set[tuple[int, int]] = set()
+        self.arrived: set[int] = set()
 
     def unpack_args(self) -> list[Any]:
         """``parsec_dtd_unpack_args``: argument values in insert order:
@@ -220,9 +274,15 @@ def _dtd_cpu_hook(es: Any, task: DTDTask) -> int:
 def _dtd_prepare_input(es: Any, task: DTDTask) -> None:
     """DTD data lookup: each tracked flow takes its tile's newest version
     as the task starts (the accessor chains order it after every writer
-    it depends on); scratch is allocated by the executing chore."""
+    it depends on); scratch is allocated by the executing chore.  A flow
+    fed by a push keeps the pushed copy, which a task that writes it
+    installs in the tile's record now."""
     for spec in task.args:
         if spec.flow_index < 0 or spec.flags & SCRATCH:
+            continue
+        if spec.flow_index in task.arrived:
+            if spec.mode & ACCESS_WRITE:
+                _install(task.data[spec.flow_index])
             continue
         copy = task.tiles[spec.flow_index].data.newest_copy()
         if copy is None:
@@ -255,6 +315,32 @@ def _dtd_flush_body(arr: Any, tile: DTDTile) -> None:
     tile.flushed = True
 
 
+def _install(copy: DataCopy) -> None:
+    """Make the pushed ``copy`` its tile's host copy, unless the record
+    holds a newer one."""
+    d = copy.original
+    with d._lock:
+        cur = d.get_copy(0)
+        if cur is not copy and (cur is None or cur.version <= copy.version):
+            d.attach_copy(copy)
+
+
+class _Arrival:
+    """One expected cross-rank payload, keyed by (tile wire key, writer's
+    insertion seq; -1 for the pre-writer value).  Local tasks wait on it;
+    the landing makes the payload one copy that every waiter shares and
+    releases them.  Landing and waiting come in either order."""
+
+    __slots__ = ("value", "version", "copy", "landed", "waiters")
+
+    def __init__(self) -> None:
+        self.value = None
+        self.version = 0
+        self.copy: DataCopy | None = None   # made once, at the first use
+        self.landed = False
+        self.waiters: list[tuple[DTDTask, int]] = []
+
+
 class DTDTaskpool(Taskpool):
     """``parsec_dtd_taskpool_new``: a taskpool whose DAG is discovered
     from the insertion order of tasks touching shared tiles.  The tile
@@ -267,6 +353,16 @@ class DTDTaskpool(Taskpool):
         self._classes: dict[Any, _DTDTaskClass] = {}
         self._tiles: dict[tuple, DTDTile] = {}
         self._tlock = threading.Lock()
+        # cross-rank state: tiles by wire key and flushes for tiles not
+        # made here yet (under _tlock), arrivals (under _alock)
+        self._insert_seq = 0
+        self._tiles_by_wire: dict[tuple, DTDTile] = {}
+        self._pending_flush: dict[tuple, tuple] = {}
+        self._arrivals: dict[tuple, _Arrival] = {}
+        self._alock = threading.Lock()
+        self.local_tasks = 0        # tasks inserted to run on this rank
+        self.pushes_received = 0    # pushes landed here (first landings)
+        self.push_bytes_received = 0
         # RLock: a body run from inside the window backpressure may insert
         self._insert_lock = threading.RLock()
         self._inflight = 0
@@ -307,11 +403,16 @@ class DTDTaskpool(Taskpool):
     def tile_of(self, dc: Any, *key) -> DTDTile:
         """``parsec_dtd_tile_of``: the unique tile record for ``dc(key)``."""
         k = (id(dc),) + key
+        flush = None
         with self._tlock:
             t = self._tiles.get(k)
             if t is None:
                 t = self._tiles[k] = DTDTile(dc.data_of(*key), dc=dc, key=key)
-            return t
+                self._tiles_by_wire[t.wire_key] = t
+                flush = self._pending_flush.pop(t.wire_key, None)
+        if flush is not None:
+            self._apply_flush(t, *flush)
+        return t
 
     def tile_of_array(self, array: torch.Tensor, key: Any = None) -> DTDTile:
         """Tile over a bare host tensor (no collection)."""
@@ -369,25 +470,30 @@ class DTDTaskpool(Taskpool):
     # --------------------------------------------------------------- insert
     def insert_task(self, body: Callable, *args: Any,
                     name: str | None = None, priority: int = 0,
-                    cuda_kernel: str | None = None) -> DTDTask:
+                    cuda_kernel: str | None = None,
+                    _rank: int | None = None) -> DTDTask:
         """``parsec_dtd_insert_task``.  Each argument is a bare value
         (taken as VALUE) or a tuple ``(obj, flags)``; a data argument is
         a :class:`DTDTile` or a host tensor (wrapped by
         :meth:`tile_of_array`).  ``cuda_kernel`` names the registered
         device body of the class, which then runs only on a CUDA device
-        and never calls ``body``."""
+        and never calls ``body``.  Across ranks the ``AFFINITY``
+        argument's tile (``_rank``, when given) decides the executing
+        rank; elsewhere the task is a shell."""
         if self.context is None:
             raise RuntimeError("taskpool not enqueued in a context")
         with self._insert_lock:
             task = self._insert_task_locked(body, args, name, priority,
-                                            cuda_kernel)
+                                            cuda_kernel, _rank)
         # backpressure OUTSIDE the insert lock: a blocked inserter must
         # not stop bodies (which may insert) from completing tasks
-        self._window_backpressure()
+        if not task.is_shell:
+            self._window_backpressure()
         return task
 
     def _insert_task_locked(self, body: Callable, args: tuple, name,
-                            priority, cuda_kernel) -> DTDTask:
+                            priority, cuda_kernel, _rank) -> DTDTask:
+        multirank = self.context.nb_ranks > 1
         specs: list[_ArgSpec] = []
         for a in args:
             if isinstance(a, tuple) and len(a) == 2 and isinstance(a[1], int):
@@ -401,12 +507,25 @@ class DTDTaskpool(Taskpool):
                     raise TypeError(
                         f"data argument must be a DTDTile or a tensor, "
                         f"got {type(obj).__name__}")
+                if multirank and obj.dc is None:
+                    raise ValueError(
+                        "cross-rank DTD needs collection-backed tiles "
+                        "(a bare tensor has no rank-stable name)")
             specs.append(_ArgSpec(obj, flags))
         tc = self._class_for(body, specs, name, cuda_kernel)
         task = DTDTask(self, tc, body, specs, priority=priority)
-        self.tdm.taskpool_addto_nb_tasks(+1)
-        with self._icond:
-            self._inflight += 1
+        self._insert_seq += 1
+        task.dtd_seq = self._insert_seq
+        if multirank:
+            task.rank = _rank if _rank is not None else next(
+                (s.obj.rank for s in specs
+                 if s.flags & AFFINITY and isinstance(s.obj, DTDTile)), 0)
+            task.is_shell = task.rank != self.context.my_rank
+        if not task.is_shell:
+            self.local_tasks += 1
+            self.tdm.taskpool_addto_nb_tasks(+1)
+            with self._icond:
+                self._inflight += 1
 
         fi = 0
         for spec in specs:
@@ -421,6 +540,8 @@ class DTDTaskpool(Taskpool):
             if not spec.flags & DONT_TRACK:
                 self._link_tile(task, spec, tile)
 
+        if task.is_shell:
+            return task
         with task._dlock:
             task.deps_pending -= 1  # drop the insertion guard
             ready = task.deps_pending == 0
@@ -432,21 +553,83 @@ class DTDTaskpool(Taskpool):
     def _link_tile(self, task: DTDTask, spec: _ArgSpec,
                    tile: DTDTile) -> None:
         """The SET_LAST_ACCESSOR walk: RAW/WAR/WAW edges from the tile's
-        earlier accessors to ``task``."""
+        earlier accessors to ``task``.  An edge to or from a shell becomes
+        a push instead (the module docstring lists the four cases)."""
+        me = self.context.my_rank
+        needs_data = bool(spec.mode & ACCESS_READ)
         deps: list[DTDTask] = []
+        arrival_key: tuple | None = None
+        push_on: DTDTask | None = None
+        pristine_to: int | None = None
         with tile._lock:
             lw = tile.last_writer
-            if lw is not None:
-                deps.append(lw[0])                  # RAW / WAW
+            if not task.is_shell:
+                if needs_data:
+                    if lw is not None and lw[0].is_shell:
+                        arrival_key = (tile.wire_key, lw[0].dtd_seq)
+                    elif lw is None and tile.dc is not None \
+                            and tile.rank != me:
+                        arrival_key = (tile.wire_key, -1)
+                if lw is not None and not lw[0].is_shell:
+                    deps.append(lw[0])              # RAW / WAW
+            elif needs_data:
+                if lw is not None and not lw[0].is_shell:
+                    push_on = lw[0]       # pushed when the writer completes
+                elif lw is None and tile.rank == me:
+                    pristine_to = task.rank   # the home value, now
             if spec.mode == INPUT:
                 tile.last_users.append((task, spec.flow_index))
             else:   # OUTPUT and INOUT both serialize against the chain
-                deps.extend(u for u, _ in tile.last_users
-                            if u is not task)        # WAR
+                if not task.is_shell:
+                    deps.extend(u for u, _ in tile.last_users   # WAR
+                                if u is not task and not u.is_shell)
                 tile.last_users = []
                 tile.last_writer = (task, spec.flow_index)
-        for pred in deps:
+            if not task.is_shell and self.context.nb_ranks > 1:
+                deps.extend(self._join_group(task, spec, tile, lw,
+                                             arrival_key))
+            if push_on is not None:
+                with push_on._dlock:
+                    if not push_on.completed:
+                        push_on.push_records.add((lw[1], task.rank))
+                        push_on = None    # its completion ships it
+        if task.is_shell:
+            if push_on is not None:       # the writer completed already
+                self._send_push(tile, push_on, lw[1], task.rank)
+            if pristine_to is not None:
+                self._send_pristine(tile, pristine_to)
+            return
+        if arrival_key is not None:
+            self._add_waiter(arrival_key, task, spec.flow_index)
+        for pred in dict.fromkeys(deps):    # the chain and the group overlap
             self._link_dep(pred, task)
+
+    @staticmethod
+    def _join_group(task: DTDTask, spec: _ArgSpec, tile: DTDTile, lw,
+                    arrival_key) -> list[DTDTask]:
+        """Order a local task after every local task that accesses an
+        older version of the tile, across shells (caller holds the
+        tile's ``_lock``).  The chain alone does not: a shell writer
+        resets it, so a local task after it, fed by its push, could run
+        before a local reader of the version before it, and the push's
+        copy, installed in the tile's record (or landed in its device
+        copy), would reach that reader.  Readers of one version run
+        together; a task that reads another version, or writes, waits
+        for the group and starts the next one."""
+        if arrival_key is not None:
+            key = ("arrival",) + arrival_key
+        elif lw is not None:
+            key = ("task", lw[0].dtd_seq)
+        else:
+            key = ("home",)
+        deps = []
+        if spec.mode & ACCESS_WRITE or key != tile._group_key:
+            deps = [t for t in tile._group if t is not task]
+            tile._group = []
+            tile._group_key = ("task", task.dtd_seq) \
+                if spec.mode & ACCESS_WRITE else key
+        tile._group.append(task)
+        return deps
 
     def _link_dep(self, pred: DTDTask, succ: DTDTask) -> None:
         if pred is succ:
@@ -457,10 +640,122 @@ class DTDTaskpool(Taskpool):
                     succ.deps_pending += 1
                 pred.successors.append(succ)
 
+    # --------------------------------------------- cross-rank push protocol
+    def _snapshot(self, value: Any) -> Any:
+        """A payload of its own for the wire (a device-side copy in
+        process, the D2H on the socket tier)."""
+        return self.context.comm_engine.ce.snapshot_value(value)
+
+    def _send_push(self, tile: DTDTile, writer: DTDTask, flow_index: int,
+                   dst: int) -> None:
+        """Ship ``writer``'s output of ``tile`` to ``dst``, keyed by the
+        writer's insertion seq."""
+        copy = writer.data[flow_index]
+        self.context.comm_engine.dtd_send(self, dst, {
+            "kind": "push", "tile": tile.wire_key, "writer": writer.dtd_seq,
+            "value": self._snapshot(copy.value), "version": copy.version})
+
+    def _send_pristine(self, tile: DTDTile, dst: int) -> None:
+        """Push the pre-writer value of a tile this rank is home to."""
+        if dst in tile._pristine_sent:
+            return
+        tile._pristine_sent.add(dst)
+        home = tile.data.newest_copy()
+        self.context.comm_engine.dtd_send(self, dst, {
+            "kind": "push", "tile": tile.wire_key, "writer": -1,
+            "value": self._snapshot(home.value), "version": home.version})
+
+    @staticmethod
+    def _arrival_copy(tile: DTDTile, arr: _Arrival) -> DataCopy:
+        """The one copy of a landed payload (made at its first use; caller
+        holds ``_alock``).  It stays out of the tile's record until a task
+        that writes it starts."""
+        if arr.copy is None:
+            d = tile.data
+            home = d.get_copy(0)
+            arr.copy = DataCopy(d, 0, value=arr.value,
+                                dtt=home.dtt if home is not None else None)
+            arr.copy.version = arr.version
+            arr.value = None
+        return arr.copy
+
+    def _add_waiter(self, key: tuple, task: DTDTask, flow_index: int) -> None:
+        """Hold ``task``'s flow on an arrival, or give it the landed copy.
+        The dep is raised before the waiter is visible: a push landing in
+        between would otherwise release a half-linked task (the
+        insertion guard is still held, so the retraction cannot reach
+        zero)."""
+        task.arrived.add(flow_index)
+        with task._dlock:
+            task.deps_pending += 1
+        with self._alock:
+            arr = self._arrivals.get(key)
+            if arr is None:
+                arr = self._arrivals[key] = _Arrival()
+            if not arr.landed:
+                arr.waiters.append((task, flow_index))
+                return
+            task.data[flow_index] = self._arrival_copy(
+                task.tiles[flow_index], arr)
+        with task._dlock:
+            task.deps_pending -= 1
+
+    def _land_arrival(self, key: tuple, value: Any, version: int) -> None:
+        with self._alock:
+            arr = self._arrivals.get(key)
+            if arr is None:
+                arr = self._arrivals[key] = _Arrival()
+            if arr.landed:
+                return   # a duplicate delivery
+            arr.value, arr.version, arr.landed = value, version, True
+            self.pushes_received += 1
+            self.push_bytes_received += nbytes_of(value)
+            waiters, arr.waiters = arr.waiters, []
+            copy = self._arrival_copy(waiters[0][0].tiles[waiters[0][1]],
+                                      arr) if waiters else None
+        ready = []
+        for t, fi in waiters:
+            t.data[fi] = copy
+            with t._dlock:
+                t.deps_pending -= 1
+                if t.deps_pending == 0:
+                    t.status = "ready"
+                    ready.append(t)
+        if ready:
+            schedule_tasks(self.context._submit_es, ready, 0)
+
+    def _apply_flush(self, tile: DTDTile, value: Any, version: int) -> None:
+        home = tile.data.get_copy(0)
+        home.value = value
+        home.version = max(home.version, version)
+        tile.flushed = True
+
+    def _on_dtd_message(self, rde: Any, src: int, msg: dict) -> None:
+        """A cross-rank DTD message (from
+        :meth:`~parsec_tpu_torch.comm.remote_dep.RemoteDepEngine._on_dtd`)."""
+        wire = tuple(msg["tile"])
+        if msg["kind"] == "push":
+            self._land_arrival((wire, msg["writer"]), msg["value"],
+                               msg["version"])
+            return
+        if msg["kind"] == "flush":
+            with self._tlock:
+                tile = self._tiles_by_wire.get(wire)
+                if tile is None:
+                    # the tile is not made here yet: applied at tile_of
+                    self._pending_flush[wire] = (msg["value"],
+                                                 msg["version"])
+                    return
+            self._apply_flush(tile, msg["value"], msg["version"])
+            return
+        raise ValueError(f"unknown DTD message kind {msg['kind']!r}")
+
     # ------------------------------------------------------------ completion
     def release_task(self, es: Any, task: DTDTask) -> None:
-        """``complete_hook_of_dtd``: bump the written tiles' versions,
-        release the instance successors, open the window."""
+        """``complete_hook_of_dtd``: bump the written tiles' versions, ship
+        the cross-rank pushes (snapshots taken before any successor is
+        released: the WAR discipline), release the instance successors,
+        open the window."""
         for spec in task.args:
             if spec.flow_index < 0 or spec.flags & SCRATCH:
                 continue
@@ -471,6 +766,10 @@ class DTDTaskpool(Taskpool):
         with task._dlock:
             task.completed = True
             succs, task.successors = task.successors, []
+            pushes = sorted(task.push_records)
+            task.push_records.clear()
+        for fi, dst in pushes:
+            self._send_push(task.tiles[fi], task, fi, dst)
         ready = []
         for succ in succs:
             with succ._dlock:
@@ -519,9 +818,30 @@ class DTDTaskpool(Taskpool):
         """``parsec_dtd_data_flush``: a task after every current accessor
         of ``tile`` that leaves its final version in the home (host)
         copy.  One shared class serves every flush (the tile rides as an
-        untracked REF arg), so flushes take no class slot each."""
-        self.insert_task(_dtd_flush_body, (tile, INPUT), (tile, REF),
-                         name="dtd_flush")
+        untracked REF arg), so flushes take no class slot each.  Across
+        ranks the flush runs on the rank of the tile's last writer and
+        ships the final version home when that is another rank."""
+        if self.context is None or self.context.nb_ranks <= 1 \
+                or tile.dc is None:
+            self.insert_task(_dtd_flush_body, (tile, INPUT), (tile, REF),
+                             name="dtd_flush")
+            return
+        with tile._lock:
+            lw = tile.last_writer
+        self.insert_task(self._flush_remote_body, (tile, INPUT), (tile, REF),
+                         name="dtd_flush",
+                         _rank=lw[0].rank if lw is not None else tile.rank)
+
+    def _flush_remote_body(self, arr: Any, tile: DTDTile) -> None:
+        if tile.rank == self.context.my_rank:
+            _dtd_flush_body(arr, tile)
+            return
+        newest = tile.data.newest_copy()
+        self.context.comm_engine.dtd_send(self, tile.rank, {
+            "kind": "flush", "tile": tile.wire_key,
+            "value": self._snapshot(newest.value),
+            "version": newest.version})
+        tile.flushed = True
 
     def data_flush_all(self) -> None:
         """``parsec_dtd_data_flush_all`` over every tile seen so far."""

@@ -2,9 +2,10 @@
 GEMM, with its transposed and subtracting forms; K2, the ragged
 paged-attention page update; K3, the 1-D stencil), the device module,
 decode serving, the tiled Cholesky and LU, the lowered taskpools, DTD
-task insertion, the compiled-DAG executor, and the comm layer's device
-fabric with the factorizations across four ranks sharing the card.  They
-skip without one.
+task insertion, the compiled-DAG executor, the comm layer's device
+fabric with the factorizations across four ranks sharing the card, and
+four rank processes on the card over the device socket tier.  They skip
+without one.
 
 This file imports no JAX, so it also runs where JAX is not installed;
 there, skip ``tests/conftest.py`` (it sets JAX up)::
@@ -863,3 +864,95 @@ def test_factorization_across_four_ranks_on_the_card(card, kind):
     f = sum(r[0] for r in res)
     assert _backward_error(f, a, kind) < 5e-3
     assert _tile_error(f, a, kind, nb) < TF32_TILE_TOL
+
+
+def test_gemm_cholesky_and_dtd_across_four_processes_on_the_card(
+        card, monkeypatch):
+    """Four rank processes (``run_multiproc(transport="device")``), each
+    with its own CUDA context and device module on the card: GEMM at
+    n=2048, nb=512, every tile product on K1 (``mma_tf32``) in its rank
+    and C within the TF32 bound; a Cholesky whose tiles cross the
+    processes (D2H, TCP, H2D) under the factor gates; the DTD GEMM with
+    its A and B tiles pushed between the processes."""
+    from parsec_tpu_torch.comm import run_multiproc
+    from parsec_tpu_torch.comm.mp_bodies import factor_input, gemm_dense
+    n, nb = 2048, 512
+    for key, value in (("KINDS", "gemm,cholesky,dtd"), ("N", n),
+                       ("NB", nb), ("SEED", 0), ("CHORES", "cuda"),
+                       ("WARMUP", "0")):
+        monkeypatch.setenv(f"PARSEC_MP_{key}", str(value))
+    res = run_multiproc(4, "parsec_tpu_torch.comm.mp_bodies:pool_body",
+                        timeout=300, transport="device")
+    assert [r["modules"] for r in res] == [[]] * 4
+    a, b = gemm_dense(n, nb, 0)
+    for kind in ("gemm", "cholesky", "dtd"):
+        recs = [r["kinds"][kind] for r in res]
+        assert all(r["k1"] > 0 and set(r["k1_by_variant"]) == {"mma_tf32"}
+                   for r in recs), kind
+        if kind == "dtd":     # its flushes are host tasks, its GEMMs not
+            assert sum(r["dev"]["tasks_by_class"].get("gemm", 0)
+                       for r in recs) == (n // nb) ** 3
+            assert sum(r["pushes"] for r in recs) > 0
+            got = sum(r["C"] for r in recs)
+        else:
+            assert all(r["cpu_tasks"] == 0 for r in recs), kind
+            got = np.zeros((n, n), np.float32)
+            for rec in recs:
+                for (i, j), tile in rec["tiles"].items():
+                    got[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb] = tile
+        if kind == "cholesky":
+            assert sum(r["gets"] for r in recs) > 0
+            assert sum(r["tiers"]["payload_out"] for r in recs) \
+                == sum(r["tiers"]["payload_in"] for r in recs) > 0
+            spd = factor_input("cholesky", n)
+            assert _backward_error(got, spd, kind) < 5e-3
+            assert _tile_error(got, spd, kind, nb) < TF32_TILE_TOL
+        else:
+            _tf32_close(torch.from_numpy(got), torch.from_numpy(a),
+                        torch.from_numpy(b))
+
+
+def test_cholesky_across_four_processes_lands_fragments_pinned(
+        card, monkeypatch):
+    """The same Cholesky with ``comm_get_frag_bytes`` below a tile's 1 MiB:
+    every GET lands as DATA fragments in a pinned zone, whose H2D is
+    issued non-blocking, and the factor still passes its gates."""
+    from parsec_tpu_torch.comm import run_multiproc
+    from parsec_tpu_torch.comm.mp_bodies import factor_input
+    n, nb = 2048, 512
+    for key, value in (("KINDS", "cholesky"), ("N", n), ("NB", nb),
+                       ("CHORES", "cuda"), ("WARMUP", "0")):
+        monkeypatch.setenv(f"PARSEC_MP_{key}", str(value))
+    monkeypatch.setenv("PARSEC_MCA_comm_get_frag_bytes", str(1 << 18))
+    res = run_multiproc(4, "parsec_tpu_torch.comm.mp_bodies:pool_body",
+                        timeout=300, transport="device")
+    recs = [r["kinds"]["cholesky"] for r in res]
+    gets = sum(r["gets"] for r in recs)
+    assert gets > 0 and sum(r["frags_in"] for r in recs) == 4 * gets
+    assert all(r["cpu_tasks"] == 0 and set(r["k1_by_variant"])
+               == {"mma_tf32"} for r in recs)
+    assert sum(r["tiers"]["payload_out"] for r in recs) \
+        == sum(r["tiers"]["payload_in"] for r in recs) > 0
+    got = np.zeros((n, n), np.float32)
+    for rec in recs:
+        for (i, j), tile in rec["tiles"].items():
+            got[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb] = tile
+    spd = factor_input("cholesky", n)
+    assert _backward_error(got, spd, "cholesky") < 5e-3
+    assert _tile_error(got, spd, "cholesky", nb) < TF32_TILE_TOL
+
+
+def test_socket_reply_decodes_into_pinned_memory(card):
+    """The device socket tier's whole replies decode their tensors into
+    pinned host memory (an asynchronous H2D's source); plain decoding
+    does not pin."""
+    from parsec_tpu_torch.comm import codec
+    t = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    meta, segs = codec.encode({"value": t})
+    it = iter(segs)
+
+    def fill(view: memoryview) -> None:
+        view[:] = memoryview(next(it)).cast("B")
+    got = codec.decode(meta, fill, pin_tensors=True)["value"]
+    assert got.is_pinned() and torch.equal(got, t)
+    assert not codec.decode_with_segments(meta, segs)["value"].is_pinned()

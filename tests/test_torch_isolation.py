@@ -2,8 +2,9 @@
 
 Checked two ways: fresh interpreters import ``parsec_tpu_torch`` and run
 a 2x2x2-tile GEMM, a served LLM stream, a lowered stencil and GEMM, a
-tiled Cholesky (dynamic and lowered) and a 2-rank Cholesky over the comm
-layer, then inspect ``sys.modules``
+tiled Cholesky (dynamic and lowered), a 2-rank Cholesky over the comm
+layer and a chain across 2 rank processes of ``run_multiproc`` (each rank
+reports its own), then inspect ``sys.modules``
 (subprocesses, because this test process already holds jax through
 ``conftest.py``); and an AST scan of every module of the package finds
 no such import.
@@ -105,7 +106,10 @@ def test_the_package_has_the_slice_modules():
                 "comm/__init__.py", "comm/engine.py",
                 "comm/device_fabric.py", "comm/remote_dep.py",
                 "comm/termdet_fourcounter.py", "comm/multirank.py",
-                "comm/collectives.py"):
+                "comm/collectives.py", "comm/codec.py",
+                "comm/socket_fabric.py", "comm/device_socket.py",
+                "comm/multiproc.py", "comm/mp_bodies.py",
+                "dtd/multirank_check.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu",
                 "native_core.cpp"):
@@ -325,9 +329,21 @@ def test_a_multirank_cholesky_loads_no_jax_and_no_parsec_tpu():
     assert loaded == [], loaded
 
 
+def test_rank_processes_load_no_jax_and_no_parsec_tpu():
+    """Every rank process of ``run_multiproc`` runs the chain and reports
+    the ``jax`` and ``parsec_tpu`` modules it holds: none."""
+    from parsec_tpu_torch.comm import run_multiproc
+    res = run_multiproc(2, "parsec_tpu_torch.comm.mp_bodies:isolation_body",
+                        timeout=60)
+    assert res == [[], []]
+
+
 def test_the_ast_scan_covers_the_comm_layer():
     comm = [f for f in PORT_FILES if f.startswith("parsec_tpu_torch/comm/")]
-    assert len(comm) == 7, comm
+    assert len(comm) == 12, comm
+    for rel in ("codec", "socket_fabric", "device_socket", "multiproc",
+                "mp_bodies"):
+        assert f"parsec_tpu_torch/comm/{rel}.py" in comm, rel
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
