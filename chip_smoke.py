@@ -178,6 +178,36 @@ any phase fails:
    insertion program on the host at 8 x 8 small tiles; the line carries
    the wall, each rank's pushes and their bytes, and K1's launches.
 
+18. **path llm_prefix, llm_spec, llm_tiers** (after **trace llm_wide**) —
+   the rest of the serving layer at the ``llm_wide`` width (ToyLM with 32
+   heads of 128, fp32 pages (3,16,32,128) of 768 KiB), each through a
+   ``ContinuousBatcher`` on a ``RuntimeServer(nb_cores=2)``, every
+   stream's tokens equal to the oracle's.  ``llm_prefix``
+   (``llm_prefix_cache=1``): 16 streams share a 1024-token system prompt
+   (64 pages, 48 MiB, inside the 64 MiB default budget), each with a
+   seeded 16-64-token suffix, 16 new tokens; a first wave of 2 retires
+   and donates, then the other 14 must make 14 prefix hits, skip 14 x
+   1024 prefill tokens and run PF on their tail pages only; the same 14
+   again with the cache off (``llm_prefix_control``) run PF on every
+   prompt page; TTFT p50/p99 and PF tasks of both.  ``llm_spec``
+   (``llm_spec_k=6``): 8 streams of 64 new tokens, four repeating a short
+   cycle (the n-gram drafter proposes), four random; spec submits and
+   accepted drafts must be counted, SATTN and SVERIFY must run on the
+   card and no task on the CPU; the same backlog with it off
+   (``llm_spec_control``), the two in turns (spec, control, control,
+   spec); tokens/s of every run, the acceptance rate, tokens
+   per spec submit and rollbacks; then one ``spec_superpool_ptg`` pool
+   seeded directly with oracle drafts on a KV cache of its own
+   (``llm_spec_superpool``: ATTN on K2, every position accepted), and
+   SATTN's batched body (PyTorch ops, not a kernel) timed against the
+   bytes it must move (``body llm_spec_attn``).  ``llm_tiers``: 6 streams
+   of 256-512-token prompts, 24 new tokens, the card's tile budget set to
+   24 pages, below the live KV, and a host tier of 8 pages past which
+   cold pages spill to a ``PeerKVStore`` on the second rank of an
+   in-process ``DeviceFabric`` (two ranks, one card): spills, prefetched
+   pages and a peer round trip through ``prefetch_get`` must be counted.
+   No spill subscriber may raise (``spill_hook_failures`` stays 0).
+
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
 yardstick call of ``mma_tf32``.  Every printed number stands beside the card's name and
@@ -516,6 +546,7 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
                batched_dispatches=dev.batched_dispatches,
                mean_batch=dev.executed_tasks / max(1, dev.kernel_launches),
                h2d_mb=dev.bytes_in / 1e6,
+               d2h_mb=dev.bytes_out / 1e6,
                h2d_MBps=(dev.bytes_in / 1e6 / s["t_stage_in"]
                          if s["t_stage_in"] > 0 else None),
                cache_hits=dev.cache_hits, cache_misses=dev.cache_misses,
@@ -1134,6 +1165,7 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
                stage_in_s=delta("t_stage_in"), dispatch_s=delta("t_dispatch"),
                complete_s=delta("t_complete"), manager_s=delta("t_manager"),
                h2d_mb=delta("bytes_in") / 1e6,
+               d2h_mb=delta("bytes_out") / 1e6,
                min_oracle_margin=min(min(m) for m in margins))
     _emit(card, phase="path", name=label, **rec)
     return rec
@@ -1192,6 +1224,409 @@ def phase_llm_trace(card: str, torch, max_new: int = 16,
                device_events=events, top_device_time=top)
     _emit(card, phase="trace", name=name, **out)
     return out
+
+
+def _serving_card():
+    """The registered CUDA device the serving phases ran on: a card."""
+    from parsec_tpu_torch.device import registry
+    devs = registry.by_type("cuda")
+    _check(len(devs) == 1 and devs[0].is_cuda,
+           f"the serving path ran on {[d.name for d in devs]}, not a card")
+    return devs[0]
+
+
+def _quantile(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[int(q * (len(xs) - 1))]
+
+
+class _Params:
+    """Set port parameters for a phase and put the old values back."""
+
+    def __init__(self, **kw) -> None:
+        self.kw = kw
+
+    def __enter__(self):
+        from parsec_tpu_torch.core.params import params
+        self.saved = {k: params.get(k) for k in self.kw}
+        for k, v in self.kw.items():
+            params.set(k, v)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from parsec_tpu_torch.core.params import params
+        for k, v in self.saved.items():
+            params.set(k, v)
+
+
+def _serve_wave(torch, server, batcher, dev, prompts: list, max_new: int,
+                want: list) -> dict:
+    """One wave of streams through ``batcher`` on ``server``: each held to
+    its oracle tokens; returns the wave's wall, TTFTs, tokens and the
+    device's task counts by class over the wave."""
+    before = dict(dev.tasks_by_class)
+    t0 = time.perf_counter()
+    tks = [batcher.submit_stream(p, max_new_tokens=max_new,
+                                 tenant=f"tenant{i % 2}")
+           for i, p in enumerate(prompts)]
+    res = [tk.result(timeout=600)["tokens"] for tk in tks]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for i, (got, w) in enumerate(zip(res, want)):
+        _check(got == w, f"stream {i} differs from the oracle: got "
+                         f"{got}, want {w}")
+    tasks = {c: n - before.get(c, 0) for c, n in dev.tasks_by_class.items()
+             if n - before.get(c, 0)}
+    ntok = sum(len(r) for r in res)
+    ttft = [tk.first_token_at - tk.submitted_at for tk in tks]
+    return dict(wall_s=wall, tokens=ntok, tokens_per_s=ntok / wall,
+                ttft_ms_p50=1e3 * _quantile(ttft, 0.5),
+                ttft_ms_p99=1e3 * _quantile(ttft, 0.99),
+                tasks_by_class=tasks, tickets=tks)
+
+
+def _wide_model():
+    from parsec_tpu_torch.llm import ToyLM
+    return ToyLM(num_heads=32, head_dim=128)
+
+
+def _prefix_backlog(model, seed: int, n: int = 16, sys_len: int = 1024):
+    """16 streams sharing a system prompt of ``sys_len`` tokens (64 pages
+    of 16), each with a seeded suffix of 16-64 tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    system = [int(t) for t in rng.integers(0, model.vocab, sys_len)]
+    return system, [system + [int(t) for t in rng.integers(
+        0, model.vocab, int(rng.integers(16, 65)))] for _ in range(n)]
+
+
+def phase_llm_prefix(card: str, torch, seed: int = 13, max_new: int = 16,
+                     first: int = 2) -> dict:
+    """The prefix cache at Llama-2-7B's attention width: a first wave of
+    ``first`` streams retires and donates its prompt pages, the other
+    streams adopt the shared system prompt and prefill their tails only;
+    the same second wave again with the cache off is the control."""
+    from parsec_tpu_torch.llm import ContinuousBatcher
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    from parsec_tpu_torch.serve import RuntimeServer
+
+    model = _wide_model()
+    system, prompts = _prefix_backlog(model, seed)
+    want = [model.reference_generate(p, max_new) for p in prompts]
+    P = 16
+    sys_pages = len(system) // P
+    tail_pages = sum(-(-(len(p) - 1 - sys_pages * P) // P)
+                     for p in prompts[first:])
+    full_pages = sum(-(-(len(p) - 1) // P) for p in prompts[first:])
+    runs = {}
+    for cache in (True, False):
+        label = "llm_prefix" if cache else "llm_prefix_control"
+        with _Params(llm_prefix_cache=cache):
+            with RuntimeServer(nb_cores=2) as server:
+                b = ContinuousBatcher(server, model=model)
+                dev = _serving_card()
+                if cache:
+                    ra.attn_page_update.launches = 0
+                    w1 = _serve_wave(torch, server, b, dev, prompts[:first],
+                                     max_new, want[:first])
+                    w1["launches"] = ra.attn_page_update.launches
+                s1 = b.stats()
+                # both runs count K2 over the same wave of streams
+                ra.attn_page_update.launches = 0
+                w2 = _serve_wave(torch, server, b, dev, prompts[first:],
+                                 max_new, want[first:])
+                s2 = b.stats()
+                b.stop()
+            launches = ra.attn_page_update.launches
+        hits = s2["kv"]["prefix_hits"] - s1["kv"]["prefix_hits"]
+        skipped = s2["prefill_tokens_skipped"] - s1["prefill_tokens_skipped"]
+        pf = w2["tasks_by_class"].get("PF", 0)
+        nwave = len(prompts) - first
+        if cache:
+            _check(hits == nwave, f"{label}: {hits} prefix hits, want "
+                                  f"{nwave}")
+            _check(skipped == nwave * len(system),
+                   f"{label}: {skipped} prefill tokens skipped, want "
+                   f"{nwave * len(system)}")
+            _check(pf == tail_pages, f"{label}: {pf} PF tasks, want the "
+                                     f"{tail_pages} tail pages")
+        else:
+            _check(hits == 0 and pf == full_pages,
+                   f"{label}: {hits} hits, {pf} PF tasks (want 0 and "
+                   f"{full_pages})")
+        _check(launches > 0, f"{label}: no ragged_attn_page launch")
+        rec = dict(streams=nwave, system_tokens=len(system),
+                   prefix_hits=hits, prefill_tokens_skipped=skipped,
+                   pf_tasks=pf, wall_s=w2["wall_s"], tokens=w2["tokens"],
+                   tokens_per_s=w2["tokens_per_s"],
+                   ttft_ms_p50=w2["ttft_ms_p50"],
+                   ttft_ms_p99=w2["ttft_ms_p99"],
+                   tasks_by_class=w2["tasks_by_class"],
+                   ragged_attn_page_launches=launches)
+        if cache:
+            rec.update(first_wave_wall_s=w1["wall_s"],
+                       first_wave_ragged_attn_page_launches=w1["launches"],
+                       donations=s2["prefix"]["donations"],
+                       prefix_evictions=s2["prefix"]["evictions"])
+        _emit(card, phase="path", name=label, **rec)
+        runs[label] = rec
+    return runs
+
+
+def _spec_backlog(model, seed: int, n: int = 8):
+    """``n`` streams: half repeat a short seeded cycle (so the n-gram
+    drafter proposes), half are seeded at random; prompts of 64-192
+    tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        length = int(rng.integers(64, 193))
+        if i % 2 == 0:
+            cycle = [int(t) for t in rng.integers(0, model.vocab,
+                                                  int(rng.integers(2, 5)))]
+            out.append((cycle * length)[:length])
+        else:
+            out.append([int(t) for t in rng.integers(0, model.vocab,
+                                                     length)])
+    return out
+
+
+def _spec_superpool_direct(card: str, torch, model, seed: int,
+                           n: int = 4, positions: int = 7) -> dict:
+    """One ``spec_superpool_ptg`` pool seeded directly (oracle drafts, so
+    every position is accepted) on a KV cache of its own, through
+    ``Context``: ATTN on K2, the emitted tokens the oracle's."""
+    import numpy as np
+
+    from parsec_tpu_torch.data.datatype import TileType
+    from parsec_tpu_torch.data_dist.collection import DictCollection
+    from parsec_tpu_torch.data_dist.paged_kv import PagedKVCollection
+    from parsec_tpu_torch.llm import decode as dec
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    from parsec_tpu_torch.runtime import Context
+
+    H, D = model.num_heads, model.head_dim
+    rng = np.random.default_rng(seed)
+    prompts = {f"s{i}": [int(t) for t in rng.integers(
+        0, model.vocab, int(rng.integers(40, 200)))] for i in range(n)}
+    ref = {s: model.reference_generate(p, positions)
+           for s, p in prompts.items()}
+    kv = PagedKVCollection("specKV", page_size=16, num_heads=H, head_dim=D)
+    colls = [DictCollection(name, dtt=TileType(shape)) for name, shape in (
+        ("specDRAFT", (3, H, D)), ("specO", (H, D)), ("specSTOK", (4,)),
+        ("specDTOK", (1,)),
+        ("specEMB", tuple(model.q3_table().shape)))]
+    DRAFT, O, STOK, DTOK, EMB = colls
+    npos = dec.seed_spec_superpool(
+        model, kv, DRAFT, DTOK, STOK, EMB, prompts,
+        {s: r[:positions - 1] for s, r in ref.items()})
+    tp = dec.spec_superpool_ptg(kv, DRAFT, O, STOK, DTOK, EMB,
+                                list(prompts), [npos[s] for s in prompts])
+    dev = _serving_card()
+    before = dict(dev.tasks_by_class)
+    ra.attn_page_update.launches = 0
+    t0 = time.perf_counter()
+    with Context(nb_cores=2) as ctx:
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ra.attn_page_update.launches
+    got = dec.read_spec_chains(STOK, npos)
+    for s in prompts:
+        _check(got[s][0] == ref[s], f"llm_spec_superpool {s}: {got[s][0]} "
+                                    f"against the oracle's {ref[s]}")
+    tasks = {c: m - before.get(c, 0) for c, m in dev.tasks_by_class.items()
+             if m - before.get(c, 0)}
+    _check(set(tasks) == {"ATTN", "OUT", "VERIFY"},
+           f"llm_spec_superpool: classes on the card {sorted(tasks)}")
+    _check(launches > 0, "llm_spec_superpool: ATTN launched no K2 kernel")
+    rec = dict(streams=n, positions=positions, wall_s=wall,
+               tasks_by_class=tasks, ragged_attn_page_launches=launches,
+               tokens=sum(len(v[0]) for v in got.values()))
+    _emit(card, phase="path", name="llm_spec_superpool", **rec)
+    return rec
+
+
+def _sattn_body(card: str, torch, batch: int, S: int) -> dict:
+    """SATTN's batched body (``spec_attn_page_tiles``, PyTorch ops, no
+    Pallas kernel behind it in the JAX package) at the spec path's shape:
+    time per call beside the least time its bytes take."""
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    P, H, D = 16, 32, 128
+    g = torch.Generator(device="cuda").manual_seed(5)
+    qs = torch.randn(batch, S, 3, H, D, device="cuda", generator=g)
+    page = torch.randn(batch, 3, P, H, D, device="cuda", generator=g)
+    lim = torch.randint(0, P + 1, (batch, S), device="cuda",
+                        generator=g).float()
+    acc = torch.zeros(batch, S, H, D + 2, device="cuda")
+    lists = [list(x.unbind(0)) for x in (qs, page, lim, acc)]
+    ms = _time_ms(torch, lambda: ra.spec_attn_page_tiles(*lists), 20)
+    # from empty states, each position's finalized output is the float64
+    # softmax attention over its first lim slots
+    out = ra.finalize_acc(torch.stack(ra.spec_attn_page_tiles(*lists)))
+    err = 0.0
+    for b in range(batch):
+        for t in range(S):
+            n = int(lim[b, t])
+            want = ra.ragged_attention_reference(
+                qs[b, t, 0].cpu(), page[b, 0, :n].cpu(),
+                page[b, 1, :n].cpu())
+            err = max(err, float((out[b, t].cpu() - want).abs().max()))
+    _check(err < 1e-4, f"llm_spec_attn: {err} from the float64 oracle")
+    nbytes = 4 * (qs[:, :, 0].numel() + page[:, :2].numel() + lim.numel()
+                  + 2 * acc.numel())
+    bound_ms, bound_by = _bound(0.0, nbytes, "float32")
+    rec = dict(shape=f"{batch}x(S={S}, page (3,{P},{H},{D})) fp32",
+               ms=ms, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+               share_of_bound=bound_ms / ms, max_abs_err=err)
+    _emit(card, phase="body", name="llm_spec_attn", **rec)
+    return rec
+
+
+def phase_llm_spec(card: str, torch, seed: int = 17, max_new: int = 64,
+                   spec_k: int = 6) -> dict:
+    """Speculative decode at Llama-2-7B's attention width through the
+    entry points (``llm_spec_k=6``), and the same backlog with it off as
+    the control, in turns (spec, control, control, spec: each side once
+    early and once late in the process); then one per-position spec
+    superpool seeded directly, and SATTN's body timed.  Each line's
+    counts are its first run's."""
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.llm import ContinuousBatcher
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    from parsec_tpu_torch.serve import RuntimeServer
+
+    model = _wide_model()
+    prompts = _spec_backlog(model, seed)
+    margins: list[float] = []
+    want = [model.reference_generate(p, max_new, margins=margins)
+            for p in prompts]
+    cpu = registry.by_type("cpu")[0]
+    runs: dict = {}
+    for k in (spec_k, 0, 0, spec_k):
+        label = "llm_spec" if k else "llm_spec_control"
+        cpu_before = cpu.executed_tasks
+        with _Params(llm_spec_k=k):
+            ra.attn_page_update.launches = 0
+            with RuntimeServer(nb_cores=2) as server:
+                b = ContinuousBatcher(server, model=model)
+                dev = _serving_card()
+                w = _serve_wave(torch, server, b, dev, prompts, max_new,
+                                want)
+                st = b.stats()
+                b.stop()
+            launches = ra.attn_page_update.launches
+        _check(cpu.executed_tasks == cpu_before, f"{label}: a task ran on "
+                                                 f"the CPU")
+        # the streams whose drafts miss converge to the plain superpool
+        _check(launches > 0, f"{label}: no ragged_attn_page launch")
+        tasks = w["tasks_by_class"]
+        if k:
+            _check(st["spec_submits"] > 0 and st["spec_drafts_accepted"] > 0,
+                   f"{label}: spec_submits {st['spec_submits']}, accepted "
+                   f"{st['spec_drafts_accepted']}")
+            _check(tasks.get("SATTN", 0) > 0 and tasks.get("SVERIFY", 0) > 0,
+                   f"{label}: SATTN/SVERIFY not on the card: {tasks}")
+        else:
+            _check(st["spec_submits"] == 0 and "SATTN" not in tasks,
+                   f"{label}: speculated with llm_spec_k=0")
+        if label in runs:
+            runs[label]["tokens_per_s_runs"].append(w["tokens_per_s"])
+            runs[label]["wall_s_runs"].append(w["wall_s"])
+            continue
+        runs[label] = dict(
+            streams=len(prompts), spec_k=k, wall_s_runs=[w["wall_s"]],
+            tokens=w["tokens"], tokens_per_s_runs=[w["tokens_per_s"]],
+            ttft_ms_p50=w["ttft_ms_p50"], spec_submits=st["spec_submits"],
+            spec_accept_rate=st.get("spec_accept_rate"),
+            spec_tokens_per_submit=st.get("spec_tokens_per_submit"),
+            tail_rollbacks=st["kv"]["tail_rollbacks"],
+            slots_rolled_back=st["kv"]["slots_rolled_back"],
+            decode_submits=st["decode_submits"], tasks_by_class=tasks,
+            ragged_attn_page_launches=launches,
+            min_oracle_margin=min(margins))
+    for label, rec in runs.items():
+        _emit(card, phase="path", name=label, **rec)
+    runs["llm_spec_superpool"] = _spec_superpool_direct(card, torch, model,
+                                                        seed)
+    runs["sattn"] = _sattn_body(card, torch, batch=4, S=spec_k + 1)
+    return runs
+
+
+def phase_llm_tiers(card: str, torch, seed: int = 19, max_new: int = 24,
+                    n: int = 6, budget_pages: int = 24,
+                    host_tier_pages: int = 8) -> dict:
+    """The KV tiers at Llama-2-7B's attention width: the card's tile
+    budget set below the live KV (``budget_pages`` pages of 768 KiB), a
+    host tier of ``host_tier_pages`` pages past which cold pages spill
+    to a ``PeerKVStore`` on the second rank of an in-process
+    ``DeviceFabric`` (two ranks, one card), and the batcher prefetching
+    them back one superpool ahead."""
+    import numpy as np
+
+    from parsec_tpu_torch.comm.device_fabric import DeviceFabric
+    from parsec_tpu_torch.data_dist.kv_tiers import PeerKVStore
+    from parsec_tpu_torch.llm import ContinuousBatcher
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    from parsec_tpu_torch.serve import RuntimeServer
+
+    model = _wide_model()
+    rng = np.random.default_rng(seed)
+    prompts = [[int(t) for t in rng.integers(0, model.vocab, int(
+        rng.integers(256, 513)))] for _ in range(n)]
+    want = [model.reference_generate(p, max_new) for p in prompts]
+    page_bytes = 3 * 16 * model.num_heads * model.head_dim * 4
+    dev = _serving_card()
+    fab = DeviceFabric(2, devices=[dev.torch_device] * 2)
+    e0, e1 = fab.attach(0), fab.attach(1)
+    store = PeerKVStore(e1)
+    saved_budget = dev._mem_budget
+    live_pages = sum(-(-(len(p) + max_new) // 16) for p in prompts)
+    with _Params(kv_host_tier_bytes=host_tier_pages * page_bytes):
+        dev.flush_cache()
+        dev._mem_budget = budget_pages * page_bytes
+        before = dev.stats()
+        ra.attn_page_update.launches = 0
+        try:
+            with RuntimeServer(nb_cores=2) as server:
+                b = ContinuousBatcher(server, model=model)
+                b.tiers.attach_peer(e0, 1)
+                w = _serve_wave(torch, server, b, dev, prompts, max_new,
+                                want)
+                st = b.stats()
+                b.stop()
+        finally:
+            dev._mem_budget = saved_budget
+        launches = ra.attn_page_update.launches
+    tiers = st["tiers"]
+    after = dev.stats()
+    _check(tiers["spills"] > 0, f"llm_tiers: no spill ({tiers})")
+    _check(tiers["prefetched_pages"] > 0, f"llm_tiers: nothing prefetched "
+                                          f"({tiers})")
+    _check(tiers["peer_fetches"] > 0 and e0.prefetch_gets > 0,
+           f"llm_tiers: no peer round trip ({tiers}, prefetch_gets "
+           f"{e0.prefetch_gets})")
+    _check(launches > 0, "llm_tiers: no ragged_attn_page launch")
+    _check(after["spill_hook_failures"] == before["spill_hook_failures"],
+           "llm_tiers: a spill hook raised")
+    rec = dict(streams=n, live_kv_pages=live_pages,
+               tile_budget_pages=budget_pages,
+               host_tier_budget_pages=host_tier_pages,
+               wall_s=w["wall_s"], tokens=w["tokens"],
+               tokens_per_s=w["tokens_per_s"], tiers=tiers,
+               peer_store=store.stats(), prefetch_gets=e0.prefetch_gets,
+               peer_bytes_got=e0.bytes_got,
+               deferred_evictions=after["deferred_evictions"]
+               - before["deferred_evictions"],
+               h2d_copied_mb=(after["bytes_copied_in"]
+                              - before["bytes_copied_in"]) / 1e6,
+               d2h_mb=(after["bytes_out"] - before["bytes_out"]) / 1e6,
+               tasks_by_class=w["tasks_by_class"],
+               ragged_attn_page_launches=launches)
+    _emit(card, phase="path", name="llm_tiers", **rec)
+    return rec
 
 
 def phase_stencil_kernel(card: str, torch) -> dict:
@@ -1785,6 +2220,7 @@ def phase_dynamic_factor(card: str, torch, kind: str, n: int = 8192,
                    mean_batch=delta("executed_tasks")
                    / max(1, delta("kernel_launches")),
                    h2d_mb=delta("bytes_in") / 1e6,
+                   d2h_mb=delta("bytes_out") / 1e6,
                    **_factor_check(torch, kind, A.to_dense(), a, nb,
                                    precision))
         name = f"dynamic_{kind}" + ("" if precision == "default"
@@ -2080,6 +2516,7 @@ def phase_multirank(card: str, torch, kind: str, single: dict,
                    stage_in_s=s["t_stage_in"] - before["t_stage_in"],
                    manager_s=s["t_manager"] - before["t_manager"],
                    h2d_mb=(s["bytes_in"] - before["bytes_in"]) / 1e6,
+                   d2h_mb=(s["bytes_out"] - before["bytes_out"]) / 1e6,
                    **checks)
         _emit(card, phase="path", name=name, **rec)
         if kind != "gemm":
@@ -2319,6 +2756,7 @@ def phase_multirank_dtd(card: str, torch, n: int = 8192, nb: int = 1024,
                mean_batch=tasks["gemm"] / max(1, launches),
                manager_s=s["t_manager"] - before["t_manager"],
                h2d_mb=(s["bytes_in"] - before["bytes_in"]) / 1e6,
+               d2h_mb=(s["bytes_out"] - before["bytes_out"]) / 1e6,
                max_abs_err=err)
     _emit(card, phase="path", name=name, **rec)
     dev.flush_cache()
@@ -2357,6 +2795,14 @@ def main() -> int:
     wide = phase_llm(card, torch, seed=11, max_new=32, label="llm_wide",
                      wide=True)
     phase_llm_trace(card, torch, max_new=8, wide=True)
+    prefix = phase_llm_prefix(card, torch)
+    spec = phase_llm_spec(card, torch)
+    tiers = phase_llm_tiers(card, torch)
+    k2_paths = {"llm": llm, "llm_wide": wide, **prefix,
+                "llm_spec": spec["llm_spec"],
+                "llm_spec_control": spec["llm_spec_control"],
+                "llm_spec_superpool": spec["llm_spec_superpool"],
+                "llm_tiers": tiers}
     sten_rec = phase_stencil_kernel(card, torch)
     sten = phase_lowered_stencil(card, torch)
     phase_lowered_stencil2d(card, torch)
@@ -2428,11 +2874,11 @@ def main() -> int:
                {"name": "ragged_attn_page", "route": "cuda",
                 "source": "parsec_tpu_torch/csrc/ragged_attn.cu",
                 "replaces": "parsec_tpu/ops/ragged_attention.py:448",
-                "launches": llm["ragged_attn_page_launches"]
-                + wide["ragged_attn_page_launches"],
+                "launches": sum(p["ragged_attn_page_launches"]
+                                for p in k2_paths.values()),
                 "launches_by_path": {
-                    "llm": llm["ragged_attn_page_launches"],
-                    "llm_wide": wide["ragged_attn_page_launches"]},
+                    name: p["ragged_attn_page_launches"]
+                    for name, p in k2_paths.items()},
                 "shapes": [
                     {key: r[key] for key in (
                         "shape", "max_abs_err", "ms", "tiles_ms", "host_ms",

@@ -26,8 +26,7 @@ Port of ``parsec_tpu/comm`` (the reference's communication stack):
   ``chip_smoke.py`` share in :mod:`.mp_bodies`.
 
 Left out: the legacy pickle framing of the socket fabric, trace spans,
-resumed and prefetch GETs (``resume_get``, ``prefetch_get``) and an
-NCCL process group (``run_multiproc(distributed=True)`` joins gloo).
+resumed GETs (``resume_get``) and an NCCL process group (``run_multiproc(distributed=True)`` joins gloo).
 """
 
 from .collectives import (bcast_taskpool, reduce_op, reduce_taskpool,

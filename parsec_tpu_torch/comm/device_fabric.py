@@ -92,7 +92,9 @@ class DeviceFabric(InprocFabric):
         return max(self.devices.count(d) for d in set(self.devices))
 
     def attach(self, rank: int) -> "DeviceCommEngine":
-        return DeviceCommEngine(self, rank)
+        eng = DeviceCommEngine(self, rank)
+        self.engines[rank] = eng
+        return eng
 
 
 class DeviceCommEngine(InprocCommEngine):

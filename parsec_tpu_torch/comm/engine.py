@@ -41,9 +41,15 @@ registration shares, send windows and landing zones are released) and
 ``mem_release(peer=)``.  A fragment's meta names its dtype as a string
 (:func:`~parsec_tpu_torch.comm.codec.dtype_name`), so it rides the wire.
 
+:meth:`CommEngine.prefetch_get` is a GET issued ahead of demand (the KV
+tier pulling a page back from a peer one superpool early): the same
+protocol, fragments and credit window included, counted apart in
+``prefetch_gets``.  A handle's ``on_drained`` callback, where its owner
+sets one, runs once the registration drops (the peer KV store's
+custody ledger, ``data_dist/kv_tiers.py``).
+
 Left out: PINS events and trace spans (the port has no ``prof/``),
-resumed and prefetch GETs (``resume_get``, ``prefetch_get``), the
-``Capabilities`` record and ``on_drained`` callbacks.
+resumed GETs (``resume_get``) and the ``Capabilities`` record.
 """
 
 from __future__ import annotations
@@ -86,9 +92,11 @@ class MemHandle:
     ``peers`` optionally names the consumer ranks, so a peer that dies
     before its GET releases its share (:meth:`CommEngine.on_peer_failed`).
     ``ready`` is the CUDA event after which a device tier's value is
-    complete (None elsewhere)."""
+    complete (None elsewhere).  ``on_drained``, when set, runs (outside
+    the engine's lock) once the registration drops."""
 
-    __slots__ = ("handle_id", "rank", "value", "refcount", "peers", "ready")
+    __slots__ = ("handle_id", "rank", "value", "refcount", "peers", "ready",
+                 "on_drained")
 
     _ids = itertools.count(1)
 
@@ -100,6 +108,7 @@ class MemHandle:
         self.refcount = refcount
         self.peers = set(peers) if peers is not None else None
         self.ready = None
+        self.on_drained: Callable[[], None] | None = None
 
     def wire(self) -> tuple[int, int]:
         """The on-the-wire form: (owner rank, handle id)."""
@@ -148,9 +157,14 @@ class InprocFabric:
         self.nranks = nranks
         self._inboxes: list[deque] = [deque() for _ in range(nranks)]
         self._locks = [threading.Lock() for _ in range(nranks)]
+        # each rank's engine, once attached: a caller driving a peer that
+        # lives in this process progresses them all (data_dist/kv_tiers.py)
+        self.engines: list["InprocCommEngine | None"] = [None] * nranks
 
     def attach(self, rank: int) -> "InprocCommEngine":
-        return InprocCommEngine(self, rank)
+        eng = InprocCommEngine(self, rank)
+        self.engines[rank] = eng
+        return eng
 
     def deliver(self, dst: int, tag: int, src: int, payload: Any) -> None:
         with self._locks[dst]:
@@ -176,6 +190,7 @@ class CommEngine:
     def __init__(self, nranks: int, rank: int) -> None:
         self.nranks = nranks
         self.rank = rank
+        self.prefetch_gets = 0   # GETs issued ahead of demand
         self._am_callbacks: dict[int, Callable] = {}
         self._mem: dict[int, MemHandle] = {}
         self._mem_lock = threading.Lock()
@@ -221,13 +236,16 @@ class CommEngine:
             h.refcount -= 1
             if peer is not None and h.peers is not None:
                 h.peers.discard(peer)
-            if h.refcount <= 0:
-                del self._mem[handle_id]
+            if h.refcount > 0:
+                return
+            del self._mem[handle_id]
+        if h.on_drained is not None:
+            h.on_drained()
 
     def on_peer_failed(self, rank: int) -> int:
         """Release every registration share held for the dead peer
         ``rank``; returns the number of registrations that drained."""
-        drained = 0
+        drained = []
         with self._mem_lock:
             for hid in list(self._mem):
                 h = self._mem[hid]
@@ -237,8 +255,11 @@ class CommEngine:
                 h.refcount -= 1
                 if h.refcount <= 0:
                     del self._mem[hid]
-                    drained += 1
-        return drained
+                    drained.append(h)
+        for h in drained:
+            if h.on_drained is not None:
+                h.on_drained()
+        return len(drained)
 
     def snapshot_value(self, value: Any) -> Any:
         """A stable copy of ``value`` to send in a message (a DTD push):
@@ -250,6 +271,15 @@ class CommEngine:
         """One-sided pull of the remote buffer named by ``rwire``;
         ``on_complete(value)`` runs locally when the payload has landed."""
         raise NotImplementedError
+
+    def prefetch_get(self, rwire: tuple[int, int],
+                     on_complete: Callable[[Any], None]) -> int:
+        """A GET issued ahead of demand: the same protocol (fragmented
+        under the credit window past ``comm_get_frag_bytes``), counted in
+        ``prefetch_gets`` so a lookahead pull is told apart from an
+        on-demand one."""
+        self.prefetch_gets += 1
+        return self.get(rwire, on_complete)
 
     # -- lifecycle / progress -------------------------------------------------
     def enable(self) -> None:

@@ -24,15 +24,24 @@ every version any copy reached: the device's stage-in then misses it,
 and its write-back skips it (``device/cuda.py``), so it can neither
 satisfy a stage-in nor write over the rewritten host page.
 
-Left out: ``fork_prefix`` (the prefix cache), ``rollback_tail`` and
-``update_page_host`` (speculative decode), the tier hooks and
-``rank_of_fn`` (one rank).
+The prefix cache shares whole prompt pages through :meth:`fork_prefix`;
+speculative decode stages draft k/v through :meth:`update_page_host` and
+truncates a rejected tail through :meth:`rollback_tail`.  The newest
+bytes of a tail page often live only on the card (K2's pool and the OUT
+and PF appends write them there), so both rewrite from the newest copy,
+brought home by one D2H, and leave the host copy on the CPU, versioned
+past every device copy they detach: a deferred write-back of a rejected
+draft's k/v is then skipped, never written over the rolled-back page.
+A :class:`~parsec_tpu_torch.data_dist.kv_tiers.KVTierMap` attaches as
+``tier`` and answers the tier keys of :meth:`PagedKVCollection.stats`.
+
+Left out: ``rank_of_fn`` (one rank).
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
@@ -41,6 +50,12 @@ from ..data.datatype import TileType, torch_dtype
 from .collection import DataCollection
 
 K_CH, V_CH, META_CH = 0, 1, 2
+
+
+def _home(value: torch.Tensor) -> torch.Tensor:
+    """A host tensor of its own with ``value``'s bytes: a D2H of a card's
+    tensor, else a copy."""
+    return value.to("cpu") if value.device.type != "cpu" else value.clone()
 
 
 class PagedKVCollection(DataCollection):
@@ -67,6 +82,13 @@ class PagedKVCollection(DataCollection):
         self.pages_allocated = 0
         self.pages_recycled = 0
         self.cow_copies = 0
+        # the prefix cache's counters (llm/prefix_tree.py bumps them)
+        self.prefix_hits = 0
+        self.prefix_pages_reused = 0
+        # speculative-decode rollback tallies (rollback_tail)
+        self.tail_rollbacks = 0
+        self.slots_rolled_back = 0
+        self.tier: Any = None         # data_dist/kv_tiers.py sets it
 
     # -- the DataCollection vtable --------------------------------------
     def rank_of(self, *key) -> int:
@@ -100,6 +122,16 @@ class PagedKVCollection(DataCollection):
                 d.detach_copy(idx).coherency = COHERENCY_INVALID
         return maxv
 
+    def _rewrite_host(self, d: Data, value: torch.Tensor) -> None:
+        """Make ``value`` the page's one true version: every device copy
+        detached, the host copy versioned past them all."""
+        host = d.get_copy(0)
+        maxv = self._scrub_copies(d)
+        host.value = value
+        host.version = maxv + 1
+        host.coherency = COHERENCY_SHARED
+        d.owner_device = 0
+
     def _zeros(self) -> torch.Tensor:
         return torch.zeros(self.default_dtt.shape, dtype=self.dtype)
 
@@ -109,13 +141,7 @@ class PagedKVCollection(DataCollection):
             self.pages_recycled += 1
             # recycle the Data in place: fresh zeros, stale copies
             # scrubbed, host version jumped past every copy
-            d = self._pages[phys]
-            host = d.get_copy(0)
-            maxv = self._scrub_copies(d)
-            host.value = self._zeros()
-            host.version = maxv + 1
-            host.coherency = COHERENCY_SHARED
-            d.owner_device = 0
+            self._rewrite_host(self._pages[phys], self._zeros())
         else:
             if self._next_phys >= self.max_pages:
                 raise MemoryError(
@@ -179,7 +205,7 @@ class PagedKVCollection(DataCollection):
             maxv = max((c.version for c in old_d.device_copies.values()),
                        default=0)
         dst = self._pages[phys].get_copy(0)
-        dst.value = src.value.clone()
+        dst.value = _home(src.value)
         dst.version = max(dst.version, maxv) + 1
         table[page] = phys
         self.cow_copies += 1
@@ -202,6 +228,96 @@ class PagedKVCollection(DataCollection):
                 self._refs[phys] += 1
             self._tables[child] = table
             self._lens[child] = self._lens[parent]
+
+    def fork_prefix(self, parent: Any, child: Any, pages: int) -> None:
+        """Prefix fork: the child shares only the parent's first ``pages``
+        pages, and its ledger starts at the page boundary — the prefix
+        cache's adoption seam (``llm/prefix_tree.py``).  Only whole pages
+        are shared, so a prefix fork never leaves a shared partial tail."""
+        with self._lock:
+            if child in self._tables:
+                raise KeyError(f"sequence {child!r} already allocated")
+            table = self._tables[parent]
+            if not 0 <= pages <= len(table):
+                raise ValueError(
+                    f"prefix fork of {pages} pages from {parent!r} "
+                    f"({len(table)} pages)")
+            if pages * self.page_size > self._lens[parent]:
+                raise ValueError(
+                    f"prefix fork of {pages} pages exceeds {parent!r}'s "
+                    f"{self._lens[parent]}-token ledger (partial page)")
+            shared = table[:pages]
+            for phys in shared:
+                self._refs[phys] += 1
+            self._tables[child] = list(shared)
+            self._lens[child] = pages * self.page_size
+
+    def _newest(self, d: Data, phys: int, what: str) -> torch.Tensor:
+        src = d.newest_copy()
+        if src is None or src.value is None:
+            raise RuntimeError(
+                f"{self.name}: page {phys} has no live copy to {what} from "
+                f"(spilled beyond the host tier?)")
+        return src.value
+
+    def update_page_host(self, seq: Any, page: int,
+                         fn: Callable[[torch.Tensor], torch.Tensor]) -> None:
+        """Host-side page rewrite under the recycle-detach discipline: the
+        speculative seed-time staging path.  ``fn`` gets a private host
+        copy of the NEWEST bytes (a device copy may be ahead of the host
+        copy: it comes home by one D2H) and returns the page's new
+        contents; every device copy is then detached and the host version
+        jumps past the highest version any copy reached."""
+        with self._lock:
+            phys = self._tables[seq][page]
+            d = self._pages[phys]
+        val = fn(_home(self._newest(d, phys, "stage a host write")))
+        self._rewrite_host(d, val)
+
+    def rollback_tail(self, seq: Any, new_len: int) -> int:
+        """Truncate ``seq``'s speculatively written tail back to
+        ``new_len`` tokens, so a rejected draft's k/v never reaches the
+        next pool.  Every slot in ``[new_len, seq_len)`` is zeroed and
+        each touched page's fill reset to its kept slots; the boundary
+        page's kept slots come from the newest copy, and each touched
+        page is rewritten under the recycle-detach discipline.  Pages
+        preallocated past the ledger stay in the table, zeroed.  A shared
+        page in the range is refused (the ledger and the block table
+        would disagree).  Returns the number of slots rolled back."""
+        with self._lock:
+            table = self._tables[seq]
+            old_len = self._lens[seq]
+            if not 0 <= new_len <= old_len:
+                raise ValueError(
+                    f"rollback of {seq!r} to {new_len} outside its "
+                    f"[0, {old_len}] ledger")
+            if new_len == old_len:
+                return 0
+            P = self.page_size
+            pages = range(new_len // P,
+                          min((old_len - 1) // P + 1, len(table)))
+            for page in pages:
+                phys = table[page]
+                if self._refs[phys] > 1:
+                    raise RuntimeError(
+                        f"{self.name}: rollback range page {phys} of "
+                        f"{seq!r} is shared ({self._refs[phys]} refs)")
+            for page in pages:
+                phys = table[page]
+                d = self._pages[phys]
+                keep = max(0, min(new_len - page * P, P))
+                if keep == 0:
+                    val = self._zeros()
+                else:
+                    val = _home(self._newest(d, phys, "roll back"))
+                    val[K_CH, keep:] = 0.0
+                    val[V_CH, keep:] = 0.0
+                    val[META_CH, 0, 0, 0] = keep
+                self._rewrite_host(d, val)
+            self._lens[seq] = new_len
+            self.tail_rollbacks += 1
+            self.slots_rolled_back += old_len - new_len
+            return old_len - new_len
 
     def has_seq(self, seq: Any) -> bool:
         with self._lock:
@@ -238,6 +354,10 @@ class PagedKVCollection(DataCollection):
         with self._lock:
             return list(self._tables[seq])
 
+    def live_seqs(self) -> list:
+        with self._lock:
+            return list(self._tables)
+
     def page_fill(self, seq: Any, page: int) -> int:
         """Valid slots of one logical page, from the length ledger."""
         with self._lock:
@@ -260,4 +380,12 @@ class PagedKVCollection(DataCollection):
                 "pages_allocated": self.pages_allocated,
                 "pages_recycled": self.pages_recycled,
                 "cow_copies": self.cow_copies,
+                "prefix_hits": self.prefix_hits,
+                "prefix_pages_reused": self.prefix_pages_reused,
+                "tail_rollbacks": self.tail_rollbacks,
+                "slots_rolled_back": self.slots_rolled_back,
+                "host_tier_bytes": (self.tier.host_tier_bytes
+                                    if self.tier is not None else 0),
+                "prefetch_inflight": (self.tier.prefetch_inflight
+                                      if self.tier is not None else 0),
             }

@@ -30,26 +30,40 @@ Port of ``parsec_tpu/device/tpu.py`` (itself a rebuild of the reference's
   oldest.  A fault in a kernel surfaces there (or at the launch) and
   poisons the context through ``record_failure``.
 - **Detached copies**: a datum may detach its device copy while the copy
-  still sits in the LRU or the write-back queue (a recycled or
-  copy-on-write KV page, ``data_dist/paged_kv.py``); stage-in then misses
+  still sits in the LRU or the write-back queue (a recycled, copy-on-write
+  or rolled-back KV page, ``data_dist/paged_kv.py``); stage-in then misses
   it, and write-back skips it, so it never overwrites the rewritten host
   copy.
+- **Spill hooks and data-grain prefetch** (the KV tiers,
+  ``data_dist/kv_tiers.py``): every write-back that leaves a datum on the
+  host alone fires the subscribers of :func:`register_spill_hook`, from
+  the deferred-eviction drain, outside the LRU lock (a subscriber's
+  failure is counted in ``spill_hook_failures``).  For a collection with
+  a tier map (``dc.tier``), a host copy that shares its device copy's
+  tensor (the home copy after a write-back edge,
+  ``runtime/scheduling.py``) is written back too, so an evicted page
+  really leaves the card.  :meth:`CUDADevice.prefetch_data`
+  stages host-resident datums back ahead of the tasks that read them:
+  one async H2D on the copy stream, which the compute stream waits on.
+  ``bytes_copied_in`` counts the bytes an H2D really moved (``bytes_in``
+  also counts a landing that found the value already on the card).
 
 ``init_cuda_devices(device="cpu")`` wraps ``torch.device("cpu")`` in the
 same module (the role of ``device_tpu_allow_cpu``), so stage-in, the
 LRU, flooding and batching run in CPU-only tests; the task bodies then
 take their kernels' plain PyTorch versions.
 
-Left out until a later slice: the demote/salvage path after a failed
-dispatch (``device/tpu.py:514-579``) — a failure here stops the run —,
-user stage hooks, data-grain prefetch and spill hooks of the KV tiers,
-PINS events and the stall-dump ``debug_state``.
+Left out: the demote/salvage path after a failed dispatch
+(``device/tpu.py:514-579``), which would run the stranded tasks on the
+host: a failure here stops the run.  Until a later slice: user stage
+hooks, PINS events and the stall-dump ``debug_state``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import Counter, OrderedDict, deque
 from typing import Any, Callable
 
@@ -73,6 +87,35 @@ _params.register("device_cuda_batch_max", 64,
 _params.register("device_cuda_prefetch", 8,
                  "stage-in this many queued tasks ahead of dispatch "
                  "(H2D overlaps running kernels; 0 disables)")
+
+# subscribers to device write-backs (the KV tier map), weakly held
+_spill_hooks: list = []
+
+
+def register_spill_hook(obj: Any) -> None:
+    """Subscribe ``obj.note_spill(data, nbytes)`` to every write-back that
+    leaves a datum on the host alone.  Held by weakref; dead subscribers
+    are pruned at the next fire."""
+    _spill_hooks.append(weakref.ref(obj))
+
+
+def _fire_spill(data: Any, nbytes: int) -> int:
+    """Tell every live subscriber; returns how many of them raised (the
+    caller counts them: accounting never faults the write-back)."""
+    dead = False
+    failures = 0
+    for ref in list(_spill_hooks):
+        obj = ref()
+        if obj is None:
+            dead = True
+            continue
+        try:
+            obj.note_spill(data, nbytes)
+        except Exception:       # noqa: BLE001 — counted by the caller
+            failures += 1
+    if dead:
+        _spill_hooks[:] = [r for r in _spill_hooks if r() is not None]
+    return failures
 
 
 class CUDADeviceTask:
@@ -143,6 +186,9 @@ class CUDADevice(Device):
         self.dispatches_by_class: Counter[str] = Counter()
         self.cache_hits = 0
         self.cache_misses = 0
+        self.bytes_copied_in = 0      # H2D bytes really moved
+        self.prefetched = 0           # datums prefetch_data staged
+        self.spill_hook_failures = 0  # subscribers that raised
         self.t_stage_in = 0.0
         self.t_pin = 0.0              # part of t_stage_in: pinning host tiles
         self.t_dispatch = 0.0
@@ -214,9 +260,24 @@ class CUDADevice(Device):
         A copy its datum has detached meanwhile (a recycled or privatized
         KV page, ``data_dist/paged_kv.py``) is skipped under the datum's
         lock: its host copy was rewritten and versioned past it, and must
-        not be written over."""
+        not be written over.  On a card, a clean copy of a tiered KV page
+        (its collection has a tier map) whose tensor the host copy shares
+        is written back too (keeping the host version), so the page leaves
+        the card; any other datum's home copy keeps the card's tensor, with
+        no D2H.  Every datum whose device copy this drops fires the spill
+        hooks."""
+        def shared(c: DataCopy) -> bool:
+            # on the host stand-in a landed tile shares its host tensor:
+            # it lies home already
+            if not self.is_cuda or getattr(
+                    getattr(c.original, "dc", None), "tier", None) is None:
+                return False
+            host = c.original.get_copy(0)
+            return host is not None and host.value is c.value
+
         dirty = [c for c in copies
-                 if c.coherency in (COHERENCY_OWNED, COHERENCY_EXCLUSIVE)]
+                 if c.coherency in (COHERENCY_OWNED, COHERENCY_EXCLUSIVE)
+                 or shared(c)]
         hosts = []
         for c in dirty:
             v = c.value
@@ -237,17 +298,25 @@ class CUDADevice(Device):
                 host = d.get_copy(0)
                 if host is None:
                     host = d.attach_copy(DataCopy(d, 0, value=h, dtt=c.dtt))
+                    host.version = c.version
+                elif c.coherency == COHERENCY_SHARED:
+                    host.value = h          # the same bytes, moved home
                 else:
                     host.value = h
-                host.version = c.version
+                    host.version = c.version
                 host.coherency = COHERENCY_SHARED
             self.bytes_out += nbytes_of(h)
+        spilled = []
         for c in copies:
             d = c.original
             with d._lock:
                 if d.device_copies.get(self.device_index) is c:
                     del d.device_copies[self.device_index]
+                    spilled.append((d, nbytes_of(c.value)))
             c.coherency = COHERENCY_INVALID
+        if _spill_hooks:
+            for d, nb in spilled:
+                self.spill_hook_failures += _fire_spill(d, nb)
 
     def flush_cache(self) -> None:
         """Write every dirty tile back to its host copy (a taskpool's
@@ -260,14 +329,13 @@ class CUDADevice(Device):
         self._writeback_many(victims)
 
     # ----------------------------------------------------------- stage-in
-    def _land(self, src: DataCopy) -> torch.Tensor:
-        """The value of ``src`` on this device: no copy if it is already
-        here, else an async H2D on the copy stream (the caller's).  A
-        pageable host tile goes through a pinned staging buffer from
-        PyTorch's caching host allocator, which recycles the buffer once
-        its H2D has run; the copy stream does not queue behind the
-        kernels, so a few buffers serve the whole run."""
-        v = src.value
+    def _land(self, v: torch.Tensor) -> torch.Tensor:
+        """``v`` on this device: no copy if it is already here, else an
+        async H2D on the copy stream (the caller's).  A pageable host tile
+        goes through a pinned staging buffer from PyTorch's caching host
+        allocator, which recycles the buffer once its H2D has run; the
+        copy stream does not queue behind the kernels, so a few buffers
+        serve the whole run."""
         if v.device == self.torch_device:
             return v
         if v.device.type == "cpu" and not v.is_pinned():
@@ -275,10 +343,11 @@ class CUDADevice(Device):
             v = torch.empty(v.shape, dtype=v.dtype,
                             pin_memory=True).copy_(v)
             self.t_pin += time.perf_counter() - t0
+        self.bytes_copied_in += nbytes_of(v)
         return v.to(self.torch_device, non_blocking=True)
 
-    def _land_all(self, srcs: list[DataCopy]) -> list[torch.Tensor]:
-        """Land every source; on a card the copies run on the copy stream
+    def _land_all(self, srcs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Land every value; on a card the copies run on the copy stream
         and the compute stream waits for them before the next launch."""
         if not self.is_cuda:
             return [self._land(s) for s in srcs]
@@ -317,7 +386,7 @@ class CUDADevice(Device):
                     missing[d.key] = copy
                 assigns.append((task, f.flow_index, d.key))
         landed: dict[Any, DataCopy] = {}
-        values = self._land_all(list(missing.values()))
+        values = self._land_all([c.value for c in missing.values()])
         for (k, src), value in zip(missing.items(), values):
             d = src.original
             dev_copy = d.get_copy(self.device_index)
@@ -336,6 +405,65 @@ class CUDADevice(Device):
             task.data[fi] = landed[k]
         if not self.is_cuda:
             self._own_written(tasks)
+
+    def prefetch_data(self, datas: list[Any]) -> int:
+        """Data-grain prefetch: stage host-resident datums back into the
+        tile cache ahead of the tasks that will read them (the KV tier map
+        calls it one decode superpool ahead).  Advisory: a datum with a
+        current copy here, or whose host copy already lies on the card, is
+        skipped; the rest move in one batch of async H2D copies on the
+        copy stream, which the compute stream waits on.  Unlike the queue
+        lookahead it may evict, but one call stages at most half the
+        budget.  A landed copy carries the version of the bytes that
+        moved, and a copy written meanwhile is never overwritten.  Returns
+        the number of datums staged."""
+        cap = self._mem_budget // 2
+        todo: list[tuple[Any, Any, int, torch.Tensor]] = []
+        for d in datas:
+            host = d.get_copy(0)
+            if host is None or host.value is None \
+                    or host.coherency == COHERENCY_INVALID \
+                    or (self.is_cuda
+                        and host.value.device == self.torch_device):
+                continue
+            dev = d.get_copy(self.device_index)
+            if dev is not None and dev.version >= host.version \
+                    and dev.coherency != COHERENCY_INVALID:
+                continue
+            nb = nbytes_of(host.value)
+            if nb > cap:
+                break                 # the half-budget sweep is full
+            cap -= nb
+            todo.append((d, host.dtt, host.version, host.value))
+        if not todo:
+            return 0
+        t0 = time.perf_counter()
+        values = self._land_all([v for *_, v in todo])
+        staged = 0
+        for (d, dtt, snap_ver, _), value in zip(todo, values):
+            with d._lock:
+                dev = d.device_copies.get(self.device_index)
+                if dev is not None and (
+                        dev.coherency in (COHERENCY_OWNED,
+                                          COHERENCY_EXCLUSIVE)
+                        or (dev.version >= snap_ver
+                            and dev.coherency != COHERENCY_INVALID)):
+                    continue          # staged or written meanwhile
+                if dev is None:
+                    dev = DataCopy(d, self.device_index, value=value,
+                                   dtt=dtt)
+                    d.device_copies[self.device_index] = dev
+                else:
+                    dev.value = value
+                dev.version = snap_ver
+                dev.coherency = COHERENCY_SHARED
+            nb = nbytes_of(value)
+            self.bytes_in += nb
+            self._cache_insert(d.key, dev, nb)
+            staged += 1
+        self.prefetched += staged
+        self.t_stage_in += time.perf_counter() - t0
+        return staged
 
     def _own_written(self, tasks: list[Any]) -> None:
         """On the host stand-in a tile lands by sharing its host copy's
@@ -544,6 +672,9 @@ class CUDADevice(Device):
         s.update(kernel_launches=self.kernel_launches,
                  batched_dispatches=self.batched_dispatches,
                  cache_hits=self.cache_hits, cache_misses=self.cache_misses,
+                 bytes_copied_in=self.bytes_copied_in,
+                 prefetched=self.prefetched,
+                 spill_hook_failures=self.spill_hook_failures,
                  deferred_evictions=self.deferred_evictions,
                  t_stage_in=self.t_stage_in, t_pin=self.t_pin,
                  t_dispatch=self.t_dispatch,

@@ -20,16 +20,36 @@ prompt KV copy-on-write from an admitted stream with the same prompt.
 A failure is contained to the streams it hit: one stream's page budget,
 one tenant's pool.
 
+**Speculative decode** (``llm_spec_k``): a stream whose n-gram drafter
+has a proposal rides the batched speculative pool
+(:func:`~parsec_tpu_torch.llm.decode.spec_batched_ptg`) instead: its
+1+k positions verify in one pass, SVERIFY emits the accepted prefix, and
+the rejected tail's staged k/v roll back
+(``PagedKVCollection.rollback_tail``) before its next pool.  Each
+stream's draft cap adapts from its acceptance (``llm_spec_adaptive``),
+starting from its tenant's prior, and a stream converged off probes
+again every ``_SPEC_PROBE_EVERY`` iterations.  Spec and plain streams of
+a tenant ride separate pools in the same iteration.
+
+**The memory hierarchy**: with ``llm_prefix_cache`` an arrival adopts
+the longest retained full-page prefix of its prompt from the
+:class:`~parsec_tpu_torch.llm.prefix_tree.PrefixTree` and prefills only
+its tail, and a stream that retires cleanly donates its prompt pages.  A
+:class:`~parsec_tpu_torch.data_dist.kv_tiers.KVTierMap` keeps the books
+of pages the card evicted and stages the live streams' pages back
+before each iteration's pools (at once a no-op while nothing spilled).
+
 The pools run on the card: ``devices`` defaults to ``"cuda"``, and when
 no CUDA device is registered the batcher registers the card itself
 (:func:`~parsec_tpu_torch.device.cuda.init_cuda_devices`, which raises
-without one).  The TOK tiles a pool leaves on the card come back in one
-transfer per pool.
+without one).  The TOK or VOUT tiles a pool leaves on the card come back
+in one transfer per pool.  :func:`aggregate_report` sums every batcher's
+counters, live and retired.
 
-Left out: speculative decode (``llm_spec_k``), the prefix cache, KV
-tiers and prefetch, region lowering, adaptive k (``tune_adaptive``), the
-SLO plane and spans, the sharded placement hooks (``residency_len``,
-``load``) and the process-wide report aggregate.
+Left out: region lowering of superpools, adaptive k (``tune_adaptive``),
+the SLO plane and spans, the sharded server that reads
+``residency_len``/``load``, and the ``runtime_report()`` hookup of
+:func:`aggregate_report`.
 """
 
 from __future__ import annotations
@@ -37,6 +57,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Any, Sequence
 
@@ -46,13 +67,16 @@ from ..core.future import Future
 from ..core.params import params as _params
 from ..data.datatype import TileType
 from ..data_dist.collection import DictCollection
+from ..data_dist.kv_tiers import KVTierMap
 from ..data_dist.paged_kv import PagedKVCollection
 from ..device.cuda import init_cuda_devices
 from ..device.device import registry
 from .decode import (decode_superpool_ptg, preallocate_decode_steps,
-                     prefill_chunks, prefill_ptg, read_token_chains,
-                     seed_emb_table, seed_stream_step)
-from .model import ToyLM
+                     prefill_chunks, prefill_ptg, read_spec_batched,
+                     read_token_chains, seed_emb_table, seed_spec_batched,
+                     seed_stream_step, spec_batched_ptg)
+from .model import NgramDrafter, ToyLM
+from .prefix_tree import PrefixTree
 
 _params.register("llm_page_size", 16,
                  "tokens per KV page (PagedKVCollection block size)")
@@ -68,8 +92,65 @@ _params.register("llm_steps_per_pool", 8,
                  "autoregressive decode steps one superpool spans (the "
                  "in-graph SAMPLE class carries token -> next query "
                  "between steps)")
+_params.register("llm_spec_k", 0,
+                 "speculative decode: draft tokens the per-stream n-gram "
+                 "drafter proposes per pool (0 = off); a spec pool "
+                 "verifies 1+k positions at once and rolls the rejected "
+                 "tail's k/v back")
+_params.register("llm_spec_adaptive", True,
+                 "adapt each stream's draft length within [0, llm_spec_k] "
+                 "from its acceptance EWMA; a stream converged to 0 rides "
+                 "the plain superpool and probes again periodically")
 
 _F32 = torch.float32
+
+# iterations a stream converged off speculation waits before it probes
+# again with a 2-token draft
+_SPEC_PROBE_EVERY = 64
+
+# live batchers, weakly held, and the folded counters of stopped ones:
+# aggregate_report() stays cumulative over the process
+_live_batchers: "weakref.WeakSet[ContinuousBatcher]" = weakref.WeakSet()
+_retired_totals: dict[str, int] = {}
+_retired_lock = threading.Lock()
+
+_REPORT_KEYS = ("tokens_generated", "streams_completed", "decode_submits",
+                "forked_streams", "prefill_tokens_total",
+                "prefill_tokens_skipped", "spec_submits", "spec_tokens",
+                "spec_drafted", "spec_drafts_accepted")
+_REPORT_KV_KEYS = ("prefix_hits", "prefix_pages_reused", "host_tier_bytes",
+                   "prefetch_inflight", "physical_pages", "cow_copies",
+                   "tail_rollbacks", "slots_rolled_back")
+
+
+def _fold_stats(out: dict, s: dict) -> None:
+    for k in _REPORT_KEYS:
+        out[k] = out.get(k, 0) + s.get(k, 0)
+    for k in _REPORT_KV_KEYS:
+        out[k] = out.get(k, 0) + s.get("kv", {}).get(k, 0)
+
+
+def aggregate_report() -> dict:
+    """The counters of every live batcher summed with the folded totals of
+    stopped ones, with the prefill-skip fraction, the spec acceptance
+    rate and the tokens per spec submit derived from them."""
+    with _retired_lock:
+        out: dict[str, Any] = dict(_retired_totals)
+    for b in list(_live_batchers):
+        if not getattr(b, "_folded", False):
+            _fold_stats(out, b.stats())
+    if out:
+        total = out.get("prefill_tokens_total", 0)
+        out["prefill_skipped_frac"] = round(
+            out.get("prefill_tokens_skipped", 0) / total, 4) if total \
+            else 0.0
+        if out.get("spec_drafted"):
+            out["spec_accept_rate"] = round(
+                out.get("spec_drafts_accepted", 0) / out["spec_drafted"], 4)
+        if out.get("spec_submits"):
+            out["spec_tokens_per_submit"] = round(
+                out.get("spec_tokens", 0) / out["spec_submits"], 4)
+    return out
 
 
 class StreamTicket:
@@ -89,6 +170,11 @@ class StreamTicket:
         self.token_at: list[float] = []
         self.prefill_s: float | None = None
         self.first_token_at: float | None = None   # monotonic TTFT stamp
+        self.prefix_pages_reused = 0   # trie pages this stream skipped
+        # the stream's current (adapted) draft cap and acceptance EWMA,
+        # updated after every spec pool it rides
+        self.spec_k: int | None = None
+        self.spec_accept_ewma: float | None = None
         self._future = Future()
 
     def generated(self) -> list[int]:
@@ -124,7 +210,8 @@ class StreamTicket:
 
 class _Stream:
     __slots__ = ("seq", "tenant", "priority", "prompt", "max_new",
-                 "ticket", "cur", "eos", "fork_from", "k")
+                 "ticket", "cur", "eos", "fork_from", "k", "spec",
+                 "drafter", "spec_k", "spec_ewma", "spec_probe")
 
     def __init__(self, seq: Any, tenant: str, priority: int,
                  prompt: Sequence[int], max_new: int,
@@ -139,13 +226,21 @@ class _Stream:
         self.cur = int(prompt[-1])
         self.eos = None if eos is None else int(eos)
         self.fork_from = fork_from      # CoW prompt-KV parent (or None)
-        self.k = 1                      # steps the current superpool runs
+        self.k = 1                      # steps (positions) of its pool
+        self.spec = False               # the current pool is speculative
+        # built in the batcher thread at the first speculative look
+        self.drafter: NgramDrafter | None = None
+        self.spec_k = -1                # adaptive draft cap (-1 = unset)
+        self.spec_ewma = -1.0           # acceptance EWMA (-1 = unset)
+        self.spec_probe = 0             # iterations since converged off
 
 
 class ContinuousBatcher:
-    """The decode loop.  Owns the paged KV cache plus the Q/O/TOK/EMB
-    side collections; rides an existing :class:`RuntimeServer` for
-    admission, fairness and the hot context."""
+    """The decode loop.  Owns the paged KV cache, its prefix tree and
+    tier map, and the side collections (Q/O/TOK for the plain superpool,
+    QS/LIM/DTOKS/VOUT for the speculative one, EMB); rides an existing
+    :class:`RuntimeServer` for admission, fairness and the hot
+    context."""
 
     def __init__(self, server: Any, model: ToyLM | None = None,
                  kv: PagedKVCollection | None = None,
@@ -167,11 +262,27 @@ class ContinuousBatcher:
         self.Q = DictCollection("llmQ", dtt=TileType((3, H, D), _F32))
         self.O = DictCollection("llmO", dtt=TileType((H, D), _F32))
         self.TOK = DictCollection("llmTOK", dtt=TileType((3,), _F32))
+        # the batched spec pool's side collections: QS the positions' q3
+        # stacks, LIM the per-(seq, page) causal limits, DTOKS the packed
+        # draft chain, VOUT the accepted prefix the host reads once a
+        # pool.  Their shapes are per pool (padded to llm_spec_k + 1);
+        # the declared types only serve a tile read before its first seed
+        sp0 = max(1, int(_params.get("llm_spec_k"))) + 1
+        self.QS = DictCollection("llmQS", dtt=TileType((sp0, 3, H, D), _F32))
+        self.LIM = DictCollection("llmLIM", dtt=TileType((sp0,), _F32))
+        self.DTOKS = DictCollection("llmDTOKS",
+                                    dtt=TileType((sp0 + 2,), _F32))
+        self.VOUT = DictCollection("llmVOUT", dtt=TileType((sp0 + 2,), _F32))
         self.EMB = DictCollection(
             "llmEMB", dtt=TileType(tuple(self.model.q3_table().shape), _F32))
         seed_emb_table(self.model, self.EMB)
         self.max_batch = max_batch or _params.get("llm_max_batch")
         self.devices = devices
+        self.prefix = (PrefixTree(self.kv)
+                       if _params.get("llm_prefix_cache") else None)
+        self.tiers = KVTierMap(self.kv)
+        self.prefill_tokens_total = 0     # cacheable tokens admitted
+        self.prefill_tokens_skipped = 0   # of those, served by the trie
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._pending: deque[_Stream] = deque()
@@ -185,7 +296,17 @@ class ContinuousBatcher:
         self.decode_submits = 0         # superpool submits (1/k per token)
         self.prefill_submits = 0
         self.forked_streams = 0
+        # speculative tallies: spec_submits counts a stream's ride on a
+        # spec pool, the unit spec_tokens_per_submit divides by
+        self.spec_submits = 0
+        self.spec_tokens = 0
+        self.spec_drafted = 0
+        self.spec_drafts_accepted = 0
+        # per-tenant acceptance prior (batcher thread only): a new
+        # stream starts its draft cap where its tenant's traffic settled
+        self._spec_prior: dict[str, float] = {}
         self._pool_seq = itertools.count()
+        _live_batchers.add(self)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-batcher")
         self._thread.start()
@@ -232,6 +353,20 @@ class ContinuousBatcher:
         self._wake.set()
         return ticket
 
+    # -- placement hooks ------------------------------------------------
+    def residency_len(self, prompt_tokens: Sequence[int]) -> int:
+        """Leading tokens of a prospective prompt already held by this
+        batcher's prefix tree (full pages only); 0 with the cache off."""
+        if self.prefix is None:
+            return 0
+        _seq, pages = self.prefix.match(list(prompt_tokens))
+        return pages * self.kv.page_size
+
+    def load(self) -> dict:
+        """Live and queued stream counts."""
+        with self._lock:
+            return {"live": len(self._live), "queued": len(self._pending)}
+
     def stats(self) -> dict:
         with self._lock:
             out = {
@@ -243,8 +378,23 @@ class ContinuousBatcher:
                 "decode_submits": self.decode_submits,
                 "prefill_submits": self.prefill_submits,
                 "forked_streams": self.forked_streams,
+                "prefill_tokens_total": self.prefill_tokens_total,
+                "prefill_tokens_skipped": self.prefill_tokens_skipped,
+                "spec_submits": self.spec_submits,
+                "spec_tokens": self.spec_tokens,
+                "spec_drafted": self.spec_drafted,
+                "spec_drafts_accepted": self.spec_drafts_accepted,
             }
+        if out["spec_drafted"]:
+            out["spec_accept_rate"] = round(
+                out["spec_drafts_accepted"] / out["spec_drafted"], 4)
+        if out["spec_submits"]:
+            out["spec_tokens_per_submit"] = round(
+                out["spec_tokens"] / out["spec_submits"], 4)
         out["kv"] = self.kv.stats()
+        out["tiers"] = self.tiers.stats()
+        if self.prefix is not None:
+            out["prefix"] = self.prefix.stats()
         return out
 
     def stop(self, timeout: float | None = 60.0) -> None:
@@ -258,6 +408,11 @@ class ContinuousBatcher:
             self._abort = RuntimeError("batcher stop timed out")
             self._wake.set()
             self._thread.join(5.0)
+        # fold the final counters into the process aggregate, once
+        with _retired_lock:
+            if not getattr(self, "_folded", False):
+                self._folded = True
+                _fold_stats(_retired_totals, self.stats())
 
     # -- the iteration loop ---------------------------------------------
     def _loop(self) -> None:
@@ -319,9 +474,10 @@ class ContinuousBatcher:
         self.kv.free_seq(seq)
         self.Q.discard(seq)
         self.O.discard(seq)
-        for key in self.TOK.known_keys():
-            if key and key[0] == seq:
-                self.TOK.discard(*key)
+        for coll in (self.TOK, self.QS, self.LIM, self.DTOKS, self.VOUT):
+            for key in coll.known_keys():
+                if key and key[0] == seq:
+                    coll.discard(*key)
 
     def _fail_all(self, e: BaseException) -> None:
         with self._lock:
@@ -343,6 +499,23 @@ class ContinuousBatcher:
         except KeyError:                 # parent retired / never admitted
             return False
 
+    def _admit_via_prefix(self, st: _Stream) -> int:
+        """Materialize a fresh stream's sequence, through the prefix cache
+        when it is on: the trie matches ``prompt[:-1]`` (the cacheable
+        run) and forks the longest retained full-page prefix, so only the
+        tail prefills.  Returns the pages reused (0: a miss, or no
+        cache)."""
+        if self.prefix is None:
+            self.kv.alloc_seq(st.seq)
+            reused = 0
+        else:
+            reused = self.prefix.adopt(st.seq, st.prompt[:-1])
+        with self._lock:
+            self.prefill_tokens_total += len(st.prompt) - 1
+            self.prefill_tokens_skipped += reused * self.kv.page_size
+        st.ticket.prefix_pages_reused = reused
+        return reused
+
     def _prefill_submit(self, fresh: list[_Stream]) -> dict:
         """Phase 1 of the chunked-prefill interleave: allocate pages and
         SUBMIT one PF pool per tenant, without awaiting.  A fork child of
@@ -350,6 +523,7 @@ class ContinuousBatcher:
         whose parent arrives in the same batch resolves in
         :meth:`_prefill_await`."""
         stream_chunks: dict[Any, dict[tuple, torch.Tensor]] = {}
+        chunk_starts: dict[Any, int] = {}
         by_tenant: dict[str, list[_Stream]] = {}
         forks: list[_Stream] = []
         ok: list[_Stream] = []
@@ -374,9 +548,12 @@ class ContinuousBatcher:
                 continue
             st.fork_from = None          # parent advanced: plain prefill
             try:
-                self.kv.alloc_seq(st.seq)
+                reused = self._admit_via_prefix(st)
+                # tail-only prefill: chunks continue past the trie's pages
                 stream_chunks[st.seq] = prefill_chunks(
-                    self.model, self.kv, st.seq, st.prompt[:-1])
+                    self.model, self.kv, st.seq,
+                    st.prompt[reused * self.kv.page_size:-1])
+                chunk_starts[st.seq] = reused
             except BaseException as e:       # noqa: BLE001 — contain
                 self._retire_failed([st], e)
                 continue
@@ -386,7 +563,8 @@ class ContinuousBatcher:
         tickets: list[tuple[Any, Any, list[_Stream]]] = []
         done_t: dict[int, float] = {}
         for tenant, group in by_tenant.items():
-            # single-token prompts cache nothing: they join with
+            # single-token prompts cache nothing, and a full-prefix trie
+            # hit holds every cacheable page already: both join with
             # prefill_s = 0 instead of awaiting a pool
             ok.extend(st for st in group if not stream_chunks[st.seq])
             group = [st for st in group if stream_chunks[st.seq]]
@@ -403,7 +581,9 @@ class ContinuousBatcher:
                     keys=list(chunks))
                 tp = prefill_ptg(self.kv, T, [st.seq for st in group],
                                  devices=self.devices,
-                                 name=f"llm_prefill{next(self._pool_seq)}")
+                                 name=f"llm_prefill{next(self._pool_seq)}",
+                                 starts=[chunk_starts[st.seq]
+                                         for st in group])
                 # the pool's own completion stamp: it is awaited only
                 # after the decode superpools
                 tp.add_completion_listener(
@@ -465,82 +645,214 @@ class ContinuousBatcher:
             st.ticket.state = "decoding"
         return ok
 
-    def _collect(self, group: list[_Stream], dt: float) -> list[_Stream]:
-        """Read a completed superpool's TOK chains (one transfer for the
-        pool) into its streams' tickets; returns the streams that
-        finished (EOS or budget)."""
+    def _spec_draft(self, st: _Stream, spec_cap: int,
+                    adaptive: bool) -> list[int] | None:
+        """This stream's draft for its next pool, or None to ride the
+        plain superpool (spec off, no budget left to draft into, no
+        proposal, or the adaptive cap converged to 0).  A stream converged
+        off probes again every ``_SPEC_PROBE_EVERY`` iterations with a
+        2-token draft and a neutral EWMA."""
+        remaining = st.max_new - len(st.ticket.tokens)
+        if spec_cap <= 0 or remaining <= 1:
+            return None
+        if st.drafter is None:
+            # the drafter sees every token the stream kept, whatever mode
+            # produced it
+            st.drafter = NgramDrafter()
+            for t in st.prompt:
+                st.drafter.observe(int(t))
+            for t in st.ticket.tokens:
+                st.drafter.observe(int(t))
+        cap = min(spec_cap, remaining - 1)
+        if adaptive:
+            if st.spec_k < 0:
+                # start at the cap, unless the tenant's traffic proved
+                # undraftable: then start off, probes staggered
+                prior = self._spec_prior.get(st.tenant)
+                if prior is not None and prior < 0.35:
+                    st.spec_k = 0
+                    st.spec_probe = hash(st.seq) % _SPEC_PROBE_EVERY
+                else:
+                    st.spec_k = spec_cap
+            if st.spec_k == 0:
+                st.spec_probe += 1
+                if st.spec_probe < _SPEC_PROBE_EVERY:
+                    return None
+                st.spec_probe = 0
+                st.spec_k = 2
+                st.spec_ewma = 0.5
+            cap = min(cap, st.spec_k)
+        if cap < 1:
+            return None
+        return st.drafter.draft(st.cur, cap) or None
+
+    def _note_spec(self, st: _Stream, toks: list[int], done: bool) -> None:
+        """Fold one spec pool's result into the stream's adaptive cap, its
+        tenant's prior and the counters.  An EOS finish scores 1.0: the
+        stream cut the chain, not a draft miss."""
+        drafted = st.k - 1
+        accepted = len(toks) - 1
+        rate = 1.0 if done else accepted / max(1, drafted)
+        st.spec_ewma = rate if st.spec_ewma < 0.0 else \
+            0.5 * st.spec_ewma + 0.5 * rate
+        prior = self._spec_prior.get(st.tenant)
+        self._spec_prior[st.tenant] = rate if prior is None else \
+            0.5 * prior + 0.5 * rate
+        adaptive = bool(_params.get("llm_spec_adaptive"))
+        spec_cap = max(0, int(_params.get("llm_spec_k")))
+        if adaptive:
+            # double toward the cap while drafts land, halve toward 0 (the
+            # plain superpool) while they miss
+            if st.spec_ewma >= 0.6:
+                st.spec_k = min(spec_cap, max(2, st.spec_k * 2))
+            elif st.spec_ewma < 0.35:
+                st.spec_k //= 2
+        st.ticket.spec_k = st.spec_k if adaptive else spec_cap
+        st.ticket.spec_accept_ewma = round(st.spec_ewma, 4)
+        with self._lock:
+            self.spec_submits += 1
+            self.spec_tokens += len(toks)
+            self.spec_drafted += drafted
+            self.spec_drafts_accepted += accepted
+
+    def _read_pool(self, group: list[_Stream], spec: bool
+                   ) -> dict[Any, tuple[list[int], bool]]:
+        """A completed pool's tokens, in one transfer for the pool: the
+        accepted prefixes (VOUT) of a spec pool, the TOK chains of a
+        plain one."""
+        if spec:
+            return read_spec_batched(self.VOUT, [st.seq for st in group])
         chains = read_token_chains(self.TOK, {st.seq: st.k for st in group})
-        finished = []
         for st in group:
-            toks, done = chains[st.seq]
             for t_i in range(st.k):
                 self.TOK.discard(st.seq, t_i)
-            # the ledger advances by the FULL k: the OUT bodies appended
-            # every step's k/v (predication holds tokens, not appends)
-            self.kv.note_appended(st.seq, st.k)
-            st.cur = toks[-1]
-            now = time.monotonic()
-            if not st.ticket.tokens:
-                st.ticket.first_token_at = now
-            with self._lock:
-                st.ticket.tokens.extend(toks)
-                st.ticket.token_at.extend([now] * len(toks))
-                st.ticket.per_token_s.extend([dt / len(toks)] * len(toks))
-                self.tokens_generated += len(toks)
-            if done or len(st.ticket.tokens) >= st.max_new:
-                finished.append(st)
-        return finished
+        return chains
+
+    def _collect_stream(self, st: _Stream, toks: list[int], done: bool,
+                        dt: float) -> bool:
+        """Fold one stream's tokens into its ticket and the ledger;
+        returns whether it finished (EOS or budget).  The ledger advances
+        by the pool's full k (every step's or position's k/v was
+        appended); a spec stream's rejected tail then rolls back, so no
+        stale k/v reaches its next pool."""
+        self.kv.note_appended(st.seq, st.k)
+        if st.spec:
+            rejected = st.k - len(toks)
+            if rejected:
+                self.kv.rollback_tail(st.seq,
+                                      self.kv.seq_len(st.seq) - rejected)
+            self._note_spec(st, toks, done)
+        if st.drafter is not None:
+            for t_i in toks:
+                st.drafter.observe(t_i)
+        st.cur = toks[-1]
+        now = time.monotonic()
+        if not st.ticket.tokens:
+            st.ticket.first_token_at = now
+        with self._lock:
+            st.ticket.tokens.extend(toks)
+            st.ticket.token_at.extend([now] * len(toks))
+            st.ticket.per_token_s.extend([dt / len(toks)] * len(toks))
+            self.tokens_generated += len(toks)
+        return done or len(st.ticket.tokens) >= st.max_new
+
+    def _seed(self, st: _Stream, spec_cap: int, adaptive: bool,
+              k_max: int) -> None:
+        """Choose the stream's mode for this iteration and seed its pool
+        inputs.  The slots are preallocated first, so the staged draft
+        k/v land in private pages."""
+        draft = self._spec_draft(st, spec_cap, adaptive)
+        st.spec = draft is not None
+        if st.spec:
+            st.k = 1 + len(draft)
+            preallocate_decode_steps(self.kv, st.seq, st.k)
+            seed_spec_batched(self.model, self.kv, self.QS, self.LIM,
+                              self.DTOKS, st.seq, st.cur, draft,
+                              spec_cap + 1, eos=st.eos)
+        else:
+            st.k = max(1, min(k_max, st.max_new - len(st.ticket.tokens)))
+            preallocate_decode_steps(self.kv, st.seq, st.k)
+            seed_stream_step(self.model, self.Q, self.TOK, st.seq, st.cur,
+                             eos=st.eos)
 
     def _decode_step(self, live: list[_Stream]) -> None:
-        """One continuous-batching iteration: ONE k-step decode superpool
-        per tenant over its live streams, k = ``llm_steps_per_pool``
-        clipped to each stream's remaining budget.  Failures are
-        contained per stream (slot allocation) or per tenant (pool)."""
+        """One continuous-batching iteration: ONE pool per (tenant, mode)
+        over its live streams: the batched speculative pool for streams
+        with a draft, the k-step superpool for the rest, k =
+        ``llm_steps_per_pool`` clipped to each stream's remaining budget.
+        Failures are contained per stream (seeding, collection) or per
+        tenant and mode (the pool)."""
         k_max = max(1, int(_params.get("llm_steps_per_pool")))
-        by_tenant: dict[str, list[_Stream]] = {}
+        spec_cap = max(0, int(_params.get("llm_spec_k")))
+        adaptive = bool(_params.get("llm_spec_adaptive"))
+        # the tier's way back, ahead of the pools: pages the previous
+        # iteration's eviction pushed to the host (or a peer) return
+        # while this thread seeds and builds (advisory: a failure is
+        # counted in the tier map's stats)
+        self.tiers.prefetch_seqs([st.seq for st in live])
+        by_group: dict[tuple[str, bool], list[_Stream]] = {}
         for st in live:
-            st.k = max(1, min(k_max, st.max_new - len(st.ticket.tokens)))
             try:
-                preallocate_decode_steps(self.kv, st.seq, st.k)
-                seed_stream_step(self.model, self.Q, self.TOK, st.seq,
-                                 st.cur, eos=st.eos)
+                self._seed(st, spec_cap, adaptive, k_max)
             except BaseException as e:       # noqa: BLE001 — contain
                 self._retire_failed([st], e)
                 continue
-            by_tenant.setdefault(st.tenant, []).append(st)
+            by_group.setdefault((st.tenant, st.spec), []).append(st)
         t0 = time.perf_counter()
-        submitted: list[tuple[Any, Any, list[_Stream]]] = []
-        for tenant, group in by_tenant.items():
+        submitted: list[tuple[Any, Any, list[_Stream], bool]] = []
+        for (tenant, spec), group in by_group.items():
+            seqs, ks = [st.seq for st in group], [st.k for st in group]
+            name = f"llm_{'spec' if spec else 'decode'}{next(self._pool_seq)}"
             try:
-                tp = decode_superpool_ptg(
-                    self.kv, self.Q, self.O, self.TOK, self.EMB,
-                    [st.seq for st in group], [st.k for st in group],
-                    devices=self.devices,
-                    name=f"llm_decode{next(self._pool_seq)}")
+                if spec:
+                    tp = spec_batched_ptg(
+                        self.kv, self.QS, self.LIM, self.DTOKS, self.VOUT,
+                        self.EMB, seqs, ks, pad=spec_cap + 1,
+                        devices=self.devices, name=name)
+                else:
+                    tp = decode_superpool_ptg(
+                        self.kv, self.Q, self.O, self.TOK, self.EMB, seqs,
+                        ks, devices=self.devices, name=name)
                 submitted.append((self._server.submit(
                     tp, tenant=tenant,
-                    priority=max(st.priority for st in group)), tp, group))
+                    priority=max(st.priority for st in group)), tp, group,
+                    spec))
                 with self._lock:
                     self.decode_submits += 1
             except BaseException as e:       # noqa: BLE001 — contain
                 self._retire_failed(group, e)
         finished: list[_Stream] = []
-        for tk, tp, group in submitted:
+        for tk, tp, group, spec in submitted:
             try:
                 tk.result(timeout=_params.get("llm_step_timeout"))
             except BaseException as e:       # noqa: BLE001 — contain
                 self._retire_failed(group, e, defer_pool=tp)
                 continue
+            dt = time.perf_counter() - t0
             try:
-                finished.extend(self._collect(group,
-                                              time.perf_counter() - t0))
+                got = self._read_pool(group, spec)
             except BaseException as e:       # noqa: BLE001 — contain
                 self._retire_failed(group, e)
+                continue
+            for st in group:
+                try:
+                    if self._collect_stream(st, *got[st.seq], dt):
+                        finished.append(st)
+                except BaseException as e:   # noqa: BLE001 — contain
+                    self._retire_failed([st], e)
         with self._lock:
             self.steps += 1
             for st in finished:
                 self._live.remove(st)
                 self.streams_completed += 1
         for st in finished:
+            if self.prefix is not None:
+                # donate the prompt pages before free_seq: the trie's
+                # retained fork keeps them out of the recycle path.  An
+                # optimization: its failure never fails the stream
+                try:
+                    self.prefix.donate(st.seq, st.prompt)
+                except Exception:        # noqa: BLE001 — contain
+                    pass
             self._release_stream_state(st.seq)
             st.ticket._resolve()

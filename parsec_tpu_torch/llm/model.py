@@ -15,7 +15,8 @@ query over the cache, samples the next token and appends the query
 token's own K/V — so prefill caches ``prompt[:-1]`` and the first decode
 query is ``prompt[-1]``.
 
-Left out: ``NgramDrafter`` (speculative decode).
+:class:`NgramDrafter` is the speculative decode's drafter, a copy of the
+JAX package's: the same history drafts the same chain.
 """
 
 from __future__ import annotations
@@ -105,4 +106,38 @@ class ToyLM:
             out.append(cur)
             if eos is not None and cur == int(eos):
                 break
+        return out
+
+
+class NgramDrafter:
+    """Last-wins bigram proposal table: the drafter behind speculative
+    decode.  The batcher feeds it every token a stream keeps (prompt, then
+    each surfaced token) through :meth:`observe`; :meth:`draft` walks the
+    table greedily from the current token.  Deterministic: the same
+    history always drafts the same chain."""
+
+    __slots__ = ("_next", "_prev")
+
+    def __init__(self) -> None:
+        self._next: dict[int, int] = {}
+        self._prev: int | None = None
+
+    def observe(self, token: int) -> None:
+        """Fold one kept token into the table (in stream order)."""
+        token = int(token)
+        if self._prev is not None:
+            self._next[self._prev] = token
+        self._prev = token
+
+    def draft(self, cur: int, k: int) -> list[int]:
+        """Up to ``k`` proposed continuations of ``cur``: shorter (or
+        empty) where the chain runs off the table's known transitions."""
+        out: list[int] = []
+        t = int(cur)
+        for _ in range(max(0, k)):
+            nt = self._next.get(t)
+            if nt is None:
+                break
+            out.append(nt)
+            t = nt
         return out

@@ -42,12 +42,20 @@ count at ``page[2, 0, 0, 0]``.
   (the fill and the sampled token index with tensors), so a task body
   never reads a value back to the host.  Their batched forms stack the
   batch, compute once, and give every output tile storage of its own.
+- :func:`verify_step`, :func:`spec_attn_page` and :func:`spec_verify`:
+  the speculative bodies (VERIFY of the per-position spec superpool,
+  SATTN and SVERIFY of the batched one).  The JAX package computes them
+  in XLA, outside any Pallas kernel, so they are PyTorch ops too, in the
+  branchless form of its jnp twins (masks, ``cumprod``, ``cumsum``): no
+  Python loop over positions and no value read back to the host, which
+  on the card would be a synchronization per body.  None is a port of a
+  TPU kernel and none calls a library attention kernel.
 - :func:`ragged_attention_reference`: the dense float64 oracle.
 - The ``"cuda"`` and ``"cpu"`` incarnations of ``ragged_attn_page``,
-  ``ragged_attn_out``, ``llm_sample`` and ``llm_prefill_copy``.
+  ``ragged_attn_out``, ``llm_sample``, ``llm_verify``, ``llm_spec_attn``,
+  ``llm_spec_verify`` and ``llm_prefill_copy``.
 
-Left out: the speculative bodies (verify, batched spec attention and
-verify), the numpy bodies (the plain versions take their place on the
+Left out: the numpy bodies (the plain versions take their place on the
 CPU) and the ``llm_use_pallas`` switch (the device body is always K2).
 """
 
@@ -143,9 +151,7 @@ def sample_step(o: torch.Tensor, tok_prev: torch.Tensor,
     ``(..., V, 3, H, D)``.  A finished stream holds its token.  Returns
     ``(tok_tile (..., 3), q3_next (..., 3, H, D))``, fp32."""
     V = q3t.shape[-4]
-    E = q3t.select(-3, 0).float().flatten(-2)                   # (.., V, HD)
-    logits = (E * o.float().flatten(-2).unsqueeze(-2)).sum(-1)  # (..., V)
-    samp = logits.argmax(-1).float()
+    samp = _logits(o, q3t).argmax(-1).float()
     tp = tok_prev.float()
     done_p = tp[..., 1] > 0.5
     eos = tp[..., 2]
@@ -160,6 +166,94 @@ def sample_step(o: torch.Tensor, tok_prev: torch.Tensor,
         qn = flat[torch.arange(flat.shape[0], device=flat.device),
                   idx.reshape(-1)].reshape(*idx.shape, *q3t.shape[-3:])
     return torch.stack([tok, done, eos], dim=-1), qn.float()
+
+
+def _logits(o: torch.Tensor, q3t: torch.Tensor,
+            rows: bool = False) -> torch.Tensor:
+    """fp32 logits of ``o (..., H, D)``, or with ``rows`` of every
+    position of ``o (..., S, H, D)``, against the embedding channel of a
+    ``(V, 3, H, D)`` table shared by the batch or one table a task
+    ``(..., V, 3, H, D)``: ``(..., V)`` or ``(..., S, V)``."""
+    E = q3t.select(-3, 0).float().flatten(-2)                   # (.., V, HD)
+    if rows:
+        return o.float().flatten(-2) @ E.transpose(-1, -2)
+    return (E * o.float().flatten(-2).unsqueeze(-2)).sum(-1)
+
+
+def verify_step(o: torch.Tensor, st_prev: torch.Tensor, dtok: torch.Tensor,
+                q3t: torch.Tensor) -> torch.Tensor:
+    """The in-graph VERIFY body: one speculative position's accept or
+    reject, threading the ``(4,)`` state ``[token, live, done, eos]``.
+    Position t's query (draft token ``dtok``) was right iff the previous
+    position emitted it; a live position emits the target's token, a
+    dead one holds the prior state, so an EOS in a rejected branch never
+    finishes the stream.  ``o (..., H, D)``, ``st_prev (..., 4)``,
+    ``dtok (..., 1)``; fp32 ``(..., 4)``."""
+    st = st_prev.float()
+    tok_prev, eos = st[..., 0], st[..., 3]
+    alive = (st[..., 1] > 0.5) & ~(st[..., 2] > 0.5) \
+        & (tok_prev == dtok.float()[..., 0])
+    samp = _logits(o, q3t).argmax(-1).float()
+    tok = torch.where(alive, samp, tok_prev)
+    done = torch.where(torch.where(alive, (eos >= 0.0) & (samp == eos),
+                                   st[..., 2] > 0.5), 1.0, 0.0)
+    live = torch.where(alive, 1.0, 0.0)
+    return torch.stack([tok, live, done, eos], dim=-1)
+
+
+def spec_attn_page(qs: torch.Tensor, page: torch.Tensor, lim: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """The batched speculative page update (SATTN): every draft
+    position's query against one KV page at once, with per-position
+    causal limits.  ``qs (..., S, 3, H, D)`` (channel 0 of row t is
+    position t's query; padded rows are zeros), ``page (..., 3, P, H,
+    D)``, ``lim (..., S)`` position t's valid slots on this page (0 for
+    padded rows), ``acc (..., S, H, D+2)``; a new fp32 acc."""
+    D = acc.shape[-1] - 2
+    P = page.shape[-3]
+    q = qs.select(-3, 0).float()                               # (.., S, H, D)
+    k = page.select(-4, 0).float()                             # (.., P, H, D)
+    v = page.select(-4, 1).float()
+    acc = acc.float()
+    scores = torch.einsum("...phd,...shd->...sph", k, q) / math.sqrt(D)
+    valid = (torch.arange(P, device=page.device)
+             < lim.float().unsqueeze(-1)).unsqueeze(-1)         # (.., S, P, 1)
+    scores = torch.where(valid, scores, NEG_INF)
+    l_prev = acc[..., D + 1]                                   # (.., S, H)
+    m_prev = torch.where(l_prev > 0, acc[..., D], NEG_INF)
+    m_new = torch.maximum(m_prev, scores.amax(-2))
+    w = torch.where(valid, torch.exp(scores - m_new.unsqueeze(-2)), 0.0)
+    alpha = torch.exp(m_prev - m_new)
+    o = acc[..., :D] * alpha.unsqueeze(-1) \
+        + torch.einsum("...sph,...phd->...shd", w, v)
+    return torch.cat([o, m_new.unsqueeze(-1),
+                      (l_prev * alpha + w.sum(-2)).unsqueeze(-1)], dim=-1)
+
+
+def spec_verify(acc: torch.Tensor, dtoks: torch.Tensor,
+                q3t: torch.Tensor) -> torch.Tensor:
+    """The batched VERIFY epilog (SVERIFY): finalize every position,
+    sample the target's token per position and emit the accepted prefix.
+    ``acc (..., S, H, D+2)``; ``dtoks (..., S+2)`` ``[n, eos, chain_0 ..
+    chain_{S-1}]`` with ``chain_0`` the real current token.  The emitted
+    set is always a prefix (acceptance is a running AND, a live EOS ends
+    it), so compaction is a mask.  Returns fp32 ``(..., S+2)`` ``[n_emit,
+    done, tok_0 .. tok_{n_emit-1}, 0 pad]``."""
+    S = acc.shape[-3]
+    dt = dtoks.float()
+    n, eos = dt[..., 0:1], dt[..., 1:2]
+    chain = dt[..., 2:2 + S]
+    tgt = _logits(finalize_acc(acc), q3t, rows=True).argmax(-1).float()
+    idx = torch.arange(S, device=acc.device)
+    prev_tgt = torch.cat([chain[..., :1], tgt[..., :-1]], dim=-1)
+    match = (chain == prev_tgt) & (idx < n)
+    live = torch.cumprod(match.to(torch.int32), dim=-1) > 0
+    is_eos = live & (eos >= 0.0) & (tgt == eos)
+    eos_i = is_eos.to(torch.int32)
+    emit = live & ((torch.cumsum(eos_i, dim=-1) - eos_i) == 0)
+    m = emit.sum(-1, keepdim=True).float()
+    done = torch.where(is_eos.any(-1, keepdim=True), 1.0, 0.0)
+    return torch.cat([m, done, torch.where(emit, tgt, 0.0)], dim=-1)
 
 
 def ragged_attention_reference(q: torch.Tensor, ks: torch.Tensor,
@@ -490,11 +584,47 @@ def sample_tiles(os_: Sequence[torch.Tensor], toks: Sequence[torch.Tensor],
     and next queries.  Every task of a pool reads the one ``EMB(0,)``
     table; tasks with tables of their own gather from each."""
     del qns
-    e0 = embs[0]
-    table = e0 if all(e is e0 for e in embs) else torch.stack(list(embs))
     tok, qn = sample_step(torch.stack(list(os_)), torch.stack(list(toks)),
-                          table)
+                          _table(embs))
     return _owned(tok), _owned(qn)
+
+
+def _table(embs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Every task of a pool reads the one ``EMB(0,)`` table; tasks with
+    tables of their own give a stack."""
+    e0 = embs[0]
+    return e0 if all(e is e0 for e in embs) else torch.stack(list(embs))
+
+
+def verify_tiles(os_: Sequence[torch.Tensor], sts: Sequence[torch.Tensor],
+                 dtoks: Sequence[torch.Tensor],
+                 embs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The batched VERIFY body (flows O, STOK, DTOK, EMB): new states."""
+    return _owned(verify_step(torch.stack(list(os_)), torch.stack(list(sts)),
+                              torch.stack(list(dtoks)), _table(embs)))
+
+
+def spec_attn_page_tiles(qss: Sequence[torch.Tensor],
+                         pages: Sequence[torch.Tensor],
+                         lims: Sequence[torch.Tensor],
+                         accs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The batched SATTN body (flows QS, KV, LIM, ACC): new accs."""
+    return _owned(spec_attn_page(torch.stack(list(qss)),
+                                 torch.stack(list(pages)),
+                                 torch.stack(list(lims)),
+                                 torch.stack(list(accs))))
+
+
+def spec_verify_tiles(accs: Sequence[torch.Tensor],
+                      dtoks: Sequence[torch.Tensor],
+                      embs: Sequence[torch.Tensor],
+                      vouts: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The batched SVERIFY body (flows ACC, DTOKS, EMB, VOUT): each
+    stream's accepted prefix.  The VOUT flow's scratch tiles are
+    write-only and unused."""
+    del vouts
+    return _owned(spec_verify(torch.stack(list(accs)),
+                              torch.stack(list(dtoks)), _table(embs)))
 
 
 def prefill_copy_tiles(chunks: Sequence[torch.Tensor],
@@ -511,6 +641,9 @@ register_traceable("ragged_attn_page", attn_page_update_tiles,
                    inplace=attn_page_update_tiles_)
 register_traceable("ragged_attn_out", attn_out_tiles)
 register_traceable("llm_sample", sample_tiles)
+register_traceable("llm_verify", verify_tiles)
+register_traceable("llm_spec_attn", spec_attn_page_tiles)
+register_traceable("llm_spec_verify", spec_verify_tiles)
 register_traceable("llm_prefill_copy", prefill_copy_tiles)
 
 
@@ -549,6 +682,33 @@ def _sample_body(es: Any, task: Any, device: Any = None) -> Any:
     return tok.value
 
 
+def _verify_body(es: Any, task: Any, device: Any = None) -> Any:
+    """VERIFY(O, STOK, DTOK, EMB): the next accept state."""
+    st = task.data[1]
+    st.value = verify_step(task.data[0].value, st.value, task.data[2].value,
+                           task.data[3].value)
+    st.version += 1
+    return st.value
+
+
+def _spec_attn_body(es: Any, task: Any, device: Any = None) -> Any:
+    """SATTN(QS, KV, LIM, ACC): every position folds in one page."""
+    acc = task.data[3]
+    acc.value = spec_attn_page(task.data[0].value, task.data[1].value,
+                               task.data[2].value, acc.value)
+    acc.version += 1
+    return acc.value
+
+
+def _spec_verify_body(es: Any, task: Any, device: Any = None) -> Any:
+    """SVERIFY(ACC, DTOKS, EMB, VOUT): the accepted prefix into VOUT."""
+    vout = task.data[3]
+    vout.value = spec_verify(task.data[0].value, task.data[1].value,
+                             task.data[2].value)
+    vout.version += 1
+    return vout.value
+
+
 def _prefill_body(es: Any, task: Any, device: Any = None) -> Any:
     """PF(T, KV): the page becomes a copy of the prompt chunk."""
     kvw = task.data[1]
@@ -560,6 +720,9 @@ def _prefill_body(es: Any, task: Any, device: Any = None) -> Any:
 for _name, _body in (("ragged_attn_page", _page_body),
                      ("ragged_attn_out", _out_body),
                      ("llm_sample", _sample_body),
+                     ("llm_verify", _verify_body),
+                     ("llm_spec_attn", _spec_attn_body),
+                     ("llm_spec_verify", _spec_verify_body),
                      ("llm_prefill_copy", _prefill_body)):
     register_kernel(_name, "cuda", _body)
     register_kernel(_name, "cpu", _body)

@@ -956,3 +956,126 @@ def test_socket_reply_decodes_into_pinned_memory(card):
     got = codec.decode(meta, fill, pin_tensors=True)["value"]
     assert got.is_pinned() and torch.equal(got, t)
     assert not codec.decode_with_segments(meta, segs)["value"].is_pinned()
+
+
+# ---------------------------------------------------------------------------
+# speculative decode, the prefix cache and the KV tiers on the card
+# ---------------------------------------------------------------------------
+
+def test_spec_bodies_on_the_card_match_the_cpu(card):
+    """The three speculative bodies on the card against the same bodies
+    on the CPU (strict fp32 both: same arithmetic, another summation
+    order), at Llama-2-7B's attention width."""
+    g = torch.Generator().manual_seed(3)
+    H, D, S, P, V = 32, 128, 7, 16, 64
+    q3t = torch.randn(V, 3, H, D, generator=g)
+    qs = torch.randn(4, S, 3, H, D, generator=g)
+    page = torch.randn(4, 3, P, H, D, generator=g)
+    lim = torch.randint(0, P + 1, (4, S), generator=g).float()
+    lim[:, -1] = 0.0
+    acc = torch.zeros(4, S, H, D + 2)
+    want = ra.spec_attn_page(qs, page, lim, acc)
+    got = ra.spec_attn_page(qs.cuda(), page.cuda(), lim.cuda(), acc.cuda())
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    dt = torch.zeros(4, S + 2)
+    dt[:, 0], dt[:, 1] = S, -1.0
+    dt[:, 2] = 5.0
+    vw = ra.spec_verify(want, dt, q3t)
+    vg = ra.spec_verify(got, dt.cuda(), q3t.cuda())
+    assert torch.equal(vg.cpu(), vw)
+    st = torch.tensor([[5.0, 1.0, 0.0, -1.0]] * 4)
+    o = ra.finalize_acc(want[:, 0])
+    assert torch.equal(
+        ra.verify_step(o.cuda(), st.cuda(), dt[:, 2:3].cuda(),
+                       q3t.cuda()).cpu(),
+        ra.verify_step(o, st, dt[:, 2:3], q3t))
+
+
+def test_rollback_and_staging_bring_the_card_copy_home(card):
+    """A page whose newest bytes are on the card: the rollback and the
+    seed-time staging start from them (one D2H), leave a host tensor on
+    the CPU and detach the card's copy."""
+    from parsec_tpu_torch.data.data import DataCopy
+    from parsec_tpu_torch.data_dist.collection import DictCollection
+    from parsec_tpu_torch.data.datatype import TileType
+    from parsec_tpu_torch.data_dist.paged_kv import PagedKVCollection
+    from parsec_tpu_torch.llm import decode as dec
+    model = ToyLM()
+    kv = PagedKVCollection("KV", page_size=4, num_heads=4, head_dim=8)
+    kv.alloc_seq("s")
+    kv.alloc_page("s")
+    kv.note_appended("s", 3)
+    d = kv.data_of("s", 0)
+    dev = DataCopy(d, card.device_index,
+                   value=torch.full(kv.default_dtt.shape, 2.0,
+                                    device="cuda"))
+    dev.version = d.get_copy(0).version + 4
+    d.attach_copy(dev)
+    kv.rollback_tail("s", 1)
+    host = d.get_copy(0)
+    assert d.get_copy(card.device_index) is None
+    assert host.value.device.type == "cpu" and host.version > dev.version
+    assert host.value[0, 0, 0, 0] == 2.0 and host.value[2, 0, 0, 0] == 1
+    dev2 = DataCopy(d, card.device_index, value=host.value.cuda() * 3)
+    dev2.version = host.version + 1
+    d.attach_copy(dev2)
+    pad = 3
+    colls = [DictCollection(n, dtt=TileType(s)) for n, s in (
+        ("qs", (pad, 3, 4, 8)), ("lim", (pad,)), ("dt", (pad + 2,)))]
+    dec.preallocate_decode_steps(kv, "s", 2)
+    dec.seed_spec_batched(model, kv, *colls, "s", 5, [9], pad)
+    host = d.get_copy(0)
+    assert d.get_copy(card.device_index) is None
+    assert host.value.device.type == "cpu" and host.version > dev2.version
+    assert host.value[0, 0, 0, 0] == 6.0
+    assert torch.equal(host.value[0, 1], model.q3(5)[1])
+
+
+def test_prefetch_data_copies_to_the_card(card):
+    from parsec_tpu_torch.data_dist.paged_kv import PagedKVCollection
+    kv = PagedKVCollection("KV", page_size=16, num_heads=32, head_dim=128)
+    datas = []
+    for s in range(3):
+        kv.alloc_seq(s)
+        kv.alloc_page(s)
+        datas.append(kv.data_of(s, 0))
+    before = card.bytes_copied_in
+    assert card.prefetch_data(datas) == 3
+    torch.cuda.synchronize()
+    assert card.bytes_copied_in - before == 3 * kv.page_bytes
+    for d in datas:
+        c = d.get_copy(card.device_index)
+        assert c.value.is_cuda and c.version == d.get_copy(0).version
+    assert card.prefetch_data(datas) == 0
+    card.flush_cache()
+    assert all(d.get_copy(card.device_index) is None for d in datas)
+
+
+@pytest.mark.parametrize("mode", ["spec", "prefix"])
+def test_spec_and_prefix_serving_on_the_card(card, mode):
+    """The batcher on the card with speculative decode or the prefix cache
+    on: oracle tokens, the spec pool's classes on the card, prefix hits."""
+    key = "llm_spec_k" if mode == "spec" else "llm_prefix_cache"
+    saved = params.get(key)
+    params.set(key, 4 if mode == "spec" else True)
+    model = ToyLM()
+    prompt = [5, 9, 13] * 12
+    try:
+        with RuntimeServer(nb_cores=2) as server:
+            first = server.submit_stream(prompt, max_new_tokens=4)
+            assert first.result(timeout=120)["tokens"] == \
+                model.reference_generate(prompt, 4)
+            tks = [server.submit_stream(prompt + [i], max_new_tokens=12)
+                   for i in range(3)]
+            for i, tk in enumerate(tks):
+                assert tk.result(timeout=120)["tokens"] == \
+                    model.reference_generate(prompt + [i], 12)
+            llm = server.stats()["llm"]
+    finally:
+        params.set(key, saved)
+    s = card.stats()["tasks_by_class"]
+    if mode == "spec":
+        assert llm["spec_submits"] > 0 and s.get("SATTN", 0) > 0
+    else:
+        assert llm["kv"]["prefix_hits"] == 3
+    assert card.stats()["spill_hook_failures"] == 0

@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither ``jax`` nor ``parsec_tpu``.
 
 Checked two ways: fresh interpreters import ``parsec_tpu_torch`` and run
-a 2x2x2-tile GEMM, a served LLM stream, a lowered stencil and GEMM, a
+a 2x2x2-tile GEMM, a served LLM stream, speculative and prefix-cached
+streams, a lowered stencil and GEMM, a
 tiled Cholesky (dynamic and lowered), a 2-rank Cholesky over the comm
 layer and a chain across 2 rank processes of ``run_multiproc`` (each rank
 reports its own), then inspect ``sys.modules``
@@ -109,7 +110,8 @@ def test_the_package_has_the_slice_modules():
                 "comm/collectives.py", "comm/codec.py",
                 "comm/socket_fabric.py", "comm/device_socket.py",
                 "comm/multiproc.py", "comm/mp_bodies.py",
-                "dtd/multirank_check.py"):
+                "dtd/multirank_check.py", "llm/prefix_tree.py",
+                "data_dist/kv_tiers.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu",
                 "native_core.cpp"):
@@ -136,6 +138,44 @@ def test_serving_a_stream_loads_no_jax_and_no_parsec_tpu():
     assert out["ok"]
     assert "parsec_tpu_torch.ops.ragged_attention" in out["modules"]
     assert "parsec_tpu_torch.llm.batcher" in out["modules"]
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_spec_and_prefix_streams_load_no_jax_and_no_parsec_tpu():
+    """Speculative decode and the prefix cache: a donor stream, then a
+    drafted stream that adopts its prefix, on the device module around the
+    host; the tier map rides every batcher."""
+    code = textwrap.dedent("""
+        import json, sys
+        from parsec_tpu_torch.core.params import params
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.llm import ToyLM
+        from parsec_tpu_torch.serve import RuntimeServer
+        init_cuda_devices(device="cpu")
+        params.set("llm_spec_k", 4)
+        params.set("llm_prefix_cache", True)
+        prompt = [5, 9, 13] * 8
+        with RuntimeServer(nb_cores=2) as server:
+            first = server.submit_stream(prompt, max_new_tokens=3)
+            a = first.result(timeout=60)["tokens"]
+            b = server.submit_stream(prompt, max_new_tokens=9).result(
+                timeout=60)["tokens"]
+            llm = server.stats()["llm"]
+        m = ToyLM()
+        ok = (a == m.reference_generate(prompt, 3)
+              and b == m.reference_generate(prompt, 9)
+              and llm["spec_submits"] > 0
+              and llm["kv"]["prefix_hits"] == 1)
+        print(json.dumps({"ok": ok, "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"]
+    for mod in ("llm.prefix_tree", "data_dist.kv_tiers", "llm.batcher"):
+        assert f"parsec_tpu_torch.{mod}" in out["modules"], mod
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded
 
