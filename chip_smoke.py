@@ -208,6 +208,44 @@ any phase fails:
    pages and a peer round trip through ``prefetch_get`` must be counted.
    No spill subscriber may raise (``spill_hook_failures`` stays 0).
 
+19. **path path_checked** (after **path dtd_gemm**) — phase **path**'s
+   dynamic GEMM again (n=8192, nb=1024, fp32, K1 ``mma_tf32``) under the
+   ``analysis_check`` enqueue gate with the task profiler and the SDE
+   module on (``pins=task_profiler,sde``): C under the same bound, K1's
+   launches equal to **path**'s, 512 ``task_exec`` spans in the trace
+   file (dumped and read back), 512 retired tasks in the SDE counters,
+   and the DEVICE_STAGE_IN payloads summing to the device module's
+   ``bytes_in`` for the run; the line carries the gate's seconds (from
+   ``add_taskpool`` to the TASKPOOL_INIT fire) and the wall beside
+   **path**'s.
+20. **analysis** — graphcheck over every pool the script runs, at the size
+   it runs: the dynamic, DTD (after its run) and lowered GEMMs, both
+   lowered stencils, the dynamic and lowered Cholesky and LU, the
+   speculative pools at the ``llm_spec`` shapes (built and seeded, not
+   run), and the GEMM, Cholesky and LU of the 2 x 2 grid checked for 4
+   ranks; one line a pool with its nodes, edges, findings (no error) and
+   ``check_s``.  The prefill and decode pools of ``llm_wide`` are checked
+   in phase 21, as they are enqueued.  **control analysis_gate**: the
+   dynamic GEMM with its chain input dropped, enqueued under
+   ``analysis_check``, must raise ``GraphCheckError`` naming
+   ``missing-input-edge`` (GEMM.C, with its instance) before any K1
+   launch, and leave the context without a pool.
+   **dispatch** (phase 14) also carries ``pins_disabled_ns``: one disabled
+   PINS site (index load and falsy branch), the cost every fire site adds
+   with PINS off.
+21. **path llm_wide_pins** (after **trace llm_wide**) — the traced
+   ``llm_wide`` run's backlog (seed 11, 8 new tokens, 32 heads of 128,
+   K2) with the task profiler on and every prefill and decode pool
+   checked as it is enqueued: every stream equal to the oracle, one EXEC
+   span a task run, no pool with an error; K2's launches on the line.
+22. **path multiproc_comm_thread** (after **multiproc_***) — the
+   four-process Cholesky of **multiproc_cholesky** (n=8192, nb=1024, K1)
+   with ``comm_thread`` off, on, on, off, one launch each: every factor
+   under the gates, every run's GETs and payload bytes by tier equal to
+   the first run's (and its GETs to **multiproc_cholesky**'s); each line
+   carries the wall, ``get_ms_mean`` and the hops' host seconds
+   (``tier_seconds``).
+
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
 yardstick call of ``mma_tf32``.  Every printed number stands beside the card's name and
@@ -460,8 +498,11 @@ def phase_kernel(card: str, torch) -> tuple[dict, list]:
 
 
 def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
-               seed: int = 0) -> dict:
-    """The dynamic-runtime tiled GEMM through the entry points."""
+               seed: int = 0, checked: dict | None = None) -> dict:
+    """The dynamic-runtime tiled GEMM through the entry points.  Given
+    ``checked`` (phase ``path``'s record), the same run again as
+    ``path_checked``, under the enqueue gate with the task profiler and
+    the SDE module on (see :func:`_observed`)."""
     import numpy as np
 
     from parsec_tpu_torch.core.params import params
@@ -495,24 +536,27 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
     cpu = registry.get(0)
     cpu_before = cpu.executed_tasks
 
+    before = dict(tasks=dev.executed_tasks, bytes_in=dev.bytes_in)
     _k1_reset(tg)                        # counts from here are the path's
-    ctx = Context(nb_cores=0)
-    t0 = time.perf_counter()
-    try:
-        ctx.add_taskpool(tp)
-        ctx.wait(timeout=600)
-        dev.sync()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        ctx.fini(timeout=60)
+    with _observed(checked is not None) as obs:
+        ctx = Context(nb_cores=0)
+        t0 = time.perf_counter()
+        try:
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=600)
+            dev.sync()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            ctx.fini(timeout=60)
     launches = tg.gemm_update.launches
     by_variant = dict(tg.gemm_update.launches_by_variant)
     dev.flush_cache()
     ntasks = C.mt * C.nt * A.nt
     _check(chores == ["cuda"], f"chores {chores}")
-    _check(dev.executed_tasks == ntasks == 512,
-           f"{dev.executed_tasks} tasks ran on the card, expected 512")
+    ran = dev.executed_tasks - before["tasks"]
+    _check(ran == ntasks == 512,
+           f"{ran} tasks ran on the card, expected 512")
     _check(launches > 0, "the path launched no gemm_update kernel")
     _check(by_variant["mma_tf32"] == launches,
            f"fp32 tiles at the default gemm_precision ran {by_variant}")
@@ -535,6 +579,9 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
     worst = _check_c(torch, C.to_dense(), A.to_dense(), B.to_dense(), nb,
                      "path")
     s = dev.stats()
+    if checked is not None:
+        return _path_checked(card, checked, obs, t0, wall, worst, launches,
+                             by_variant, ran, dev.bytes_in - before["bytes_in"])
     rec = dict(n=n, nb=nb, tasks=dev.executed_tasks, wall_s=wall,
                gflops=gemm_flops(n, n, n) / wall / 1e9,
                stage_in_s=s["t_stage_in"], pin_s=s["t_pin"],
@@ -552,6 +599,99 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
                cache_hits=dev.cache_hits, cache_misses=dev.cache_misses,
                host_tile_gen_s=t_gen, max_abs_err=worst)
     _emit(card, phase="path", **rec)
+    return rec
+
+
+class _observed:
+    """With ``on``: the ``analysis_check`` gate, the task profiler and the
+    SDE module for the contexts built inside, a fresh trace and fresh SDE
+    counters, and PINS callbacks that sum the DEVICE_STAGE_IN payloads and
+    stamp the TASKPOOL_INIT fire (the gate runs before it); restored at
+    exit.  Off, it changes nothing."""
+
+    def __init__(self, on: bool) -> None:
+        self.on = on
+        self.staged = 0
+        self.t_init: list[float] = []
+
+    def _stage(self, es, nb) -> None:
+        self.staged += nb
+
+    def _init(self, es, tp) -> None:
+        self.t_init.append(time.perf_counter())
+
+    def __enter__(self) -> "_observed":
+        if not self.on:
+            return self
+        from parsec_tpu_torch.core.params import params
+        from parsec_tpu_torch.prof import pins, sde, trace_state
+        from parsec_tpu_torch.prof.pins import PinsEvent
+        self._saved = {k: params.get(k) for k in ("analysis_check", "pins")}
+        params.set("analysis_check", True)
+        params.set("pins", "task_profiler,sde")
+        trace_state.fini()
+        sde.reset()
+        self._cbs = [(PinsEvent.DEVICE_STAGE_IN, self._stage),
+                     (PinsEvent.TASKPOOL_INIT, self._init)]
+        for ev, cb in self._cbs:
+            pins.register(ev, cb)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if not self.on:
+            return
+        from parsec_tpu_torch.core.params import params
+        from parsec_tpu_torch.prof import pins
+        for ev, cb in self._cbs:
+            pins.unregister(ev, cb)
+        for k, v in self._saved.items():
+            params.set(k, v)
+
+
+def _trace_records() -> tuple[list, int]:
+    """The trace the task profiler wrote, through its file: the rows of
+    the dumped and reloaded trace and the file's bytes; the trace is
+    cleared after."""
+    import tempfile
+
+    from parsec_tpu_torch.prof import Profiling, trace_state
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.ptpb")
+        trace_state.dump(path)
+        size = os.path.getsize(path)
+        recs = Profiling.load(path).to_records()
+    trace_state.fini()
+    return recs, size
+
+
+def _path_checked(card: str, path: dict, obs: "_observed", t0: float,
+                  wall: float, worst: float, launches: int,
+                  by_variant: dict, ran: int, bytes_in: int) -> dict:
+    """The ``path_checked`` line: the gate's seconds, the trace's EXEC
+    spans, the SDE counters and the stage-in events against the device
+    module's ``bytes_in``, beside ``path``'s wall and launches."""
+    from parsec_tpu_torch.prof import sde
+    from parsec_tpu_torch.prof.counters import TASKS_ENABLED, TASKS_RETIRED
+    recs, size = _trace_records()
+    execs = sum(r["name"] == "task_exec" for r in recs)
+    retired = sde.get(TASKS_RETIRED)
+    _check(len(obs.t_init) == 1, f"path_checked: {len(obs.t_init)} pools")
+    _check(launches == path["gemm_launches"],
+           f"path_checked: {launches} K1 launches, path {path['gemm_launches']}")
+    _check(execs == ran == 512, f"path_checked: {execs} EXEC spans for "
+           f"{ran} tasks")
+    _check(retired == 512, f"path_checked: SDE retired {retired}")
+    _check(obs.staged == bytes_in > 0, f"path_checked: DEVICE_STAGE_IN "
+           f"summed {obs.staged}, bytes_in moved {bytes_in}")
+    rec = dict(tasks=ran, wall_s=wall, path_wall_s=path["wall_s"],
+               gate_s=obs.t_init[0] - t0, exec_spans=execs,
+               trace_events=len(recs), trace_bytes=size,
+               sde_retired=retired, sde_enabled=sde.get(TASKS_ENABLED),
+               stage_in_event_bytes=obs.staged, bytes_in=bytes_in,
+               gemm_launches=launches, gemm_launches_by_variant=by_variant,
+               path_gemm_launches=path["gemm_launches"], max_abs_err=worst,
+               path_max_abs_err=path["max_abs_err"])
+    _emit(card, phase="path", name="path_checked", **rec)
     return rec
 
 
@@ -622,11 +762,12 @@ def _dtd_gemm_run(torch, dev, nt: int, nb: int, seed: int) -> dict:
         tp.data_flush_all()
         tp.wait(timeout=600)
         flush_s = time.perf_counter() - t1
+        graph = _graphcheck(tp)        # the pool as it ran, off the clock
     finally:
         ctx.fini(timeout=60)
     dispatches = dev.dispatches_by_class["gemm"] - before["dispatches"]
     tasks = dev.tasks_by_class["gemm"] - before["tasks"]
-    return dict(A=A, B=B, C=C, wall_s=wall, insert_s=insert_s,
+    return dict(A=A, B=B, C=C, wall_s=wall, insert_s=insert_s, graph=graph,
                 flush_s=flush_s, tasks=tasks, host_calls=len(host_calls),
                 dispatches=dispatches,
                 batched=dev.batched_dispatches - before["batched"],
@@ -765,6 +906,7 @@ def phase_dtd_gemm(card: str, torch, path: dict, n: int = 8192,
                max_abs_err=worst["DTD"],
                ptg_warm_max_abs_err=worst["warm PTG"])
     _emit(card, phase="path", name="dtd_gemm", **rec)
+    rec["graph"] = r["graph"]        # for phase analysis's line
     return rec
 
 
@@ -813,6 +955,23 @@ def _host_cpu() -> str:
             f" MHz")
 
 
+def _pins_disabled_ns(iters: int = 200000) -> float:
+    """One disabled PINS site (an index load and a falsy branch, the
+    pattern the scheduling loop compiles in) in ns, over ``iters``; the
+    phase fails if the slot is not disabled."""
+    from parsec_tpu_torch.prof import pins
+    hooks = pins.hooks
+    ev = int(pins.PinsEvent.EXEC_BEGIN)
+    _check(hooks[ev] is None, "a PINS module is on during dispatch")
+    payload = object()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        h = hooks[ev]
+        if h is not None:
+            h(None, payload)
+    return (time.perf_counter() - t0) / iters * 1e9
+
+
 def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 5) -> dict:
     """Per-task dispatch cost on the host of the card's machine: the EP
     pool (50 lanes, 10,000 tasks, empty bodies) drained by the caller,
@@ -843,6 +1002,7 @@ def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 5) -> dict:
         dynamic[name] = dyn_us
     rec = dict(ntasks=ntasks, reps=reps, dispatch_us=us,
                dispatch_path="compiled", dynamic_dispatch_us=dynamic,
+               pins_disabled_ns=_pins_disabled_ns(),
                native_lib=native.loaded_path(), host_cpu=_host_cpu(),
                host_cpus=len(os.sched_getaffinity(0)))
     _emit(card, phase="dispatch", **rec)
@@ -2556,25 +2716,22 @@ def _sum_counts(dicts) -> dict:
 MP_KINDS = ("gemm", "cholesky", "lu")
 
 
-def phase_multiproc(card: str, torch, multirank: dict, n: int = 8192,
-                    nb: int = 1024, seed: int = 0) -> dict:
-    """GEMM, Cholesky and LU across 4 rank processes on the card (see
-    the module docstring, phase 16): one ``run_multiproc`` launch with
-    ``distributed=True``; returns each kind's path record."""
-    import numpy as np
-
+def _mp_launch(torch, kinds, n: int, nb: int, seed: int,
+               extra: dict | None = None) -> tuple[list, float]:
+    """One 4-process ``run_multiproc`` launch of ``mp_bodies:pool_body``
+    on the card (``distributed=True``) running ``kinds`` at n, nb, each
+    after its warm-up, with ``extra`` more environment; returns the
+    ranks' results and the launch's seconds."""
     from parsec_tpu_torch.comm import run_multiproc
-    from parsec_tpu_torch.comm.mp_bodies import factor_input, gemm_dense
     from parsec_tpu_torch.device.cuda import init_cuda_devices
-    from parsec_tpu_torch.models.tiled_gemm import gemm_flops
 
     dev = init_cuda_devices()[0]
     dev.flush_cache()
     torch.cuda.empty_cache()       # the ranks' contexts share the card
-    env = {"PARSEC_MP_KINDS": ",".join(MP_KINDS), "PARSEC_MP_N": str(n),
+    env = {"PARSEC_MP_KINDS": ",".join(kinds), "PARSEC_MP_N": str(n),
            "PARSEC_MP_NB": str(nb), "PARSEC_MP_SEED": str(seed),
            "PARSEC_MP_CHORES": "cuda", "PARSEC_MP_WARMUP": "1",
-           "PARSEC_MCA_gemm_precision": "default"}
+           "PARSEC_MCA_gemm_precision": "default", **(extra or {})}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
@@ -2583,13 +2740,24 @@ def phase_multiproc(card: str, torch, multirank: dict, n: int = 8192,
                             "parsec_tpu_torch.comm.mp_bodies:pool_body",
                             timeout=420, transport="device",
                             distributed=True)
-        launch_s = time.perf_counter() - t0
+        return res, time.perf_counter() - t0
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def phase_multiproc(card: str, torch, multirank: dict, n: int = 8192,
+                    nb: int = 1024, seed: int = 0) -> dict:
+    """GEMM, Cholesky and LU across 4 rank processes on the card (see
+    the module docstring, phase 16): one ``run_multiproc`` launch with
+    ``distributed=True``; returns each kind's path record."""
+    from parsec_tpu_torch.comm.mp_bodies import factor_input, gemm_dense
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops
+
+    res, launch_s = _mp_launch(torch, MP_KINDS, n, nb, seed)
     _check([r["modules"] for r in res] == [[]] * MR_RANKS,
            f"multiproc: ranks hold {[r['modules'] for r in res]}")
     _check([r["world_size"] for r in res] == [MR_RANKS] * MR_RANKS,
@@ -2634,10 +2802,7 @@ def phase_multiproc(card: str, torch, multirank: dict, n: int = 8192,
         _check(sum(t["payload_out"] for t in tiers) == sum(got),
                f"{name}: payload served {[t['payload_out'] for t in tiers]}"
                f" != landed {got}")
-        dense = np.zeros((n, n), np.float32)
-        for r in recs:
-            for (i, j), tile in r["tiles"].items():
-                dense[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb] = tile
+        dense = _mp_dense(recs, n, nb)
         if kind == "gemm":
             a, b = gemm_dense(n, nb, seed)
             checks = dict(max_abs_err=_check_c(torch, dense, a, b, nb, name))
@@ -2764,6 +2929,313 @@ def phase_multirank_dtd(card: str, torch, n: int = 8192, nb: int = 1024,
     return rec
 
 
+# ---------------------------------------------------------------------------
+# graphcheck, PINS and the comm thread (phases 19-22 of the docstring)
+# ---------------------------------------------------------------------------
+
+
+def _graph_summary(report, seconds: float) -> dict:
+    """A graphcheck report as a line's fields."""
+    from collections import Counter
+    return dict(pool=report.name, nodes=report.ntasks, edges=report.nedges,
+                errors=sorted({f.code for f in report.errors}),
+                warnings=dict(Counter(f.code for f in report.warnings)),
+                truncated=report.truncated, check_s=seconds)
+
+
+def _graphcheck(tp, nb_ranks: int | None = None) -> dict:
+    from parsec_tpu_torch.analysis import check_taskpool
+    t0 = time.perf_counter()
+    report = check_taskpool(tp, nb_ranks=nb_ranks)
+    return _graph_summary(report, time.perf_counter() - t0)
+
+
+class _PoolChecker:
+    """A TASKPOOL_INIT callback that checks every PTG pool as it is
+    enqueued (the pool's state then is what its gate would see), and
+    sums the reports by pool kind (the name without its serial number).  It never raises into the enqueue: a
+    failure is kept and the phase fails after the run."""
+
+    def __init__(self) -> None:
+        self.by_name: dict[str, dict] = {}
+        self.failures: list[str] = []
+
+    def __call__(self, es, tp) -> None:
+        from parsec_tpu_torch.ptg.dsl import PTGTaskpool
+        if not isinstance(tp, PTGTaskpool):
+            return
+        try:
+            g = _graphcheck(tp)
+        except Exception as e:     # noqa: BLE001 — kept, fails the phase
+            self.failures.append(f"{tp.name}: {e!r}")
+            return
+        kind = tp.name.rstrip("0123456789")
+        agg = self.by_name.setdefault(kind, dict(
+            pools=0, nodes=0, edges=0, max_nodes=0, errors=set(),
+            warnings=0, check_s=0.0, max_check_s=0.0))
+        agg["pools"] += 1
+        agg["nodes"] += g["nodes"]
+        agg["edges"] += g["edges"]
+        agg["max_nodes"] = max(agg["max_nodes"], g["nodes"])
+        agg["errors"] |= set(g["errors"])
+        agg["warnings"] += sum(g["warnings"].values())
+        agg["check_s"] += g["check_s"]
+        agg["max_check_s"] = max(agg["max_check_s"], g["check_s"])
+
+
+def _spec_pools_at_width(model, seed: int = 23) -> list:
+    """The speculative pools at the ``llm_spec`` phase's shapes, built on
+    KV caches of their own and seeded on the host (the checks run no
+    body): ``spec_superpool_ptg`` over 4 streams of 7 positions (the
+    ``llm_spec_superpool`` run's), and the batcher's
+    ``spec_batched_ptg`` over 8 streams of ``llm_spec_k`` = 6 drafts."""
+    import numpy as np
+
+    from parsec_tpu_torch.data.datatype import TileType
+    from parsec_tpu_torch.data_dist.collection import DictCollection
+    from parsec_tpu_torch.data_dist.paged_kv import PagedKVCollection
+    from parsec_tpu_torch.llm import decode as dec
+
+    H, D = model.num_heads, model.head_dim
+    rng = np.random.default_rng(seed)
+
+    def prompts(n):
+        return {f"s{i}": [int(t) for t in rng.integers(
+            0, model.vocab, int(rng.integers(40, 200)))] for i in range(n)}
+
+    p4 = prompts(4)
+    kv = PagedKVCollection("gcKV", page_size=16, num_heads=H, head_dim=D)
+    DRAFT, O, STOK, DTOK, EMB = (
+        DictCollection(name, dtt=TileType(shape)) for name, shape in (
+            ("gcDRAFT", (3, H, D)), ("gcO", (H, D)), ("gcSTOK", (4,)),
+            ("gcDTOK", (1,)), ("gcEMB", tuple(model.q3_table().shape))))
+    npos = dec.seed_spec_superpool(model, kv, DRAFT, DTOK, STOK, EMB, p4,
+                                   {s: p[:6] for s, p in p4.items()})
+    sp = dec.spec_superpool_ptg(kv, DRAFT, O, STOK, DTOK, EMB, list(p4),
+                                [npos[s] for s in p4])
+    p8 = prompts(8)
+    pad = 7
+    kv2 = PagedKVCollection("gcKVb", page_size=16, num_heads=H, head_dim=D)
+    QS, LIM, DTOKS, VOUT = (
+        DictCollection(name, dtt=TileType(shape)) for name, shape in (
+            ("gcQS", (pad, 3, H, D)), ("gcLIM", (pad,)),
+            ("gcDTOKS", (pad + 2,)), ("gcVOUT", (pad + 2,))))
+    npos_b, pad = dec.seed_spec_batched_pool(
+        model, kv2, QS, LIM, DTOKS, EMB, p8,
+        {s: p[:6] for s, p in p8.items()}, pad=pad)
+    sb = dec.spec_batched_ptg(kv2, QS, LIM, DTOKS, VOUT, EMB, list(p8),
+                              [npos_b[s] for s in p8], pad=pad)
+    return [("llm_spec_superpool", sp), ("llm_spec", sb)]
+
+
+def phase_analysis(card: str, torch, dtd: dict) -> dict:
+    """Graphcheck over every pool the script runs, at the size it runs
+    (the DTD GEMM's after its run; the prefill and decode pools of
+    ``llm_wide`` in phase ``llm_wide_pins``), one line a pool; then the
+    gate's control: the dynamic GEMM with one input arrow dropped,
+    enqueued under ``analysis_check``, must raise ``GraphCheckError``
+    naming ``missing-input-edge`` before any K1 launch and leave the
+    context without a pool."""
+    from parsec_tpu_torch.analysis import GraphCheckError
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.data_dist.matrix import (SymTwoDimBlockCyclic,
+                                                   TiledMatrix,
+                                                   TwoDimBlockCyclic,
+                                                   VectorTwoDimCyclic)
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.stencil import stencil_1d_ptg
+    from parsec_tpu_torch.models.stencil2d import stencil_2d_ptg
+    from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.runtime import Context
+
+    def gemm(n, nb, dtype=torch.float32, grid=None):
+        cls = TwoDimBlockCyclic if grid else TiledMatrix
+        kw = grid or {}
+        return tiled_gemm_ptg(cls("A", n, n, nb, nb, dtype=dtype, **kw),
+                              cls("B", n, n, nb, nb, dtype=dtype, **kw),
+                              cls("C", n, n, nb, nb, **kw))
+
+    def factor(kind, n, nb, grid=None):
+        cls = SymTwoDimBlockCyclic if kind == "cholesky" \
+            else (TwoDimBlockCyclic if grid else TiledMatrix)
+        return _factor_ptg(kind, cls("A", n, n, nb, nb, **(grid or {})))
+
+    grid = _mr_grid(0)               # rank 0's view of the 2 x 2 grid
+    pools = [
+        ("gemm", gemm(8192, 1024), None),
+        ("lowered_gemm", gemm(16384, 512, torch.bfloat16), None),
+        ("lowered_stencil", stencil_1d_ptg(
+            VectorTwoDimCyclic("V", lm=1 << 24, mb=1 << 18, P=1),
+            [1.0 / 9] * 9, 64), None),
+        ("lowered_stencil2d", stencil_2d_ptg(
+            TiledMatrix("M", 8192, 8192, 1024, 1024),
+            (0.5, 0.15, 0.15, 0.1, 0.1), 16), None),
+        ("dynamic_cholesky", factor("cholesky", 8192, 1024), None),
+        ("dynamic_lu", factor("lu", 8192, 1024), None),
+        ("lowered_cholesky", factor("cholesky", 16384, 512), None),
+        ("lowered_lu", factor("lu", 8192, 512), None),
+        *((name, tp, None) for name, tp in _spec_pools_at_width(
+            _wide_model())),
+        ("multirank_gemm", gemm(8192, 1024, grid=grid), MR_RANKS),
+        ("multirank_cholesky", factor("cholesky", 8192, 1024, grid),
+         MR_RANKS),
+        ("multirank_lu", factor("lu", 8192, 1024, grid), MR_RANKS)]
+    lines = {"dtd_gemm": dtd["graph"]}
+    for name, tp, nb_ranks in pools:
+        lines[name] = _graphcheck(tp, nb_ranks)
+    for name, g in lines.items():
+        _check(not g["errors"], f"analysis {name}: {g['errors']}")
+        _check(not g["truncated"], f"analysis {name}: truncated")
+        _emit(card, phase="analysis", name=name, ranks=(
+            MR_RANKS if name.startswith("multirank") else 1), **g)
+
+    # the gate's control
+    dev = init_cuda_devices()[0]
+    bad = gemm(8192, 1024)
+    fC = next(f for f in bad.task_class("GEMM").flows if f.name == "C")
+    fC.deps_in = [d for d in fC.deps_in if d.target_class is None]
+    k1, ran = tg.gemm_update.launches, dev.executed_tasks
+    saved = params.get("analysis_check")
+    params.set("analysis_check", True)
+    ctx = Context(nb_cores=0)
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        ctx.add_taskpool(bad)
+    except GraphCheckError as e:
+        raised = e
+    finally:
+        gate_s = time.perf_counter() - t0
+        params.set("analysis_check", saved)
+    _check(raised is not None, "analysis control: the gate let the "
+           "malformed pool in")
+    hit = next((f for f in raised.findings
+                if f.code == "missing-input-edge"), None)
+    _check(hit is not None, f"analysis control: {raised}")
+    _check((hit.task_class, hit.flow) == ("GEMM", "C")
+           and hit.instance is not None,
+           f"analysis control: provenance {hit!r}")
+    _check(tg.gemm_update.launches == k1 and dev.executed_tasks == ran,
+           "analysis control: K1 launched before the gate raised")
+    _check(ctx.test() and not ctx._active_taskpools and bad.context is None,
+           "analysis control: the context holds the rejected pool")
+    ctx.fini()
+    _emit(card, phase="control", name="analysis_gate",
+          finding=hit.code, task_class=hit.task_class, flow=hit.flow,
+          instance=hit.instance, count=hit.count,
+          errors=len(raised.report.errors), gate_s=gate_s,
+          k1_launches_during=tg.gemm_update.launches - k1,
+          pools_in_context=len(ctx._active_taskpools))
+    return lines
+
+
+def phase_llm_wide_pins(card: str, torch) -> dict:
+    """The traced ``llm_wide`` run's backlog (seed 11, 8 new tokens, 32
+    heads of 128, K2) with the task profiler on, and every prefill and
+    decode pool checked as it is enqueued: every stream equal to the
+    oracle (``phase_llm``), one EXEC span a task run, no pool with an
+    error."""
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.prof import pins, trace_state
+    from parsec_tpu_torch.prof.pins import PinsEvent
+
+    checker = _PoolChecker()
+    saved = params.get("pins")
+    params.set("pins", "task_profiler")
+    trace_state.fini()
+    pins.register(PinsEvent.TASKPOOL_INIT, checker)
+    try:
+        rec = phase_llm(card, torch, seed=11, max_new=8,
+                        label="llm_wide_pins", wide=True)
+    finally:
+        pins.unregister(PinsEvent.TASKPOOL_INIT, checker)
+        params.set("pins", saved)
+    recs, size = _trace_records()
+    execs = sum(r["name"] == "task_exec" for r in recs)
+    ran = sum(rec["tasks_by_class"].values())
+    _check(not checker.failures, f"llm_wide_pins: {checker.failures}")
+    _check(execs == ran, f"llm_wide_pins: {execs} EXEC spans for {ran} "
+           f"tasks")
+    for name, agg in checker.by_name.items():
+        _check(not agg["errors"], f"analysis llm_wide {name}: "
+               f"{sorted(agg['errors'])}")
+        _emit(card, phase="analysis", name=f"llm_wide {name}",
+              **{k: sorted(v) if isinstance(v, set) else v
+                 for k, v in agg.items()})
+    _check({"llm_prefill", "llm_decode"} <= set(checker.by_name),
+           f"llm_wide_pins checked {sorted(checker.by_name)}")
+    out = dict(tasks=ran, exec_spans=execs, trace_events=len(recs),
+               trace_bytes=size, wall_s=rec["wall_s"],
+               ragged_attn_page_launches=rec["ragged_attn_page_launches"],
+               pools_checked={k: v["pools"]
+                              for k, v in checker.by_name.items()})
+    _emit(card, phase="pins", name="llm_wide_pins", **out)
+    return rec
+
+
+def phase_multiproc_comm_thread(card: str, torch, multiproc: dict,
+                                n: int = 8192, nb: int = 1024,
+                                seed: int = 0) -> dict:
+    """The four-process Cholesky of ``multiproc_cholesky`` with
+    ``comm_thread`` off, on, on, off, a launch each: the factor gates in
+    every run, and every run's GETs and bytes by tier equal to the first
+    off run's; each line carries the wall, ``get_ms_mean`` and the hops'
+    host seconds.  Returns the four runs' K1 counts as one path."""
+    from parsec_tpu_torch.comm.mp_bodies import factor_input
+
+    a = factor_input("cholesky", n)
+    runs, first = [], None
+    for on in (False, True, True, False):
+        res, launch_s = _mp_launch(torch, ("cholesky",), n, nb, seed, {
+            "PARSEC_MCA_comm_thread": "1" if on else "0"})
+        _check([r["comm_thread"] for r in res] == [on] * MR_RANKS,
+               f"multiproc_comm_thread: threads {[r['comm_thread'] for r in res]}")
+        recs = [r["kinds"]["cholesky"] for r in res]
+        dense = _mp_dense(recs, n, nb)
+        checks = _factor_check(torch, "cholesky", dense, a, nb, "default")
+        del dense
+        gets = [r["gets"] for r in recs]
+        tiers = [{k: r["tiers"][k] for k in ("payload_in", "payload_out")}
+                 for r in recs]
+        if first is None:
+            first = (gets, tiers)
+            _check(gets == multiproc["multiproc_cholesky"]["gets_by_rank"],
+                   f"multiproc_comm_thread: GETs {gets}")
+        _check((gets, tiers) == first, f"multiproc_comm_thread: GETs "
+               f"{gets} and bytes {tiers}, first run {first}")
+        launches = sum(r["k1"] for r in recs)
+        run = dict(comm_thread=on,
+                   wall_s=max(r["t_wait"] for r in recs)
+                   - min(r["t_add"] for r in recs),
+                   launch_s=launch_s, gets_by_rank=gets,
+                   payload_in_by_rank=[t["payload_in"] for t in tiers],
+                   get_ms_mean=(sum(r["tier_s"]["get_s"] for r in recs)
+                                / max(1, sum(gets)) * 1e3),
+                   tier_seconds={hop: [r["tier_s"][hop] for r in recs]
+                                 for hop in ("d2h_s", "send_s", "recv_s",
+                                             "h2d_s", "get_s")},
+                   manager_s_by_rank=[r["dev"]["t_manager"] for r in recs],
+                   gemm_launches=launches,
+                   gemm_launches_by_variant=_by_variant(_sum_counts(
+                       r["k1_by_variant"] for r in recs)), **checks)
+        _emit(card, phase="path", name="multiproc_comm_thread", **run)
+        runs.append(run)
+    return dict(gemm_launches=sum(r["gemm_launches"] for r in runs),
+                gemm_launches_by_variant=_sum_counts(
+                    r["gemm_launches_by_variant"] for r in runs))
+
+
+def _mp_dense(recs: list, n: int, nb: int):
+    """The whole result from the ranks' own tiles."""
+    import numpy as np
+    dense = np.zeros((n, n), np.float32)
+    for r in recs:
+        for (i, j), tile in r["tiles"].items():
+            dense[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb] = tile
+    return dense
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2787,6 +3259,8 @@ def main() -> int:
     main_rec, k1_recs = phase_kernel(card, torch)
     path = phase_path(card, torch)
     dtd = phase_dtd_gemm(card, torch, path)
+    checked = phase_path(card, torch, checked=path)
+    phase_analysis(card, torch, dtd)
     phase_dispatch(card)
     attn_recs = phase_attn_kernel(card, torch)
     attn_rec = attn_recs[0]
@@ -2795,10 +3269,12 @@ def main() -> int:
     wide = phase_llm(card, torch, seed=11, max_new=32, label="llm_wide",
                      wide=True)
     phase_llm_trace(card, torch, max_new=8, wide=True)
+    wide_pins = phase_llm_wide_pins(card, torch)
     prefix = phase_llm_prefix(card, torch)
     spec = phase_llm_spec(card, torch)
     tiers = phase_llm_tiers(card, torch)
-    k2_paths = {"llm": llm, "llm_wide": wide, **prefix,
+    k2_paths = {"llm": llm, "llm_wide": wide, "llm_wide_pins": wide_pins,
+                **prefix,
                 "llm_spec": spec["llm_spec"],
                 "llm_spec_control": spec["llm_spec_control"],
                 "llm_spec_superpool": spec["llm_spec_superpool"],
@@ -2835,9 +3311,11 @@ def main() -> int:
         "multirank_lu": phase_multirank(card, torch, "lu",
                                         factor_paths["dynamic_lu"])}
     multiproc = phase_multiproc(card, torch, multirank)
+    comm_thread = phase_multiproc_comm_thread(card, torch, multiproc)
     mr_dtd = phase_multirank_dtd(card, torch)
-    k1_paths = {"gemm": path, "dtd_gemm": dtd, "lowered_gemm": lgemm,
-                **factor_paths, **multirank, **multiproc,
+    k1_paths = {"gemm": path, "dtd_gemm": dtd, "path_checked": checked,
+                "lowered_gemm": lgemm, **factor_paths, **multirank,
+                **multiproc, "multiproc_comm_thread": comm_thread,
                 "multirank_dtd_gemm": mr_dtd}
     row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")

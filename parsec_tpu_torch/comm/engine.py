@@ -48,8 +48,12 @@ protocol, fragments and credit window included, counted apart in
 sets one, runs once the registration drops (the peer KV store's
 custody ledger, ``data_dist/kv_tiers.py``).
 
-Left out: PINS events and trace spans (the port has no ``prof/``),
-resumed GETs (``resume_get``) and the ``Capabilities`` record.
+A lookahead GET fires the ``COMM_GET_PREFETCH`` PINS event (payload:
+the owner rank).
+
+Left out: the fragment PINS events (``COMM_GET_FRAG_SENT``/``_RECV``,
+``COMM_GET_DONE``), trace spans, resumed GETs (``resume_get``) and the
+``Capabilities`` record.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ import torch
 from ..core.backoff import Backoff
 from ..core.params import params as _params
 from ..data.data import nbytes_of
+from ..prof import pins
+from ..prof.pins import PinsEvent
 from .codec import dtype_name, torch_dtype_of
 
 # Reserved AM tags (cf. parsec_comm_engine.h:24-40).
@@ -279,6 +285,7 @@ class CommEngine:
         ``prefetch_gets`` so a lookahead pull is told apart from an
         on-demand one."""
         self.prefetch_gets += 1
+        pins.fire(PinsEvent.COMM_GET_PREFETCH, None, rwire[0])
         return self.get(rwire, on_complete)
 
     # -- lifecycle / progress -------------------------------------------------

@@ -375,8 +375,9 @@ def pool_body(ctx, rank, nranks):
     (``PARSEC_MP_SEED``), the factorizations :func:`factor_input`;
     Cholesky runs under the four-counter detector, GEMM and LU under the
     local one.  Returns, by kind, this rank's record of
-    :func:`_run_kind`, beside the rank's foreign modules and its
-    process group's size (None without one)."""
+    :func:`_run_kind`, beside the rank's foreign modules, whether its
+    comm thread ran (``comm_thread``) and its process group's size (None
+    without one)."""
     import torch.distributed as dist
     if dist.is_initialized():
         _check_group(rank, nranks)
@@ -402,5 +403,6 @@ def pool_body(ctx, rank, nranks):
         kinds[kind] = run(ctx, rank, nranks, n=n, nb=nb, seed=seed,
                           chores=chores, dev=dev)
     return {"kinds": kinds, "modules": foreign_modules(),
+            "comm_thread": ctx.comm_engine.debug_state()["comm_thread"],
             "world_size": dist.get_world_size()
             if dist.is_initialized() else None}

@@ -35,7 +35,7 @@ from typing import Any
 # the comm params every rank of a fabric must agree on, forwarded to the
 # ranks as PARSEC_MCA_* (an explicit one in the caller's environment wins)
 _FORWARDED = ("comm_get_frag_bytes", "comm_get_window",
-              "comm_codec_pickle_fallback",
+              "comm_codec_pickle_fallback", "comm_thread",
               "comm_bcast_tree", "comm_short_limit", "comm_coll_bench_bytes")
 
 # the directory that holds the package, put on the ranks' import path

@@ -44,12 +44,37 @@ The DTD message channel (:meth:`RemoteDepEngine.dtd_send`, tag
 of its pool until acknowledged, and a message for a pool not registered
 here yet waits for its registration, as an activation does.
 
+**The comm thread** (``comm_thread``, off by default as in the JAX
+package; the reference's ``remote_dep_dequeue_main``): with it on,
+:meth:`RemoteDepEngine.enable` starts one thread per rank that runs
+``flush_outgoing()`` and the engine's ``progress()`` under a backoff, so
+a GET or an activation is served while every worker runs a task.  The
+workers' opportunistic progress stays: the engine's non-blocking
+progress lock lets one driver at a time drain a queue, whichever thread
+it is.  The outgoing stage becomes the thread's mailbox (senders stop
+flushing at the end of each send batch, ``_flush_if_unthreaded``).  A
+failure in the thread is recorded on the context
+(``ctx.record_failure``), so a dead comm thread fails the run instead of
+hanging it; :meth:`RemoteDepEngine.stop_thread` stops and joins it, from
+``fini`` and from the context's ``abort``.  The thread
+touches only the comm engine: with ``run_multiproc(distributed=True)``
+the ranks' gloo group serves discovery alone, and the thread never calls
+it.  :meth:`RemoteDepEngine.debug_state` reports it.
+
+PINS: ``COMM_ACTIVATE_SEND`` (payload: ``(dst_rank, seq)``) for each
+activation sent down a tree, ``COMM_ACK_RECV`` (payload: the seq) for each
+acknowledgement.  The engine registers its live gauges
+(``comm::rank<r>::inflight``, ``bytes_out``, ``bytes_in``,
+``wire_bytes_out``, ``wire_bytes_in``, ``frags_in``, ``frag_bytes_in``)
+in :data:`parsec_tpu_torch.prof.sde` and the ``comm`` / ``rank<r>``
+property (fragment state and per-peer ledgers) in
+:data:`parsec_tpu_torch.prof.properties`, and drops them at ``fini``.
+
 Left out: typed-edge reshape on a remote edge (the port raises
 ``NotImplementedError`` where the JAX package repacks, ``ROADMAP.md`` §1
-item 10), the dedicated comm thread (``comm_thread``), the switches that
-turn coalescing and wire views off (``comm_coalesce``,
-``comm_wire_datatypes``: nothing in the port turns them off), PINS
-events, trace spans, and the counters' live gauges.
+item 10), the switches that turn coalescing and wire views off
+(``comm_coalesce``, ``comm_wire_datatypes``: nothing in the port turns
+them off), the activation callback PINS span and trace spans.
 """
 
 from __future__ import annotations
@@ -66,6 +91,9 @@ from ..core.params import MCAParamValueError
 from ..core.params import params as _params
 from ..data.data import data_create, nbytes_of
 from ..data.datatype import to_tensor, torch_dtype, wire_slice_key
+from ..prof import pins
+from ..prof.counters import properties, sde
+from ..prof.pins import PinsEvent
 from ..runtime.scheduling import (ExecutionStream, _find_input_dep,
                                   _rank_of_task, apply_writeback_to_home,
                                   schedule_tasks)
@@ -77,6 +105,9 @@ from .engine import (AM_TAG_ACTIVATE, AM_TAG_DTD, AM_TAG_GET_ACK,
 _params.register("comm_short_limit", 4096,
                  "payloads at most this many bytes ride inside the "
                  "activation message (short-message inlining)")
+_params.register("comm_thread", False,
+                 "run a dedicated comm-progress thread per rank "
+                 "(remote_dep_dequeue_main)")
 _params.register("comm_bcast_tree", "binomial",
                  "multi-peer activation propagation: binomial|chain|star, "
                  "or auto (per payload: resolve_tree_kind)")
@@ -299,14 +330,91 @@ class RemoteDepEngine:
         ce.tag_register(AM_TAG_TERMDET, self._on_termdet)
         ce.tag_register(AM_TAG_DTD, self._on_dtd)
         ce.flush_hook = self.flush_outgoing
+        self._comm_thread: threading.Thread | None = None
+        self._comm_stop = threading.Event()
+        r = self.my_rank
+        fabric = getattr(ce, "fabric", None)
+        self._gauges = {
+            "inflight": self.inflight,
+            "bytes_out": lambda: self.payload_bytes_staged,
+            "bytes_in": lambda: self.payload_bytes_received,
+            # the wire-level twins: framed bytes the fabric moved
+            "wire_bytes_out": lambda: getattr(fabric, "bytes_sent", 0),
+            "wire_bytes_in": lambda: getattr(fabric, "bytes_recv", 0),
+            "frags_in": lambda: ce.frags_in,
+            "frag_bytes_in": lambda: ce.frag_bytes_in}
+        for g, fn in self._gauges.items():
+            sde.register_gauge(f"comm::rank{r}::{g}", fn)
+        properties.register("comm", f"rank{r}", self._comm_property)
 
     # ------------------------------------------------------------ lifecycle
     def enable(self) -> None:
         self.ce.enable()
+        if _params.get("comm_thread") and self._comm_thread is None:
+            self._comm_stop.clear()
+            self._comm_thread = threading.Thread(
+                target=self._comm_main, daemon=True,
+                name=f"parsec-comm-r{self.my_rank}")
+            self._comm_thread.start()
+
+    def _comm_main(self) -> None:
+        backoff = Backoff()
+        while not self._comm_stop.is_set():
+            try:
+                n = self.flush_outgoing() + self.ce.progress()
+            except BaseException as e:   # a dead comm thread is a failed
+                self.ctx.record_failure(e)   # run, never a hang
+                return
+            if n:
+                backoff.reset()
+            else:
+                backoff.wait()
+
+    def stop_thread(self) -> None:
+        """Stop and join the comm thread, if one runs (the context's
+        ``abort`` calls it; ``fini`` does too)."""
+        th, self._comm_thread = self._comm_thread, None
+        if th is not None:
+            self._comm_stop.set()
+            th.join(timeout=5)
 
     def fini(self) -> None:
+        self.stop_thread()
         self.flush_outgoing()
         self.ce.fini()
+        for g in self._gauges:
+            sde.unregister_gauge(f"comm::rank{self.my_rank}::{g}")
+        properties.unregister("comm", f"rank{self.my_rank}")
+
+    def _comm_property(self) -> dict:
+        """The ``comm`` property: fragment-pipeline state and the
+        fabric's per-peer ledgers where it keeps them."""
+        out: dict = {"frag_active": self.ce.frag_active,
+                     "frags_in": self.ce.frags_in,
+                     "frags_out": self.ce.frags_out}
+        ps = getattr(getattr(self.ce, "fabric", None), "peer_stats", None)
+        if ps is not None:
+            out["peers"] = ps()
+        return out
+
+    def debug_state(self) -> dict:
+        """In-flight comm operations, for a stall report."""
+        with self._outq_lock:
+            staged = {dst: len(items) for dst, items in self._outq.items()}
+        with self._iflock:
+            inflight = len(self._inflight)
+        with self._pending_lock:
+            unknown = len(self._pending_unknown_tp)
+            pending_td = len(self._pending_termdet)
+        return {"rank": self.my_rank, "inflight_activations": inflight,
+                "staged_sends": staged, "pending_unknown_taskpool": unknown,
+                "pending_termdet_tokens": pending_td,
+                "dup_acks": self.dup_acks,
+                "payload_bytes_staged": self.payload_bytes_staged,
+                "payload_bytes_received": self.payload_bytes_received,
+                "engine_pending": self.ce.pending(),
+                "comm_thread": self._comm_thread is not None,
+                **self._comm_property()}
 
     def progress(self) -> int:
         # the engine's progress runs flush_outgoing through its hook
@@ -330,6 +438,13 @@ class RemoteDepEngine:
             self._outq.setdefault(dst, []).append(
                 (-msg.get("priority", 0), next(self._outseq),
                  pack_activation(msg)))
+
+    def _flush_if_unthreaded(self) -> None:
+        """The outgoing stage is the comm thread's mailbox; without one,
+        flush at the end of each send batch so busy workers never starve
+        outgoing sends (coalescing still aggregates within the batch)."""
+        if self._comm_thread is None:
+            self.flush_outgoing()
 
     def flush_outgoing(self) -> int:
         """Drain the outgoing stage: one message per peer, its
@@ -454,7 +569,7 @@ class RemoteDepEngine:
                    "ranks": [self.my_rank] + ranks, "tree": tree_kind,
                    "priority": task.priority}
             self._send_to_children(tp, msg, my_pos=0)
-        self.flush_outgoing()
+        self._flush_if_unthreaded()
 
     def _send_to_children(self, tp: Any, msg: dict, my_pos: int) -> None:
         ranks = msg["ranks"]
@@ -466,10 +581,13 @@ class RemoteDepEngine:
             # an activation in flight is a pending action of the pool
             tp.tdm.taskpool_addto_nb_pa(+1)
             tp.tdm.on_comm_sent()
+            pins.fire(PinsEvent.COMM_ACTIVATE_SEND, None,
+                      (ranks[child_pos], seq))
             self._post_activate(ranks[child_pos],
                                 dict(msg, seq=seq, pos=child_pos))
 
     def _on_ack(self, eng, src: int, msg: dict) -> None:
+        pins.fire(PinsEvent.COMM_ACK_RECV, None, int(msg["seq"]))
         with self._iflock:
             tp = self._inflight.pop(msg["seq"], None)
         if tp is None:
@@ -672,7 +790,7 @@ class RemoteDepEngine:
                         peers={msg["ranks"][p] for p in children})
                     d["wire"] = h.wire()
             self._send_to_children(tp, fwd, my_pos=my_pos)
-            self.flush_outgoing()
+            self._flush_if_unthreaded()
 
         self.ce.send_am(AM_TAG_GET_ACK, src, {"seq": msg["seq"]})
         if ready:

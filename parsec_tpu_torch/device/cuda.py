@@ -53,10 +53,23 @@ same module (the role of ``device_tpu_allow_cpu``), so stage-in, the
 LRU, flooding and batching run in CPU-only tests; the task bodies then
 take their kernels' plain PyTorch versions.
 
+- **PINS events** at the JAX package's points, fired on the host by the
+  manager with ``es=None`` (the enqueue with the enqueuing stream):
+  ``DEVICE_ENQUEUE`` a task, ``DEVICE_BATCH_BEGIN``/``_END`` a batch
+  (payload: its size), ``DEVICE_STAGE_IN`` each stage-in and prefetch
+  that moved bytes (payload: the bytes it added to ``bytes_in``, so the
+  payloads of a run sum to ``bytes_in``), ``DEVICE_EVICT`` each drain
+  that wrote victims back, and ``DEVICE_STAGE_MIXED_VERSIONS`` when two
+  tasks of one batch read two versions of one datum.  A task the manager
+  pulls from the scheduler into its batch (flooding) fires the
+  PREPARE_INPUT and EXEC pairs that a worker fires around a hand-off,
+  so every task the device runs has one EXEC span; the JAX package
+  fires none for its flooded tasks.  No site waits on the card.
+
 Left out: the demote/salvage path after a failed dispatch
 (``device/tpu.py:514-579``), which would run the stranded tasks on the
 host: a failure here stops the run.  Until a later slice: user stage
-hooks, PINS events and the stall-dump ``debug_state``.
+hooks and the stall-dump ``debug_state``.
 """
 
 from __future__ import annotations
@@ -73,6 +86,8 @@ from ..core.params import params as _params
 from ..data.data import (ACCESS_WRITE, COHERENCY_EXCLUSIVE, COHERENCY_INVALID,
                          COHERENCY_OWNED, COHERENCY_SHARED, DataCopy,
                          nbytes_of)
+from ..prof import pins
+from ..prof.pins import PinsEvent
 from ..runtime.task import HOOK_RETURN_ASYNC
 from .device import Device, registry
 
@@ -246,6 +261,8 @@ class CUDADevice(Device):
                 self._evict_bytes -= nbytes_of(c.value)
                 if self._mem_lru.get(c.original.key) is not c:
                     victims.append(c)
+        if victims:
+            pins.fire(PinsEvent.DEVICE_EVICT, None, len(victims))
         try:
             self._writeback_many(victims)
             self.deferred_evictions += len(victims)
@@ -382,10 +399,19 @@ class CUDADevice(Device):
                     continue
                 self.cache_misses += 1
                 prev = missing.get(d.key)
-                if prev is None or copy.version > prev.version:
+                if prev is None:
                     missing[d.key] = copy
+                elif copy.version != prev.version:
+                    # two tasks of one batch read two versions of one
+                    # datum: the newest lands, and the event shows it
+                    pins.fire(PinsEvent.DEVICE_STAGE_MIXED_VERSIONS, None,
+                              (d.key, max(copy.version, prev.version),
+                               min(copy.version, prev.version)))
+                    if copy.version > prev.version:
+                        missing[d.key] = copy
                 assigns.append((task, f.flow_index, d.key))
         landed: dict[Any, DataCopy] = {}
+        batch_nb = 0
         values = self._land_all([c.value for c in missing.values()])
         for (k, src), value in zip(missing.items(), values):
             d = src.original
@@ -399,8 +425,11 @@ class CUDADevice(Device):
             dev_copy.coherency = COHERENCY_SHARED
             nb = nbytes_of(value)
             self.bytes_in += nb
+            batch_nb += nb
             self._cache_insert(d.key, dev_copy, nb)
             landed[k] = dev_copy
+        if missing:
+            pins.fire(PinsEvent.DEVICE_STAGE_IN, None, batch_nb)
         for task, fi, k in assigns:
             task.data[fi] = landed[k]
         if not self.is_cuda:
@@ -440,6 +469,7 @@ class CUDADevice(Device):
         t0 = time.perf_counter()
         values = self._land_all([v for *_, v in todo])
         staged = 0
+        nb_total = 0
         for (d, dtt, snap_ver, _), value in zip(todo, values):
             with d._lock:
                 dev = d.device_copies.get(self.device_index)
@@ -459,8 +489,11 @@ class CUDADevice(Device):
                 dev.coherency = COHERENCY_SHARED
             nb = nbytes_of(value)
             self.bytes_in += nb
+            nb_total += nb
             self._cache_insert(d.key, dev, nb)
             staged += 1
+        if nb_total:
+            pins.fire(PinsEvent.DEVICE_STAGE_IN, None, nb_total)
         self.prefetched += staged
         self.t_stage_in += time.perf_counter() - t0
         return staged
@@ -502,6 +535,7 @@ class CUDADevice(Device):
     def kernel_scheduler(self, es: Any, task: Any, submit: Callable) -> int:
         """Enqueue; the first thread in becomes the manager and drains
         the device (``parsec_device_kernel_scheduler``)."""
+        pins.fire(PinsEvent.DEVICE_ENQUEUE, es, task)
         with self._mutex_lock:
             self._pending.append(CUDADeviceTask(es, task, submit))
             if self._managing:
@@ -566,8 +600,13 @@ class CUDADevice(Device):
             if t is None:
                 break
             if t.task_class is tc and registry.best_device(t, self.type) is self:
+                # the pairs a worker fires around this hand-off
+                pins.fire(PinsEvent.PREPARE_INPUT_BEGIN, es, t)
                 prepare_input(es, t)
+                pins.fire(PinsEvent.PREPARE_INPUT_END, es, t)
+                pins.fire(PinsEvent.EXEC_BEGIN, es, t)
                 batch.append(CUDADeviceTask(es, t, first.submit))
+                pins.fire(PinsEvent.EXEC_END, es, t)
             else:
                 stash.append((t, distance))
         for t, distance in stash:
@@ -576,6 +615,7 @@ class CUDADevice(Device):
     # ------------------------------------------------------------ pipeline
     def _run_batch(self, batch: list[CUDADeviceTask]) -> None:
         from ..runtime.scheduling import complete_execution
+        pins.fire(PinsEvent.DEVICE_BATCH_BEGIN, None, len(batch))
         t0 = time.perf_counter()
         self.stage_in_many([d.task for d in batch])
         t1 = time.perf_counter()
@@ -597,6 +637,7 @@ class CUDADevice(Device):
         for dtask in batch:
             complete_execution(dtask.es, dtask.task)
         self.t_complete += time.perf_counter() - t2
+        pins.fire(PinsEvent.DEVICE_BATCH_END, None, len(batch))
 
     def _mark_written(self, task: Any) -> None:
         """Written flows become dirty device copies."""

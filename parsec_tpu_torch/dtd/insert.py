@@ -68,7 +68,14 @@ Only collection-backed tiles cross ranks (a bare tensor has no
 rank-stable name).  ``PUSHOUT``/``PULLIN`` are accepted and change
 nothing, as in the JAX package.
 
-Left out: ``validate()`` (graphcheck) and PINS events.
+:meth:`DTDTaskpool.validate` checks the structure discovered so far
+(graphcheck's DTD prong: tile and rank bounds, accessor-chain
+consistency); under the ``analysis_check`` param ``close()`` runs it
+first, the first moment the graph is whole.  :meth:`DTDTaskpool.
+release_task` fires the RELEASE_DEPS PINS pair around an instance's
+release, as the JAX package does.
+
+Nothing is left out.
 """
 
 from __future__ import annotations
@@ -82,6 +89,8 @@ from ..core.params import params as _params
 from ..data.data import (ACCESS_READ, ACCESS_RW, ACCESS_WRITE,
                          COHERENCY_SHARED, DataCopy, data_create, nbytes_of)
 from ..data.datatype import torch_dtype
+from ..prof import pins
+from ..prof.pins import PinsEvent
 from ..runtime.scheduling import schedule_tasks
 from ..runtime.task import DEV_CPU, DEV_CUDA, HOOK_RETURN_DONE, Chore, Flow
 from ..runtime.task import Task, TaskClass
@@ -388,11 +397,27 @@ class DTDTaskpool(Taskpool):
     def close(self) -> None:
         """Declare insertion finished: drops the armed pending action so
         termination detection may conclude (needed when nobody calls
-        :meth:`wait` on this pool)."""
+        :meth:`wait` on this pool).  Under ``analysis_check`` the pool is
+        validated first (tasks may have run already: the check reads
+        only)."""
+        if not self._closed and _params.get("analysis_check", False):
+            self.validate()
         self._closed = True
         if self._armed:
             self._armed = False
             self.tdm.taskpool_addto_nb_pa(-1)
+
+    def validate(self, nb_ranks: int | None = None,
+                 raise_on_error: bool = True) -> Any:
+        """Statically verify the structure discovered so far (tile and
+        rank bounds, accessor chains; graphcheck's DTD prong).  Returns the
+        report; raises ``GraphCheckError`` on an error when
+        ``raise_on_error``."""
+        from ..analysis import check_dtd
+        report = check_dtd(self, nb_ranks=nb_ranks)
+        if raise_on_error:
+            report.raise_if_failed()
+        return report
 
     def wait(self, timeout: float | None = None) -> None:
         """``parsec_dtd_taskpool_wait``: no more insertions; drain."""
@@ -756,6 +781,7 @@ class DTDTaskpool(Taskpool):
         the cross-rank pushes (snapshots taken before any successor is
         released: the WAR discipline), release the instance successors,
         open the window."""
+        pins.fire(PinsEvent.RELEASE_DEPS_BEGIN, es, task)
         for spec in task.args:
             if spec.flow_index < 0 or spec.flags & SCRATCH:
                 continue
@@ -777,6 +803,7 @@ class DTDTaskpool(Taskpool):
                 if succ.deps_pending == 0:
                     succ.status = "ready"
                     ready.append(succ)
+        pins.fire(PinsEvent.RELEASE_DEPS_END, es, task)
         if ready:
             schedule_tasks(es, ready, 0)
         with self._icond:

@@ -24,10 +24,11 @@ sub-view of the tile a remote successor receives (the comm layer cuts it
 before the send); same-rank successors share the whole tile.  On a
 multi-rank context a pool counts and starts only the tasks whose affinity
 lies on this rank (``nb_local_tasks``, ``startup``).
+:meth:`PTGTaskpool.validate` verifies the built graph without running a
+body (:mod:`parsec_tpu_torch.analysis.graphcheck`).
 
 Left out: the JDF text front-ends, user-defined key/dep/startup
-overrides, SIMCOST, stage hooks, ranged inputs, pool options and
-``validate`` (graphcheck).
+overrides, SIMCOST, stage hooks, ranged inputs and pool options.
 """
 
 from __future__ import annotations
@@ -290,6 +291,20 @@ class PTGTaskpool(Taskpool):
     @property
     def globals(self) -> dict:
         return self._builder.globals
+
+    def validate(self, nb_ranks: int | None = None,
+                 raise_on_error: bool = True) -> Any:
+        """Statically verify this pool's dataflow (graphcheck): edge
+        symmetry, access consistency, cycles, tile and rank bounds,
+        without executing a body.  Returns the
+        :class:`~parsec_tpu_torch.analysis.graphcheck.GraphReport`; raises
+        :class:`~parsec_tpu_torch.analysis.graphcheck.GraphCheckError` on
+        an error-severity finding when ``raise_on_error``."""
+        from ..analysis import check_ptg
+        report = check_ptg(self, nb_ranks=nb_ranks)
+        if raise_on_error:
+            report.raise_if_failed()
+        return report
 
     def _foreign(self, context: Any) -> Callable[[Any, dict], bool]:
         """``foreign(tc, locals)``: whether the task runs on another rank

@@ -40,9 +40,22 @@ path reaches it through :meth:`remote_dep_accumulate` /
 ``termdet`` param (``local`` when empty); a rank-private pool always
 takes ``local``.
 
+**Enqueue gate.**  Under the ``analysis_check`` param,
+:meth:`add_taskpool` verifies a PTG pool with
+:func:`~parsec_tpu_torch.analysis.graphcheck.check_taskpool` before any
+side effect: a malformed graph raises
+:class:`~parsec_tpu_torch.analysis.graphcheck.GraphCheckError` and leaves
+the context as it was.  A DTD pool is empty at enqueue; it is checked at
+``close()``.
+
+**PINS.**  A context holds the PINS modules the ``pins`` param names
+from its construction to :meth:`abort` (which :meth:`fini` calls)
+(:func:`~parsec_tpu_torch.prof.acquire_pins_modules`), and fires
+``TASKPOOL_INIT`` at enqueue and ``TASKPOOL_FINI`` at a pool's
+termination.
+
 Left out: multiple virtual processes and vpmaps, thread binding, the
-flight recorder and stall dump, live properties, tuned-knob consults and
-the enqueue-time graph check.
+flight recorder and stall dump, live properties and tuned-knob consults.
 """
 
 from __future__ import annotations
@@ -53,6 +66,8 @@ from typing import Any, Callable
 
 from ..core.backoff import Backoff
 from ..core.params import params as _params
+from ..prof import acquire_pins_modules, pins, release_pins_modules
+from ..prof.pins import PinsEvent
 from ..sched import open_scheduler
 from .dagrun import compile_taskpool_dag
 from .deps import DependencyTracking
@@ -63,6 +78,10 @@ from .termdet import open_termdet
 
 _params.register("runtime_num_cores", 0, "worker threads (0 = caller-driven)")
 _params.register("sched", "lfq", "scheduler module to use")
+_params.register("analysis_check", False,
+                 "statically verify each PTG taskpool at enqueue "
+                 "(analysis.graphcheck) and each DTD pool at close(): a "
+                 "malformed graph raises GraphCheckError")
 
 
 class ContextWaitTimeout(TimeoutError):
@@ -117,6 +136,8 @@ class Context:
         for es in self.streams:
             self.scheduler.flow_init(es)
 
+        # the last step that can fail, before any thread starts
+        self._pins_modules = acquire_pins_modules(self)
         self._threads: list[threading.Thread] = []
         self._start_barrier = threading.Event()
         for es in self.streams[:nworkers]:
@@ -129,10 +150,19 @@ class Context:
     def add_taskpool(self, tp: Taskpool, local_only: bool = False) -> None:
         """Enqueue a taskpool; thread-safe, and live while workers run.
         ``local_only`` marks a rank-private pool: no comm id, the local
-        detector, so ranks may enqueue different numbers of them."""
+        detector, so ranks may enqueue different numbers of them.  Under
+        ``analysis_check`` a PTG pool is verified first, and a malformed
+        one raises ``GraphCheckError`` before any side effect."""
         with self._submit_lock:
+            if _params.get("analysis_check"):
+                from ..ptg.dsl import PTGTaskpool
+                if isinstance(tp, PTGTaskpool):
+                    from ..analysis import check_taskpool
+                    check_taskpool(tp, nb_ranks=self.nb_ranks,
+                                   raise_on_error=True)
             tp.context = self
             tp.local_only = local_only = tp.local_only or local_only
+            pins.fire(PinsEvent.TASKPOOL_INIT, None, tp)
             if tp.tdm is None:
                 name = "local" if local_only else \
                     (_params.get("termdet") or "local")
@@ -234,14 +264,18 @@ class Context:
                 "a background thread failed") from self._worker_error
 
     def abort(self) -> None:
-        """Stop workers without draining."""
+        """Stop workers (and a comm thread) without draining."""
         with self._lock:
             self._shutdown = True
             self._cond.notify_all()
         self._start_barrier.set()
         for t in self._threads:
             t.join(timeout=5)
+        if self.comm_engine is not None:
+            self.comm_engine.stop_thread()
         self.scheduler.remove(self)
+        held, self._pins_modules = self._pins_modules, ()
+        release_pins_modules(held)
 
     def __enter__(self) -> "Context":
         return self
@@ -399,6 +433,7 @@ class Context:
                          for tp in pools) or "no live taskpools"
 
     def _taskpool_terminated(self, tp: Taskpool) -> None:
+        pins.fire(PinsEvent.TASKPOOL_FINI, None, tp)
         with self._lock:
             if tp in self._active_taskpools:
                 self._active_taskpools.remove(tp)

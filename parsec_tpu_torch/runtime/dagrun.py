@@ -28,9 +28,14 @@ spaces, a served pool (``_serve_no_dag``), a pool on the wire of a
 multi-rank context (a rank-private ``local_only`` pool still compiles),
 or no native tier.
 
-Left out: PINS events (the port has no ``prof/``) and the user-defined
-key/dep/startup and SIMCOST gates (the port's task classes have none of
-those overrides).
+PINS does not force the fallback: the executor fires batch-granular
+``DAG_FETCH``/``DAG_COMPLETE`` spans (payload: the batch size) through the
+dispatch table, a few index loads a batch of up to 1024 tasks, and the
+per-task ``EXEC`` begin/end around the bodies only while PINS chains are
+registered (``pins.enabled``, read once a batch).
+
+Left out: the user-defined key/dep/startup and SIMCOST gates (the port's
+task classes have none of those overrides).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import numpy as np
 
 from ..core.backoff import Backoff
 from ..core.params import params as _params
+from ..prof import pins
 from .task import HOOK_RETURN_AGAIN, HOOK_RETURN_DONE, Task
 
 _params.register("runtime_dag_compile", True,
@@ -56,6 +62,16 @@ _params.register("runtime_dag_compile", True,
 _MAX_DAG_TASKS = 1 << 20
 
 _BATCH = 1024
+
+# PINS fast path (prof/pins.py): a disabled batch-span site is one index
+# load and a falsy branch
+_hooks = pins.hooks
+_DAG_FETCH_BEGIN = int(pins.PinsEvent.DAG_FETCH_BEGIN)
+_DAG_FETCH_END = int(pins.PinsEvent.DAG_FETCH_END)
+_DAG_COMPLETE_BEGIN = int(pins.PinsEvent.DAG_COMPLETE_BEGIN)
+_DAG_COMPLETE_END = int(pins.PinsEvent.DAG_COMPLETE_END)
+_EB = pins.PinsEvent.EXEC_BEGIN
+_EE = pins.PinsEvent.EXEC_END
 
 
 class _Ineligible(Exception):
@@ -131,8 +147,14 @@ class _CompiledDagBase:
                 with self._lock:
                     self._claimed = False
                 return False
+            h = _hooks[_DAG_FETCH_BEGIN]
+            if h is not None:
+                h(es, None)
             n = fetch(buf, _BATCH)
             ids = list(buf[:n]) if n else []
+            h = _hooks[_DAG_FETCH_END]
+            if h is not None:
+                h(es, len(ids))
             if not ids and not retry:
                 if self._ndag.remaining() == 0:
                     break
@@ -146,11 +168,17 @@ class _CompiledDagBase:
             if done:
                 self._noprog = 0
                 rem = -1
+                h = _hooks[_DAG_COMPLETE_BEGIN]
+                if h is not None:
+                    h(es, len(done))
                 for off in range(0, len(done), _BATCH):
                     chunk = done[off:off + _BATCH]
                     for j, gid in enumerate(chunk):
                         buf[j] = gid
                     rem = complete(buf, len(chunk))
+                h = _hooks[_DAG_COMPLETE_END]
+                if h is not None:
+                    h(es, len(done))
                 if rem == 0:
                     break
                 backoff.reset()
@@ -192,6 +220,7 @@ class CompiledDag(_CompiledDagBase):
         tasks, hooks = self._tasks, self._hooks
         pres, posts = self._pres, self._posts
         DONE, AGAIN = HOOK_RETURN_DONE, HOOK_RETURN_AGAIN
+        instr, fire = pins.enabled, pins.fire
         done: list[int] = []
         retry: list[int] = []
         for gid in ids:
@@ -202,7 +231,12 @@ class CompiledDag(_CompiledDagBase):
                 for fi, dtt in pre:
                     if data[fi] is None:
                         data[fi] = _scratch(dtt)
-            rc = hooks[gid](es, t)
+            if instr:
+                fire(_EB, es, t)
+                rc = hooks[gid](es, t)
+                fire(_EE, es, t)
+            else:
+                rc = hooks[gid](es, t)
             if rc != DONE:
                 if rc == AGAIN:
                     retry.append(gid)
@@ -309,6 +343,7 @@ class VecCompiledDag(_CompiledDagBase):
             # change in _build's pure_ctl branch.
             empty = (None,) * len(tc.flows)
             nchores = (1 << len(tc.chores)) - 1
+            instr, fire = pins.enabled, pins.fire
             if body is not None and mk is not None:
                 # fast path: hook wrapper bypassed; `l` is built once and
                 # its __dict__ doubles as task.locals (same key/value view)
@@ -326,7 +361,12 @@ class VecCompiledDag(_CompiledDagBase):
                     t.uid = gid
                     t.chore_mask = nchores
                     t.selected_device = None
-                    rc = body(es, t, g, lns)
+                    if instr:
+                        fire(_EB, es, t)
+                        rc = body(es, t, g, lns)
+                        fire(_EE, es, t)
+                    else:
+                        rc = body(es, t, g, lns)
                     if rc is not None and rc != DONE:
                         if rc == AGAIN:
                             retry.append(gid)
@@ -347,7 +387,12 @@ class VecCompiledDag(_CompiledDagBase):
                 t.uid = gid
                 t.chore_mask = nchores
                 t.selected_device = None
-                rc = hook(es, t)
+                if instr:
+                    fire(_EB, es, t)
+                    rc = hook(es, t)
+                    fire(_EE, es, t)
+                else:
+                    rc = hook(es, t)
                 if rc != DONE:
                     if rc == AGAIN:
                         retry.append(gid)

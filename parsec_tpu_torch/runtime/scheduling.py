@@ -14,8 +14,13 @@ into a remote-deps record that the context's comm engine activates
 (``remote_dep_accumulate`` / ``remote_dep_activate``, the remote branch of
 ``parsec_release_dep_fct``).
 
-Left out: PINS hooks, typed-edge reshape, the simulation cost model and
-the paranoid write-back checks.
+PINS events fire at the JAX package's points (SELECT, SELECT_STEAL,
+PREPARE_INPUT, EXEC, COMPLETE_EXEC, SCHEDULE, RELEASE_DEPS) through the
+dispatch table bound once at import: a disabled site is one index load
+and a falsy branch.
+
+Left out: typed-edge reshape, the simulation cost model and the paranoid
+write-back checks.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import threading
 from typing import Any
 
 from ..core.params import params as _params
+from ..prof import pins
+from ..prof.pins import PinsEvent
 from .task import (HOOK_RETURN_AGAIN, HOOK_RETURN_ASYNC, HOOK_RETURN_DISABLE,
                    HOOK_RETURN_DONE, HOOK_RETURN_ERROR, HOOK_RETURN_NEXT,
                    Task, TaskClass)
@@ -31,6 +38,23 @@ from .task import (HOOK_RETURN_AGAIN, HOOK_RETURN_ASYNC, HOOK_RETURN_DISABLE,
 _params.register(
     "runtime_keep_highest_priority_task", True,
     "hold the best released task as the stream's next task")
+
+# PINS fast path: the dispatch table's identity is stable (slots swap in
+# place), so a disabled site is one index load and a falsy branch
+_hooks = pins.hooks
+_SELECT_BEGIN = int(PinsEvent.SELECT_BEGIN)
+_SELECT_END = int(PinsEvent.SELECT_END)
+_SELECT_STEAL = int(PinsEvent.SELECT_STEAL)
+_PREPARE_INPUT_BEGIN = int(PinsEvent.PREPARE_INPUT_BEGIN)
+_PREPARE_INPUT_END = int(PinsEvent.PREPARE_INPUT_END)
+_EXEC_BEGIN = int(PinsEvent.EXEC_BEGIN)
+_EXEC_END = int(PinsEvent.EXEC_END)
+_COMPLETE_EXEC_BEGIN = int(PinsEvent.COMPLETE_EXEC_BEGIN)
+_COMPLETE_EXEC_END = int(PinsEvent.COMPLETE_EXEC_END)
+_SCHEDULE_BEGIN = int(PinsEvent.SCHEDULE_BEGIN)
+_SCHEDULE_END = int(PinsEvent.SCHEDULE_END)
+_RELEASE_DEPS_BEGIN = int(PinsEvent.RELEASE_DEPS_BEGIN)
+_RELEASE_DEPS_END = int(PinsEvent.RELEASE_DEPS_END)
 
 
 class ExecutionStream:
@@ -65,6 +89,9 @@ def schedule_tasks(es: ExecutionStream, tasks: list[Task],
     """Hand ready tasks to the scheduler module."""
     if not tasks:
         return
+    h = _hooks[_SCHEDULE_BEGIN]
+    if h is not None:
+        h(es, tasks)
     # next_task is a single-owner slot: only the thread running this
     # stream's loop may fill it (a device manager completing a task on
     # behalf of another stream goes through the scheduler).  A scheduler
@@ -78,39 +105,72 @@ def schedule_tasks(es: ExecutionStream, tasks: list[Task],
         es.next_task = tasks.pop()
     if tasks:
         es.context.scheduler.schedule(es, tasks, distance)
+    h = _hooks[_SCHEDULE_END]
+    if h is not None:
+        h(es, tasks)
 
 
 def select_task(es: ExecutionStream) -> tuple[Task | None, int]:
     if es.next_task is not None:
         t, es.next_task = es.next_task, None
         return t, 0
-    return es.context.scheduler.select(es)
+    h = _hooks[_SELECT_BEGIN]
+    if h is not None:
+        h(es, None)
+    t, distance = es.context.scheduler.select(es)
+    h = _hooks[_SELECT_END]
+    if h is not None:
+        h(es, t)
+    if t is not None and 0 < distance < 99:
+        # work pulled from another stream's queue: a steal (99 is the
+        # schedulers' shared system-queue sentinel, not a steal)
+        h = _hooks[_SELECT_STEAL]
+        if h is not None:
+            h(es, (t, distance))
+    return t, distance
 
 
 def execute_task(es: ExecutionStream, task: Task) -> int:
     """Walk the class's chores honouring the task's chore mask and the
-    evaluate/hook return protocol."""
-    for i, chore in enumerate(task.task_class.chores):
-        if not (task.chore_mask & (1 << i)) or not chore.enabled:
-            continue
-        if chore.evaluate is not None \
-                and chore.evaluate(es, task) == HOOK_RETURN_NEXT:
-            continue
-        rc = chore.hook(es, task)
-        if rc == HOOK_RETURN_NEXT:
-            task.chore_mask &= ~(1 << i)
-            continue
-        if rc == HOOK_RETURN_DISABLE:
-            chore.enabled = False
-            task.chore_mask &= ~(1 << i)
-            continue
-        return rc
-    return HOOK_RETURN_ERROR
+    evaluate/hook return protocol.  A device chore returns once it has
+    handed the task to the device manager, so its EXEC span is that
+    hand-off on the host (and, for the thread that becomes the manager,
+    the batches it then drives)."""
+    h = _hooks[_EXEC_BEGIN]
+    if h is not None:
+        h(es, task)
+    try:
+        for i, chore in enumerate(task.task_class.chores):
+            if not (task.chore_mask & (1 << i)) or not chore.enabled:
+                continue
+            if chore.evaluate is not None \
+                    and chore.evaluate(es, task) == HOOK_RETURN_NEXT:
+                continue
+            rc = chore.hook(es, task)
+            if rc == HOOK_RETURN_NEXT:
+                task.chore_mask &= ~(1 << i)
+                continue
+            if rc == HOOK_RETURN_DISABLE:
+                chore.enabled = False
+                task.chore_mask &= ~(1 << i)
+                continue
+            return rc
+        return HOOK_RETURN_ERROR
+    finally:
+        h = _hooks[_EXEC_END]
+        if h is not None:
+            h(es, task)
 
 
 def task_progress(es: ExecutionStream, task: Task, distance: int) -> int:
     """One task through its lifecycle."""
+    h = _hooks[_PREPARE_INPUT_BEGIN]
+    if h is not None:
+        h(es, task)
     prepare_input(es, task)
+    h = _hooks[_PREPARE_INPUT_END]
+    if h is not None:
+        h(es, task)
     rc = execute_task(es, task)
     if rc == HOOK_RETURN_DONE:
         complete_execution(es, task)
@@ -183,6 +243,9 @@ def complete_execution(es: ExecutionStream, task: Task) -> None:
     """Outputs -> repo/collection, successor release, input-repo
     consumption, task retirement.  A class's own ``complete_execution``
     runs first (DTD releases its instance successors there)."""
+    h = _hooks[_COMPLETE_EXEC_BEGIN]
+    if h is not None:
+        h(es, task)
     if task.task_class.complete_execution is not None:
         task.task_class.complete_execution(es, task)
     release_deps(es, task)
@@ -191,6 +254,9 @@ def complete_execution(es: ExecutionStream, task: Task) -> None:
             entry, src_flow = ref
             entry.consume(src_flow)
     task.status = "done"
+    h = _hooks[_COMPLETE_EXEC_END]
+    if h is not None:
+        h(es, task)
     task.taskpool.tdm.taskpool_addto_nb_tasks(-1)
 
 
@@ -200,6 +266,9 @@ def release_deps(es: ExecutionStream, task: Task) -> None:
     scheduler in one call.  Edges to another rank accumulate into one
     remote-deps record, activated through the comm engine after the
     walk."""
+    h = _hooks[_RELEASE_DEPS_BEGIN]
+    if h is not None:
+        h(es, task)
     tc = task.task_class
     tp = task.taskpool
     ctx = tp.context
@@ -249,8 +318,12 @@ def release_deps(es: ExecutionStream, task: Task) -> None:
         entry.addto_usage_limit(nconsumers)
     if remote is not None:
         ctx.remote_dep_activate(es, task, remote)
-    if pending:
-        schedule_tasks(es, ctx.deps.release_many(tp, pending), 0)
+    ready = ctx.deps.release_many(tp, pending) if pending else None
+    h = _hooks[_RELEASE_DEPS_END]
+    if h is not None:
+        h(es, task)
+    if ready:
+        schedule_tasks(es, ready, 0)
 
 
 def apply_writeback_to_home(dc: Any, key: tuple, out_copy: Any) -> None:

@@ -13,8 +13,10 @@ whose steals migrate whole release batches, **lhq** with an
 intermediate group rung per last-level cache.
 :func:`open_scheduler` takes each name (the ``sched`` param).
 
-Left out: the MCA component repository and its priority query (the port
-opens a module by name, default ``lfq``), the ``serve_fair`` component
+Left out: registering the schedulers in the MCA component repository
+(:mod:`parsec_tpu_torch.core.mca` holds only the PINS modules) and its
+priority query (the port opens a module by name, default ``lfq``), the
+``serve_fair`` component
 (the port's server wraps the context's scheduler itself) and
 ``queue_depths``, which only the stall dump reads.
 """

@@ -25,8 +25,9 @@ one Context's workers running and gives every client thread::
 Left out: ``submit_lowered`` (the lowering itself is ported,
 :func:`~parsec_tpu_torch.ptg.lowering.lower_taskpool`; the server's
 entry for lowered pools and its lowering cache are not), the
-task-budget admission cost (see :mod:`.admission`), spans, PINS
-events, the flight recorder's stall section, the SLO metrics plane
+task-budget admission cost (see :mod:`.admission`), spans, the serving
+PINS events (``SERVE_*``; the port's PINS fires from the runtime the
+server drives), the flight recorder's stall section, the SLO metrics plane
 (``metrics()``) and the tuning-DB consult.
 """
 

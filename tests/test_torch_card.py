@@ -1079,3 +1079,111 @@ def test_spec_and_prefix_serving_on_the_card(card, mode):
     else:
         assert llm["kv"]["prefix_hits"] == 3
     assert card.stats()["spill_hook_failures"] == 0
+
+
+def _gemm_pool_on_the_card(n=2048, nb=512, drop_chain=False):
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    A, B = TiledMatrix.from_dense("A", a, nb, nb), \
+        TiledMatrix.from_dense("B", b, nb, nb)
+    C = TiledMatrix("C", n, n, nb, nb)
+    tp = tiled_gemm_ptg(A, B, C)
+    if drop_chain:
+        fC = next(f for f in tp.task_class("GEMM").flows if f.name == "C")
+        fC.deps_in = [d for d in fC.deps_in if d.target_class is None]
+    return tp, (a, b, C)
+
+
+def test_the_gate_raises_before_any_k1_launch(card):
+    """Under ``analysis_check`` the dynamic GEMM with its chain input
+    dropped raises ``GraphCheckError`` from ``add_taskpool``: K1 is never
+    launched and the context holds no pool; the sound pool then runs."""
+    from parsec_tpu_torch.analysis import GraphCheckError
+    before = params.get("analysis_check")
+    params.set("analysis_check", True)
+    try:
+        bad, _ = _gemm_pool_on_the_card(drop_chain=True)
+        ctx = Context(nb_cores=0)
+        k1, ran = tg.gemm_update.launches, card.executed_tasks
+        with pytest.raises(GraphCheckError, match="missing-input-edge"):
+            ctx.add_taskpool(bad)
+        assert tg.gemm_update.launches == k1 and ctx.test()
+        assert card.executed_tasks == ran
+        good, (a, b, C) = _gemm_pool_on_the_card()
+        ctx.add_taskpool(good)
+        ctx.wait(timeout=120)
+        card.sync()
+        ctx.fini()
+        assert tg.gemm_update.launches > k1
+        _tf32_close(torch.from_numpy(C.to_dense()), torch.from_numpy(a),
+                    torch.from_numpy(b))
+    finally:
+        params.set("analysis_check", before)
+
+
+def test_the_task_profiler_traces_the_gemm_on_the_card(card, tmp_path):
+    """The task profiler and the SDE module on the dynamic GEMM: one EXEC
+    span and one retired task a task, the stage-in events summing to the
+    device module's ``bytes_in``; the trace reads back."""
+    from parsec_tpu_torch.prof import Profiling, pins, sde, trace_state
+    from parsec_tpu_torch.prof.counters import TASKS_RETIRED
+    from parsec_tpu_torch.prof.pins import PinsEvent
+    before = params.get("pins")
+    params.set("pins", "task_profiler,sde")
+    trace_state.fini()
+    sde.reset()
+    staged = []
+
+    def on_stage(es, nb):
+        staged.append(nb)
+
+    pins.register(PinsEvent.DEVICE_STAGE_IN, on_stage)
+    bytes_in = card.bytes_in
+    try:
+        tp, (a, b, C) = _gemm_pool_on_the_card()
+        ctx = Context(nb_cores=0)
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=120)
+        card.sync()
+        ctx.fini()
+        path = str(tmp_path / "gemm.ptpb")
+        trace_state.dump(path)
+    finally:
+        pins.unregister(PinsEvent.DEVICE_STAGE_IN, on_stage)
+        params.set("pins", before)
+    recs = Profiling.load(path).to_records()
+    trace_state.fini()
+    assert len([r for r in recs if r["name"] == "task_exec"]) == 64
+    assert sde.get(TASKS_RETIRED) == 64
+    assert sum(staged) == card.bytes_in - bytes_in > 0
+    _tf32_close(torch.from_numpy(C.to_dense()), torch.from_numpy(a),
+                torch.from_numpy(b))
+
+
+def test_the_comm_thread_on_the_device_socket_tier(card, monkeypatch):
+    """The four-process Cholesky with ``comm_thread`` off and on: GETs,
+    payload bytes and task counts equal, both factors under the gates."""
+    from parsec_tpu_torch.comm import run_multiproc
+    from parsec_tpu_torch.comm.mp_bodies import factor_input
+    n, nb = 2048, 512
+    for key, value in (("KINDS", "cholesky"), ("N", n), ("NB", nb),
+                       ("CHORES", "cuda"), ("WARMUP", "0")):
+        monkeypatch.setenv(f"PARSEC_MP_{key}", str(value))
+    runs = {}
+    for on in (False, True):
+        monkeypatch.setenv("PARSEC_MCA_comm_thread", "1" if on else "0")
+        res = run_multiproc(4, "parsec_tpu_torch.comm.mp_bodies:pool_body",
+                            timeout=300, transport="device")
+        assert [r["comm_thread"] for r in res] == [on] * 4
+        runs[on] = recs = [r["kinds"]["cholesky"] for r in res]
+        got = np.zeros((n, n), np.float32)
+        for rec in recs:
+            for (i, j), tile in rec["tiles"].items():
+                got[i * nb:(i + 1) * nb, j * nb:(j + 1) * nb] = tile
+        spd = factor_input("cholesky", n)
+        assert _tile_error(got, spd, "cholesky", nb) < TF32_TILE_TOL
+    for key in ("gets", "tasks", "payload_bytes_received"):
+        assert [r[key] for r in runs[True]] == [r[key] for r in runs[False]]
+    assert [r["tiers"]["payload_in"] for r in runs[True]] \
+        == [r["tiers"]["payload_in"] for r in runs[False]]

@@ -4,8 +4,9 @@ Checked two ways: fresh interpreters import ``parsec_tpu_torch`` and run
 a 2x2x2-tile GEMM, a served LLM stream, speculative and prefix-cached
 streams, a lowered stencil and GEMM, a
 tiled Cholesky (dynamic and lowered), a 2-rank Cholesky over the comm
-layer and a chain across 2 rank processes of ``run_multiproc`` (each rank
-reports its own), then inspect ``sys.modules``
+layer, a chain across 2 rank processes of ``run_multiproc`` (each rank
+reports its own), and the graphcheck CLI with a GEMM under the enqueue
+gate and the task profiler, then inspect ``sys.modules``
 (subprocesses, because this test process already holds jax through
 ``conftest.py``); and an AST scan of every module of the package finds
 no such import.
@@ -111,7 +112,11 @@ def test_the_package_has_the_slice_modules():
                 "comm/socket_fabric.py", "comm/device_socket.py",
                 "comm/multiproc.py", "comm/mp_bodies.py",
                 "dtd/multirank_check.py", "llm/prefix_tree.py",
-                "data_dist/kv_tiers.py"):
+                "data_dist/kv_tiers.py", "core/mca.py",
+                "analysis/__init__.py", "analysis/graphcheck.py",
+                "analysis/__main__.py", "prof/__init__.py", "prof/pins.py",
+                "prof/counters.py", "prof/profiling.py",
+                "prof/task_profiler.py", "prof/iterators_checker.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu",
                 "native_core.cpp"):
@@ -384,6 +389,60 @@ def test_the_ast_scan_covers_the_comm_layer():
     for rel in ("codec", "socket_fabric", "device_socket", "multiproc",
                 "mp_bodies"):
         assert f"parsec_tpu_torch/comm/{rel}.py" in comm, rel
+
+
+def test_the_ast_scan_covers_analysis_and_prof():
+    for pkg, n in (("analysis", 3), ("prof", 6)):
+        mods = [f for f in PORT_FILES
+                if f.startswith(f"parsec_tpu_torch/{pkg}/")]
+        assert len(mods) == n, mods
+
+
+def test_graphcheck_and_the_task_profiler_load_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter imports ``parsec_tpu_torch.analysis`` and
+    ``parsec_tpu_torch.prof``, runs the graphcheck CLI and a GEMM under
+    the enqueue gate with the task profiler and the SDE module on, and
+    writes and reads its trace file."""
+    code = textwrap.dedent("""
+        import contextlib, io, json, os, sys, tempfile
+        import numpy as np
+        os.environ["PARSEC_MCA_pins"] = "task_profiler,sde"
+        os.environ["PARSEC_MCA_analysis_check"] = "1"
+        import parsec_tpu_torch.analysis as an
+        import parsec_tpu_torch.prof as prof
+        from parsec_tpu_torch.analysis.__main__ import main
+        from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+        from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+        from parsec_tpu_torch.runtime import Context
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = main(["--nt", "3"])
+        a = np.ones((16, 16), np.float32)
+        C = TiledMatrix("C", 16, 16, 8, 8)
+        ctx = Context(nb_cores=0)
+        ctx.add_taskpool(tiled_gemm_ptg(TiledMatrix.from_dense("A", a, 8, 8),
+                                        TiledMatrix.from_dense("B", a, 8, 8),
+                                        C, devices="cpu"))
+        ctx.wait(timeout=60)
+        ctx.fini()
+        path = os.path.join(tempfile.mkdtemp(), "t.ptpb")
+        prof.trace_state.dump(path)
+        recs = prof.Profiling.load(path).to_records()
+        print(json.dumps({
+            "rc": rc, "ok_lines": out.getvalue().count(": OK"),
+            "execs": sum(r["name"] == "task_exec" for r in recs),
+            "ok": bool(np.allclose(C.to_dense(), a @ a)),
+            "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["rc"] == 0 and out["ok_lines"] == 12
+    assert out["execs"] == 8 and out["ok"]
+    assert "parsec_tpu_torch.analysis.graphcheck" in out["modules"]
+    assert "parsec_tpu_torch.prof.task_profiler" in out["modules"]
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
