@@ -128,7 +128,9 @@ any phase fails:
    empty bodies), median of 5: ``dispatch_us`` on the compiled-DAG
    executor (it fails unless the executor and the native core engaged)
    and ``dynamic_dispatch_us`` under each of the eleven schedulers,
-   beside the host CPU.
+   beside the host CPU, with the always-on flight recorder at its
+   default ring of 256 events a thread, and again with it off
+   (``prof_flightrec_size`` 0, ``recorder_off``).
 15. **path multirank_gemm, multirank_cholesky, multirank_lu** (after the
    factorizations) — the dynamic GEMM, Cholesky and LU of phases
    **path** and **dynamic_*** at the same sizes across 4 ranks: threads
@@ -245,6 +247,34 @@ any phase fails:
    the first run's (and its GETs to **multiproc_cholesky**'s); each line
    carries the wall, ``get_ms_mean`` and the hops' host seconds
    (``tier_seconds``).
+23. **slo llm_wide_slo** (after **path llm_wide_pins**) — the ``llm_wide``
+   backlog (seed 11, 16 streams, 32 new tokens, 32 heads of 128, K2)
+   through a ``RuntimeServer`` with the span recorder on
+   (``prof_spans``): every stream equal to the oracle; per tenant,
+   ``metrics()``'s TTFT and token-latency p50/p99 held against the exact
+   quantiles (the histogram's rank rule, ``ceil(q * n)``) of the tickets'
+   own stamps of the same run (``first_token_at - submitted_at``,
+   ``per_token_s``), within the histogram's bucket error (a factor
+   ``sqrt(2**0.25)``, 9.05%) plus 0.0005 ms (the summary's rounding);
+   one EXEC span a task run; critpath's buckets over the run's spans,
+   with ``sum(buckets) + idle == window`` held for every request, beside
+   the card's busy share from **trace llm_wide** (the exec bucket is the
+   host's hand-off, not the card); ``runtime_report()``'s JSON bytes.
+24. **control stall** — a server tenant whose pool cannot finish (a host
+   body waits on an event): ``context.wait(timeout=1)`` must raise
+   ``ContextWaitTimeout`` within 10 s, after one stall dump written to a
+   temporary directory whose report names the tenant and its oldest
+   trace, the card's ``debug_state`` and the queue depths; then the event
+   is set, the server torn down abort-style, every worker joined.
+25. **path multiproc_traced** (after **multiproc_comm_thread**) — the
+   four-process Cholesky (n=8192, nb=1024, K1, ``comm_thread`` on) with
+   the span recorder on in every rank: the GETs [6, 18, 22, 10] and the
+   payload bytes by tier of **multiproc_cholesky**, the factor gates;
+   each rank writes its spans, ``prof/tracemerge.py`` stitches them,
+   every GET and activation flow matched across ranks, none left alone;
+   critpath over the merged trace (the identity held) with its
+   ``comm.get`` and ``comm.activate`` shares, and the wall beside
+   **multiproc_comm_thread**'s runs with the thread on.
 
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
@@ -957,19 +987,48 @@ def _host_cpu() -> str:
 
 def _pins_disabled_ns(iters: int = 200000) -> float:
     """One disabled PINS site (an index load and a falsy branch, the
-    pattern the scheduling loop compiles in) in ns, over ``iters``; the
-    phase fails if the slot is not disabled."""
+    pattern the scheduling loop compiles in) in ns, over ``iters``, with
+    the flight recorder's hook taken off the slots for the timing and put
+    back after; the phase fails if the slot is not disabled then."""
     from parsec_tpu_torch.prof import pins
+    saved = pins.recorder
+    pins.recorder = None
     hooks = pins.hooks
     ev = int(pins.PinsEvent.EXEC_BEGIN)
-    _check(hooks[ev] is None, "a PINS module is on during dispatch")
+    disabled = hooks[ev] is None
     payload = object()
     t0 = time.perf_counter()
     for _ in range(iters):
         h = hooks[ev]
         if h is not None:
             h(None, payload)
-    return (time.perf_counter() - t0) / iters * 1e9
+    ns = (time.perf_counter() - t0) / iters * 1e9
+    pins.recorder = saved
+    _check(disabled, "a PINS module is on during dispatch")
+    return ns
+
+
+class _FlightRecorderOff:
+    """The flight recorder off for a block (``prof_flightrec_size`` 0, the
+    recorder uninstalled, so the contexts built inside install none), and
+    the installed one put back after."""
+
+    def __enter__(self):
+        from parsec_tpu_torch.core.params import params
+        from parsec_tpu_torch.prof import flight_recorder
+        self.saved = (params.get("prof_flightrec_size"),
+                      flight_recorder.recorder)
+        flight_recorder.uninstall()
+        params.set("prof_flightrec_size", 0)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from parsec_tpu_torch.core.params import params
+        from parsec_tpu_torch.prof import flight_recorder, pins
+        size, rec = self.saved
+        params.set("prof_flightrec_size", size)
+        flight_recorder.recorder = rec
+        pins.recorder = rec.note if rec is not None else None
 
 
 def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 5) -> dict:
@@ -983,6 +1042,9 @@ def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 5) -> dict:
     from parsec_tpu_torch.models.ep import ep_pool
     from parsec_tpu_torch.runtime import Context
 
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.prof import flight_recorder
+
     _check(native.available(),
            f"the native core did not build: {native.build_error}")
     ctx = Context(nb_cores=0)
@@ -991,18 +1053,40 @@ def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 5) -> dict:
     _check(native_deps, "the native dep table is off")
     nt = 50
     builder = ep_pool(nt, ntasks // nt)
-    us, engaged = _drain_us(builder, ntasks, reps, compiled=True)
-    _check(engaged, "the EP pool did not run on the compiled DAG")
-    dynamic = {}
-    for name in ("lfq", "ap", "spq", "ip", "gd", "rnd", "ll", "llp", "pbq",
-                 "ltq", "lhq"):
-        dyn_us, dyn_engaged = _drain_us(builder, ntasks, reps,
-                                        compiled=False, scheduler=name)
-        _check(not dyn_engaged, f"{name}: the dynamic run was compiled")
-        dynamic[name] = dyn_us
+
+    def sweep() -> tuple[float, dict]:
+        us, engaged = _drain_us(builder, ntasks, reps, compiled=True)
+        _check(engaged, "the EP pool did not run on the compiled DAG")
+        dynamic = {}
+        for name in ("lfq", "ap", "spq", "ip", "gd", "rnd", "ll", "llp",
+                     "pbq", "ltq", "lhq"):
+            dyn_us, dyn_engaged = _drain_us(builder, ntasks, reps,
+                                            compiled=False, scheduler=name)
+            _check(not dyn_engaged, f"{name}: the dynamic run was compiled")
+            dynamic[name] = dyn_us
+        return us, dynamic
+
+    rec_size = params.get("prof_flightrec_size")
+    _check(flight_recorder.recorder is not None and rec_size > 0,
+           "the flight recorder is off at its default")
+    us, dynamic = sweep()
+    with _FlightRecorderOff():
+        off_us, off_dynamic = sweep()
+        pins_ns = _pins_disabled_ns()
+    _check(flight_recorder.recorder is not None,
+           "the flight recorder was not put back")
+
+    def median(d: dict) -> float:
+        return sorted(d.values())[len(d) // 2]
+
     rec = dict(ntasks=ntasks, reps=reps, dispatch_us=us,
                dispatch_path="compiled", dynamic_dispatch_us=dynamic,
-               pins_disabled_ns=_pins_disabled_ns(),
+               dynamic_median_us=median(dynamic),
+               flightrec_size=rec_size,
+               recorder_off=dict(flightrec_size=0, dispatch_us=off_us,
+                                 dynamic_dispatch_us=off_dynamic,
+                                 dynamic_median_us=median(off_dynamic)),
+               pins_disabled_ns=pins_ns,
                native_lib=native.loaded_path(), host_cpu=_host_cpu(),
                host_cpus=len(os.sched_getaffinity(0)))
     _emit(card, phase="dispatch", **rec)
@@ -1203,10 +1287,13 @@ def _wide_backlog(seed: int, n: int = 16):
 
 
 def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
-              label: str = "llm", wide: bool = False) -> dict:
+              label: str = "llm", wide: bool = False,
+              served=None) -> dict:
     """LLM decode serving through the entry points, on the card.  With
     ``wide``, the llm_wide backlog through a ``ContinuousBatcher`` of its
-    own on the server (the model is not the server's default)."""
+    own on the server (the model is not the server's default).
+    ``served(server, tickets, results)`` runs once every stream is done,
+    before the server drains; its result is the record's ``served``."""
     import statistics
 
     from parsec_tpu_torch.device import registry
@@ -1239,6 +1326,7 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
         results = [tk.result(timeout=600) for tk in tickets]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        extra = served(server, tickets, results) if served else None
         if wide:
             llm = batcher.stats()
             batcher.stop()
@@ -1328,6 +1416,8 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
                d2h_mb=delta("bytes_out") / 1e6,
                min_oracle_margin=min(min(m) for m in margins))
     _emit(card, phase="path", name=label, **rec)
+    if served is not None:
+        rec["served"] = extra
     return rec
 
 
@@ -3223,7 +3313,281 @@ def phase_multiproc_comm_thread(card: str, torch, multiproc: dict,
         runs.append(run)
     return dict(gemm_launches=sum(r["gemm_launches"] for r in runs),
                 gemm_launches_by_variant=_sum_counts(
-                    r["gemm_launches_by_variant"] for r in runs))
+                    r["gemm_launches_by_variant"] for r in runs),
+                walls_on=[r["wall_s"] for r in runs if r["comm_thread"]])
+
+
+# the SLO histograms' bucket error: a reported quantile is its bucket's
+# geometric midpoint, within a factor sqrt(growth) of every value in the
+# bucket; the summary rounds to 3 decimals
+SLO_REL = (2 ** 0.25) ** 0.5
+SLO_ABS_MS = 5e-4
+
+
+def _rank_quantile(xs: list, q: float) -> float:
+    """The q-quantile by the histograms' rank rule: the ``ceil(q * n)``-th
+    smallest value."""
+    xs = sorted(xs)
+    return xs[min(len(xs), max(1, math.ceil(q * len(xs)))) - 1]
+
+
+def _slo_held(got: float, want: float) -> bool:
+    return (want / SLO_REL - SLO_ABS_MS <= got
+            <= want * SLO_REL + SLO_ABS_MS)
+
+
+def _critpath_identity(rep: dict, what: str) -> None:
+    """``sum(buckets) + idle == window`` for every request of a critpath
+    report (to 1e-6 ms: the sums of ns in ms floats)."""
+    for key, rq in rep["requests"].items():
+        gap = sum(rq["buckets_ms"].values()) - rq["window_ms"]
+        _check(abs(gap) < 1e-6, f"{what}: critpath buckets of {key} miss "
+               f"its window by {gap} ms")
+
+
+def phase_llm_wide_slo(card: str, torch, busy: dict,
+                       max_spans: int = 1 << 20) -> dict:
+    """The ``llm_wide`` backlog (seed 11, 32 new tokens) through a
+    ``RuntimeServer`` with the span recorder on (phase 23 of the module
+    docstring); ``busy`` is **trace llm_wide**'s record."""
+    from parsec_tpu_torch.prof import runtime_report, spans
+    from parsec_tpu_torch.prof.critpath import attribute, normalize
+
+    def served(server, tickets, results):
+        by_tenant: dict = {}
+        for tk, r in zip(tickets, results):
+            d = by_tenant.setdefault(tk.tenant, {"ttft": [], "tok": []})
+            d["ttft"].append((tk.first_token_at - tk.submitted_at) * 1e3)
+            d["tok"].extend(x * 1e3 for x in r["per_token_s"])
+        # the report while the server's SLO plane and the spans live
+        return server.metrics(), by_tenant, runtime_report()
+
+    _check(spans.recorder is None, "the span recorder is already on")
+    with _Params(prof_spans=True, prof_spans_max=max_spans):
+        rec = phase_llm(card, torch, seed=11, max_new=32,
+                        label="llm_wide_slo", wide=True, served=served)
+    rcd = spans.recorder
+    _check(rcd is not None, "llm_wide_slo: the server installed no recorder")
+    raw = list(rcd.spans)
+    dropped = rcd.dropped
+    spans.uninstall()
+    metrics, by_tenant, report = rec["served"]
+    tenants = {}
+    for tenant, own in sorted(by_tenant.items()):
+        m = metrics["tenants"][tenant]
+        row = {}
+        for metric, xs in (("ttft_ms", own["ttft"]),
+                           ("tok_latency_ms", own["tok"])):
+            _check(m[f"{metric}_count"] == len(xs), f"llm_wide_slo "
+                   f"{tenant}: {m[f'{metric}_count']} {metric} samples, "
+                   f"the tickets hold {len(xs)}")
+            for q in (0.5, 0.99):
+                key = f"{metric}_p{int(q * 100)}"
+                want = _rank_quantile(xs, q)
+                _check(_slo_held(m[key], want), f"llm_wide_slo {tenant}: "
+                       f"{key} {m[key]} against the stamps' {want}")
+                row[key] = m[key]
+                row[f"{key}_exact"] = want
+        row["latency_ms_count"] = m.get("latency_ms_count", 0)
+        tenants[tenant] = row
+    _check(dropped == 0, f"llm_wide_slo: {dropped} spans dropped")
+    execs = sum(sp[0] == "exec" for sp in raw)
+    ran = sum(rec["tasks_by_class"].values())
+    _check(execs == ran, f"llm_wide_slo: {execs} EXEC spans for {ran} "
+           f"tasks")
+    cp = attribute(normalize(raw))
+    _critpath_identity(cp, "llm_wide_slo")
+    bk = cp["buckets_ms"]
+    window = sum(bk.values())
+    _check({"slo", "serve", "llm", "critpath"} <= set(report),
+           f"llm_wide_slo: runtime_report blocks {sorted(report)}")
+    out = dict(tokens=rec["tokens"], wall_s=rec["wall_s"], tenants=tenants,
+               slo_rel_bound=SLO_REL, slo_abs_ms=SLO_ABS_MS,
+               tasks=ran, exec_spans=execs, spans=len(raw),
+               span_names={n: sum(sp[0] == n for sp in raw)
+                           for n in sorted({sp[0] for sp in raw})},
+               ragged_attn_page_launches=rec["ragged_attn_page_launches"],
+               critpath_traces=cp["traces"], critpath_buckets_ms=bk,
+               critpath_shares={b: v / window for b, v in bk.items()}
+               if window else {},
+               traced_busy_share=1.0 - busy["idle_share"],
+               traced_max_new=8,
+               runtime_report_blocks=sorted(report),
+               runtime_report_bytes=len(json.dumps(report)))
+    _emit(card, phase="slo", name="llm_wide_slo", **out)
+    return rec
+
+
+def _stuck_pool(gate, lanes: int = 4, depth: int = 4):
+    """A CTL pool of ``lanes`` chains of ``depth`` tasks whose host body
+    waits on ``gate``."""
+    from parsec_tpu_torch import ptg
+    p = ptg.PTGBuilder("stuckpool", NT=lanes, DEPTH=depth)
+    t = p.task("EP", d=ptg.span(0, lambda g, l: g.DEPTH - 1),
+               n=ptg.span(0, lambda g, l: g.NT - 1))
+    f = t.flow("ctl", ptg.CTL)
+    f.input(pred=("EP", "ctl", lambda g, l: {"d": l.d - 1, "n": l.n}),
+            guard=lambda g, l: l.d > 0)
+    f.output(succ=("EP", "ctl", lambda g, l: {"d": l.d + 1, "n": l.n}),
+             guard=lambda g, l: l.d < g.DEPTH - 1)
+    t.body(lambda es, task, g, l: (gate.wait(60), None)[1])
+    return p.build()
+
+
+def phase_stall(card: str, torch, timeout: float = 1.0) -> dict:
+    """The stall control on the card's machine (phase 24 of the module
+    docstring)."""
+    import tempfile
+    import threading
+
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.prof import flight_recorder
+    from parsec_tpu_torch.runtime.context import ContextWaitTimeout
+    from parsec_tpu_torch.serve import RuntimeServer
+
+    gate = threading.Event()
+    with tempfile.TemporaryDirectory(prefix="flightrec_") as d, \
+            _Params(prof_flightrec_dir=d):
+        server = RuntimeServer(nb_cores=1)
+        tk = server.submit(_stuck_pool(gate), tenant="stuck")
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            server.context.wait(timeout=timeout)
+        except ContextWaitTimeout as e:
+            raised = e
+        waited = time.perf_counter() - t0
+        report = server.context.last_stall_report
+        artifact = os.path.join(d, "flightrec-0.json")
+        on_disk = os.path.exists(artifact)
+        gate.set()
+        server.__exit__(type(raised), raised, None)
+    _check(raised is not None, "stall: the wait did not time out")
+    _check(waited < timeout + 9.0, f"stall: the wait took {waited} s")
+    _check(report is not None and on_disk, "stall: no stall dump written")
+    sec = [v for k, v in (report.get("sections") or {}).items()
+           if k.startswith("serve")]
+    stuck = sec[0].get("stuck") if sec else None
+    _check(stuck is not None and stuck["inflight"] == 1
+           and stuck["oldest_trace_id"] == format(tk.trace.trace_id, "x"),
+           f"stall: the dump does not name the tenant ({sec})")
+    cards = [dv for dv in report.get("devices") or []
+             if isinstance(dv, dict) and dv.get("name") == "cuda(0)"]
+    _check(len(cards) == 1 and "lru_tiles" in cards[0],
+           f"stall: the dump holds no card state ({report.get('devices')})")
+    depths = report.get("queue_depths")
+    _check(isinstance(depths, dict) and depths.get("fair.stuck", 0) > 0,
+           f"stall: queue depths {depths}")
+    alive = [t.name for t in server.context._threads if t.is_alive()]
+    _check(not alive, f"stall: workers still alive: {alive}")
+    _check(not any(k.startswith("serve") for k in (flight_recorder
+           .build_stall_report(None, "after").get("sections") or {})),
+           "stall: the server's section outlived it")
+    out = dict(timeout_s=timeout, waited_s=waited,
+               reason=report["reason"][:120], tenant=stuck,
+               queue_depths=depths, card_state=cards[0] if cards else None,
+               workers=sorted(report["workers"]),
+               devices=[dv.get("name") for dv in report["devices"]],
+               ticket_state=tk.state, n_devices=len(registry.devices))
+    _emit(card, phase="control", name="stall", **out)
+    return out
+
+
+def phase_multiproc_traced(card: str, torch, multiproc: dict,
+                           comm_thread: dict, n: int = 8192,
+                           nb: int = 1024, seed: int = 0) -> dict:
+    """The four-process Cholesky with spans on in every rank (phase 25 of
+    the module docstring)."""
+    import tempfile
+
+    from parsec_tpu_torch.comm.mp_bodies import factor_input
+    from parsec_tpu_torch.prof import tracemerge
+    from parsec_tpu_torch.prof.critpath import attribute, from_chrome
+
+    base = multiproc["multiproc_cholesky"]
+    with tempfile.TemporaryDirectory(prefix="mp_traced_") as d:
+        res, launch_s = _mp_launch(torch, ("cholesky",), n, nb, seed, {
+            "PARSEC_MCA_comm_thread": "1", "PARSEC_MCA_prof_spans": "1",
+            "PARSEC_MCA_prof_spans_max": str(1 << 20),
+            "PARSEC_MP_TRACE_DIR": d})
+        recs = [r["kinds"]["cholesky"] for r in res]
+        paths = [os.path.join(d, f"trace-cholesky-rank{r}.json")
+                 for r in range(MR_RANKS)]
+        merged = os.path.join(d, "merged.json")
+        t0 = time.perf_counter()
+        stats = tracemerge.merge_traces(paths, merged)
+        merge_s = time.perf_counter() - t0
+        with open(merged) as f:
+            events = json.load(f)["traceEvents"]
+    _check([r["comm_thread"] for r in res] == [True] * MR_RANKS,
+           "multiproc_traced: the comm thread is off")
+    gets = [r["gets"] for r in recs]
+    tiers = [{k: r["tiers"][k] for k in ("payload_in", "payload_out")}
+             for r in recs]
+    _check(gets == base["gets_by_rank"], f"multiproc_traced: GETs {gets}")
+    _check([t["payload_in"] for t in tiers] == base["payload_in_by_rank"]
+           and [t["payload_out"] for t in tiers]
+           == base["payload_out_by_rank"],
+           f"multiproc_traced: bytes by tier {tiers}")
+    dense = _mp_dense(recs, n, nb)
+    checks = _factor_check(torch, "cholesky", dense,
+                           factor_input("cholesky", n), nb, "default")
+    del dense
+    _check(all(r["spans_dropped"] == 0 for r in recs),
+           "multiproc_traced: spans dropped")
+    sides: dict = {}
+    for ev in events:
+        a = ev.get("args") or {}
+        if a.get("flow") and a.get("flow_side") in ("emit", "recv"):
+            sides.setdefault(a["flow"], set()).add(a["flow_side"])
+    unmatched = sorted(k for k, v in sides.items() if len(v) < 2)
+    # a hop records comm.activate on both of its ranks
+    acts = sum(r["spans"].get("comm.activate", 0) for r in recs) // 2
+    by_kind = stats["flows_by_kind"]
+    _check(not unmatched, f"multiproc_traced: {len(unmatched)} flows "
+           f"unmatched ({unmatched[:4]})")
+    _check(by_kind.get("get", 0) == sum(gets),
+           f"multiproc_traced: {by_kind} against {sum(gets)} GETs")
+    _check(by_kind.get("act", 0) == acts > 0
+           and stats["cross_rank_flows"] == stats["flows_matched"]
+           == len(sides), f"multiproc_traced: flows {stats}")
+    cp = attribute(from_chrome(events))
+    _critpath_identity(cp, "multiproc_traced")
+    bk = cp["buckets_ms"]
+    window = sum(bk.values())
+    launches = sum(r["k1"] for r in recs)
+    wall = max(r["t_wait"] for r in recs) - min(r["t_add"] for r in recs)
+    out = dict(n=n, nb=nb, ranks=MR_RANKS, comm_thread=True, wall_s=wall,
+               comm_thread_walls_on=comm_thread["walls_on"],
+               launch_s=launch_s, gets_by_rank=gets,
+               payload_in_by_rank=[t["payload_in"] for t in tiers],
+               get_ms_mean=(sum(r["tier_s"]["get_s"] for r in recs)
+                            / max(1, sum(gets)) * 1e3),
+               spans_by_rank=[r["spans"] for r in recs],
+               flows_matched=stats["flows_matched"],
+               cross_rank_flows=stats["cross_rank_flows"],
+               flows_by_kind=by_kind, unmatched_flows=len(unmatched),
+               merged_events=stats["events"], merge_s=merge_s,
+               critpath_buckets_ms=bk,
+               critpath_shares={b: v / window for b, v in bk.items()}
+               if window else {},
+               comm_get_share=bk["comm.get"] / window if window else 0.0,
+               comm_activate_share=(bk["comm.activate"] / window
+                                    if window else 0.0),
+               overlap_efficiency=cp["overlap_efficiency"],
+               top_overlap_lost=cp["top_overlap_lost"],
+               # each comm edge class: spans, their mean and the part of
+               # their flight no task hid (a GET's request to landing,
+               # its owner's serve, an activation hop, a CTRL landing)
+               edges={c: dict(count=e["count"],
+                              mean_ms=e["total_ms"] / e["count"],
+                              overlap_lost_ms=e["overlap_lost_ms"])
+                      for c, e in sorted(cp["edges"].items())},
+               gemm_launches=launches,
+               gemm_launches_by_variant=_by_variant(_sum_counts(
+                   r["k1_by_variant"] for r in recs)), **checks)
+    _emit(card, phase="path", name="multiproc_traced", **out)
+    return out
 
 
 def _mp_dense(recs: list, n: int, nb: int):
@@ -3268,12 +3632,15 @@ def main() -> int:
     phase_llm_trace(card, torch)
     wide = phase_llm(card, torch, seed=11, max_new=32, label="llm_wide",
                      wide=True)
-    phase_llm_trace(card, torch, max_new=8, wide=True)
+    wide_trace = phase_llm_trace(card, torch, max_new=8, wide=True)
     wide_pins = phase_llm_wide_pins(card, torch)
+    wide_slo = phase_llm_wide_slo(card, torch, wide_trace)
+    phase_stall(card, torch)
     prefix = phase_llm_prefix(card, torch)
     spec = phase_llm_spec(card, torch)
     tiers = phase_llm_tiers(card, torch)
     k2_paths = {"llm": llm, "llm_wide": wide, "llm_wide_pins": wide_pins,
+                "llm_wide_slo": wide_slo,
                 **prefix,
                 "llm_spec": spec["llm_spec"],
                 "llm_spec_control": spec["llm_spec_control"],
@@ -3312,10 +3679,12 @@ def main() -> int:
                                         factor_paths["dynamic_lu"])}
     multiproc = phase_multiproc(card, torch, multirank)
     comm_thread = phase_multiproc_comm_thread(card, torch, multiproc)
+    traced = phase_multiproc_traced(card, torch, multiproc, comm_thread)
     mr_dtd = phase_multirank_dtd(card, torch)
     k1_paths = {"gemm": path, "dtd_gemm": dtd, "path_checked": checked,
                 "lowered_gemm": lgemm, **factor_paths, **multirank,
                 **multiproc, "multiproc_comm_thread": comm_thread,
+                "multiproc_traced": traced,
                 "multirank_dtd_gemm": mr_dtd}
     row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -54,10 +54,11 @@ successors``) are the JAX package's on the same pool; ``analysis_max_tasks``
 caps the enumeration as there.
 
 Left out: ``check_jdf`` (the JDF front-ends are not ported,
-``ROADMAP.md`` §1 item 9), ``GraphReport.select_regions`` and
-``GraphReport.critical_path`` (regions and critpath, queue items 6 and
-3), and the branches for a class's ``startup_fn`` override, which the
-port's task classes do not have.
+``ROADMAP.md`` §1 item 9), ``GraphReport.select_regions`` (regions,
+queue item 6), and the branches for a class's ``startup_fn`` override,
+which the port's task classes do not have.
+:meth:`GraphReport.critical_path` runs critpath's
+``dag_critical_path`` over the retained graph.
 """
 
 from __future__ import annotations
@@ -178,6 +179,15 @@ class GraphReport:
         if not self.ok:
             raise GraphCheckError(self)
         return self
+
+    def critical_path(self, class_costs: dict | None = None) -> dict:
+        """Longest-cost chain over the concrete graph
+        (:func:`parsec_tpu_torch.prof.critpath.dag_critical_path`), each
+        node weighted by its class's mean exec cost from ``class_costs``
+        (``critpath.class_costs_from`` of a critpath report), unit
+        weights otherwise."""
+        from ..prof.critpath import dag_critical_path
+        return dag_critical_path(self.graph, class_costs)
 
     def summary(self) -> str:
         state = "OK" if self.ok else "FAILED"

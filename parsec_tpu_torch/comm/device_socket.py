@@ -115,13 +115,14 @@ class DeviceSocketCommEngine(SocketCommEngine):
         return h
 
     def get(self, rwire: tuple[int, int],
-            on_complete: Callable[[Any], None]) -> int:
+            on_complete: Callable[[Any], None],
+            trace: int | None = None) -> int:
         t0 = time.perf_counter()
 
         def landed(value: Any) -> None:
             self.get_s += time.perf_counter() - t0
             on_complete(value)
-        return super().get(rwire, landed)
+        return super().get(rwire, landed, trace=trace)
 
     # -- the payload path: flat bytes and metadata, no object graph ----------
     def _serve_value(self, h: MemHandle) -> Any:

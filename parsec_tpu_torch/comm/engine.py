@@ -48,12 +48,24 @@ protocol, fragments and credit window included, counted apart in
 sets one, runs once the registration drops (the peer KV store's
 custody ledger, ``data_dist/kv_tiers.py``).
 
-A lookahead GET fires the ``COMM_GET_PREFETCH`` PINS event (payload:
-the owner rank).
+PINS: a lookahead GET fires ``COMM_GET_PREFETCH`` (payload: the owner
+rank); each fragment served fires ``COMM_GET_FRAG_SENT`` and each
+fragment landed ``COMM_GET_FRAG_RECV`` (payload: its bytes), and a
+fragmented GET that completes fires ``COMM_GET_DONE`` (payload: its
+bytes).
 
-Left out: the fragment PINS events (``COMM_GET_FRAG_SENT``/``_RECV``,
-``COMM_GET_DONE``), trace spans, resumed GETs (``resume_get``) and the
-``Capabilities`` record.
+**Traces.**  ``send_am(..., trace_id=)`` hands a request's 8-byte trace
+to the transport (the socket fabric packs it into the CTRL header's
+``u2`` word; the in-process fabric has no header).  ``get(...,
+trace=)`` carries it in the GET request, and the first DATA fragment's
+meta carries it too.  With the span recorder installed
+(:mod:`parsec_tpu_torch.prof.spans`) the requester records ``comm.get``
+(request to payload landed) and the owner ``comm.get_serve`` (its reply
+or its fragment window), both flow-keyed ``get:<requester>:<get_id>``
+for :mod:`~parsec_tpu_torch.prof.tracemerge`; the requester's open span
+lives in ``_get_spans``, which the disabled path never touches.
+
+Left out: resumed GETs (``resume_get``) and the ``Capabilities`` record.
 """
 
 from __future__ import annotations
@@ -69,7 +81,7 @@ import torch
 from ..core.backoff import Backoff
 from ..core.params import params as _params
 from ..data.data import nbytes_of
-from ..prof import pins
+from ..prof import pins, spans as _spans
 from ..prof.pins import PinsEvent
 from .codec import dtype_name, torch_dtype_of
 
@@ -90,6 +102,8 @@ _params.register("comm_get_frag_bytes", 4 << 20,
 _params.register("comm_get_window", 4,
                  "max in-flight unacked fragments per GET (each landed "
                  "fragment returns one credit)")
+
+_now_ns = time.perf_counter_ns
 
 
 class MemHandle:
@@ -125,16 +139,20 @@ class _FragSend:
     """Sender side of one fragmented reply: the pieces and the cursor the
     credit window advances."""
 
-    __slots__ = ("dst", "get_id", "handle_id", "pieces", "meta", "next")
+    __slots__ = ("dst", "get_id", "handle_id", "pieces", "meta", "next",
+                 "trace", "t0")
 
     def __init__(self, dst: int, get_id: int, handle_id: int,
-                 pieces: list, meta: dict) -> None:
+                 pieces: list, meta: dict, trace: int = 0,
+                 t0: int = 0) -> None:
         self.dst = dst
         self.get_id = get_id
         self.handle_id = handle_id
         self.pieces = pieces        # [(byte_offset, nbytes, tensor), ...]
         self.meta = meta
         self.next = 0
+        self.trace = trace          # the request's 8-byte trace (0: none)
+        self.t0 = t0                # the serve span's start (ns)
 
 
 class _LandingZone:
@@ -172,7 +190,10 @@ class InprocFabric:
         self.engines[rank] = eng
         return eng
 
-    def deliver(self, dst: int, tag: int, src: int, payload: Any) -> None:
+    def deliver(self, dst: int, tag: int, src: int, payload: Any,
+                trace_id: int = 0) -> None:
+        # the trace word is a frame header's (the socket fabric's u2); in
+        # process the payload-level trace fields carry it
         with self._locks[dst]:
             self._inboxes[dst].append((tag, src, payload))
 
@@ -211,7 +232,10 @@ class CommEngine:
         """``cb(engine, src_rank, payload)`` runs during ``progress``."""
         self._am_callbacks[tag] = cb
 
-    def send_am(self, tag: int, dst: int, payload: Any) -> None:
+    def send_am(self, tag: int, dst: int, payload: Any,
+                trace_id: int = 0) -> None:
+        """``trace_id``, a request's 8-byte trace, rides the transport's
+        frame header where it has one; the payload is untouched."""
         raise NotImplementedError
 
     # -- registered memory / one-sided ---------------------------------------
@@ -273,20 +297,24 @@ class CommEngine:
         return value.clone() if isinstance(value, torch.Tensor) else value
 
     def get(self, rwire: tuple[int, int],
-            on_complete: Callable[[Any], None]) -> int:
+            on_complete: Callable[[Any], None],
+            trace: int | None = None) -> int:
         """One-sided pull of the remote buffer named by ``rwire``;
-        ``on_complete(value)`` runs locally when the payload has landed."""
+        ``on_complete(value)`` runs locally when the payload has landed.
+        ``trace`` rides the request, so both ends record the transfer
+        under the request's trace."""
         raise NotImplementedError
 
     def prefetch_get(self, rwire: tuple[int, int],
-                     on_complete: Callable[[Any], None]) -> int:
+                     on_complete: Callable[[Any], None],
+                     trace: int | None = None) -> int:
         """A GET issued ahead of demand: the same protocol (fragmented
         under the credit window past ``comm_get_frag_bytes``), counted in
         ``prefetch_gets`` so a lookahead pull is told apart from an
         on-demand one."""
         self.prefetch_gets += 1
         pins.fire(PinsEvent.COMM_GET_PREFETCH, None, rwire[0])
-        return self.get(rwire, on_complete)
+        return self.get(rwire, on_complete, trace=trace)
 
     # -- lifecycle / progress -------------------------------------------------
     def enable(self) -> None:
@@ -326,6 +354,9 @@ class InprocCommEngine(CommEngine):
         self._frag_sends: dict[tuple[int, int], _FragSend] = {}
         self._frag_lock = threading.Lock()
         self.frag_active = 0
+        # the requester's open comm.get spans by get id: (trace, t0_ns),
+        # only while the span recorder is installed
+        self._get_spans: dict[int, tuple[int, int]] = {}
         self.gets = 0            # GETs this rank issued
         self.frags_in = 0
         self.frag_bytes_in = 0
@@ -339,35 +370,54 @@ class InprocCommEngine(CommEngine):
         self.tag_register(AM_TAG_BARRIER, self._on_barrier)
 
     # -- AM -------------------------------------------------------------------
-    def send_am(self, tag: int, dst: int, payload: Any) -> None:
+    def send_am(self, tag: int, dst: int, payload: Any,
+                trace_id: int = 0) -> None:
         # self-sends also go through the inbox: the callback runs from
         # progress(), never from the sender's stack
-        self.fabric.deliver(dst, tag, self.rank, payload)
+        self.fabric.deliver(dst, tag, self.rank, payload, trace_id=trace_id)
 
     # -- one-sided get: rendezvous through internal AMs ----------------------
     def get(self, rwire: tuple[int, int],
-            on_complete: Callable[[Any], None]) -> int:
+            on_complete: Callable[[Any], None],
+            trace: int | None = None) -> int:
         owner, handle_id = rwire
         get_id = next(self._get_ids)
         self._pending_gets[get_id] = on_complete
         self.gets += 1
-        self.send_am(AM_TAG_GET_REQ, owner,
-                     {"handle": handle_id, "get_id": get_id,
-                      "reply_to": self.rank})
+        msg = {"handle": handle_id, "get_id": get_id, "reply_to": self.rank}
+        if _spans.recorder is not None:
+            self._get_spans[get_id] = (trace or 0, _now_ns())
+        if trace:
+            msg["trace"] = trace
+        self.send_am(AM_TAG_GET_REQ, owner, msg, trace_id=trace or 0)
         return get_id
+
+    def _record_get_span(self, get_id: int, nbytes: int) -> None:
+        """The requester's ``comm.get`` span, request sent to payload
+        landed, flow-keyed ``get:<requester>:<get_id>``."""
+        ent = self._get_spans.pop(get_id, None)
+        r = _spans.recorder
+        if ent is None or r is None:
+            return
+        tr, t0 = ent
+        r.record("comm.get", tr, t0, _now_ns(),
+                 args={"flow": f"get:{self.rank}:{get_id}",
+                       "flow_side": "recv", "bytes": nbytes})
 
     def _serve_get(self, eng: CommEngine, src: int, msg: dict) -> None:
         h = self.mem_retrieve(msg["handle"])
         if h is None:
             raise RuntimeError(
                 f"rank {self.rank}: GET for unknown handle {msg['handle']}")
+        t0 = _now_ns() if _spans.recorder is not None else 0
         value = self._serve_value(h)
         plan = self._plan_frags(value)
+        trace = msg.get("trace") or 0
         if plan is not None:
             # the receiver copies each fragment into a destination of its
             # own, so the pieces may be views of the registered snapshot
             self._start_frag_send(msg["reply_to"], msg["get_id"],
-                                  msg["handle"], plan)
+                                  msg["handle"], plan, trace=trace, t0=t0)
             return
         # each consumer receives a tensor of its own; the snapshot is
         # private to the engine, so the LAST consumer takes it as is
@@ -375,7 +425,15 @@ class InprocCommEngine(CommEngine):
                 and h.refcount > 1:
             value = value.clone()
         self.send_am(AM_TAG_GET_REPLY, msg["reply_to"],
-                     {"get_id": msg["get_id"], "value": value})
+                     {"get_id": msg["get_id"], "value": value},
+                     trace_id=trace)
+        r = _spans.recorder
+        if r is not None:
+            r.record("comm.get_serve", trace, t0, _now_ns(),
+                     args={"flow": f"get:{msg['reply_to']}:"
+                                   f"{msg['get_id']}",
+                           "flow_side": "emit",
+                           "bytes": nbytes_of(value)})
         self.mem_release(msg["handle"], peer=msg["reply_to"])
 
     def _finish_get(self, eng: CommEngine, src: int, msg: dict) -> None:
@@ -383,7 +441,9 @@ class InprocCommEngine(CommEngine):
         if cb is None:
             self.dup_get_replies += 1     # a replayed reply: idempotent
             return
-        cb(self._land_value(msg["value"]))
+        value = self._land_value(msg["value"])
+        self._record_get_span(msg["get_id"], nbytes_of(value))
+        cb(value)
 
     # -- fragmentation hooks (overridden by the device tiers) -----------------
     def _serve_value(self, h: MemHandle) -> Any:
@@ -422,9 +482,14 @@ class InprocCommEngine(CommEngine):
 
     # -- fragmentation: sender side -------------------------------------------
     def _start_frag_send(self, dst: int, get_id: int, handle_id: int,
-                         plan: tuple[list, dict]) -> None:
+                         plan: tuple[list, dict], trace: int = 0,
+                         t0: int = 0) -> None:
         pieces, meta = plan
-        fs = _FragSend(dst, get_id, handle_id, pieces, meta)
+        if trace:
+            # the first DATA frame's meta carries the trace; the later
+            # fragments resolve through their get id
+            meta = dict(meta, trace=trace)
+        fs = _FragSend(dst, get_id, handle_id, pieces, meta, trace, t0)
         with self._frag_lock:
             self._frag_sends[(dst, get_id)] = fs
             self.frag_active += 1
@@ -443,10 +508,19 @@ class InprocCommEngine(CommEngine):
                              fs.meta if i == 0 else None, last)
         self.frags_out += 1
         self.frag_bytes_out += n
+        pins.fire(PinsEvent.COMM_GET_FRAG_SENT, None, n)
         if last:
             with self._frag_lock:
                 self._frag_sends.pop((fs.dst, fs.get_id), None)
                 self.frag_active -= 1
+            r = _spans.recorder
+            if r is not None:
+                r.record("comm.get_serve", fs.trace, fs.t0 or _now_ns(),
+                         _now_ns(),
+                         args={"flow": f"get:{fs.dst}:{fs.get_id}",
+                               "flow_side": "emit",
+                               "bytes": int(fs.meta.get("nbytes", 0)),
+                               "frags": len(fs.pieces)})
             self.mem_release(fs.handle_id, peer=fs.dst)
         return True
 
@@ -537,6 +611,7 @@ class InprocCommEngine(CommEngine):
         zone.remaining -= nbytes
         self.frags_in += 1
         self.frag_bytes_in += nbytes
+        pins.fire(PinsEvent.COMM_GET_FRAG_RECV, None, nbytes)
         self.send_am(AM_TAG_GET_FRAG_ACK, src, (get_id,))
         if zone.remaining > 0:
             return
@@ -544,6 +619,8 @@ class InprocCommEngine(CommEngine):
             self._landing.pop(get_id, None)
             self.frag_active -= 1
         value = self._land_value(self._zone_finish(zone))
+        pins.fire(PinsEvent.COMM_GET_DONE, None, int(zone.meta["nbytes"]))
+        self._record_get_span(get_id, int(zone.meta["nbytes"]))
         cb = self._pending_gets.pop(get_id, None)
         if cb is None:
             self.dup_get_replies += 1

@@ -10,7 +10,12 @@ Each body has the ``fn(ctx, rank, nranks)`` signature and returns host
 values.  Sizes and choices reach :func:`pool_body` through the
 environment, which every rank inherits from the launcher
 (``PARSEC_MP_KINDS``, ``PARSEC_MP_N``, ``PARSEC_MP_NB``,
-``PARSEC_MP_SEED``, ``PARSEC_MP_CHORES``, ``PARSEC_MP_WARMUP``).
+``PARSEC_MP_SEED``, ``PARSEC_MP_CHORES``, ``PARSEC_MP_WARMUP``,
+``PARSEC_MP_TRACE_DIR``).  With ``PARSEC_MP_TRACE_DIR`` set (and the
+span recorder on, ``prof_spans``, which ``run_multiproc`` forwards), the
+timed run of each kind carries one trace on every rank, and each rank
+writes its spans as a Chrome trace, ``trace-<kind>-rank<r>.json``, to
+that directory for :mod:`parsec_tpu_torch.prof.tracemerge`.
 """
 
 from __future__ import annotations
@@ -80,6 +85,36 @@ def chain_body(ctx, rank, nranks):
     if rank == 0:
         return float(V.data_of(0).newest_copy().value[0])
     return None
+
+
+def traced_chain_body(ctx, rank, nranks):
+    """:func:`chain_body` on the dynamic scheduler with the task profiler
+    and the grapher on: each rank writes its own binary trace
+    ``rank<r>.prof`` and DOT fragment ``rank<r>.dot`` to
+    ``PARSEC_MP_TRACE_DIR`` (the per-rank inputs of ``prof.info`` and
+    ``prof.dotmerge``)."""
+    from ..core.mca import repository
+    from ..core.params import params
+    from ..prof.profiling import profiling
+
+    out_dir = os.environ["PARSEC_MP_TRACE_DIR"]
+    old = params.get("runtime_dag_compile")
+    params.set("runtime_dag_compile", False)
+    profiling.init()
+    prof_comp = repository.find("pins", "task_profiler")
+    prof_mod = prof_comp.open()
+    graph_comp = repository.find("pins", "grapher")
+    graph_mod = graph_comp.open()
+    try:
+        chain_body(ctx, rank, nranks)
+    finally:
+        params.set("runtime_dag_compile", old)
+        graph_mod.write_dot(os.path.join(out_dir, f"rank{rank}.dot"))
+        graph_comp.close(graph_mod)
+        profiling.dump(os.path.join(out_dir, f"rank{rank}.prof"))
+        prof_comp.close(prof_mod)
+        profiling.fini()
+    return True
 
 
 def _small_gemm(ctx, rank, nranks) -> np.ndarray:
@@ -241,6 +276,9 @@ def _rank_matrices(kind: str, n: int, nb: int, seed: int, rank: int,
     return (A,)
 
 
+_KINDS = ("gemm", "cholesky", "lu")
+
+
 def _pool(kind: str, mats: tuple, chores: str):
     from ..models.cholesky import tiled_cholesky_ptg
     from ..models.lu import tiled_lu_ptg
@@ -300,22 +338,40 @@ def _diff(after: dict, before: dict) -> dict:
     return out
 
 
+# the trace every rank's traced pool of a kind carries (rank-agreed by
+# construction, as a served request's is by the wire)
+_TRACE_BASE = 0xC0DE0000
+
+
 def _run_kind(ctx, rank: int, nranks: int, kind: str, n: int, nb: int,
-              seed: int, chores: str, dev) -> dict:
+              seed: int, chores: str, dev, trace_dir: str | None = None
+              ) -> dict:
     """One run of ``kind``'s pool: the ranks meet at a barrier, stamp
     ``time.monotonic()`` (one clock for every process on a host) before
     ``add_taskpool`` and after ``wait`` (the card synchronized), and
     report their counters' change, the K1 launches counted from 0 at
     ``add_taskpool`` to ``wait``'s return, and their own tiles of the
-    result."""
+    result.  With ``trace_dir`` the pool is traced, the recorder's
+    earlier spans are dropped at the barrier, and the run's spans are
+    written after the closing barrier (their count by name in
+    ``spans``)."""
     from ..core.params import params
     from ..data_dist.collection import enumerate_keys
+    from ..prof import spans
     params.set("termdet", "fourcounter" if kind == "cholesky" else "")
     try:
         mats = _rank_matrices(kind, n, nb, seed, rank, nranks)
         tp = _pool(kind, mats, chores)
+        if trace_dir is not None:
+            if spans.recorder is None:
+                raise RuntimeError("PARSEC_MP_TRACE_DIR is set but the span "
+                                   "recorder is off (prof_spans)")
+            tp._trace = spans.TraceContext(
+                _TRACE_BASE + _KINDS.index(kind))
         before = _counters(ctx, dev)
         ctx.comm_barrier()
+        if trace_dir is not None:
+            del spans.recorder.spans[:]
         _k1_zero()
         t_add = time.monotonic()
         ctx.add_taskpool(tp)
@@ -331,6 +387,14 @@ def _run_kind(ctx, rank: int, nranks: int, kind: str, n: int, nb: int,
         rec = _diff(_counters(ctx, dev), before)
         rec.update(k1)
         out = mats[-1]
+        if trace_dir is not None:
+            spans.export_chrome(os.path.join(
+                trace_dir, f"trace-{kind}-rank{rank}.json"), rank=rank)
+            names: dict[str, int] = {}
+            for sp in spans.recorder.spans:
+                names[sp[0]] = names.get(sp[0], 0) + 1
+            rec["spans"] = names
+            rec["spans_dropped"] = spans.recorder.dropped
         rec.update(tasks=tp.nb_local_tasks(), termdet=tp.tdm.name,
                    t_add=t_add, t_wait=t_wait,
                    tiles={k: out.data_of(*k).newest_copy().value.cpu()
@@ -367,7 +431,8 @@ def pool_body(ctx, rank, nranks):
     """GEMM, Cholesky, LU and/or the DTD GEMM (``PARSEC_MP_KINDS``:
     ``gemm``, ``cholesky``, ``lu``, ``dtd``, comma-separated) at
     ``PARSEC_MP_N`` x ``PARSEC_MP_N`` in tiles of ``PARSEC_MP_NB`` on a
-    2-D block-cyclic grid, with host chores or the device module's
+    2-D block-cyclic grid (each traced under ``PARSEC_MP_TRACE_DIR``, the
+    DTD GEMM apart), with host chores or the device module's
     (``PARSEC_MP_CHORES``: ``cpu`` or ``cuda``; the module wraps the
     rank's device, the host stand-in when the launcher was given
     ``device="cpu"``), each after a 2 x 2-tile run off the clock when
@@ -400,8 +465,10 @@ def pool_body(ctx, rank, nranks):
                 chores=chores, dev=dev)
             if dev is not None:
                 dev.flush_cache()
+        traced = {} if kind == "dtd" or not env.get("PARSEC_MP_TRACE_DIR") \
+            else {"trace_dir": env["PARSEC_MP_TRACE_DIR"]}
         kinds[kind] = run(ctx, rank, nranks, n=n, nb=nb, seed=seed,
-                          chores=chores, dev=dev)
+                          chores=chores, dev=dev, **traced)
     return {"kinds": kinds, "modules": foreign_modules(),
             "comm_thread": ctx.comm_engine.debug_state()["comm_thread"],
             "world_size": dist.get_world_size()

@@ -32,11 +32,15 @@ import tempfile
 import time
 from typing import Any
 
-# the comm params every rank of a fabric must agree on, forwarded to the
-# ranks as PARSEC_MCA_* (an explicit one in the caller's environment wins)
+# the comm params every rank of a fabric must agree on, and the
+# observability params (spans, the flight recorder, the stall dump), so
+# every rank traces as the caller does; forwarded to the ranks as
+# PARSEC_MCA_* (an explicit one in the caller's environment wins)
 _FORWARDED = ("comm_get_frag_bytes", "comm_get_window",
               "comm_codec_pickle_fallback", "comm_thread",
-              "comm_bcast_tree", "comm_short_limit", "comm_coll_bench_bytes")
+              "comm_bcast_tree", "comm_short_limit", "comm_coll_bench_bytes",
+              "prof_spans", "prof_spans_max", "prof_flightrec_size",
+              "prof_flightrec_dir", "prof_stall_dump")
 
 # the directory that holds the package, put on the ranks' import path
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -114,6 +118,7 @@ def _rank_env(nranks: int, target: str, timeout: float, nb_cores: int,
               transport: str, device: str | None, base: int,
               distributed: bool) -> dict:
     from ..core.params import params
+    from ..prof import flight_recorder, spans  # noqa: F401 — registers
     from . import codec, collectives, remote_dep, socket_fabric  # noqa: F401
     env = dict(os.environ)
     # all ranks are local: a multi-host spec must not leak in

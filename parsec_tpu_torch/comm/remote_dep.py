@@ -63,7 +63,17 @@ it.  :meth:`RemoteDepEngine.debug_state` reports it.
 
 PINS: ``COMM_ACTIVATE_SEND`` (payload: ``(dst_rank, seq)``) for each
 activation sent down a tree, ``COMM_ACK_RECV`` (payload: the seq) for each
-acknowledgement.  The engine registers its live gauges
+acknowledgement, and the activation callback span ``ACTIVATE_CB_BEGIN``
+/ ``_END`` (payload: ``(src, seq)``) around a received activation's
+handling.
+
+**Traces.**  An activation carries its pool's trace (``tp._trace``, 0
+when untraced) as the last element of its wire tuple
+(:func:`pack_activation`, the JAX package's 11-element form), through
+every hop of the tree; a lone activation also carries it in the frame
+header, and its GETs carry it to the owner.  With the span recorder on,
+a traced hop records ``comm.activate`` on both ends, flow-keyed
+``act:<src>:<seq>`` (``emit`` at the send, ``recv`` over the landing).  The engine registers its live gauges
 (``comm::rank<r>::inflight``, ``bytes_out``, ``bytes_in``,
 ``wire_bytes_out``, ``wire_bytes_in``, ``frags_in``, ``frag_bytes_in``)
 in :data:`parsec_tpu_torch.prof.sde` and the ``comm`` / ``rank<r>``
@@ -74,7 +84,7 @@ Left out: typed-edge reshape on a remote edge (the port raises
 ``NotImplementedError`` where the JAX package repacks, ``ROADMAP.md`` §1
 item 10), the switches that turn coalescing and wire views off
 (``comm_coalesce``, ``comm_wire_datatypes``: nothing in the port turns
-them off), the activation callback PINS span and trace spans.
+them off).
 """
 
 from __future__ import annotations
@@ -91,7 +101,7 @@ from ..core.params import MCAParamValueError
 from ..core.params import params as _params
 from ..data.data import data_create, nbytes_of
 from ..data.datatype import to_tensor, torch_dtype, wire_slice_key
-from ..prof import pins
+from ..prof import pins, spans as _spans
 from ..prof.counters import properties, sde
 from ..prof.pins import PinsEvent
 from ..runtime.scheduling import (ExecutionStream, _find_input_dep,
@@ -101,6 +111,8 @@ from ..runtime.task import Task
 from .codec import dtype_name
 from .engine import (AM_TAG_ACTIVATE, AM_TAG_DTD, AM_TAG_GET_ACK,
                      AM_TAG_TERMDET, CommEngine)
+
+_now_ns = time.perf_counter_ns
 
 _params.register("comm_short_limit", 4096,
                  "payloads at most this many bytes ride inside the "
@@ -173,16 +185,27 @@ def _unpack_desc(t: tuple) -> dict:
 
 
 def pack_activation(msg: dict) -> tuple:
-    """dict activation -> positional wire tuple (tag ``"A"``)."""
+    """dict activation -> positional wire tuple (tag ``"A"``); the last
+    element is the request's 8-byte trace (0 = untraced)."""
     return ("A", msg["tp"], msg["tc"], msg["locals"],
             [_pack_desc(d) for d in msg["outputs"]], msg["ranks"],
-            msg["tree"], msg["priority"], msg["seq"], msg["pos"])
+            msg["tree"], msg["priority"], msg["seq"], msg["pos"],
+            msg.get("trace") or 0)
 
 
 def unpack_activation(t: tuple) -> dict:
     return {"tp": t[1], "tc": t[2], "locals": t[3],
             "outputs": [_unpack_desc(x) for x in t[4]], "ranks": t[5],
-            "tree": t[6], "priority": t[7], "seq": t[8], "pos": t[9]}
+            "tree": t[6], "priority": t[7], "seq": t[8], "pos": t[9],
+            # a 10-element tuple (no trace) still reads
+            "trace": t[10] if len(t) > 10 else 0}
+
+
+def _packed_trace(m: Any) -> int:
+    """The trace of one staged activation (0 when it carries none)."""
+    if type(m) is tuple and len(m) > 10 and type(m[10]) is int:
+        return m[10]
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -458,8 +481,14 @@ class RemoteDepEngine:
             for dst, items in batches.items():
                 items.sort(key=lambda it: it[:2])
                 msgs = [m for _, _, m in items]
-                self.ce.send_am(AM_TAG_ACTIVATE, dst,
-                                msgs[0] if len(msgs) == 1 else ("B", msgs))
+                if len(msgs) == 1:
+                    # a lone activation's trace rides the frame header
+                    # too; an aggregate mixes requests, so its header
+                    # word stays 0 and each message carries its own
+                    self.ce.send_am(AM_TAG_ACTIVATE, dst, msgs[0],
+                                    trace_id=_packed_trace(msgs[0]))
+                else:
+                    self.ce.send_am(AM_TAG_ACTIVATE, dst, ("B", msgs))
                 n += len(msgs)
         return n
 
@@ -527,6 +556,7 @@ class RemoteDepEngine:
                         for fi in sorted(flows))
             by_mask.setdefault(key, []).append(r)
 
+        tr = getattr(tp, "_trace", None)
         for flows, ranks in by_mask.items():
             ranks.sort()
             hint = max((nbytes_of(remote.outputs[fi].copy.value)
@@ -567,7 +597,9 @@ class RemoteDepEngine:
                    # the producer at position 0, consumers after: every
                    # hop re-derives its children from this list
                    "ranks": [self.my_rank] + ranks, "tree": tree_kind,
-                   "priority": task.priority}
+                   "priority": task.priority,
+                   # the request's trace rides every hop of the tree
+                   "trace": tr.trace_id if tr is not None else 0}
             self._send_to_children(tp, msg, my_pos=0)
         self._flush_if_unthreaded()
 
@@ -583,6 +615,15 @@ class RemoteDepEngine:
             tp.tdm.on_comm_sent()
             pins.fire(PinsEvent.COMM_ACTIVATE_SEND, None,
                       (ranks[child_pos], seq))
+            r = _spans.recorder
+            if r is not None and msg.get("trace"):
+                # the emit half of one hop; tracemerge stitches it to the
+                # child's recv span by flow id
+                t = _now_ns()
+                r.record("comm.activate", msg["trace"], t, t,
+                         args={"flow": f"act:{self.my_rank}:{seq}",
+                               "flow_side": "emit",
+                               "dst": ranks[child_pos]})
             self._post_activate(ranks[child_pos],
                                 dict(msg, seq=seq, pos=child_pos))
 
@@ -685,6 +726,7 @@ class RemoteDepEngine:
         tp = self._lookup_or_pend(self._on_activate, src, msg)
         if tp is None:
             return
+        pins.fire(PinsEvent.ACTIVATE_CB_BEGIN, None, (src, msg["seq"]))
         want = [d for d in msg["outputs"] if "wire" in d]
         # each receiver owns its bytes: an inline payload is forwarded
         # down the tree in the same message
@@ -704,12 +746,15 @@ class RemoteDepEngine:
             return cb
 
         for d in want:
-            self.ce.get(tuple(d["wire"]), make_cb(d))
+            # the GET inherits the activation's trace
+            self.ce.get(tuple(d["wire"]), make_cb(d),
+                        trace=msg.get("trace") or None)
 
     def _complete_incoming(self, tp: Any, src: int, msg: dict,
                            landed: dict[int, Any]) -> None:
         """Every payload present: release local successors, apply home
         write-backs, forward down the tree, ack the parent."""
+        t0 = _now_ns() if _spans.recorder is not None else 0
         self.activations_received += 1
         for v in landed.values():
             self.payload_bytes_received += nbytes_of(v)
@@ -793,5 +838,13 @@ class RemoteDepEngine:
             self._flush_if_unthreaded()
 
         self.ce.send_am(AM_TAG_GET_ACK, src, {"seq": msg["seq"]})
+        pins.fire(PinsEvent.ACTIVATE_CB_END, None, (src, msg["seq"]))
+        r = _spans.recorder
+        if r is not None and msg.get("trace"):
+            # the recv half of the hop, keyed by the SENDING rank's seq
+            r.record("comm.activate", msg["trace"], t0 or _now_ns(),
+                     _now_ns(),
+                     args={"flow": f"act:{src}:{msg['seq']}",
+                           "flow_side": "recv", "released": len(ready)})
         if ready:
             schedule_tasks(self._es, ready, 0)

@@ -10,7 +10,11 @@ header ``<BBHIQQQQ`` = (kind, flags, tag, src, seq, u0, u1, u2) and a
 body by kind:
 
 - ``CTRL``, an active message: u0 = meta length, u1 = the raw segments'
-  bytes, u2 = the trace-context word (always 0 here).  Body = the codec
+  bytes, u2 = the 8-byte trace context of the request the message
+  belongs to (0 = untraced, and always 0 for a coalesced aggregate of
+  several requests' activations; the receive thread records a traced
+  frame's landing as a ``wire.ctrl`` span,
+  :mod:`parsec_tpu_torch.prof.spans`).  Body = the codec
   meta (:mod:`.codec`) and the raw segments, sent with ``sendmsg``
   scatter-gather from the payload's own buffers and received with
   ``recv_into`` into the decoded values' final buffers.
@@ -39,8 +43,8 @@ Use :func:`parsec_tpu_torch.comm.multiproc.run_multiproc` to launch N
 rank processes (the ``mpiexec -np N`` analog).
 
 Left out: the legacy length-prefixed pickle framing
-(``comm_wire_binary=False``), trace spans and the pooled wire buffers of
-the JAX package's ``data/arena.py`` (a plain buffer per meta here).
+(``comm_wire_binary=False``) and the pooled wire buffers of the JAX
+package's ``data/arena.py`` (a plain buffer per meta here).
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ from collections import deque
 from typing import Any
 
 from ..core.params import params as _params
+from ..prof import spans as _spans
 from . import codec
 from .engine import AM_TAG_GET_FRAG, InprocCommEngine
 
@@ -246,7 +251,8 @@ class SocketFabric:
                 if kind == K_ACK:
                     self._prune_unacked(src, seq)
                 elif kind == K_CTRL:
-                    self._recv_ctrl(conn, tag, src, seq, u0, u1, ack_every)
+                    self._recv_ctrl(conn, tag, src, seq, u0, u1, ack_every,
+                                    trace_id=u2)
                 elif kind == K_DATA:
                     self._recv_data(conn, flags, src, seq, u0, u1, u2,
                                     ack_every)
@@ -274,8 +280,11 @@ class SocketFabric:
             rx[2] += 1
 
     def _recv_ctrl(self, conn: socket.socket, tag: int, src: int, seq: int,
-                   meta_len: int, seg_bytes: int, ack_every: int) -> None:
+                   meta_len: int, seg_bytes: int, ack_every: int,
+                   trace_id: int = 0) -> None:
         t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns() if trace_id \
+            and _spans.recorder is not None else 0
         meta = bytearray(meta_len)
         if not _recv_exact_into(conn, memoryview(meta)):
             raise OSError("peer closed mid-frame (meta)")
@@ -286,6 +295,14 @@ class SocketFabric:
                 raise OSError("peer closed mid-frame (segment)")
 
         payload = codec.decode(meta, fill, pin_tensors=self.pin_tensors)
+        if t0_ns:
+            # a traced CTRL frame landing, under the header's trace word
+            r = _spans.recorder
+            if r is not None:
+                r.record("wire.ctrl", trace_id, t0_ns,
+                         time.perf_counter_ns(),
+                         args={"src": src,
+                               "bytes": _HDR.size + meta_len + seg_bytes})
         with self._ilock:
             self.recv_s += time.perf_counter() - t0
             self._rx_account(src, _HDR.size + meta_len + seg_bytes, False)
@@ -432,7 +449,8 @@ class SocketFabric:
             except Exception:       # a GC hook must never mask the OSError
                 pass
 
-    def deliver(self, dst: int, tag: int, src: int, payload: Any) -> None:
+    def deliver(self, dst: int, tag: int, src: int, payload: Any,
+                trace_id: int = 0) -> None:
         if dst == self.rank:
             with self._ilock:
                 self._inbox.append((tag, src, payload))
@@ -441,10 +459,11 @@ class SocketFabric:
         # is built inside
         meta, segs = codec.encode(payload)
         seg_bytes = sum(memoryview(s).nbytes for s in segs)
+        tid = trace_id & 0xFFFFFFFFFFFFFFFF
 
         def frame(seq: int) -> list:
             return [_HDR.pack(K_CTRL, 0, tag, src, seq, len(meta), seg_bytes,
-                              0), meta, *segs]
+                              tid), meta, *segs]
         self._send_frame(dst, frame, _HDR.size + len(meta) + seg_bytes,
                          frag=False, snapshot=True)
 

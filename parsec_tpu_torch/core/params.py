@@ -9,7 +9,10 @@ whose value lies outside its legal set.
 Left out of this copy: ``--mca`` command-line parsing, the param file,
 the autotuner's knob declarations (``declare_knob``/``knob_space``),
 scoped ``overrides``, ``snapshot``, ``lookup`` and ``dump`` — nothing on
-the port's path reads them yet.  The registry is the port's
+the port's path reads them yet.  :meth:`ParamRegistry.changed` (the
+params set away from their defaults) is the port's own: it is what the
+``knobs`` block of ``runtime_report()`` shows until the knob layer
+lands.  The registry is the port's
 own; it shares the ``PARSEC_MCA_`` environment namespace with the JAX
 package but no state.
 """
@@ -78,6 +81,13 @@ class ParamRegistry:
                     raise KeyError(f"unregistered param: {name}")
                 return default
             return p.value
+
+    def changed(self) -> dict[str, Any]:
+        """``{name: value}`` of every param resolved from the environment
+        or set, sorted by name."""
+        with self._lock:
+            return {n: p.value for n, p in sorted(self._params.items())
+                    if p.source != "default"}
 
     def set(self, name: str, value: Any) -> None:
         with self._lock:

@@ -708,6 +708,42 @@ class CUDADevice(Device):
         while self._inflight:
             self._inflight.popleft().synchronize()
 
+    def debug_state(self) -> dict:
+        """Stage-in and pipeline state for the flight recorder's stall
+        dump.  Locks are taken with a bounded wait (a dump racing a
+        wedged manager reports what it can reach) and nothing waits on
+        the card: the in-flight window is counted, not queried."""
+        state = {"name": self.name, "enabled": self.enabled,
+                 "executed_tasks": self.executed_tasks,
+                 "kernel_launches": self.kernel_launches,
+                 "batched_dispatches": self.batched_dispatches,
+                 "inflight_dispatches": len(self._inflight),
+                 "cache_hits": self.cache_hits,
+                 "cache_misses": self.cache_misses,
+                 "bytes_in": self.bytes_in, "bytes_out": self.bytes_out,
+                 "stage_in_s": round(self.t_stage_in, 3),
+                 "dispatch_s": round(self.t_dispatch, 3),
+                 "complete_s": round(self.t_complete, 3),
+                 "drain_s": round(self.t_drain, 3)}
+        if self._mutex_lock.acquire(timeout=0.2):
+            try:
+                state["pending_tasks"] = len(self._pending)
+                state["managing"] = self._managing
+            finally:
+                self._mutex_lock.release()
+        else:
+            state["pending_tasks"] = "<manager lock held>"
+        if self._lru_lock.acquire(timeout=0.2):
+            try:
+                state["lru_tiles"] = len(self._mem_lru)
+                state["lru_bytes"] = self._mem_bytes
+                state["evict_queue"] = len(self._evict_q)
+            finally:
+                self._lru_lock.release()
+        else:
+            state["lru_tiles"] = "<lru lock held>"
+        return state
+
     def stats(self) -> dict[str, float]:
         s = super().stats()
         s.update(kernel_launches=self.kernel_launches,

@@ -44,12 +44,20 @@ no CUDA device is registered the batcher registers the card itself
 (:func:`~parsec_tpu_torch.device.cuda.init_cuda_devices`, which raises
 without one).  The TOK or VOUT tiles a pool leaves on the card come back
 in one transfer per pool.  :func:`aggregate_report` sums every batcher's
-counters, live and retired.
+counters, live and retired: it is the ``llm`` block of
+``runtime_report()``.
 
-Left out: region lowering of superpools, adaptive k (``tune_adaptive``),
-the SLO plane and spans, the sharded server that reads
-``residency_len``/``load``, and the ``runtime_report()`` hookup of
-:func:`aggregate_report`.
+**Observability.**  Each stream mints a trace
+(``StreamTicket.trace``).  The batcher records into its server's SLO
+plane (``RuntimeServer.metrics()``): per tenant ``ttft_ms`` at a
+stream's first token, ``tok_latency_ms`` for every token (the
+iteration's wall over its tokens), ``prefix_hits`` and
+``prefix_pages_reused`` at a cache hit, ``spec_accept_rate`` and
+``spec_tokens_per_submit`` after each spec pool; and
+``kv_prefetched_pages`` under ``_server``.
+
+Left out: region lowering of superpools, adaptive k (``tune_adaptive``)
+and the sharded server that reads ``residency_len``/``load``.
 """
 
 from __future__ import annotations
@@ -71,6 +79,7 @@ from ..data_dist.kv_tiers import KVTierMap
 from ..data_dist.paged_kv import PagedKVCollection
 from ..device.cuda import init_cuda_devices
 from ..device.device import registry
+from ..prof import spans as _spans
 from .decode import (decode_superpool_ptg, preallocate_decode_steps,
                      prefill_chunks, prefill_ptg, read_spec_batched,
                      read_token_chains, seed_emb_table, seed_spec_batched,
@@ -175,6 +184,8 @@ class StreamTicket:
         # updated after every spec pool it rides
         self.spec_k: int | None = None
         self.spec_accept_ewma: float | None = None
+        # the stream's trace context, named by stall dumps
+        self.trace = _spans.new_trace()
         self._future = Future()
 
     def generated(self) -> list[int]:
@@ -252,6 +263,8 @@ class ContinuousBatcher:
         if devices == "cuda" and not registry.by_type("cuda"):
             init_cuda_devices()          # cuda:0; raises without a card
         self._server = server
+        # the server's per-tenant SLO plane (TTFT, token latency)
+        self._slo = getattr(server, "_slo", None)
         self.model = model or ToyLM()
         H, D = self.model.num_heads, self.model.head_dim
         self.kv = kv or PagedKVCollection(
@@ -514,6 +527,10 @@ class ContinuousBatcher:
             self.prefill_tokens_total += len(st.prompt) - 1
             self.prefill_tokens_skipped += reused * self.kv.page_size
         st.ticket.prefix_pages_reused = reused
+        if reused and self._slo is not None:
+            # hit rates beside the TTFT quantiles they should move
+            self._slo.inc(st.tenant, "prefix_hits")
+            self._slo.inc(st.tenant, "prefix_pages_reused", reused)
         return reused
 
     def _prefill_submit(self, fresh: list[_Stream]) -> dict:
@@ -714,6 +731,10 @@ class ContinuousBatcher:
             self.spec_tokens += len(toks)
             self.spec_drafted += drafted
             self.spec_drafts_accepted += accepted
+        if self._slo is not None:
+            self._slo.observe(st.tenant, "spec_accept_rate", rate)
+            self._slo.observe(st.tenant, "spec_tokens_per_submit",
+                              len(toks))
 
     def _read_pool(self, group: list[_Stream], spec: bool
                    ) -> dict[Any, tuple[list[int], bool]]:
@@ -747,8 +768,16 @@ class ContinuousBatcher:
                 st.drafter.observe(t_i)
         st.cur = toks[-1]
         now = time.monotonic()
+        slo = self._slo
         if not st.ticket.tokens:
             st.ticket.first_token_at = now
+            if slo is not None:
+                slo.observe(st.tenant, "ttft_ms",
+                            (now - st.ticket.submitted_at) * 1e3)
+        if slo is not None:
+            tok_ms = dt / len(toks) * 1e3
+            for _ in toks:
+                slo.observe(st.tenant, "tok_latency_ms", tok_ms)
         with self._lock:
             st.ticket.tokens.extend(toks)
             st.ticket.token_at.extend([now] * len(toks))
@@ -789,7 +818,9 @@ class ContinuousBatcher:
         # iteration's eviction pushed to the host (or a peer) return
         # while this thread seeds and builds (advisory: a failure is
         # counted in the tier map's stats)
-        self.tiers.prefetch_seqs([st.seq for st in live])
+        n = self.tiers.prefetch_seqs([st.seq for st in live])
+        if n and self._slo is not None:
+            self._slo.inc("_server", "kv_prefetched_pages", n)
         by_group: dict[tuple[str, bool], list[_Stream]] = {}
         for st in live:
             try:

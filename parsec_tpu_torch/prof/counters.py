@@ -9,21 +9,25 @@ Port of ``parsec_tpu/prof/counters.py``:
   (:class:`~parsec_tpu_torch.comm.remote_dep.RemoteDepEngine` registers
   ``comm::rank<r>::*``).
 - **Properties dictionary** (``dictionary.c``): (namespace, property,
-  getter) triples read on demand by :meth:`PropertiesDictionary.snapshot`.
+  getter) triples read on demand by :meth:`PropertiesDictionary.snapshot`,
+  and streamed to a JSON file on an interval by
+  :meth:`PropertiesDictionary.stream_to` (atomically replaced, so
+  :func:`read_live_snapshot` may read it mid-run).  A context publishes
+  its gauges under ``rank<r>`` and, with the ``props_stream`` param,
+  streams them; ``python -m parsec_tpu_torch.prof.dashboard <file>``
+  renders that file.
 
 A gauge or property getter runs on the thread that snapshots, never on a
 hot path; the port's getters read host counters only and never wait on
 the card.
-
-Left out: streaming snapshots to a JSON file (``stream_to``,
-``read_live_snapshot``) with the context's ``props_stream`` params, and
-the context's own live properties; the dashboard that tails that file is
-queued with the other tools (``ROADMAP.md`` §1 item 3).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
+import time
 from typing import Any, Callable
 
 from ..core.mca import Component, component
@@ -145,6 +149,40 @@ class PropertiesDictionary:
             except Exception as e:      # noqa: BLE001 — shown, not raised
                 out.setdefault(ns, {})[name] = f"<error: {e}>"
         return out
+
+    def stream_to(self, path: str,
+                  interval: float = 0.5) -> Callable[[], None]:
+        """Write JSON snapshots to ``path`` every ``interval`` seconds
+        until the returned stop function is called (the live dashboard's
+        feed); each write goes to ``path + ".tmp"`` and is renamed over
+        ``path``."""
+        stop = threading.Event()
+
+        def run() -> None:
+            while not stop.is_set():
+                snap = {"ts": time.time(), "props": self.snapshot()}
+                tmp = path + ".tmp"
+                with open(tmp, "w") as f:
+                    json.dump(snap, f, default=str)
+                os.replace(tmp, path)
+                stop.wait(interval)
+
+        th = threading.Thread(target=run, daemon=True,
+                              name="parsec-props-stream")
+        th.start()
+
+        def stopper() -> None:
+            stop.set()
+            th.join(timeout=5)
+
+        return stopper
+
+
+def read_live_snapshot(path: str) -> dict:
+    """Read the latest streamed snapshot (the dashboard's half of the
+    pair); the atomic rename makes this safe while the stream writes."""
+    with open(path) as f:
+        return json.load(f)
 
 
 properties = PropertiesDictionary()

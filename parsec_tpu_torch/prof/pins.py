@@ -25,14 +25,20 @@ loop, the device manager (which fires its device events with
 (no ``.item()``, no synchronize): the device module fires on the host
 side of each step.
 
-:class:`PinsEvent` keeps the JAX package's numbers for every event a
-ported site fires, so an event stream reads the same in both packages.
-Left out: the serving lifecycle events (``SERVE_*``, 31-36), the
-activation callback span (``ACTIVATE_CB_*``, 12-13), the data flush span
-(14-15) and the fragment events (``COMM_GET_FRAG_*``, ``COMM_GET_DONE``,
-37-39), whose sites the port does not fire yet.  ``TASKPOOL_FINI`` is
-declared by the JAX package but fired by none of its sites; the port
-fires it when a pool terminates.
+:class:`PinsEvent` keeps the JAX package's numbers for every event, so
+an event stream reads the same in both packages: the serving lifecycle
+(``SERVE_*``, 31-36, ``serve/server.py``), the activation callback span
+(``ACTIVATE_CB_*``, 12-13, ``comm/remote_dep.py``) and the fragment
+events (``COMM_GET_FRAG_*``, ``COMM_GET_DONE``, 37-39,
+``comm/engine.py``) fire where the JAX package fires them.  The data
+flush span (14-15) is declared and fired by no site, in both packages.
+``TASKPOOL_FINI`` is declared by the JAX package but fired by none of
+its sites; the port fires it when a pool terminates.
+
+The always-on flight recorder (:mod:`.flight_recorder`) installs itself
+as the recorder when the first context is built, so with its default
+every slot is compiled, recorder attached; with ``prof_flightrec_size``
+0 a site without a chain stays on the disabled branch.
 """
 
 from __future__ import annotations
@@ -57,6 +63,11 @@ class PinsEvent(IntEnum):
     SCHEDULE_END = 9
     RELEASE_DEPS_BEGIN = 10
     RELEASE_DEPS_END = 11
+    # the activation callback (comm/remote_dep.py; payload: (src, seq))
+    ACTIVATE_CB_BEGIN = 12
+    ACTIVATE_CB_END = 13
+    DATA_FLUSH_BEGIN = 14
+    DATA_FLUSH_END = 15
     TASKPOOL_INIT = 16
     TASKPOOL_FINI = 17
     # compiled-DAG executor batch spans (payload: batch size)
@@ -77,14 +88,24 @@ class PinsEvent(IntEnum):
     # comm sites (comm/remote_dep.py, comm/engine.py)
     COMM_ACTIVATE_SEND = 29        # payload: (dst_rank, seq)
     COMM_ACK_RECV = 30             # payload: seq
+    # serving lifecycle (serve/server.py; payload: (tenant, pool name)):
+    # SUBMIT -> {ADMIT -> START -> COMPLETE | REJECT}; DRAIN once a drain
+    SERVE_SUBMIT = 31
+    SERVE_ADMIT = 32
+    SERVE_REJECT = 33
+    SERVE_START = 34
+    SERVE_COMPLETE = 35
+    SERVE_DRAIN = 36
+    # fragmented rendezvous (comm/engine.py; integer payloads are bytes)
+    COMM_GET_FRAG_SENT = 37        # payload: fragment bytes served
+    COMM_GET_FRAG_RECV = 38        # payload: fragment bytes landed
+    COMM_GET_DONE = 39             # payload: bytes of a finished fragmented GET
     COMM_GET_PREFETCH = 40         # payload: owner rank of a lookahead GET
 
 
 Callback = Callable[[Any, Any], None]   # (execution_stream_or_none, payload)
 
 N_EVENTS = max(int(e) for e in PinsEvent) + 1
-# the JAX package's numbers leave gaps where its events are not ported
-_VALID = frozenset(int(e) for e in PinsEvent)
 
 _lock = threading.Lock()
 _chains: dict[int, list[Callback]] = {}
@@ -128,7 +149,7 @@ def _slot(event: int) -> Callable[[Any, Any], None] | None:
 def _rebuild() -> None:
     """Recompile every slot in place (caller holds ``_lock``)."""
     for i in range(N_EVENTS):
-        hooks[i] = _slot(i) if i in _VALID else None
+        hooks[i] = _slot(i)
 
 
 def set_recorder(value: Callable[[Any, Any], None] | None) -> None:

@@ -54,19 +54,36 @@ from its construction to :meth:`abort` (which :meth:`fini` calls)
 ``TASKPOOL_INIT`` at enqueue and ``TASKPOOL_FINI`` at a pool's
 termination.
 
-Left out: multiple virtual processes and vpmaps, thread binding, the
-flight recorder and stall dump, live properties and tuned-knob consults.
+**Observability.**  Construction installs the always-on flight
+recorder (:mod:`~parsec_tpu_torch.prof.flight_recorder`, unless
+``prof_flightrec_size`` is 0) and, under ``prof_spans``, the span
+recorder, both before any worker runs.  A :meth:`wait` whose deadline
+passes writes one stall dump (``prof_stall_dump``; stderr and
+``flightrec-<rank>.json`` under ``prof_flightrec_dir``) and then raises
+:class:`ContextWaitTimeout`; a :meth:`fini` whose bounded drain times
+out dumps unless that wait already did, and tears down.  The report is
+kept in ``last_stall_report``.  The context publishes its gauges
+(``sched_pending``, ``active_taskpools``, ``nb_tasks``, ``sde``) under
+the ``rank<r>`` namespace of the live properties, streams them to the
+``props_stream`` file and starts the metrics snapshotter
+(``prof_snapshot_interval``) at :meth:`start`.
+
+Left out: multiple virtual processes and vpmaps, thread binding,
+``wait_taskpool`` and tuned-knob consults.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Any, Callable
 
 from ..core.backoff import Backoff
 from ..core.params import params as _params
-from ..prof import acquire_pins_modules, pins, release_pins_modules
+from ..prof import (acquire_pins_modules, flight_recorder, pins,
+                    release_pins_modules, spans)
+from ..prof.counters import properties, sde
 from ..prof.pins import PinsEvent
 from ..sched import open_scheduler
 from .dagrun import compile_taskpool_dag
@@ -82,6 +99,12 @@ _params.register("analysis_check", False,
                  "statically verify each PTG taskpool at enqueue "
                  "(analysis.graphcheck) and each DTD pool at close(): a "
                  "malformed graph raises GraphCheckError")
+_params.register("props_stream", "",
+                 "stream the live properties to this JSON file while a "
+                 "context runs (python -m parsec_tpu_torch.prof.dashboard "
+                 "renders it; empty = off)")
+_params.register("props_stream_interval", 0.1,
+                 "seconds between props_stream snapshots")
 
 
 class ContextWaitTimeout(TimeoutError):
@@ -93,6 +116,10 @@ class Context:
                  scheduler: str | None = None, nb_ranks: int = 1,
                  my_rank: int = 0) -> None:
         from ..device.device import registry as device_registry
+        # the flight recorder hooks every PINS slot, and a traced pool's
+        # first task needs the span recorder, before any worker can fire
+        flight_recorder.ensure_installed()
+        spans.ensure_installed()
         if nb_cores is None:
             nb_cores = _params.get("runtime_num_cores")
         if not 0 <= my_rank < nb_ranks:
@@ -138,6 +165,35 @@ class Context:
 
         # the last step that can fail, before any thread starts
         self._pins_modules = acquire_pins_modules(self)
+        self.last_stall_report: dict | None = None
+        self._props_stop: Callable[[], None] | None = None
+        self._snap_started = False
+        # live gauges under a namespace of their own (several contexts of
+        # one rank may live at once), held weakly: the registry must not
+        # keep a context that never reaches fini() alive
+        base = ns = f"rank{my_rank}"
+        i = 1
+        while properties.has(ns, "sched_pending"):
+            ns = f"{base}#{i}"
+            i += 1
+        self._props_ns = ns
+        ref = weakref.ref(self)
+
+        def gauge(fn: Callable[["Context"], Any]) -> Callable[[], Any]:
+            def get():
+                c = ref()
+                return fn(c) if c is not None else 0
+            return get
+
+        properties.register(ns, "sched_pending",
+                            gauge(lambda c: c.scheduler.pending_tasks(c)))
+        properties.register(ns, "active_taskpools",
+                            gauge(lambda c: len(c._active_taskpools)))
+        properties.register(ns, "nb_tasks", gauge(lambda c: sum(
+            tp.tdm.nb_tasks for tp in list(c._active_taskpools)
+            if tp.tdm is not None)))
+        properties.register(ns, "sde", sde.snapshot)
+
         self._threads: list[threading.Thread] = []
         self._start_barrier = threading.Event()
         for es in self.streams[:nworkers]:
@@ -230,6 +286,14 @@ class Context:
     def start(self) -> None:
         with self._lock:
             self.started = True
+        path = _params.get("props_stream")
+        if path and self._props_stop is None:
+            self._props_stop = properties.stream_to(
+                path, _params.get("props_stream_interval"))
+        interval = _params.get("prof_snapshot_interval")
+        if interval > 0 and not self._snap_started:
+            flight_recorder.snapshotter.start(interval)
+            self._snap_started = True
         if self.comm_engine is not None:
             self.comm_engine.enable()
         self._start_barrier.set()
@@ -241,20 +305,40 @@ class Context:
             return not self._active_taskpools
 
     def wait(self, timeout: float | None = None) -> None:
-        """Block until every taskpool completes; raises
-        :class:`ContextWaitTimeout` at the deadline and the recorded
-        failure if the context is poisoned."""
-        self._drive_until(self.test, timeout)
+        """Block until every taskpool completes; raises the recorded
+        failure if the context is poisoned.  At the deadline it writes
+        the stall dump, then raises :class:`ContextWaitTimeout`."""
+        try:
+            self._drive_until(self.test, timeout)
+        except ContextWaitTimeout:
+            self._stall_dump(f"context wait timed out (timeout={timeout}s; "
+                             f"{self._live_desc()})")
+            raise
+
+    def _stall_dump(self, reason: str) -> dict | None:
+        if not _params.get("prof_stall_dump"):
+            return None
+        try:
+            self.last_stall_report = flight_recorder.stall_dump(self, reason)
+        except Exception:   # noqa: BLE001 — the dump never masks the timeout
+            pass
+        return self.last_stall_report
 
     def fini(self, timeout: float | None = None) -> None:
         """Drain (bounded by ``timeout``), stop the workers, release the
-        scheduler.  A poisoned context skips the drain; a failure nobody
-        has seen is re-raised after teardown."""
+        scheduler.  A poisoned context skips the drain; a drain that
+        times out writes the stall dump (unless a timed-out ``wait``
+        already did) and tears down abort-style; a failure nobody has
+        seen is re-raised after teardown."""
         if self._worker_error is None and not self.test():
             try:
                 self._drive_until(self.test, timeout)
             except ContextWaitTimeout:
-                pass   # tear down abort-style below
+                # one diagnosis per stall: a caller whose wait() timed
+                # out re-enters here with the expired deadline
+                if self.last_stall_report is None:
+                    self._stall_dump(
+                        f"fini drain timed out (timeout={timeout}s)")
         self.abort()
         if self.comm_engine is not None:
             self.comm_engine.fini()
@@ -276,6 +360,17 @@ class Context:
         self.scheduler.remove(self)
         held, self._pins_modules = self._pins_modules, ()
         release_pins_modules(held)
+        self._props_teardown()
+
+    def _props_teardown(self) -> None:
+        if self._props_stop is not None:
+            self._props_stop()
+            self._props_stop = None
+        if self._snap_started:
+            flight_recorder.snapshotter.release()
+            self._snap_started = False
+        for name in ("sched_pending", "active_taskpools", "nb_tasks", "sde"):
+            properties.unregister(self._props_ns, name)
 
     def __enter__(self) -> "Context":
         return self

@@ -5,9 +5,9 @@ scheduler module exposes ``install / flow_init / schedule / select /
 remove``.  ``schedule(es, tasks, distance)`` hints how far from the
 submitting stream the tasks should land; ``select`` returns the distance
 the task came from (0 = own queue, 1..98 = stolen, 99 = shared system
-queue).
-
-Left out: ``queue_depths``, which only the stall dump reads.
+queue).  ``pending_tasks`` and ``queue_depths`` are read by the live
+properties and the flight recorder's stall dump; they take no lock that
+a wedged worker could hold for long.
 """
 
 from __future__ import annotations
@@ -35,3 +35,9 @@ class SchedulerModule:
 
     def pending_tasks(self, context: Any) -> int:
         return -1
+
+    def queue_depths(self, context: Any) -> dict[str, int]:
+        """Best-effort per-queue depth map for the stall dump; modules
+        with per-stream queues override it, the base reports the shared
+        total."""
+        return {"shared": self.pending_tasks(context)}

@@ -17,8 +17,9 @@ Left out: registering the schedulers in the MCA component repository
 (:mod:`parsec_tpu_torch.core.mca` holds only the PINS modules) and its
 priority query (the port opens a module by name, default ``lfq``), the
 ``serve_fair`` component
-(the port's server wraps the context's scheduler itself) and
-``queue_depths``, which only the stall dump reads.
+(the port's server wraps the context's scheduler itself).  The
+per-stream modules (lfq, pbq and its family) report per-queue depths
+to the stall dump (``queue_depths``), read without a lock.
 """
 
 from __future__ import annotations
@@ -38,6 +39,23 @@ from .api import SchedulerModule
 _params.register("sched_lfq_buffer_size", 256,
                  "per-stream sharded-deque capacity for lfq (spills to the "
                  "per-VP system queue beyond this)")
+
+
+def _stream_queue_depths(context: Any) -> dict[str, int]:
+    """Per-stream depth map of the lfq and pbq families, for the stall
+    dump (``len`` reads, no lock)."""
+    out: dict[str, int] = {}
+    for vp in context.virtual_processes:
+        if vp.sched_private is not None and \
+                hasattr(vp.sched_private, "system"):
+            out[f"vp{vp.vp_id}.system"] = len(vp.sched_private.system)
+        for es in vp.execution_streams:
+            if es.sched_private is not None:
+                try:
+                    out[f"es{es.th_id}"] = len(es.sched_private)
+                except TypeError:
+                    pass
+    return out
 
 
 def _task_priority(t: Any) -> int:
@@ -113,6 +131,8 @@ class LFQModule(SchedulerModule):
                 if es.sched_private is not None:
                     n += len(es.sched_private)
         return n
+
+    queue_depths = staticmethod(_stream_queue_depths)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +440,8 @@ class PBQModule(SchedulerModule):
                 if es.sched_private is not None:
                     n += len(es.sched_private)
         return n
+
+    queue_depths = staticmethod(_stream_queue_depths)
 
 
 class _Bundle:

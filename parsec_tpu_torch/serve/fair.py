@@ -13,7 +13,9 @@ serve submission (``taskpool._serve_sub``, set by ``serve/server.py``):
 Other tasks delegate to the inner module, which ``select`` drains first.
 ``strict_order`` tells the scheduling loop to skip the keep-hot
 ``next_task`` bypass, so a released successor does not jump every other
-tenant's queue.  Left out: ``queue_depths`` (the stall dump's).
+tenant's queue.  ``queue_depths`` (the stall dump's) adds each tenant's
+queued tasks to the inner module's map, under a bounded wait for the
+shim's lock.
 """
 
 from __future__ import annotations
@@ -135,6 +137,19 @@ class FairScheduler(SchedulerModule):
 
     def pending_tasks(self, context: Any) -> int:
         return self._nfair + self.inner.pending_tasks(context)
+
+    def queue_depths(self, context: Any) -> dict[str, int]:
+        out = dict(self.inner.queue_depths(context))
+        if not self._lock.acquire(timeout=0.2):
+            out["fair"] = -1            # held by a wedged caller
+            return out
+        try:
+            for name, ts in self._tenants.items():
+                if ts.heap:
+                    out[f"fair.{name}"] = len(ts.heap)
+        finally:
+            self._lock.release()
+        return out
 
     def dispatch_counts(self) -> dict[str, int]:
         with self._lock:

@@ -21,24 +21,41 @@ one Context's workers running and gives every client thread::
 - **Streams**: :meth:`RuntimeServer.submit_stream` opens an LLM
   generation stream on the server's continuous batcher
   (:mod:`parsec_tpu_torch.llm.batcher`), which decodes on the card.
+- **Observability**: every stage fires a ``SERVE_*`` PINS event
+  (SUBMIT, ADMIT, REJECT, START, COMPLETE, DRAIN), so the flight
+  recorder and ``runtime_report()``'s ``serve`` block cover serving.
+  Each ticket mints a trace (:func:`~parsec_tpu_torch.prof.spans
+  .new_trace`) that rides its pool as ``tp._trace``, so the task-grain
+  and wire spans of a request carry its id; with ``prof_spans`` on the
+  server also records ``serve.admission`` and ``serve.request``.  The
+  per-tenant SLO plane (:class:`~parsec_tpu_torch.prof.histogram
+  .SLOPlane`) holds ``admission_wait_ms``, ``queue_wait_ms``,
+  ``latency_ms`` and the ``admission_sheds`` counter (the batcher adds
+  ``ttft_ms`` and ``tok_latency_ms``, and ``drain_ms`` lands under
+  ``_server``); :meth:`RuntimeServer.metrics` reads it live.  A stall
+  section names each tenant's inflight count and oldest trace in the
+  flight recorder's stall dump.
 
 Left out: ``submit_lowered`` (the lowering itself is ported,
 :func:`~parsec_tpu_torch.ptg.lowering.lower_taskpool`; the server's
 entry for lowered pools and its lowering cache are not), the
-task-budget admission cost (see :mod:`.admission`), spans, the serving
-PINS events (``SERVE_*``; the port's PINS fires from the runtime the
-server drives), the flight recorder's stall section, the SLO metrics plane
-(``metrics()``) and the tuning-DB consult.
+task-budget admission cost (see :mod:`.admission`), a caller's own
+``context=`` and the tuning-DB consult.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Any, Callable
 
 from ..core.future import Future
 from ..core.params import params as _params
+from ..prof import flight_recorder as _flightrec
+from ..prof import pins, spans as _spans
+from ..prof.histogram import SLOPlane
+from ..prof.pins import PinsEvent
 from ..runtime.context import Context, ContextWaitTimeout
 from ..runtime.taskpool import Taskpool
 from .admission import (AdmissionController, AdmissionRejected,
@@ -84,8 +101,12 @@ class Ticket:
         self.state = "queued"
         self.deadline_missed = False
         self.submitted_at = time.monotonic()
+        self.admitted_at: float | None = None
         self.started_at: float | None = None
         self.completed_at: float | None = None
+        # the request's trace context: minted at submit, attached to the
+        # taskpool, carried across ranks by the wire
+        self.trace = _spans.new_trace()
         self._future = Future()
         self._slock = threading.Lock()
         self._settled = False
@@ -191,6 +212,20 @@ class RuntimeServer:
         self.rejected = 0
         self.per_tenant_completed: dict[str, int] = {}
         self._llm: Any = None        # lazy ContinuousBatcher (submit_stream)
+        # the per-tenant SLO plane: queue wait, latency, admission here;
+        # the batcher adds TTFT and inter-token latency
+        self._slo = SLOPlane()
+        self._drain_s: float | None = None
+        # stall dumps name WHOSE request is stuck, through a weakref: the
+        # global registry must never keep a leaked server alive
+        self._stall_key = f"serve@{id(self):x}"
+        ref = weakref.ref(self)
+
+        def _section() -> dict:
+            srv = ref()
+            return srv._stall_section() if srv is not None else {}
+
+        _flightrec.register_stall_section(self._stall_key, _section)
         self._ctx.add_failure_listener(self._on_context_failure)
         self._ctx.start()
 
@@ -217,6 +252,7 @@ class RuntimeServer:
         deadline_at = None if deadline is None \
             else time.monotonic() + deadline
         ticket = Ticket(self, tp.name, tenant, priority, deadline_at)
+        pins.fire(PinsEvent.SERVE_SUBMIT, None, (tenant, tp.name))
         with self._lock:
             self.submitted += 1
             closed = self._draining or self._poison is not None
@@ -229,11 +265,25 @@ class RuntimeServer:
                             deadline_at=deadline_at,
                             cancelled=lambda: ticket._cancelled)
         except AdmissionRejected as e:
+            pins.fire(PinsEvent.SERVE_REJECT, None, (tenant, tp.name))
             with self._lock:
                 self.rejected += 1
+            if not isinstance(e, TicketCancelled):
+                # a client's cancel is not a shed: the counter attributes
+                # controller and drain pressure only
+                self._slo.inc(tenant, "admission_sheds")
             ticket._fail(e, state="cancelled"
                          if isinstance(e, TicketCancelled) else "rejected")
             raise
+        pins.fire(PinsEvent.SERVE_ADMIT, None, (tenant, tp.name))
+        ticket.admitted_at = time.monotonic()
+        wait_s = ticket.admitted_at - ticket.submitted_at
+        self._slo.observe(tenant, "admission_wait_ms", wait_s * 1e3)
+        r = _spans.recorder
+        if r is not None:
+            t1 = time.perf_counter_ns()
+            r.record("serve.admission", ticket.trace.trace_id,
+                     t1 - int(wait_s * 1e9), t1, tenant=tenant)
         sub = _Submission(tenant, priority, deadline_at, ticket, result_fn)
         tp._serve_sub = sub
         if not compiled:
@@ -250,15 +300,25 @@ class RuntimeServer:
                 self.rejected += 1
         if not started or closed:
             self._adm.release(tenant)
+            if started:
+                # shed by the drain window; not started is a client cancel
+                self._slo.inc(tenant, "admission_sheds")
+            pins.fire(PinsEvent.SERVE_REJECT, None, (tenant, tp.name))
             e: AdmissionRejected = TicketCancelled(
                 "ticket cancelled before start") if not started \
                 else AdmissionRejected("server is draining")
             ticket._fail(e, state="cancelled" if not started
                          else "rejected")
             raise e
+        # START before enqueue, as the listener: a pool that terminates
+        # inside add_taskpool still records SUBMIT, ADMIT, START, COMPLETE
+        pins.fire(PinsEvent.SERVE_START, None, (tenant, tp.name))
         ticket.started_at = time.monotonic()
-        # listener BEFORE enqueue: a trivial pool may terminate inside
-        # add_taskpool and must still resolve the ticket
+        # the request's trace rides the pool: the task-grain spans and
+        # the wire key off tp._trace from here on
+        tp._trace = ticket.trace
+        if _spans.recorder is not None:
+            tp._trace_enq_ns = time.perf_counter_ns()
         tp.add_completion_listener(self._on_pool_done)
         try:
             self._ctx.add_taskpool(tp)
@@ -268,6 +328,7 @@ class RuntimeServer:
                 self._inflight.discard(ticket)
                 self.rejected += 1
                 self._cond.notify_all()
+            pins.fire(PinsEvent.SERVE_REJECT, None, (tenant, tp.name))
             ticket._fail(e, state="rejected")
             raise
         return ticket
@@ -308,7 +369,10 @@ class RuntimeServer:
     def _on_pool_done(self, tp: Taskpool) -> None:
         sub: _Submission = tp._serve_sub
         tp._serve_sub = None
-        self._release_once(sub)
+        if self._release_once(sub):
+            # only the releasing call announces completion: a pool whose
+            # enqueue already shed (and released) reports no COMPLETE
+            pins.fire(PinsEvent.SERVE_COMPLETE, None, (sub.tenant, tp.name))
         ok = False
         try:
             value = sub.result_fn(tp) if sub.result_fn is not None else tp
@@ -325,6 +389,20 @@ class RuntimeServer:
             elif settled:
                 self.failed += 1
             self._cond.notify_all()
+        tk = sub.ticket
+        if ok and tk.completed_at is not None:
+            # the request's samples: submit -> start, and end to end
+            if tk.started_at is not None:
+                self._slo.observe(sub.tenant, "queue_wait_ms",
+                                  (tk.started_at - tk.submitted_at) * 1e3)
+            lat = tk.completed_at - tk.submitted_at
+            self._slo.observe(sub.tenant, "latency_ms", lat * 1e3)
+            r = _spans.recorder
+            if r is not None:
+                t1 = time.perf_counter_ns()
+                r.record("serve.request", tk.trace.trace_id,
+                         t1 - int(lat * 1e9), t1, tenant=sub.tenant,
+                         args={"pool": tp.name})
 
     def _on_context_failure(self, e: BaseException) -> None:
         """Context poison (a worker died): fail every in-flight ticket so
@@ -351,6 +429,7 @@ class RuntimeServer:
         context.  On ``timeout`` the remaining tickets fail with
         :class:`ContextWaitTimeout` and the context tears down
         abort-style — the server is down either way."""
+        t_drain0 = time.monotonic()
         with self._lock:
             llm = self._llm
         if llm is not None:
@@ -372,6 +451,8 @@ class RuntimeServer:
                 else max(0.0, deadline - time.monotonic()))
             leftover = [] if ok else list(self._inflight)
             self._inflight.clear()
+        pins.fire(PinsEvent.SERVE_DRAIN, None,
+                  ("-", f"inflight={len(leftover)}"))
         nfailed = 0
         for tk in leftover:
             nfailed += tk._fail(ContextWaitTimeout(
@@ -383,7 +464,10 @@ class RuntimeServer:
         try:
             self._ctx.fini(timeout=rem)
         finally:
-            self._drained.set()
+            self._drained.set()     # the server is down, success or not
+            self._drain_s = time.monotonic() - t_drain0
+            self._slo.observe("_server", "drain_ms", self._drain_s * 1e3)
+            _flightrec.unregister_stall_section(self._stall_key)
         if leftover:
             raise ContextWaitTimeout(
                 f"server drain timed out ({len(leftover)} submissions "
@@ -407,11 +491,53 @@ class RuntimeServer:
             llm.stop(timeout=5.0)
         self._ctx.abort()
         self._drained.set()
+        _flightrec.unregister_stall_section(self._stall_key)
 
     # -- introspection ---------------------------------------------------
     @property
     def context(self) -> Context:
         return self._ctx
+
+    def metrics(self) -> dict:
+        """The live per-tenant SLO snapshot: ``{"tenants": {tenant:
+        {"<metric>_p50", "<metric>_p99", "<metric>_count", "<counter>"}},
+        "inflight", "drain_s", "admission"}``, plus a compact
+        ``critpath`` block while the span recorder holds spans.  Callable
+        mid-run: histograms are read without a lock (a racing record at
+        worst misses this snapshot)."""
+        with self._lock:
+            inflight = len(self._inflight)
+        out = {
+            "tenants": self._slo.summary(),
+            "inflight": inflight,
+            "drain_s": self._drain_s,
+            "admission": self._adm.stats(),
+        }
+        if _spans.recorder is not None and _spans.recorder.spans:
+            from ..prof.critpath import summarize_recorder
+            cp = summarize_recorder(compact=True)
+            if cp:
+                out["critpath"] = cp
+        return out
+
+    def _stall_section(self) -> dict:
+        """Per-tenant inflight counts and the oldest live request's trace
+        id: the stall dump's block that names whose request is stuck."""
+        with self._lock:
+            tickets = list(self._inflight)
+        now = time.monotonic()
+        out: dict[str, dict] = {}
+        for tk in tickets:
+            d = out.setdefault(tk.tenant, {"inflight": 0,
+                                           "oldest_trace_id": None,
+                                           "oldest_age_s": -1.0,
+                                           "oldest_pool": None})
+            d["inflight"] += 1
+            age = now - tk.submitted_at
+            if age > d["oldest_age_s"]:
+                d.update(oldest_trace_id=format(tk.trace.trace_id, "x"),
+                         oldest_age_s=round(age, 3), oldest_pool=tk.name)
+        return out
 
     def stats(self) -> dict:
         with self._lock:

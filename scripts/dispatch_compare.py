@@ -11,7 +11,9 @@ pool of 50 lanes and 10,000 CTL-only tasks with empty bodies, drained by
 the caller, median of ``--reps`` fresh pools; ``dispatch_us`` on the
 compiled-DAG executor and ``dynamic_dispatch_us`` under each of the
 eleven schedulers.  Where the checkout has PINS (``prof/pins.py``), the
-line also carries ``pins_disabled_ns``, one disabled fire site.  It
+line also carries ``pins_disabled_ns``, one disabled fire site.  Where
+it has the flight recorder, ``flightrec_size`` is the ring size the runs
+had (0: off); ``PARSEC_MCA_prof_flightrec_size=0`` turns it off.  It
 prints one JSON line, with the card's name and power limit when
 ``nvidia-smi`` is there (the work is the host's).
 """
@@ -52,6 +54,8 @@ def main() -> int:
                for name in SCHEDULERS}
     has_pins = (Path(parsec_tpu_torch.__file__).parent / "prof"
                 / "pins.py").is_file()
+    flightrec = sys.modules.get("parsec_tpu_torch.prof.flight_recorder")
+    rec = getattr(flightrec, "recorder", None)
     try:
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -66,6 +70,7 @@ def main() -> int:
         "dynamic_median_us": sorted(dynamic.values())[len(dynamic) // 2],
         "pins_disabled_ns": chip_smoke._pins_disabled_ns()
         if has_pins else None,
+        "flightrec_size": rec.size if rec is not None else 0,
         "host_cpu": chip_smoke._host_cpu(),
         "host_cpus": len(os.sched_getaffinity(0)), "card": card}))
     return 0

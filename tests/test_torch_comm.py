@@ -285,7 +285,7 @@ def test_activation_pack_roundtrip_with_wire_view():
                 "wire_view": ((None, None, None), (1, 3, None))},
                {"flow_index": 1, "writeback": True}],
            "ranks": [1, 0, 3], "tree": "chain", "priority": 5,
-           "seq": 12, "pos": 1}
+           "seq": 12, "pos": 1, "trace": 0xBEEF01}
     assert unpack_activation(pack_activation(msg)) == msg
 
 

@@ -116,7 +116,12 @@ def test_the_package_has_the_slice_modules():
                 "analysis/__init__.py", "analysis/graphcheck.py",
                 "analysis/__main__.py", "prof/__init__.py", "prof/pins.py",
                 "prof/counters.py", "prof/profiling.py",
-                "prof/task_profiler.py", "prof/iterators_checker.py"):
+                "prof/task_profiler.py", "prof/iterators_checker.py",
+                "prof/histogram.py", "prof/spans.py", "prof/tracemerge.py",
+                "prof/flight_recorder.py", "prof/critpath.py",
+                "prof/info.py", "prof/grapher.py", "prof/dotmerge.py",
+                "prof/debug_marks.py", "prof/perf_modules.py",
+                "prof/dashboard.py", "core/output.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu",
                 "native_core.cpp"):
@@ -392,7 +397,7 @@ def test_the_ast_scan_covers_the_comm_layer():
 
 
 def test_the_ast_scan_covers_analysis_and_prof():
-    for pkg, n in (("analysis", 3), ("prof", 6)):
+    for pkg, n in (("analysis", 3), ("prof", 17)):
         mods = [f for f in PORT_FILES
                 if f.startswith(f"parsec_tpu_torch/{pkg}/")]
         assert len(mods) == n, mods
@@ -454,3 +459,48 @@ def test_module_imports_neither_jax_nor_parsec_tpu(rel):
 def test_chip_smoke_imports_neither_jax_nor_parsec_tpu():
     bad = [n for n in _imports(REPO / "chip_smoke.py") if _forbidden(n)]
     assert bad == [], bad
+
+
+def test_the_observability_plane_loads_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter imports ``parsec_tpu_torch.prof`` whole (every
+    submodule by name), runs the tracemerge and critpath self-tests,
+    serves two pools with spans on and reads ``metrics()``,
+    ``runtime_report()`` and a stall report."""
+    code = textwrap.dedent("""
+        import contextlib, importlib, io, json, os, pkgutil, sys
+        os.environ["PARSEC_MCA_prof_spans"] = "1"
+        import parsec_tpu_torch.prof as prof
+        names = sorted(m.name for m in pkgutil.iter_modules(prof.__path__))
+        for n in names:
+            importlib.import_module(f"parsec_tpu_torch.prof.{n}")
+        from parsec_tpu_torch import ptg
+        from parsec_tpu_torch.prof import critpath, tracemerge
+        from parsec_tpu_torch.serve import RuntimeServer
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = tracemerge.self_test() + critpath.self_test()
+        server = RuntimeServer(nb_cores=1)
+        for i in range(2):
+            p = ptg.PTGBuilder("iso", N=4)
+            t = p.task("T", i=ptg.span(0, lambda g, l: g.N - 1))
+            t.body(lambda es, task, g, l: None)
+            server.submit(p.build(), tenant=f"t{i}").result(timeout=60)
+        m = server.metrics()
+        rep = prof.runtime_report()
+        stall = prof.flight_recorder.build_stall_report(server.context, "x")
+        server.drain(timeout=60)
+        print(json.dumps({
+            "names": names, "rc": rc,
+            "tenants": sorted(m["tenants"]), "critpath": "critpath" in m,
+            "blocks": sorted(rep), "sections": len(stall["sections"]),
+            "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["rc"] == 0 and len(out["names"]) == 16
+    assert out["tenants"] == ["t0", "t1"] and out["critpath"]
+    assert {"serve", "slo", "critpath", "knobs"} <= set(out["blocks"])
+    assert out["sections"] == 1
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded

@@ -14,6 +14,10 @@ span a task; the device module's stage-in events sum to its ``bytes_in``
 and every task it runs has one EXEC span; and a pool with one
 inconsistent successor fails at its first executed task under the
 iterators checker, in both packages.
+
+Each test reads the PINS slots bare: the always-on flight recorder,
+which every context installs, is set aside for the test
+(``prof_flightrec_size`` 0) and restored after it.
 """
 
 import collections
@@ -42,8 +46,8 @@ from parsec_tpu_torch.device import registry as port_registry
 from parsec_tpu_torch.device.cuda import init_cuda_devices
 from parsec_tpu_torch.models import cholesky as pchol
 from parsec_tpu_torch.models import tiled_gemm as pgemm
-from parsec_tpu_torch.prof import (Profiling, pins, release_pins_modules,
-                                   sde, trace_state)
+from parsec_tpu_torch.prof import (Profiling, flight_recorder, pins,
+                                   release_pins_modules, sde, trace_state)
 from parsec_tpu_torch.prof.counters import TASKS_ENABLED, TASKS_RETIRED
 from parsec_tpu_torch.prof.iterators_checker import IteratorsCheckerError
 from parsec_tpu_torch.prof.pins import PinsEvent
@@ -51,6 +55,19 @@ from parsec_tpu_torch.runtime import Context as PContext
 
 N, NB = 32, 8
 NTASKS = {"gemm": 64, "cholesky": 20}
+
+
+@pytest.fixture(autouse=True)
+def _no_flight_recorder():
+    saved_size = params.get("prof_flightrec_size")
+    saved = flight_recorder.recorder
+    flight_recorder.uninstall()
+    params.set("prof_flightrec_size", 0)
+    yield
+    params.set("prof_flightrec_size", saved_size)
+    if saved is not None:
+        flight_recorder.recorder = saved
+        pins.recorder = saved.note
 
 
 @pytest.fixture
