@@ -87,7 +87,9 @@ any phase fails:
    ``mma_tf32``, on TF32-rounded inputs; ``nt-sub`` and ``nt-noc`` on
    ``simt_fp32`` under ``highest`` (the ``dynamic_cholesky_highest``
    path's) against the strict plain version; ``nt-sub`` as a strided batch
-   of 465 and ``nn-sub`` of 225 512^3 tiles (the lowered groups' shapes).
+   of 465 and ``nn-sub`` of 225 512^3 tiles (the lowered groups' shapes);
+   ``nt-sub`` and ``nt-noc`` as tile lists of 3 2048^3 tiles (the tile
+   size **tuned_cholesky** chose, a panel's TRSMs and SYRK/GEMMs).
    Each with the kernel's, the plain version's and the library call's
    times (``torch.baddbmm(c, a, b, alpha=-1)``, or ``torch.bmm`` with no
    C, TF32 on for that call alone under ``default``) and the bound.
@@ -275,6 +277,47 @@ any phase fails:
    critpath over the merged trace (the identity held) with its
    ``comm.get`` and ``comm.activate`` shares, and the wall beside
    **multiproc_comm_thread**'s runs with the thread on.
+26. **path tuned_cholesky** (after the factorizations) — the closed-loop
+   tuner on **dynamic_cholesky** (n=8192, fp32, ``default``, K1's
+   ``mma_tf32`` NT and NT-subtract forms): the tile size seeded bad
+   (nb=128, 64 x 64 tiles, 45,760 tasks) and moved by ``tune.search``
+   over a log2 ``KnobSpec`` from 128 to 4096 (budget 8, one restart,
+   seed 0, objective ``wall_s``), a size's first visit off the clock.
+   ``tune_speedup`` (the seeded trial's wall over the winner's) must
+   reach 1.2, the winner's nb 512, its factor the TF32 gates; the winner
+   must be in the tuning DB under the pool's ``workload_signature``, and
+   every trial in the perf ledger.  Both files live in a temporary
+   directory for the whole script (``tune_db_path``, ``perfdb_path``,
+   exported to every rank process), so no file left on the machine steers
+   a ``Context`` the script starts.
+27. **path lowered_cache** (after **lowered_gemm**) — the headline GEMM
+   (N=16384, nb=512, bf16 A/B, fp32 C) lowered from two freshly built
+   pools: the first a miss, the second a hit returning the same step;
+   ``warm()`` launches nothing; the same pool submitted twice through
+   ``RuntimeServer.submit_lowered``, each result's C (host tensors)
+   within 2e-2 of a float64 product, one ``wgmma_bf16`` launch each;
+   ``lower_s`` of the miss and the hit, ``warm()``'s seconds and each
+   submission's wall.
+28. **path llm_wide_adaptive** (after **slo llm_wide_slo**) — the
+   ``llm_wide`` backlog (seed 11, 32 new tokens) with ``tune_adaptive``
+   on, through ``server.submit_stream``: tenant0's vector
+   (``llm_steps_per_pool`` 1) is put in the tuning DB first, the
+   server's consult seeds its controller, tenant1 starts at 8.  Every
+   stream equal to the oracle, each controller starting where it
+   should, every adoption written back exactly once; tokens/s, ITL
+   p50/p99, each tenant's k trajectory, probes and adoptions.
+29. **path llm_sharded** (after **llm_tiers**) — a
+   ``ShardedRuntimeServer`` over four rank threads sharing the card
+   (``run_multirank(4, nb_cores=1)``), each rank's batcher on K2 at the
+   ``llm_wide`` width and pinned to its rank: 16 streams of 16 new
+   tokens, 8 sharing a 1024-token system prompt (seed 29).  Every stream
+   equal to the oracle; the shared-prompt streams after the first placed
+   on its rank (residency); ``metrics()`` equal to the bucket-merge of
+   the four planes, each count the ranks' sum.  **control
+   llm_sharded_fail_rank**: the 8 own-prompt streams again with 32 new
+   tokens, rank 2 killed with ``fail_rank`` once it shipped a token: its
+   live streams requeue on survivors as prompt plus shipped tokens and
+   finish oracle-exact, and the zombie's late deltas land nothing.
 
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
@@ -1288,10 +1331,12 @@ def _wide_backlog(seed: int, n: int = 16):
 
 def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
               label: str = "llm", wide: bool = False,
-              served=None) -> dict:
+              served=None, via_server: bool = False) -> dict:
     """LLM decode serving through the entry points, on the card.  With
     ``wide``, the llm_wide backlog through a ``ContinuousBatcher`` of its
-    own on the server (the model is not the server's default).
+    own on the server (the model is not the server's default); with
+    ``via_server`` that batcher is the server's own and the streams go
+    through ``server.submit_stream`` (its per-tenant tuning consult too).
     ``served(server, tickets, results)`` runs once every stream is done,
     before the server drains; its result is the record's ``served``."""
     import statistics
@@ -1315,9 +1360,12 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
     cpu_before = cpu.executed_tasks
     ra.attn_page_update.launches = 0     # counts from here are the path's
     t0 = time.perf_counter()
-    with RuntimeServer(nb_cores=2) as server:
-        batcher = ContinuousBatcher(server, model=model) if wide else None
-        submit = batcher.submit_stream if wide else server.submit_stream
+    with RuntimeServer(nb_cores=2,
+                       llm_model=model if via_server else None) as server:
+        batcher = ContinuousBatcher(server, model=model) \
+            if wide and not via_server else None
+        submit = batcher.submit_stream if batcher is not None \
+            else server.submit_stream
         tickets = []
         for prompt, tenant, fork_of, eos in backlog:
             tickets.append(submit(
@@ -1327,7 +1375,7 @@ def phase_llm(card: str, torch, seed: int = 7, max_new: int = 64,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         extra = served(server, tickets, results) if served else None
-        if wide:
+        if batcher is not None:
             llm = batcher.stats()
             batcher.stop()
         else:
@@ -2173,6 +2221,9 @@ def phase_k1_forms(card: str, torch) -> list:
     # the multi-rank paths' batches: a rank's k-step of 16 GEMM chains,
     # and 1-4 trailing-update or TRSM tiles a launch in the factorizations
     rank16, rank4 = (16, 1024, 1024, 1024), (4, 1024, 1024, 1024)
+    # the tuner's winning tile on the dynamic Cholesky (phase
+    # tuned_cholesky, nb=2048): a panel's 3 TRSM and 3 SYRK/GEMM tiles
+    tuned3 = (3, 2048, 2048, 2048)
     # (form, shape, tile list, precision, iterations)
     cases = [("nt-sub", big, tile_list, "default", 5),
              ("nt-sub", (465, 512, 512, 512), False, "default", 5),
@@ -2186,7 +2237,9 @@ def phase_k1_forms(card: str, torch) -> list:
              ("nt-sub", rank4, tile_list, "default", 5),
              ("nt-noc", rank4, tile_list, "default", 5),
              ("nn-sub", rank4, tile_list, "default", 5),
-             ("nn-noc", rank4, tile_list, "default", 5)]
+             ("nn-noc", rank4, tile_list, "default", 5),
+             ("nt-sub", tuned3, tile_list, "default", 5),
+             ("nt-noc", tuned3, tile_list, "default", 5)]
     # as phase_kernel: fp32 sums in other orders, |C| ~ sqrt(k)
     tol = dict(rtol=1e-4, atol=1e-3)
     recs = []
@@ -3600,6 +3653,526 @@ def _mp_dense(recs: list, n: int, nb: int):
     return dense
 
 
+# ---------------------------------------------------------------------------
+# the tuner, the lowering cache, adaptive k and the sharded server
+# ---------------------------------------------------------------------------
+
+# the tuner's trial budget and tile-size domain on the dynamic Cholesky
+TUNE_BUDGET = 8
+TUNE_SPEEDUP_MIN = 1.2       # the JAX package's perf-smoke gate
+
+
+def _tune_dirs() -> str:
+    """A fresh temporary directory for the run's tuning DB and perf
+    ledger: the port's ``tune_db_path`` and ``perfdb_path`` point there
+    (and every rank process inherits them), so no file left on the card's
+    machine steers a ``Context`` the script starts."""
+    import tempfile
+
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.prof import perfdb  # noqa: F401 — registers
+    from parsec_tpu_torch.tune import db  # noqa: F401 — the two paths
+    d = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    for name, leaf in (("tune_db_path", "tunedb.jsonl"),
+                       ("perfdb_path", "perfdb.jsonl")):
+        os.environ[f"PARSEC_MCA_{name}"] = os.path.join(d, leaf)
+        params.set(name, os.path.join(d, leaf))
+    return d
+
+
+def phase_tuned_cholesky(card: str, torch, n: int = 8192,
+                         nb_bad: int = 128) -> dict:
+    """The closed-loop tuner on the dynamic Cholesky (the JAX bench's
+    ``tuned_cholesky`` stage, ``bench.py:303-400``) at full size: the
+    tile size is seeded bad (nb=128, 64 x 64 tiles) and ``tune.search``
+    moves it over a log2 domain from 128 to 4096 (budget 8, one restart,
+    seed 0, objective ``wall_s``).  A trial's first visit to a tile size
+    runs once off the clock.  The winner's factor passes the TF32 gates,
+    sits in the tuning DB under the pool's signature, and every trial is
+    in the perf ledger."""
+    from parsec_tpu_torch.core.params import KnobSpec
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.cholesky import make_spd_fast
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.prof.perfdb import PerfDB, make_key
+    from parsec_tpu_torch.tune import TuneDB, workload_signature
+    from parsec_tpu_torch.tune.search import search
+
+    a = make_spd_fast(n)
+    dev = init_cuda_devices()[0]
+
+    def one(nb: int):
+        A = _factor_matrix("cholesky", a, nb)
+        tp = _factor_ptg("cholesky", A)
+        t0 = time.perf_counter()
+        _run_pool(tp)
+        dev.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dev.flush_cache()
+        return wall, A
+
+    warmed: set = set()
+
+    def run_once(knobs: dict) -> float:
+        # a tile size's first visit sets up the library's handles and
+        # the wrapper's buffers for its shapes: off the clock, as in the
+        # JAX stage
+        nb = int(knobs["nb"])
+        if nb not in warmed:
+            warmed.add(nb)
+            one(nb)
+        return one(nb)[0]
+
+    sig = workload_signature(_factor_ptg("cholesky", _factor_matrix(
+        "cholesky", a, nb_bad)), size_hint=n)
+    space = {"nb": KnobSpec(name="nb", lo=128, hi=4096, scale="log2")}
+    _k1_reset(tg)                        # counts from here are the path's
+    t0 = time.perf_counter()
+    out = search(run_once, signature=sig, space=space, budget=TUNE_BUDGET,
+                 restarts=1, objective="wall_s", seed=0,
+                 start={"nb": nb_bad})
+    search_s = time.perf_counter() - t0
+    launches = tg.gemm_update.launches
+    by_variant = dict(tg.gemm_update.launches_by_variant)
+    by_form = dict(tg.gemm_update.launches_by_form)
+    trials = [{"nb": t["knobs"]["nb"], "wall_s": t["score"]}
+              for t in out["trials"]]
+    # search takes a raising trial for a non-move; here every visited
+    # tile size must have been scored on the card
+    _check(not out["failed"], f"tuned_cholesky: trials raised "
+           f"{out['failed']}")
+    _check(trials and trials[0]["nb"] == nb_bad,
+           f"tuned_cholesky: the first trial is {trials[:1]}, not the "
+           f"seeded nb={nb_bad}")
+    baseline_s = trials[0]["wall_s"]
+    best = out["best"]
+    tuned_s = float(out["best_score"])
+    speedup = baseline_s / tuned_s
+    _check(out["evals"] <= TUNE_BUDGET, f"tuned_cholesky: {out['evals']} "
+           f"trials past the budget {TUNE_BUDGET}")
+    _check(speedup >= TUNE_SPEEDUP_MIN, f"tuned_cholesky: tune_speedup "
+           f"{speedup} below {TUNE_SPEEDUP_MIN} (trials {trials})")
+    _check(best["nb"] >= 512, f"tuned_cholesky: the winner's nb "
+           f"{best['nb']} is below 512")
+    _check(launches > 0 and by_variant["mma_tf32"] == launches,
+           f"tuned_cholesky: K1 ran {by_variant}, expected mma_tf32 only")
+    _check(set(by_form) == K1_FORMS["cholesky"],
+           f"tuned_cholesky: K1 forms {by_form}")
+    rec_db = TuneDB().best(sig, objective="wall_s")
+    _check(rec_db is not None and rec_db["knobs"] == best,
+           f"tuned_cholesky: the tuning DB holds {rec_db} for {sig}")
+    perf = PerfDB()
+    for t in out["trials"]:
+        hist = perf.history(make_key(f"tune.{sig}", "wall_s",
+                                     knobs=t["knobs"]))
+        _check(t["score"] in hist, f"tuned_cholesky: trial {t['knobs']} "
+               f"is not in the perf ledger ({hist})")
+    # correctness is not negotiable for a tuner: the winner's factor
+    wall, A = one(int(best["nb"]))
+    rec = dict(n=n, nb_bad=nb_bad, best_nb=int(best["nb"]),
+               tune_speedup=speedup, baseline_s=baseline_s,
+               tuned_s=tuned_s, check_wall_s=wall, trials=trials,
+               evals=out["evals"], pruned=out["pruned"],
+               search_s=search_s, signature=sig,
+               db_path=out.get("db_path", ""),
+               ledger_records=len(perf.records()),
+               gemm_launches=launches, gemm_launches_by_variant=by_variant,
+               gemm_launches_by_form=by_form,
+               **_factor_check(torch, "cholesky", A.to_dense(), a,
+                               int(best["nb"]), "default"))
+    _emit(card, phase="path", name="tuned_cholesky", **rec)
+    return rec
+
+
+def phase_lowered_cache(card: str, torch, n: int = 16384,
+                        nb: int = 512) -> dict:
+    """The lowering cache at the headline GEMM (N=16384, nb=512, bf16 A/B,
+    fp32 C): two freshly built pools lowered in turn, the second a hit on
+    the first's step; ``warm()`` with no launch; then one pool submitted
+    twice through ``RuntimeServer.submit_lowered``, each result's C held
+    to the **lowered_gemm** phase's float64 check with one ``wgmma_bf16``
+    launch each."""
+    from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+    from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.ptg.lowering import lower_taskpool, lowering_cache
+    from parsec_tpu_torch.serve import RuntimeServer
+
+    g = torch.Generator(device="cuda").manual_seed(601)
+    a_dev = torch.randn(n, n, device="cuda", generator=g).bfloat16()
+    b_dev = torch.randn(n, n, device="cuda", generator=g).bfloat16()
+    a_host, b_host = a_dev.cpu(), b_dev.cpu()
+
+    def pool():
+        return tiled_gemm_ptg(TiledMatrix.from_dense("A", a_host, nb, nb),
+                              TiledMatrix.from_dense("B", b_host, nb, nb),
+                              TiledMatrix("C", n, n, nb, nb,
+                                          dtype=torch.float32))
+
+    lowering_cache.clear()      # the headline phase lowered it already
+    tp1, tp2 = pool(), pool()
+    t0 = time.perf_counter()
+    low1 = lower_taskpool(tp1)
+    miss_s = time.perf_counter() - t0
+    _check((lowering_cache.hits, lowering_cache.misses) == (0, 1),
+           "lowered_cache: the first lowering was not a miss")
+    t0 = time.perf_counter()
+    low2 = lower_taskpool(tp2)
+    hit_s = time.perf_counter() - t0
+    _check((lowering_cache.hits, lowering_cache.misses) == (1, 1),
+           "lowered_cache: the second lowering was not a hit")
+    _check(low2.step_fn is low1.step_fn and low2.signature == low1.signature,
+           "lowered_cache: the hit returned another step")
+    _check(low2.mode == "chain-collapse", f"lowered_cache mode {low2.mode}")
+    _k1_reset(tg)                        # counts from here are the path's
+    warm = low2.warm()
+    _check(tg.gemm_update.launches == 0,
+           f"lowered_cache: warm() launched K1 {tg.gemm_update.launches}x")
+    ref = a_dev.double() @ b_dev.double()
+    subs = []
+    with RuntimeServer(nb_cores=1) as server:
+        for i in range(2):
+            t0 = time.perf_counter()
+            out = server.submit_lowered(tp1).result(timeout=600)
+            wall = time.perf_counter() - t0
+            c = out["C"]
+            _check(c.device.type == "cpu" and c.shape == (n, n)
+                   and c.dtype == torch.float32,
+                   f"lowered_cache: C is {c.device} {tuple(c.shape)} "
+                   f"{c.dtype}")
+            got = c.cuda()
+            _check(bool(torch.isfinite(got).all()),
+                   "lowered_cache: C is not finite")
+            err = (got.double() - ref).abs().max().item()
+            _check(err <= 2e-2, f"lowered_cache: submission {i} max abs "
+                   f"err {err} above 2e-2")
+            by_variant = dict(tg.gemm_update.launches_by_variant)
+            _check(tg.gemm_update.launches == i + 1
+                   and by_variant["wgmma_bf16"] == i + 1,
+                   f"lowered_cache: K1 ran {by_variant} after submission "
+                   f"{i}, expected {i + 1} wgmma_bf16")
+            subs.append(dict(wall_s=wall, max_abs_err=err))
+            del out, c, got
+        stats = server.stats()
+    _check(lowering_cache.hits == 3 and lowering_cache.misses == 1,
+           f"lowered_cache: {lowering_cache.hits} hits, "
+           f"{lowering_cache.misses} misses after the submissions")
+    rec = dict(n=n, nb=nb, mode=low2.mode, lower_miss_s=miss_s,
+               lower_hit_s=hit_s, warm=warm, submissions=subs,
+               cache_hits=lowering_cache.hits,
+               cache_misses=lowering_cache.misses,
+               served_completed=stats["completed"],
+               gemm_launches=tg.gemm_update.launches,
+               gemm_launches_by_variant=dict(
+                   tg.gemm_update.launches_by_variant))
+    _emit(card, phase="path", name="lowered_cache", **rec)
+    del a_dev, b_dev, ref
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_llm_wide_adaptive(card: str, torch, seed: int = 11,
+                            max_new: int = 32, seeded_k: int = 1) -> dict:
+    """The ``llm_wide`` backlog with adaptive k (``tune_adaptive``): one
+    tenant's vector (``llm_steps_per_pool`` = ``seeded_k``) is put in the
+    tuning DB before the server starts, and the server's consult at that
+    tenant's first stream seeds its controller; the other tenant starts
+    at the default 8.  Every stream must equal the oracle (adaptation
+    moves batching, never tokens), the seeded controller must start from
+    its seed, and every adoption must be written back exactly once."""
+    from parsec_tpu_torch.tune import TuneDB, ambient_signature
+
+    seeded = "tenant0"
+    db = TuneDB()
+    db.note(ambient_signature(f"tenant:{seeded}"),
+            {"llm_steps_per_pool": seeded_k}, 1e9,
+            objective="tok_latency_ms", source="seed")
+
+    def served(server, tickets, results):
+        llm = server.stats()["llm"]
+        ctl = llm.get("adaptive_k", {})
+        return ({t: {k: v for k, v in c.items() if k != "start"}
+                 for t, c in ctl.items()},
+                {t: c["start"] for t, c in ctl.items()},
+                llm.get("adaptive_k_seed", {}))
+
+    with _Params(tune_adaptive=True):
+        rec = phase_llm(card, torch, seed=seed, max_new=max_new,
+                        label="llm_wide_adaptive", wide=True, served=served,
+                        via_server=True)
+    ctl, starts, seeds = rec["served"]
+    _check(seeds == {seeded: seeded_k}, f"llm_wide_adaptive: the consult "
+           f"seeded {seeds}, expected {{{seeded!r}: {seeded_k}}}")
+    _check(starts == {"tenant0": seeded_k, "tenant1": 8},
+           f"llm_wide_adaptive: the controllers started at {starts}")
+    recs = [r for r in TuneDB().records() if r.get("source") == "adaptive"]
+    trajectories = {}
+    for tenant, st in sorted(ctl.items()):
+        mine = [r["knobs"]["llm_steps_per_pool"] for r in recs
+                if r["sig"] == ambient_signature(f"tenant:{tenant}")]
+        _check(len(mine) == st["adoptions"], f"llm_wide_adaptive "
+               f"{tenant}: {len(mine)} writebacks for {st['adoptions']} "
+               f"adoptions")
+        _check(not mine or mine[-1] == st["incumbent"],
+               f"llm_wide_adaptive {tenant}: the last writeback {mine} is "
+               f"not the incumbent {st['incumbent']}")
+        trajectories[tenant] = [starts[tenant]] + mine
+    out = dict(tokens=rec["tokens"], wall_s=rec["wall_s"],
+               tokens_per_s=rec["tokens_per_s"],
+               itl_ms_p50=rec["itl_ms_p50"], itl_ms_p99=rec["itl_ms_p99"],
+               ttft_ms_p50=rec["ttft_ms_p50"],
+               decode_submits=rec["decode_submits"],
+               seeded_tenant=seeded, seeded_k=seeded_k,
+               k_trajectories=trajectories, controllers=ctl,
+               writebacks=len(recs),
+               ragged_attn_page_launches=rec["ragged_attn_page_launches"])
+    _emit(card, phase="path", name="llm_wide_adaptive_k", **out)
+    rec.update(out)
+    return rec
+
+
+def _sharded_backlog(model, seed: int, sys_len: int = 1024):
+    """16 streams at the ``llm_wide`` width: 8 share a ``sys_len``-token
+    system prompt with seeded 16-64-token suffixes (as ``llm_prefix``),
+    8 have their own prompts of 64-512 tokens."""
+    import numpy as np
+    _system, shared = _prefix_backlog(model, seed, n=8, sys_len=sys_len)
+    rng = np.random.default_rng(seed + 1)
+    own = [[int(t) for t in rng.integers(0, model.vocab,
+                                         int(rng.integers(64, 513)))]
+           for _ in range(8)]
+    return shared, own
+
+
+def _plane_run(nranks: int, model, frontend_fn, timeout: float = 600):
+    """``run_multirank`` rank threads sharing the card, one
+    ``ShardedRuntimeServer`` each, every rank's batcher at ``model``'s
+    width and pinned to its rank; rank 0 runs ``frontend_fn(srv,
+    peers)``, the others serve until its SHUTDOWN."""
+    import threading
+
+    from parsec_tpu_torch.comm.multirank import run_multirank
+    from parsec_tpu_torch.serve import ShardedRuntimeServer
+
+    bar = threading.Barrier(nranks)
+    peers: dict = {}
+
+    def body(ctx, rank, nranks):
+        # the model is not the server's default: each rank's batcher
+        # decodes at its width, pinned to the rank
+        srv = ShardedRuntimeServer(ctx, llm_model=model)
+        peers[rank] = srv
+        bar.wait()
+        if rank == 0:
+            try:
+                return frontend_fn(srv, peers)
+            finally:
+                srv.shutdown(timeout=timeout)
+                bar.wait()
+        try:
+            srv.serve_forever(idle_timeout=timeout)
+        finally:
+            srv.close(timeout=timeout)
+            bar.wait()
+        return None
+
+    return run_multirank(nranks, body, nb_cores=1, timeout=timeout)[0]
+
+
+class _SLOTap:
+    """Every sample the process's SLO planes record while open, raw, so
+    that a bucket-merged summary can be held against one histogram of
+    the union of the samples (``summary(n)``, over the first ``n``)."""
+
+    def __enter__(self):
+        from parsec_tpu_torch.prof.histogram import SLOPlane
+        self._cls, orig = SLOPlane, SLOPlane.observe
+        self._orig = orig
+        self.samples: list = []
+        samples = self.samples
+
+        def observe(plane, tenant, metric, value):
+            samples.append((tenant, metric, float(value)))
+            orig(plane, tenant, metric, value)
+
+        SLOPlane.observe = observe
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.observe = self._orig
+
+    def summary(self, n: int) -> dict:
+        from parsec_tpu_torch.prof.histogram import LogHistogram
+        hists: dict = {}
+        for tenant, metric, v in self.samples[:n]:
+            hists.setdefault((tenant, metric), LogHistogram()).record(v)
+        out: dict = {}
+        for (tenant, metric), h in hists.items():
+            d = out.setdefault(tenant, {})
+            for q in (0.5, 0.99):
+                d[f"{metric}_p{int(q * 100)}"] = round(h.quantile(q), 3)
+            d[f"{metric}_count"] = h.count
+        return out
+
+
+def phase_llm_sharded(card: str, torch, seed: int = 29, max_new: int = 16,
+                      nranks: int = 4, control_new: int = 32) -> dict:
+    """One serving plane over four rank threads sharing the card
+    (``ShardedRuntimeServer``), each rank's batcher decoding on K2 at the
+    ``llm_wide`` width: 16 streams, 8 sharing a 1024-token system prompt.
+    Every stream must equal the oracle; the shared-prompt streams after
+    the first must follow its residency to its rank; ``metrics()`` must
+    equal the bucket-merge of the four ranks' planes, with each count the
+    sum of the ranks', and its quantiles must be those of one histogram
+    of every sample the four planes recorded (:class:`_SLOTap`).  The
+    control (the 8 own prompts, ``control_new``
+    tokens each, so a stream is still live after its first burst) kills
+    rank 2 once it shipped a token (``fail_rank``): its live streams
+    finish on survivors, oracle-exact, with no duplicate token."""
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    from parsec_tpu_torch.serve.sharded import merge_planes
+
+    model = _wide_model()
+    shared, own = _sharded_backlog(model, seed)
+    want_shared = [model.reference_generate(p, max_new) for p in shared]
+    want_own = [model.reference_generate(p, max_new) for p in own]
+    dev = _serving_card()
+    before = dict(dev.tasks_by_class)
+
+    def frontend(srv, peers):
+        t0 = time.perf_counter()
+        # an own prompt first (rank 0), then the first shared one (the
+        # least-loaded rank), then the rest, alternating
+        hs = [srv.submit_stream(own[0], max_new_tokens=max_new,
+                                tenant="tenant1")]
+        hs_shared = [srv.submit_stream(shared[0], max_new_tokens=max_new,
+                                       tenant="tenant0")]
+        for p_sh, p_own in zip(shared[1:], own[1:]):
+            hs_shared.append(srv.submit_stream(p_sh, max_new_tokens=max_new,
+                                               tenant="tenant0"))
+            hs.append(srv.submit_stream(p_own, max_new_tokens=max_new,
+                                        tenant="tenant1"))
+        srv.wait(hs + hs_shared, timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for h, w in zip(hs_shared + hs, want_shared + want_own):
+            _check(h.result(timeout=1)["tokens"] == w,
+                   f"llm_sharded: stream {h.sid} on rank {h.rank} differs "
+                   f"from the oracle")
+        home = hs_shared[0].rank
+        _check(home != 0 and all(h.rank == home for h in hs_shared[1:]),
+               f"llm_sharded: the shared-prompt streams went to "
+               f"{[h.rank for h in hs_shared]}, not all to rank {home}")
+        # a pool's latency sample lands just after its ticket resolves:
+        # read metrics() when no sample landed while it was gathered
+        for _ in range(100):
+            n = len(tap.samples)
+            m = srv.metrics(timeout=60)
+            if len(tap.samples) == n:
+                break
+            time.sleep(0.05)
+        union = tap.summary(n)
+        hist_keys = {t: {k for k in d if k.endswith(("_p50", "_p99",
+                                                     "_count"))}
+                     for t, d in m["tenants"].items()}
+        _check({t: ks for t, ks in hist_keys.items() if ks}
+               == {t: set(d) for t, d in union.items()},
+               f"llm_sharded: metrics() has the histograms {hist_keys}, "
+               f"the samples make {sorted(union)}")
+        for t, d in union.items():
+            got = {k: m["tenants"][t][k] for k in d}
+            _check(got == d, f"llm_sharded: {t} merged {got}, the union "
+                   f"of the samples gives {d}")
+        raw = [peers[r]._plane_dict() for r in sorted(peers)]
+        _check(m["tenants"] == merge_planes(raw),
+               "llm_sharded: metrics() is not the merge of the planes")
+        counts = {}
+        for t, d in sorted(m["tenants"].items()):
+            for key, v in d.items():
+                if not key.endswith("_count"):
+                    continue
+                metric = key[:-len("_count")]
+                ranks = [plane[t][metric]["count"] for plane in raw
+                         if metric in plane.get(t, {})]
+                _check(v == sum(ranks), f"llm_sharded: {t} {key} {v} is "
+                       f"not the ranks' sum {ranks}")
+                counts[f"{t}.{key}"] = ranks
+        return dict(wall_s=wall, ranks=[h.rank for h in hs_shared + hs],
+                    home=home, tenants=m["tenants"], counts=counts,
+                    union_samples=n,
+                    tokens=sum(len(h.tokens) for h in hs + hs_shared))
+
+    ra.attn_page_update.launches = 0     # counts from here are the path's
+    with _SLOTap() as tap:
+        run = _plane_run(nranks, model, frontend)
+    launches = ra.attn_page_update.launches
+    tasks = {c: k - before.get(c, 0) for c, k in dev.tasks_by_class.items()
+             if k - before.get(c, 0)}
+    _check(launches > 0, "llm_sharded: no ragged_attn_page launch")
+    _check({"ATTN", "OUT", "SAMPLE", "PF"} <= set(tasks),
+           f"llm_sharded: task classes on the card {sorted(tasks)}")
+    rec = dict(streams=16, ranks_used=sorted(set(run["ranks"])),
+               tokens=run["tokens"], wall_s=run["wall_s"],
+               tokens_per_s=run["tokens"] / run["wall_s"],
+               shared_home=run["home"], placement=run["ranks"],
+               metric_counts_by_rank=run["counts"],
+               union_samples=run["union_samples"],
+               tenants=run["tenants"], tasks_by_class=tasks,
+               ragged_attn_page_launches=launches)
+    _emit(card, phase="path", name="llm_sharded", **rec)
+
+    # the control: rank 2 dies mid-run; its streams requeue on survivors
+    want_ctl = [model.reference_generate(p, control_new) for p in own]
+
+    def killed(srv, peers):
+        hs = [srv.submit_stream(p, max_new_tokens=control_new,
+                                tenant=f"tenant{i % 2}")
+              for i, p in enumerate(own)]
+        on2 = [h for h in hs if h.rank == 2]
+        _check(on2, "control llm_sharded: no stream on rank 2")
+        deadline = time.monotonic() + 300
+        while not any(h.tokens for h in on2):
+            srv.step()
+            _check(time.monotonic() < deadline,
+                   "control llm_sharded: rank 2 shipped no token")
+            time.sleep(0.002)
+        peers[2].zombie = True
+        victims = [h for h in on2 if not h.done()]
+        _check(victims, "control llm_sharded: rank 2's streams finished "
+               "before the kill")
+        shipped = {h.sid: len(h.tokens) for h in victims}
+        srv.fail_rank(2)
+        _check(all(h.rank != 2 and h.requeues == 1 for h in victims),
+               "control llm_sharded: a stream of rank 2 did not requeue")
+        srv.wait(hs, timeout=600)
+        for h, w in zip(hs, want_ctl):
+            got = h.result(timeout=1)["tokens"]
+            _check(got == w, f"control llm_sharded: stream {h.sid} "
+                   f"(ranks {h.ranks}) differs from the oracle")
+        peers[2].zombie = False
+        deadline = time.monotonic() + 120
+        while peers[2]._live and time.monotonic() < deadline:
+            srv.step()
+            time.sleep(0.005)
+        srv.step()
+        for h, w in zip(hs, want_ctl):
+            _check(h.tokens == w, f"control llm_sharded: stream {h.sid} "
+                   f"re-landed a token")
+        return dict(victims=[h.sid for h in victims], shipped=shipped,
+                    requeued_to=[h.rank for h in victims],
+                    dup_tokens=sum(h.dup_tokens for h in victims))
+
+    ra.attn_page_update.launches = 0
+    ctl = _plane_run(nranks, model, killed)
+    ctl_launches = ra.attn_page_update.launches
+    _emit(card, phase="control", name="llm_sharded_fail_rank",
+          ragged_attn_page_launches=ctl_launches, **ctl)
+    rec["control"] = ctl
+    rec["control_ragged_attn_page_launches"] = ctl_launches
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3614,6 +4187,15 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import shutil
+    tune_dir = _tune_dirs()
+    try:
+        return _run(torch)
+    finally:
+        shutil.rmtree(tune_dir, ignore_errors=True)
+
+
+def _run(torch) -> int:
     card = _card()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3635,12 +4217,18 @@ def main() -> int:
     wide_trace = phase_llm_trace(card, torch, max_new=8, wide=True)
     wide_pins = phase_llm_wide_pins(card, torch)
     wide_slo = phase_llm_wide_slo(card, torch, wide_trace)
+    adaptive = phase_llm_wide_adaptive(card, torch)
     phase_stall(card, torch)
     prefix = phase_llm_prefix(card, torch)
     spec = phase_llm_spec(card, torch)
     tiers = phase_llm_tiers(card, torch)
+    sharded = phase_llm_sharded(card, torch)
     k2_paths = {"llm": llm, "llm_wide": wide, "llm_wide_pins": wide_pins,
-                "llm_wide_slo": wide_slo,
+                "llm_wide_slo": wide_slo, "llm_wide_adaptive": adaptive,
+                "llm_sharded": sharded,
+                "llm_sharded_control": {
+                    "ragged_attn_page_launches":
+                        sharded["control_ragged_attn_page_launches"]},
                 **prefix,
                 "llm_spec": spec["llm_spec"],
                 "llm_spec_control": spec["llm_spec_control"],
@@ -3650,6 +4238,7 @@ def main() -> int:
     sten = phase_lowered_stencil(card, torch)
     phase_lowered_stencil2d(card, torch)
     lgemm = phase_lowered_gemm(card, torch)
+    lcache = phase_lowered_cache(card, torch)
     form_recs = phase_k1_forms(card, torch)
     factor_paths = {
         "dynamic_cholesky": phase_dynamic_factor(card, torch, "cholesky"),
@@ -3671,6 +4260,7 @@ def main() -> int:
           tile_tol=FACTOR_TOL["highest"],
           backward_error=tf32_run["backward_error"],
           backward_tol=BACKWARD_TOL["highest"])
+    tuned = phase_tuned_cholesky(card, torch)
     multirank = {
         "multirank_gemm": phase_multirank(card, torch, "gemm", path),
         "multirank_cholesky": phase_multirank(
@@ -3682,7 +4272,8 @@ def main() -> int:
     traced = phase_multiproc_traced(card, torch, multiproc, comm_thread)
     mr_dtd = phase_multirank_dtd(card, torch)
     k1_paths = {"gemm": path, "dtd_gemm": dtd, "path_checked": checked,
-                "lowered_gemm": lgemm, **factor_paths, **multirank,
+                "lowered_gemm": lgemm, "lowered_cache": lcache,
+                **factor_paths, "tuned_cholesky": tuned, **multirank,
                 **multiproc, "multiproc_comm_thread": comm_thread,
                 "multiproc_traced": traced,
                 "multirank_dtd_gemm": mr_dtd}

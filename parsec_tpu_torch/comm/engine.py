@@ -95,6 +95,7 @@ AM_TAG_BARRIER = 6       # context-level sync barrier
 AM_TAG_DTD = 7           # DTD cross-rank tile pushes and flushes
 AM_TAG_GET_FRAG = 8      # internal: one rendezvous payload fragment
 AM_TAG_GET_FRAG_ACK = 9  # internal: fragment credit (windowed pipelining)
+AM_TAG_USER_BASE = 16    # first tag available to applications and DSLs
 
 _params.register("comm_get_frag_bytes", 4 << 20,
                  "rendezvous GETs above this many bytes are split into "
@@ -102,6 +103,11 @@ _params.register("comm_get_frag_bytes", 4 << 20,
 _params.register("comm_get_window", 4,
                  "max in-flight unacked fragments per GET (each landed "
                  "fragment returns one credit)")
+# the autotuner's declared domain: fragment sizes and windows in powers
+# of two
+_params.declare_knob("comm_get_frag_bytes", lo=256 << 10, hi=16 << 20,
+                     scale="log2")
+_params.declare_knob("comm_get_window", lo=1, hi=16, scale="log2")
 
 _now_ns = time.perf_counter_ns
 

@@ -123,6 +123,8 @@ _params.register("comm_thread", False,
 _params.register("comm_bcast_tree", "binomial",
                  "multi-peer activation propagation: binomial|chain|star, "
                  "or auto (per payload: resolve_tree_kind)")
+_params.declare_knob("comm_bcast_tree",
+                     values=("binomial", "chain", "star", "auto"))
 
 
 def _wire_value(value: Any) -> torch.Tensor:

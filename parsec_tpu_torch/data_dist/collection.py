@@ -44,18 +44,21 @@ class DataCollection:
 
 
 class DictCollection(DataCollection):
-    """Host-dict-backed collection: every key owned by rank 0, data
-    created lazily from ``init_fn(*key)`` (a tensor or array-like) or as
-    zeros of ``dtt``.  ``keys`` optionally declares the key space up
-    front (still lazily materialized); ``has_key`` then answers from it.
+    """Host-dict-backed collection: every key owned by ``rank_of_fn``
+    (default rank 0), data created lazily from ``init_fn(*key)`` (a
+    tensor or array-like) or as zeros of ``dtt``.  ``keys`` optionally
+    declares the key space up front (still lazily materialized);
+    ``has_key`` then answers from it.
     """
 
     def __init__(self, name: str = "dict", dtt: TileType | None = None,
                  init_fn: Callable | None = None,
-                 keys: Iterable[tuple] | None = None) -> None:
+                 keys: Iterable[tuple] | None = None,
+                 rank_of_fn: Callable | None = None) -> None:
         super().__init__(name)
         self.default_dtt = dtt
         self._init_fn = init_fn
+        self._rank_of_fn = rank_of_fn
         # the declared key space, in declaration order (the lowering lays
         # its store rows out in this order)
         self._key_list = None if keys is None else list(dict.fromkeys(
@@ -65,7 +68,7 @@ class DictCollection(DataCollection):
         self._lock = threading.Lock()
 
     def rank_of(self, *key) -> int:
-        return 0
+        return 0 if self._rank_of_fn is None else self._rank_of_fn(*key)
 
     def data_of(self, *key) -> Data:
         with self._lock:

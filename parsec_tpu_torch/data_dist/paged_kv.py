@@ -34,8 +34,12 @@ past every device copy they detach: a deferred write-back of a rejected
 draft's k/v is then skipped, never written over the rolled-back page.
 A :class:`~parsec_tpu_torch.data_dist.kv_tiers.KVTierMap` attaches as
 ``tier`` and answers the tier keys of :meth:`PagedKVCollection.stats`.
+Every page is rank 0's unless ``rank_of_fn(seq, page)`` names another
+(the sharded server pins a rank's cache to that rank).
 
-Left out: ``rank_of_fn`` (one rank).
+Left out: the JAX package's distribution of sequences over ``nodes``
+ranks by a hash of the sequence id (the port's caches live on one rank
+each).
 """
 
 from __future__ import annotations
@@ -63,8 +67,10 @@ class PagedKVCollection(DataCollection):
 
     def __init__(self, name: str = "KV", page_size: int = 16,
                  num_heads: int = 4, head_dim: int = 8,
-                 dtype: Any = torch.float32, max_pages: int = 4096) -> None:
+                 dtype: Any = torch.float32, max_pages: int = 4096,
+                 rank_of_fn: Callable | None = None) -> None:
         super().__init__(name)
+        self._rank_of_fn = rank_of_fn
         self.page_size = int(page_size)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -92,7 +98,7 @@ class PagedKVCollection(DataCollection):
 
     # -- the DataCollection vtable --------------------------------------
     def rank_of(self, *key) -> int:
-        return 0
+        return 0 if self._rank_of_fn is None else self._rank_of_fn(*key)
 
     def data_of(self, *key) -> Data:
         seq, page = key

@@ -56,8 +56,18 @@ iteration's wall over its tokens), ``prefix_hits`` and
 ``spec_tokens_per_submit`` after each spec pool; and
 ``kv_prefetched_pages`` under ``_server``.
 
-Left out: region lowering of superpools, adaptive k (``tune_adaptive``)
-and the sharded server that reads ``residency_len``/``load``.
+**Adaptive k** (``tune_adaptive``, off by default): each tenant's pool
+depth follows a :class:`~parsec_tpu_torch.tune.adaptive.KnobController`
+fed the tenant's inter-token latency (the value its ``tok_latency_ms``
+histogram records), started from the tenant's vector in the tuning DB
+when the server's consult found one (:meth:`seed_tenant_knobs`); a
+converged adoption is written back once.  Adaptation moves batching,
+never tokens.  ``owner_rank`` pins every collection of the batcher to
+one rank of a multi-rank context (the sharded server's ranks each run a
+batcher), and :meth:`residency_len` and :meth:`load` are its placement
+hooks.
+
+Left out: region lowering of superpools.
 """
 
 from __future__ import annotations
@@ -85,6 +95,7 @@ from .decode import (decode_superpool_ptg, preallocate_decode_steps,
                      read_token_chains, seed_emb_table, seed_spec_batched,
                      seed_stream_step, spec_batched_ptg)
 from .model import NgramDrafter, ToyLM
+from ..tune.adaptive import steps_controller, writeback
 from .prefix_tree import PrefixTree
 
 _params.register("llm_page_size", 16,
@@ -101,6 +112,8 @@ _params.register("llm_steps_per_pool", 8,
                  "autoregressive decode steps one superpool spans (the "
                  "in-graph SAMPLE class carries token -> next query "
                  "between steps)")
+# the autotuner's declared domain: superpool depth in powers of two
+_params.declare_knob("llm_steps_per_pool", lo=1, hi=32, scale="log2")
 _params.register("llm_spec_k", 0,
                  "speculative decode: draft tokens the per-stream n-gram "
                  "drafter proposes per pool (0 = off); a spec pool "
@@ -256,7 +269,8 @@ class ContinuousBatcher:
     def __init__(self, server: Any, model: ToyLM | None = None,
                  kv: PagedKVCollection | None = None,
                  max_batch: int | None = None,
-                 devices: str = "cuda") -> None:
+                 devices: str = "cuda",
+                 owner_rank: int | None = None) -> None:
         if devices not in ("cuda", "cpu"):
             raise ValueError(f"devices must be 'cuda' or 'cpu', got "
                              f"{devices!r}")
@@ -267,26 +281,36 @@ class ContinuousBatcher:
         self._slo = getattr(server, "_slo", None)
         self.model = model or ToyLM()
         H, D = self.model.num_heads, self.model.head_dim
+        # owner_rank pins EVERY tile to one rank of a multi-rank context:
+        # this rank alone enqueues the batcher's pools, so a tile owned
+        # elsewhere would ship the work to a rank that never sees the pool
+        self.owner_rank = owner_rank
+        self._pin = pin = (None if owner_rank is None
+                           else (lambda *k: owner_rank))
+
+        def _dc(name: str, dtt: TileType) -> DictCollection:
+            return DictCollection(name, dtt=dtt, rank_of_fn=pin)
+
         self.kv = kv or PagedKVCollection(
             "llmKV", page_size=_params.get("llm_page_size"),
-            num_heads=H, head_dim=D, max_pages=_params.get("llm_max_pages"))
+            num_heads=H, head_dim=D, max_pages=_params.get("llm_max_pages"),
+            rank_of_fn=pin)
         if (self.kv.num_heads, self.kv.head_dim) != (H, D):
             raise ValueError("model and KV cache disagree on head geometry")
-        self.Q = DictCollection("llmQ", dtt=TileType((3, H, D), _F32))
-        self.O = DictCollection("llmO", dtt=TileType((H, D), _F32))
-        self.TOK = DictCollection("llmTOK", dtt=TileType((3,), _F32))
+        self.Q = _dc("llmQ", dtt=TileType((3, H, D), _F32))
+        self.O = _dc("llmO", dtt=TileType((H, D), _F32))
+        self.TOK = _dc("llmTOK", dtt=TileType((3,), _F32))
         # the batched spec pool's side collections: QS the positions' q3
         # stacks, LIM the per-(seq, page) causal limits, DTOKS the packed
         # draft chain, VOUT the accepted prefix the host reads once a
         # pool.  Their shapes are per pool (padded to llm_spec_k + 1);
         # the declared types only serve a tile read before its first seed
         sp0 = max(1, int(_params.get("llm_spec_k"))) + 1
-        self.QS = DictCollection("llmQS", dtt=TileType((sp0, 3, H, D), _F32))
-        self.LIM = DictCollection("llmLIM", dtt=TileType((sp0,), _F32))
-        self.DTOKS = DictCollection("llmDTOKS",
-                                    dtt=TileType((sp0 + 2,), _F32))
-        self.VOUT = DictCollection("llmVOUT", dtt=TileType((sp0 + 2,), _F32))
-        self.EMB = DictCollection(
+        self.QS = _dc("llmQS", dtt=TileType((sp0, 3, H, D), _F32))
+        self.LIM = _dc("llmLIM", dtt=TileType((sp0,), _F32))
+        self.DTOKS = _dc("llmDTOKS", dtt=TileType((sp0 + 2,), _F32))
+        self.VOUT = _dc("llmVOUT", dtt=TileType((sp0 + 2,), _F32))
+        self.EMB = _dc(
             "llmEMB", dtt=TileType(tuple(self.model.q3_table().shape), _F32))
         seed_emb_table(self.model, self.EMB)
         self.max_batch = max_batch or _params.get("llm_max_batch")
@@ -318,6 +342,11 @@ class ContinuousBatcher:
         # per-tenant acceptance prior (batcher thread only): a new
         # stream starts its draft cap where its tenant's traffic settled
         self._spec_prior: dict[str, float] = {}
+        # adaptive k (``tune_adaptive``): one controller per tenant, on
+        # the batcher thread; _k_seed holds the tuning DB's start points
+        # the server's consult hands over before a controller exists
+        self._k_ctl: dict[str, Any] = {}
+        self._k_seed: dict[str, int] = {}
         self._pool_seq = itertools.count()
         _live_batchers.add(self)
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -366,6 +395,27 @@ class ContinuousBatcher:
         self._wake.set()
         return ticket
 
+    def seed_tenant_knobs(self, tenant: str, knobs: dict) -> None:
+        """Seed a tenant's adaptive start point from a persisted knob
+        vector (the server's per-tenant tuning-DB consult), used when the
+        tenant's controller is made."""
+        k = knobs.get("llm_steps_per_pool")
+        if isinstance(k, (int, float)) and not isinstance(k, bool) \
+                and k >= 1:
+            self._k_seed[tenant] = int(k)
+
+    def _tenant_k(self, tenant: str, k_max: int) -> int:
+        """The tenant's pool depth this iteration: ``llm_steps_per_pool``
+        unless adaptation is on, then its controller's value (seeded from
+        the tuning DB when a vector was stored).  Batcher thread only."""
+        if not _params.get("tune_adaptive"):
+            return k_max
+        ctl = self._k_ctl.get(tenant)
+        if ctl is None:
+            ctl = steps_controller(tenant, self._k_seed.get(tenant, k_max))
+            self._k_ctl[tenant] = ctl
+        return max(1, int(ctl.value))
+
     # -- placement hooks ------------------------------------------------
     def residency_len(self, prompt_tokens: Sequence[int]) -> int:
         """Leading tokens of a prospective prompt already held by this
@@ -404,6 +454,13 @@ class ContinuousBatcher:
         if out["spec_submits"]:
             out["spec_tokens_per_submit"] = round(
                 out["spec_tokens"] / out["spec_submits"], 4)
+        if self._k_ctl:
+            # each controller's start too: the tuning DB's seed or the
+            # configured depth
+            out["adaptive_k"] = {t: {**c.stats(), "start": c.default}
+                                 for t, c in list(self._k_ctl.items())}
+        if self._k_seed:
+            out["adaptive_k_seed"] = dict(self._k_seed)
         out["kv"] = self.kv.stats()
         out["tiers"] = self.tiers.stats()
         if self.prefix is not None:
@@ -594,6 +651,7 @@ class ContinuousBatcher:
                 T = DictCollection(
                     f"llmT{next(self._pool_seq)}",
                     dtt=self.kv.default_dtt,
+                    rank_of_fn=self._pin,
                     init_fn=lambda *k, _c=chunks: _c[k],
                     keys=list(chunks))
                 tp = prefill_ptg(self.kv, T, [st.seq for st in group],
@@ -774,10 +832,18 @@ class ContinuousBatcher:
             if slo is not None:
                 slo.observe(st.tenant, "ttft_ms",
                             (now - st.ticket.submitted_at) * 1e3)
+        tok_ms = dt / len(toks) * 1e3
         if slo is not None:
-            tok_ms = dt / len(toks) * 1e3
             for _ in toks:
                 slo.observe(st.tenant, "tok_latency_ms", tok_ms)
+        ctl = self._k_ctl.get(st.tenant)
+        if ctl is not None:
+            # the controller folds the same signal; a converged adoption
+            # persists to the tuning DB exactly once
+            ctl.observe(tok_ms)
+            wb = ctl.take_writeback()
+            if wb is not None:
+                writeback(st.tenant, wb, ctl.ewma_of(wb) or tok_ms)
         with self._lock:
             st.ticket.tokens.extend(toks)
             st.ticket.token_at.extend([now] * len(toks))
@@ -799,7 +865,8 @@ class ContinuousBatcher:
                               self.DTOKS, st.seq, st.cur, draft,
                               spec_cap + 1, eos=st.eos)
         else:
-            st.k = max(1, min(k_max, st.max_new - len(st.ticket.tokens)))
+            st.k = max(1, min(self._tenant_k(st.tenant, k_max),
+                              st.max_new - len(st.ticket.tokens)))
             preallocate_decode_steps(self.kv, st.seq, st.k)
             seed_stream_step(self.model, self.Q, self.TOK, st.seq, st.cur,
                              eos=st.eos)

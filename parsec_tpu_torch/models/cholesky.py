@@ -117,7 +117,9 @@ _FORMS = {"potrf": (potrf_tiles, potrf), "trsm_rlt": (trsm_tiles,
           "gemm_nt": (gemm_nt_tiles, gemm_nt_stacked)}
 for _name, (_tiles, _stacked) in _FORMS.items():
     register_kernel(_name, "cuda", tile_body(_tiles))
-    register_traceable(_name, _tiles, stacked=_stacked)
+    # every form but the diagonal factor launches K1
+    register_traceable(_name, _tiles, stacked=_stacked,
+                       libs=() if _name == "potrf" else ("gemm",))
 
 
 # ---------------------------------------------------------------------------

@@ -119,7 +119,9 @@ _FORMS = {"lu_getrf": (getrf_tiles, getrf_nopiv),
           "lu_gemm": (gemm_tiles, gemm_stacked)}
 for _name, (_tiles, _stacked) in _FORMS.items():
     register_kernel(_name, "cuda", tile_body(_tiles))
-    register_traceable(_name, _tiles, stacked=_stacked)
+    # every form but the diagonal factor launches K1
+    register_traceable(_name, _tiles, stacked=_stacked,
+                       libs=() if _name == "lu_getrf" else ("gemm",))
 
 
 # ---------------------------------------------------------------------------

@@ -142,7 +142,8 @@ def stencil_1d_ptg(V: VectorTwoDimCyclic, weights: Any,
 
     t.body(body, dyld="stencil1d")
     tp = p.build()
-    tp.local_traceables = {"stencil1d": Traceable(apply, stacked=stacked)}
+    tp.local_traceables = {"stencil1d": Traceable(apply, stacked=stacked,
+                                                  libs=("stencil",))}
     return tp
 
 

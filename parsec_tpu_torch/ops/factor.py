@@ -203,7 +203,7 @@ def one_update_dropped(name: str, tiles: Callable,
 
     def register(t: Callable, st: Callable) -> None:
         register_kernel(name, "cuda", tile_body(t))
-        register_traceable(name, t, stacked=st)
+        register_traceable(name, t, stacked=st, libs=("gemm",))
 
     register(tiles_dropped, stacked_dropped)
     try:

@@ -473,4 +473,5 @@ register_kernel("gemm", "cpu", gemm_cpu_body)
 # the batched body: lists of A, B and C tiles -> list of new C tiles; its
 # stacked form and its chain for the lowering
 register_traceable("gemm", gemm_update_tiles, bilinear=True,
-                   chain_combine=gemm_chain, stacked=gemm_update_stacked)
+                   chain_combine=gemm_chain, stacked=gemm_update_stacked,
+                   libs=("gemm",))

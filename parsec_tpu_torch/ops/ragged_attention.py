@@ -638,7 +638,7 @@ def prefill_copy_tiles(chunks: Sequence[torch.Tensor],
 # the device module's fused ATTN dispatch runs the in-place form; the
 # lowering's steps keep the functional one
 register_traceable("ragged_attn_page", attn_page_update_tiles,
-                   inplace=attn_page_update_tiles_)
+                   inplace=attn_page_update_tiles_, libs=("ragged_attn",))
 register_traceable("ragged_attn_out", attn_out_tiles)
 register_traceable("llm_sample", sample_tiles)
 register_traceable("llm_verify", verify_tiles)

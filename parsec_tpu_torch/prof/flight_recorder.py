@@ -497,11 +497,20 @@ def runtime_report(max_workers: int = 6) -> dict:
         cp = _best_effort(_critpath, default={})
         if cp:
             rep["critpath"] = cp
-    # the params resolved away from their defaults, so any report answers
-    # "under WHICH configuration was this measured" (the declared tuning
-    # knobs, which the JAX package adds, have no port yet).  Nested, and
-    # before the flightrec-disabled early return: a report always has it.
-    rep["knobs"] = _best_effort(_params.changed, default={})
+    # the resolved knob vector: every declared tuning knob plus any param
+    # resolved away from its default, so any report answers "under WHICH
+    # configuration was this measured" (the provenance the tuning DB and
+    # the perf ledger key on).  Nested, and before the flightrec-disabled
+    # early return: a report always has it.
+    def _knobs():
+        snap = _params.snapshot()
+        keep = set(_params.knob_space())
+        for name in snap:
+            p = _params.lookup(name)
+            if p is not None and p.source != "default":
+                keep.add(name)
+        return {n: snap[n] for n in sorted(keep) if n in snap}
+    rep["knobs"] = _best_effort(_knobs, default={})
     r = recorder
     if r is None:
         rep["flightrec"] = "disabled"

@@ -54,30 +54,58 @@ Entry point: :func:`lower_taskpool` ``(tp, device="cuda")``.  On a
 machine with no card, ``device="cuda"`` raises; the tests lower with
 ``device="cpu"``.
 
+**The lowering cache.**  Each pass emits a *structural signature* beside
+its step: store names and rows, kernels by identity, index arrays by
+value (:func:`_freeze`).  PyTorch has no compile step, so
+:data:`lowering_cache` (a :class:`LoweringCache`, FIFO of 128 entries,
+the ``lowering_cache`` param) is an identity cache of the built step,
+the closure with its index tensors: a structurally identical
+re-lowering gets the first lowering's step object back, whose indices
+are already on the device once it ran.  The analysis, the signature and
+the new step's build still run on a hit, so a hit saves only the index
+upload, and on the dense chain-collapse path (no index) nothing.  The
+key adds the mode, the lowering device and :func:`_backend_signature`.  :meth:`LoweredTaskpool.warm` does only
+what the card has to prepare: it loads (or builds) the kernel libraries
+the plan's traceables name (``Traceable.libs``, :mod:`..ops._build`) and
+puts the plan's index tensors on the device, executing nothing.
+:func:`structural_fingerprint` is the cross-process summary the tuner
+signs workloads with (:mod:`parsec_tpu_torch.tune.signature`); it gives
+the JAX package's dict on the same pool.
+
 Left out, each still in ``ROADMAP.md``: open stores (see
-:class:`_Stores`); ``lowering_cache``,
-``LoweringCache``, ``structural_fingerprint``, the persistent compile
-cache and ``warm()`` (PyTorch has no compile step to cache);
-``lowering_scan_min`` folding of identical levels into a ``lax.scan``
-(the levels run in a Python loop; CUDA-graph capture of the step is later
-work); megakernel regions (``lower_regions``, ``warm_cache``, the
-CLI); mesh SPMD and multi-rank lowering, which raise
-``NotImplementedError``.
+:class:`_Stores`); the JAX package's persistent compile cache
+(``_ensure_persistent_compile_cache``): it has no counterpart, since the
+kernel libraries already persist in their build directory
+(:mod:`..ops._build`); ``lowering_scan_min`` folding of identical levels
+into a ``lax.scan`` (the levels run in a Python loop; CUDA-graph capture
+of the step is later work); megakernel regions (``lower_regions``,
+``warm_cache``, the CLI, ``lowering_region_max_tasks``); mesh SPMD and
+multi-rank lowering, which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import itertools
 import threading
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
+from ..core.params import params as _params
 from ..data.data import ACCESS_RW, ACCESS_WRITE
 
-__all__ = ["LoweringError", "LoweredTaskpool", "Traceable",
-           "find_traceable", "lower_taskpool", "register_traceable"]
+__all__ = ["LoweringCache", "LoweringError", "LoweredTaskpool", "Traceable",
+           "find_traceable", "lower_taskpool", "lowering_cache",
+           "register_traceable", "structural_fingerprint"]
+
+_params.register(
+    "lowering_cache", True,
+    "memoize built lowered steps process-wide, keyed by the lowering's "
+    "structural signature (task classes, store rows, kernels, device): a "
+    "re-lowered identical taskpool reuses the step and its index tensors")
 
 
 class LoweringError(RuntimeError):
@@ -121,20 +149,26 @@ class Traceable:
     and only for a class whose every written version has one consumer
     (the decode ATTN class's ACC chain); the lowering's steps keep
     ``apply``, whose results never share a store's memory.
+
+    ``libs`` names the kernel libraries (``csrc/<name>.cu``) the body
+    launches on a CUDA tensor, for :meth:`LoweredTaskpool.warm`.
     """
 
-    __slots__ = ("apply", "bilinear", "chain_combine", "stacked", "inplace")
+    __slots__ = ("apply", "bilinear", "chain_combine", "stacked", "inplace",
+                 "libs")
 
     def __init__(self, apply: Callable, bilinear: bool = False,
                  chain_combine: Callable | None = None,
                  stacked: Callable | None = None,
-                 inplace: Callable | None = None) -> None:
+                 inplace: Callable | None = None,
+                 libs: tuple = ()) -> None:
         self.apply = apply
         self.bilinear = bilinear
         self.chain_combine = chain_combine or (
             _default_bilinear_chain if bilinear else None)
         self.stacked = stacked
         self.inplace = inplace
+        self.libs = tuple(libs)
 
 
 def _default_bilinear_chain(lhs: torch.Tensor, rhs: torch.Tensor,
@@ -151,9 +185,10 @@ _traceables: dict[str, Traceable] = {}
 def register_traceable(name: str, apply: Callable, *, bilinear: bool = False,
                        chain_combine: Callable | None = None,
                        stacked: Callable | None = None,
-                       inplace: Callable | None = None) -> Traceable:
+                       inplace: Callable | None = None,
+                       libs: tuple = ()) -> Traceable:
     t = Traceable(apply, bilinear=bilinear, chain_combine=chain_combine,
-                  stacked=stacked, inplace=inplace)
+                  stacked=stacked, inplace=inplace, libs=libs)
     with _lock:
         _traceables[name] = t
     return t
@@ -162,6 +197,144 @@ def register_traceable(name: str, apply: Callable, *, bilinear: bool = False,
 def find_traceable(name: str) -> Traceable | None:
     with _lock:
         return _traceables.get(name)
+
+
+# ---------------------------------------------------------------------------
+# the lowering cache
+# ---------------------------------------------------------------------------
+
+def _freeze(o: Any):
+    """Hashable deep-freeze of a pass's emission payload.  Arrays freeze
+    by value (shape, dtype and bytes; a blake2b digest past 4 KiB, so a
+    task-sized plan does not pin megabytes in every signature), an
+    :class:`_Index` by its rows, callables and kernels by IDENTITY: the
+    key keeps them alive, and two distinct closures never false-hit."""
+    if isinstance(o, _Index):
+        o = o.rows
+    if isinstance(o, np.ndarray):
+        b = o.tobytes()
+        if len(b) > 4096:
+            b = hashlib.blake2b(b, digest_size=20).digest()
+        return ("nd", o.shape, o.dtype.str, b)
+    if isinstance(o, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in o.items()))
+    if isinstance(o, (list, tuple)):
+        return tuple(_freeze(v) for v in o)
+    return o
+
+
+class LoweringCache:
+    """Process-global memo of built lowered steps, keyed by structure.
+
+    Equal signature means the same step: a re-lowered structurally
+    identical taskpool gets the already-built step, whose index tensors
+    are on the device once it ran or was warmed.  Bounded FIFO (oldest evicted), so many
+    distinct lowerings cannot grow it without bound."""
+
+    MAX_ENTRIES = 128
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._built: dict = {}
+        self.hits = 0
+        self.misses = 0
+
+    def peek(self, key) -> Any:
+        """Probe without building (no hit/miss accounting)."""
+        if key is None:
+            return None
+        with self._lock:
+            return self._built.get(key)
+
+    def get_or_build(self, key, build: Callable[[], Any]):
+        if key is None:
+            return build()
+        with self._lock:
+            f = self._built.get(key)
+            if f is not None:
+                self.hits += 1
+                return f
+        f = build()     # outside the lock: a build may take a while
+        with self._lock:
+            # a concurrent builder may have won the race: keep and return
+            # ITS entry, so identity sharing holds across racing threads
+            won = self._built.setdefault(key, f)
+            if won is f:
+                self.misses += 1
+            else:
+                self.hits += 1
+            while len(self._built) > self.MAX_ENTRIES:
+                self._built.pop(next(iter(self._built)))
+        return won
+
+    def clear(self) -> None:
+        with self._lock:
+            self._built.clear()
+            self.hits = 0
+            self.misses = 0
+
+
+lowering_cache = LoweringCache()
+
+
+def _backend_signature() -> tuple:
+    """``(torch version, "cuda" | "cpu", device name)``: folded into every
+    cache key, and the backend column of the tuning DB and the perf
+    ledger, so a step or a vector made for one backend never serves
+    another."""
+    has_card = torch.cuda.is_available()
+    kind = ""
+    if has_card:
+        try:
+            kind = torch.cuda.get_device_name() or ""
+        except Exception:       # noqa: BLE001 — a name is advisory
+            kind = ""
+    return (torch.__version__, "cuda" if has_card else "cpu", kind)
+
+
+def structural_fingerprint(obj) -> dict:
+    """Cross-process-stable structural summary of a taskpool (or of a
+    :class:`LoweredTaskpool`): the tuner's signature seam.  It keeps the
+    axes the in-process signatures discriminate on, by name: task classes
+    (name, task count, kernel name, data and writable flow names), the
+    wavefront shape (level count, widest level) and, for a lowered pool,
+    its mode and each store's row count.  The kernel-name axis reads a
+    ``name`` or ``fn.__name__`` attribute, which a :class:`Traceable` has
+    not, so it is ``""`` for every class, as in the JAX package (whose
+    dict this equals on the same pool)."""
+    low = obj if isinstance(obj, LoweredTaskpool) else None
+    tp = low.taskpool if low is not None else obj
+    infos = _analyze(tp)
+    classes = []
+    total = 0
+    for cname in sorted(infos):
+        ci = infos[cname]
+        k = ci.kernel
+        kname = ""
+        if k is not None:
+            kname = (getattr(k, "name", None)
+                     or getattr(getattr(k, "fn", None), "__name__", "")
+                     or "")
+        total += len(ci.tasks)
+        classes.append([cname, len(ci.tasks), kname,
+                        sorted(f.name for f in ci.data_flows),
+                        sorted(f.name for f in ci.writable_flows)])
+    fp: dict = {"classes": classes, "ntasks": total}
+    try:
+        _order, levels = _task_graph(tp, infos)
+        if levels:
+            widths: dict[int, int] = {}
+            for lv in levels.values():
+                widths[lv] = widths.get(lv, 0) + 1
+            fp["wavefront"] = [1 + max(levels.values()),
+                               max(widths.values())]
+    except LoweringError:
+        pass        # irregular graph: the class table still discriminates
+    if low is not None:
+        fp["mode"] = low.mode
+        fp["stores"] = {name: int(low._stores.nrows.get(name, 0))
+                        for name in sorted(low._stores.dcs)}
+    return fp
 
 
 def _results(out: Any, nw: int) -> tuple:
@@ -391,16 +564,19 @@ class _Stores:
 
 
 class _Index:
-    """Store rows as an index: a slice when they are consecutive (a view
-    on read, a slab on write), else a long tensor, kept per device."""
+    """Store rows as an index: a slice when they are one run of
+    consecutive rows (a view on read, a slab on write), else a long
+    tensor of any shape, kept per device (:meth:`LoweredTaskpool.warm`
+    puts it there ahead of the first step)."""
 
     __slots__ = ("rows", "sel", "_dev")
 
     def __init__(self, rows: np.ndarray) -> None:
         self.rows = rows
-        r0 = int(rows[0])
+        r0 = int(rows.flat[0])
         self.sel = (slice(r0, r0 + len(rows))
-                    if (np.diff(rows) == 1).all() else None)
+                    if rows.ndim == 1 and (np.diff(rows) == 1).all()
+                    else None)
         self._dev: dict[torch.device, torch.Tensor] = {}
 
     def on(self, device: torch.device) -> Any:
@@ -599,25 +775,25 @@ def _try_chain_collapse(tp, infos, stores: _Stores):
             st[cn] = _call_one(kernel, 1, [st[nm] for nm in arg_names])[0]
             return st
 
-        return step_fn
+        return step_fn, ("chain-dense", kernel, tuple(arg_names), an, bn, cn)
 
-    ia, ib, ic = torch.from_numpy(IA), torch.from_numpy(IB), \
-        torch.from_numpy(IC)
-    dev_idx: dict[torch.device, tuple] = {}
+    ia, ib, ic = _Index(IA), _Index(IB), _Index(IC.reshape(-1))
+    m_n = IC.shape
 
     def step_fn(st: dict) -> dict:
         dev = st[cn].device
-        if dev not in dev_idx:
-            dev_idx[dev] = tuple(t.to(dev) for t in (ia, ib, ic))
-        ja, jb, jc = dev_idx[dev]
-        c = combine(st[an][ja], st[bn][jb], st[cn][jc])   # [M, N, ta, tb]
+        ja, jb, jc = ia.on(dev), ib.on(dev), ic.on(dev)
+        c = combine(st[an][ja], st[bn][jb],
+                    st[cn][jc].reshape(*m_n, *st[cn].shape[1:]))
         st = dict(st)
         out = st[cn].clone()
-        out[jc.reshape(-1)] = c.reshape(-1, *c.shape[2:]).to(out.dtype)
+        out[jc] = c.reshape(-1, *c.shape[2:]).to(out.dtype)
         st[cn] = out
         return st
 
-    return step_fn
+    step_fn.indices = (ia, ib, ic)
+    return step_fn, ("chain-gather", kernel, an, bn, cn,
+                     _freeze(IA), _freeze(IB), _freeze(IC))
 
 
 # ---------------------------------------------------------------------------
@@ -891,7 +1067,7 @@ def _group_plans(plans, infos) -> dict[int, list]:
     return level_specs
 
 
-def _build_wavefront(tp, infos, stores: _Stores) -> Callable:
+def _build_wavefront(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
     """One batched call per (level, class, source signature).  Within one
     wavefront all tasks are independent (levels are longest-path: every
     dep edge strictly crosses levels), so each level runs as *gather all →
@@ -918,7 +1094,16 @@ def _build_wavefront(tp, infos, stores: _Stores) -> Callable:
 
     step_fn.levels = len(levels)
     step_fn.groups = sum(len(specs) for specs in levels)
-    return step_fn
+    step_fn.indices = tuple(dirty.values()) + tuple(
+        x for specs in levels for _k, _nw, gathers, scatters, _G in specs
+        for x in ([g[2] for g in gathers if g is not None]
+                  + [sc[1] for sc in scatters])
+        if isinstance(x, _Index))
+    sig = ("wavefront", _freeze(dirty_by_name), tuple(
+        tuple((kernel, nw, _freeze(gathers), _freeze(scatters), G)
+              for kernel, nw, gathers, scatters, G in specs)
+        for specs in levels))
+    return step_fn, sig
 
 
 def _run_level(st: dict, specs) -> None:
@@ -1022,7 +1207,7 @@ def _task_graph(tp, infos):
     return out, levels
 
 
-def _build_unrolled(tp, infos, stores: _Stores) -> Callable:
+def _build_unrolled(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
     order, _ = _task_graph(tp, infos)
 
     # per task, its input plan and output plan (host side)
@@ -1101,7 +1286,13 @@ def _build_unrolled(tp, infos, stores: _Stores) -> Callable:
                     st[name][row] = v
         return st
 
-    return step_fn
+    sig = ("unrolled", tuple(
+        (cname, key, info.kernel,
+         tuple(f.flow_index for f in info.data_flows),
+         tuple(f.flow_index for f in info.writable_flows),
+         _freeze(in_plan), _freeze(out_plan))
+        for cname, key, info, in_plan, out_plan in plans))
+    return step_fn, sig
 
 
 # ---------------------------------------------------------------------------
@@ -1112,20 +1303,25 @@ class LoweredTaskpool:
     """A compiled incarnation of a PTG taskpool.
 
     ``step_fn``: pure function ``{collection_name: store} -> same``, one
-    full taskpool execution on the stores' device.  ``initial_stores()``
-    builds the stores from the collections on ``device``.  ``execute()``
-    runs one step eagerly and writes the tiles back to the source
-    collections (the dynamic path's completion semantics), bumping each
-    tile's version.
+    full taskpool execution on the stores' device; shared through
+    :data:`lowering_cache` with every structurally identical lowering.
+    ``signature`` is the pass's structural signature (its cache key's
+    last part).  ``initial_stores()`` builds the stores from the
+    collections on ``device``.  ``execute()`` runs one step eagerly and
+    writes the tiles back to the source collections (the dynamic path's
+    completion semantics), bumping each tile's version.
     """
 
     def __init__(self, tp, step_fn: Callable, stores: _Stores, mode: str,
-                 device: torch.device) -> None:
+                 device: torch.device, signature: Any = None,
+                 kernels: tuple = ()) -> None:
         self.taskpool = tp
         self.step_fn = step_fn
         self._stores = stores
         self.mode = mode    # "chain-collapse" | "wavefront" | "unrolled"
         self.device = device
+        self.signature = signature
+        self._kernels = kernels     # the plan's traceables (warm's libs)
         # the wavefront plan's size: its levels, and its batched calls
         # (groups) over all levels; None for the other passes
         self.levels = getattr(step_fn, "levels", None)
@@ -1144,10 +1340,41 @@ class LoweredTaskpool:
         ``"scratch"``."""
         return dict(self._stores.layout)
 
+    def warm(self) -> dict[str, float]:
+        """Prepare the card for the first step and execute nothing: load
+        (or build) the kernel libraries the plan's traceables name
+        (``load_s``; none on the host, whose wrappers take the plain
+        versions) and put the plan's index tensors on the device
+        (``upload_s``).  Returns the seconds of each part."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from ..ops import _build
+            for name in sorted({lib for k in self._kernels
+                                for lib in k.libs}):
+                _build.load(name)
+        t1 = time.perf_counter()
+        for idx in getattr(self.step_fn, "indices", ()):
+            idx.on(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return {"load_s": round(t1 - t0, 4),
+                "upload_s": round(time.perf_counter() - t1, 4)}
+
     def execute(self) -> dict[str, torch.Tensor]:
         out = self.step_fn(self.initial_stores())
         self._stores.writeback(out)
         return out
+
+
+def _cached(mode: str, device: torch.device, step: Callable,
+            sig: Any) -> Callable:
+    """The built step of this structure: ``step`` on a miss, the step of
+    the first identical lowering on a hit (``step``, already built, is
+    then dropped)."""
+    if not _params.get("lowering_cache"):
+        return step
+    key = (mode, str(device), _backend_signature(), sig)
+    return lowering_cache.get_or_build(key, lambda: step)
 
 
 def lower_taskpool(tp, context: Any = None, mesh: Any = None,
@@ -1176,23 +1403,28 @@ def lower_taskpool(tp, context: Any = None, mesh: Any = None,
     if passes not in ("auto", "chain-collapse", "wavefront", "unrolled"):
         raise ValueError(f"unknown lowering pass {passes!r}")
     infos = _analyze(tp)
+    kernels = tuple({id(i.kernel): i.kernel for i in infos.values()
+                     if i.kernel is not None}.values())
+
+    def lowered(built, stores: _Stores, mode: str) -> LoweredTaskpool:
+        step, sig = built
+        return LoweredTaskpool(tp, _cached(mode, device, step, sig), stores,
+                               mode, device, signature=sig, kernels=kernels)
 
     if passes in ("auto", "chain-collapse"):
         stores = _Stores()
-        step = _try_chain_collapse(tp, infos, stores)
-        if step is not None:
-            return LoweredTaskpool(tp, step, stores, "chain-collapse",
-                                   device)
+        built = _try_chain_collapse(tp, infos, stores)
+        if built is not None:
+            return lowered(built, stores, "chain-collapse")
         if passes == "chain-collapse":
             raise LoweringError("taskpool does not chain-collapse")
     if passes in ("auto", "wavefront"):
         stores = _Stores()
         try:
-            step = _build_wavefront(tp, infos, stores)
-            return LoweredTaskpool(tp, step, stores, "wavefront", device)
+            return lowered(_build_wavefront(tp, infos, stores), stores,
+                           "wavefront")
         except LoweringError:
             if passes == "wavefront":
                 raise
     stores = _Stores()
-    step = _build_unrolled(tp, infos, stores)
-    return LoweredTaskpool(tp, step, stores, "unrolled", device)
+    return lowered(_build_unrolled(tp, infos, stores), stores, "unrolled")

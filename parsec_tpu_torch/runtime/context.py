@@ -68,8 +68,13 @@ the ``rank<r>`` namespace of the live properties, streams them to the
 ``props_stream`` file and starts the metrics snapshotter
 (``prof_snapshot_interval``) at :meth:`start`.
 
-Left out: multiple virtual processes and vpmaps, thread binding,
-``wait_taskpool`` and tuned-knob consults.
+**Tuned knobs.**  Construction consults the tuning DB's ambient
+``context`` vector (:func:`parsec_tpu_torch.tune.apply_ambient`, under
+``tune_db``) and applies it before anything reads those params;
+``tuned_knobs`` holds what was applied (None on a miss).
+
+Left out: multiple virtual processes and vpmaps, thread binding and
+``wait_taskpool``.
 """
 
 from __future__ import annotations
@@ -95,6 +100,11 @@ from .termdet import open_termdet
 
 _params.register("runtime_num_cores", 0, "worker threads (0 = caller-driven)")
 _params.register("sched", "lfq", "scheduler module to use")
+# the autotuner's declared domain: the general-purpose scheduler modules
+# (serve_fair is the shim a RuntimeServer interposes, never a move)
+_params.declare_knob("sched", values=("lfq", "ap", "spq", "ip", "gd",
+                                      "rnd", "ll", "llp", "pbq", "ltq",
+                                      "lhq"))
 _params.register("analysis_check", False,
                  "statically verify each PTG taskpool at enqueue "
                  "(analysis.graphcheck) and each DTD pool at close(): a "
@@ -120,6 +130,16 @@ class Context:
         # first task needs the span recorder, before any worker can fire
         flight_recorder.ensure_installed()
         spans.ensure_installed()
+        # the persisted tuning vector (``tune_db``): the ambient
+        # ``context`` consult applies a stored knob vector NOW, before the
+        # core count and the scheduler below resolve the params it may
+        # set; an operator's env value always wins, and a DB that fails
+        # never fails a start
+        try:
+            from ..tune import apply_ambient
+            self.tuned_knobs = apply_ambient("context")
+        except Exception:               # noqa: BLE001 — advisory only
+            self.tuned_knobs = None
         if nb_cores is None:
             nb_cores = _params.get("runtime_num_cores")
         if not 0 <= my_rank < nb_ranks:

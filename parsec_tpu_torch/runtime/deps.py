@@ -38,6 +38,7 @@ _params.register(
     "static execution-space boxes, the default: other classes take the "
     "hashed tiers, and a batched release takes one lock per class "
     "group) or 'hash' (the native and Python hashed tiers only)")
+_params.declare_knob("deps_storage", values=("index-array", "hash"))
 # largest static-box volume (slots) the index-array tier backs densely:
 # each slot holds a dep record, so a bigger box would allocate memory for
 # tasks that may never exist; such classes take the hashed tiers

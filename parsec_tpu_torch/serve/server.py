@@ -36,11 +36,18 @@ one Context's workers running and gives every client thread::
   section names each tenant's inflight count and oldest trace in the
   flight recorder's stall dump.
 
-Left out: ``submit_lowered`` (the lowering itself is ported,
-:func:`~parsec_tpu_torch.ptg.lowering.lower_taskpool`; the server's
-entry for lowered pools and its lowering cache are not), the
-task-budget admission cost (see :mod:`.admission`), a caller's own
-``context=`` and the tuning-DB consult.
+- **Lowered submissions**: :meth:`RuntimeServer.submit_lowered` runs a
+  PTG pool's compiled incarnation (one ``lower_taskpool`` and one step
+  on a worker); a structurally identical resubmission reuses the built
+  step from :data:`~parsec_tpu_torch.ptg.lowering.lowering_cache`.
+- **Tuning**: a tenant's first stream consults the tuning DB's
+  ``ambient:tenant:<t>`` vector (``tune_db``) and seeds the batcher's
+  adaptive k from it (``tune_adaptive``).
+- **Ranks**: a server may wrap a caller's ``context=`` (a rank of a
+  multi-rank run), whose batcher then pins its tiles to that rank;
+  :mod:`.sharded` spans one serving plane over every rank.
+
+Nothing is left out.
 """
 
 from __future__ import annotations
@@ -49,6 +56,8 @@ import threading
 import time
 import weakref
 from typing import Any, Callable
+
+import torch
 
 from ..core.future import Future
 from ..core.params import params as _params
@@ -72,15 +81,16 @@ class _Submission:
     """The per-submission record the fair scheduler keys on
     (``taskpool._serve_sub``)."""
 
-    __slots__ = ("tenant", "priority", "deadline_at", "ticket",
+    __slots__ = ("tenant", "priority", "deadline_at", "cost", "ticket",
                  "result_fn", "released")
 
     def __init__(self, tenant: str, priority: int,
-                 deadline_at: float | None, ticket: "Ticket",
+                 deadline_at: float | None, cost: int, ticket: "Ticket",
                  result_fn: Callable[[Taskpool], Any] | None) -> None:
         self.tenant = tenant
         self.priority = priority
         self.deadline_at = deadline_at
+        self.cost = cost            # the task budget's charge
         self.ticket = ticket
         self.result_fn = result_fn
         self.released = False
@@ -177,25 +187,34 @@ class Ticket:
 
 class RuntimeServer:
     """A resident runtime accepting concurrent taskpool submissions.
-    Construction starts the context's workers; the server is hot until
-    :meth:`drain`.  Usable as a context manager (``__exit__`` drains)."""
+    Construction starts the context's workers (its own, or those of the
+    caller's ``context=``, which must run worker threads); the server is
+    hot until :meth:`drain`.  Usable as a context manager (``__exit__``
+    drains).  ``llm_model`` is the model :meth:`submit_stream`'s batcher
+    decodes (default: the batcher's own ``ToyLM()``)."""
 
     def __init__(self, nb_cores: int | None = None,
                  scheduler: str | None = None,
                  tenant_weights: dict[str, float] | None = None,
-                 admission: AdmissionController | None = None) -> None:
-        if nb_cores is None:
+                 admission: AdmissionController | None = None,
+                 context: Context | None = None,
+                 llm_model: Any = None) -> None:
+        if context is None and nb_cores is None:
             nb_cores = _params.get("serve_num_cores")
-        if nb_cores < 1:
+        if (context.nb_cores if context is not None else nb_cores) < 1:
             raise ValueError(
                 "RuntimeServer needs worker threads (nb_cores >= 1): "
                 "clients block on tickets, nobody drives a caller-driven "
                 "context")
-        self._ctx = Context(nb_cores=nb_cores, scheduler=scheduler)
-        # interpose the fair shim before the workers pass the start
-        # barrier; they resolve context.scheduler per select call
-        self._fair = FairScheduler(self._ctx.scheduler)
-        self._ctx.scheduler = self._fair
+        self._ctx = context if context is not None \
+            else Context(nb_cores=nb_cores, scheduler=scheduler)
+        # interpose the fair shim (they resolve context.scheduler per
+        # select call); a context that already has one keeps it
+        if isinstance(self._ctx.scheduler, FairScheduler):
+            self._fair = self._ctx.scheduler
+        else:
+            self._fair = FairScheduler(self._ctx.scheduler)
+            self._ctx.scheduler = self._fair
         for tenant, w in (tenant_weights or {}).items():
             self._fair.set_weight(tenant, w)
         self._adm = admission if admission is not None \
@@ -211,7 +230,10 @@ class RuntimeServer:
         self.failed = 0
         self.rejected = 0
         self.per_tenant_completed: dict[str, int] = {}
+        # the tenants whose first stream consulted the tuning DB
+        self._tenant_consulted: set[str] = set()
         self._llm: Any = None        # lazy ContinuousBatcher (submit_stream)
+        self._llm_model = llm_model
         # the per-tenant SLO plane: queue wait, latency, admission here;
         # the batcher adds TTFT and inter-token latency
         self._slo = SLOPlane()
@@ -256,12 +278,16 @@ class RuntimeServer:
         with self._lock:
             self.submitted += 1
             closed = self._draining or self._poison is not None
+        cost = 1
+        if self._adm.max_inflight_tasks:
+            n = tp.nb_local_tasks()
+            cost = n if n > 0 else _params.get("serve_default_task_cost")
         try:
             if closed:
                 raise AdmissionRejected(
                     "server is draining" if self._poison is None
                     else "server context is poisoned")
-            self._adm.admit(tenant, block=block,
+            self._adm.admit(tenant, cost, block=block,
                             deadline_at=deadline_at,
                             cancelled=lambda: ticket._cancelled)
         except AdmissionRejected as e:
@@ -284,7 +310,8 @@ class RuntimeServer:
             t1 = time.perf_counter_ns()
             r.record("serve.admission", ticket.trace.trace_id,
                      t1 - int(wait_s * 1e9), t1, tenant=tenant)
-        sub = _Submission(tenant, priority, deadline_at, ticket, result_fn)
+        sub = _Submission(tenant, priority, deadline_at, cost, ticket,
+                          result_fn)
         tp._serve_sub = sub
         if not compiled:
             tp._serve_no_dag = True     # dagrun.compile_taskpool_dag gate
@@ -299,7 +326,7 @@ class RuntimeServer:
             else:
                 self.rejected += 1
         if not started or closed:
-            self._adm.release(tenant)
+            self._adm.release(tenant, cost)
             if started:
                 # shed by the drain window; not started is a client cancel
                 self._slo.inc(tenant, "admission_sheds")
@@ -339,8 +366,47 @@ class RuntimeServer:
             if sub.released:
                 return False
             sub.released = True
-        self._adm.release(sub.tenant)
+        self._adm.release(sub.tenant, sub.cost)
         return True
+
+    def submit_lowered(self, tp: Taskpool, *,
+                       device: str | torch.device = "cuda",
+                       **kw: Any) -> Ticket:
+        """Submit a PTG pool through its compiled incarnation: the
+        request runs as one ``lower_taskpool(tp, device=device)`` and one
+        step on a worker thread, and the ticket resolves to the output
+        stores.  A structurally identical resubmission gets the built
+        step from the process-wide lowering cache.  ``kw`` goes to
+        :meth:`submit`.
+
+        The stores come back as host tensors, ``{name: torch.Tensor}`` on
+        the CPU, where the JAX package gives numpy arrays: numpy has no
+        bfloat16, the dtype of the headline GEMM's A and B.  A lowering
+        or a step that raises fails this ticket alone."""
+        from .. import ptg as _ptg
+        from ..ptg.lowering import lower_taskpool
+
+        out: dict[str, Any] = {}
+        p = _ptg.PTGBuilder(f"lowered:{tp.name}")
+        t = p.task("RUN", i=_ptg.span(0, lambda g, l: 0))
+        t.flow("ctl", _ptg.CTL)
+
+        def body(es: Any, task: Any, g: Any, l: Any) -> None:
+            try:
+                low = lower_taskpool(tp, device=device)
+                res = low.step_fn(low.initial_stores())
+                out["stores"] = {k: v.to("cpu") for k, v in res.items()}
+            except BaseException as e:   # noqa: BLE001 — the ticket's
+                out["error"] = e
+
+        def result(_tp: Taskpool) -> dict[str, torch.Tensor]:
+            if "error" in out:
+                raise out["error"]
+            return out["stores"]
+
+        t.body(body)
+        kw.setdefault("result_fn", result)
+        return self.submit(p.build(), **kw)
 
     def submit_stream(self, prompt_tokens, *, max_new_tokens: int = 16,
                       tenant: str = "default", priority: int = 0,
@@ -358,8 +424,23 @@ class RuntimeServer:
                     else "server context is poisoned")
             if self._llm is None:
                 from ..llm.batcher import ContinuousBatcher
-                self._llm = ContinuousBatcher(self)
+                # on a multi-rank context the batcher's tiles pin to THIS
+                # rank: its pools are enqueued here only
+                own = self._ctx.my_rank if self._ctx.nb_ranks > 1 else None
+                self._llm = ContinuousBatcher(self, model=self._llm_model,
+                                              owner_rank=own)
             llm = self._llm
+            if tenant not in self._tenant_consulted:
+                # a tenant's first stream: its stored vector seeds the
+                # batcher's adaptive controller
+                self._tenant_consulted.add(tenant)
+                try:
+                    from ..tune import consult_ambient
+                    knobs = consult_ambient(f"tenant:{tenant}")
+                    if knobs:
+                        llm.seed_tenant_knobs(tenant, knobs)
+                except Exception:       # noqa: BLE001 — a failing DB
+                    pass                # never sheds a stream
         return llm.submit_stream(prompt_tokens,
                                  max_new_tokens=max_new_tokens,
                                  tenant=tenant, priority=priority,

@@ -5,8 +5,10 @@ a 2x2x2-tile GEMM, a served LLM stream, speculative and prefix-cached
 streams, a lowered stencil and GEMM, a
 tiled Cholesky (dynamic and lowered), a 2-rank Cholesky over the comm
 layer, a chain across 2 rank processes of ``run_multiproc`` (each rank
-reports its own), and the graphcheck CLI with a GEMM under the enqueue
-gate and the task profiler, then inspect ``sys.modules``
+reports its own), the graphcheck CLI with a GEMM under the enqueue
+gate and the task profiler, and the tuner's and the perf ledger's
+self-tests with two cached lowerings, a sharded two-rank serving plane
+and an adaptive stream, then inspect ``sys.modules``
 (subprocesses, because this test process already holds jax through
 ``conftest.py``); and an AST scan of every module of the package finds
 no such import.
@@ -121,7 +123,10 @@ def test_the_package_has_the_slice_modules():
                 "prof/flight_recorder.py", "prof/critpath.py",
                 "prof/info.py", "prof/grapher.py", "prof/dotmerge.py",
                 "prof/debug_marks.py", "prof/perf_modules.py",
-                "prof/dashboard.py", "core/output.py"):
+                "prof/dashboard.py", "core/output.py", "prof/perfdb.py",
+                "tune/__init__.py", "tune/__main__.py", "tune/signature.py",
+                "tune/db.py", "tune/search.py", "tune/adaptive.py",
+                "serve/sharded.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu",
                 "native_core.cpp"):
@@ -397,7 +402,8 @@ def test_the_ast_scan_covers_the_comm_layer():
 
 
 def test_the_ast_scan_covers_analysis_and_prof():
-    for pkg, n in (("analysis", 3), ("prof", 17)):
+    for pkg, n in (("analysis", 3), ("prof", 18), ("tune", 6),
+                   ("serve", 5)):
         mods = [f for f in PORT_FILES
                 if f.startswith(f"parsec_tpu_torch/{pkg}/")]
         assert len(mods) == n, mods
@@ -498,9 +504,80 @@ def test_the_observability_plane_loads_no_jax_and_no_parsec_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out["rc"] == 0 and len(out["names"]) == 16
+    assert out["rc"] == 0 and len(out["names"]) == 17
     assert out["tenants"] == ["t0", "t1"] and out["critpath"]
     assert {"serve", "slo", "critpath", "knobs"} <= set(out["blocks"])
     assert out["sections"] == 1
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_the_tuner_and_the_sharded_server_load_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter imports ``parsec_tpu_torch.tune`` (and its
+    lazy halves), runs the tuner's and the perf ledger's self-tests,
+    lowers a GEMM twice through the cache, serves two streams across two
+    rank threads with the sharded server and one stream with adaptive k,
+    all on the host."""
+    code = textwrap.dedent("""
+        import contextlib, io, json, os, sys, tempfile, threading
+        import numpy as np
+        d = tempfile.mkdtemp()
+        os.environ["PARSEC_MCA_tune_db_path"] = os.path.join(d, "t.jsonl")
+        os.environ["PARSEC_MCA_perfdb_path"] = os.path.join(d, "p.jsonl")
+        import parsec_tpu_torch.tune as tune
+        from parsec_tpu_torch.tune.__main__ import self_test
+        from parsec_tpu_torch.prof import perfdb
+        from parsec_tpu_torch.comm.multirank import run_multirank
+        from parsec_tpu_torch.core.params import params
+        from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+        from parsec_tpu_torch.ptg.lowering import lower_taskpool
+        from parsec_tpu_torch.serve import RuntimeServer, ShardedRuntimeServer
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = self_test() + perfdb.self_test()
+        assert tune.search and tune.KnobController
+        a = np.ones((16, 16), np.float32)
+        def pool():
+            return tiled_gemm_ptg(TiledMatrix.from_dense("A", a, 8, 8),
+                                  TiledMatrix.from_dense("B", a, 8, 8),
+                                  TiledMatrix("C", 16, 16, 8, 8))
+        same = (lower_taskpool(pool(), device="cpu").step_fn
+                is lower_taskpool(pool(), device="cpu").step_fn)
+        init_cuda_devices(device="cpu")
+        bar = threading.Barrier(2)
+        def body(ctx, rank, nranks):
+            srv = ShardedRuntimeServer(ctx)
+            bar.wait()
+            if rank == 0:
+                try:
+                    hs = [srv.submit_stream(p, max_new_tokens=4)
+                          for p in ([3, 7, 11], [1, 40])]
+                    srv.wait(hs, timeout=60)
+                    return [h.result(timeout=1)["tokens"] for h in hs]
+                finally:
+                    srv.shutdown()
+            srv.serve_forever(idle_timeout=60)
+            srv.close()
+        toks = run_multirank(2, body, nb_cores=1, timeout=120)[0]
+        params.set("tune_adaptive", True)
+        with RuntimeServer(nb_cores=1) as srv:
+            adapted = srv.submit_stream([3, 7, 11],
+                                        max_new_tokens=4).result(
+                                            timeout=60)["tokens"]
+        print(json.dumps({"rc": rc, "same": same, "toks": toks,
+                          "adapted": adapted,
+                          "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["rc"] == 0 and out["same"]
+    assert len(out["toks"]) == 2 and all(len(t) == 4 for t in out["toks"])
+    assert out["adapted"] == out["toks"][0]
+    for m in ("parsec_tpu_torch.tune.search", "parsec_tpu_torch.tune.adaptive",
+              "parsec_tpu_torch.serve.sharded", "parsec_tpu_torch.prof.perfdb"):
+        assert m in out["modules"], m
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded

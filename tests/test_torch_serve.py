@@ -245,3 +245,135 @@ def test_worker_failure_fails_inflight_tickets_and_poisons_server():
         server.submit_stream([1, 2], max_new_tokens=2)
     with pytest.raises(RuntimeError):
         server.drain(timeout=10)
+
+
+# ---------------------------------------------------------------------------
+# the task budget, lowered submissions and a caller's context
+# ---------------------------------------------------------------------------
+
+def test_task_budget_charges_the_enumerated_task_count():
+    """A submission costs its ``nb_local_tasks()``; the budget holds the
+    sum, admits an oversized submission when nothing is in flight, and
+    releases exactly what it charged (the JAX controller's rule)."""
+    from parsec_tpu.serve.admission import AdmissionController as JAdm
+    for cls in (AdmissionController, JAdm):
+        adm = cls(max_inflight=0, max_tenant_inflight=0,
+                  max_inflight_tasks=10)
+        adm.admit("a", 6, block=False)
+        with pytest.raises(Exception) as e:
+            adm.admit("b", 5, block=False)      # 11 > 10
+        assert "budget" in str(e.value)
+        adm.admit("b", 4, block=False)          # 10 fits
+        assert adm.stats()["inflight_tasks"] == 10
+        adm.release("a", 6)
+        adm.release("b", 4)
+        adm.admit("c", 25, block=False)         # alone: admitted
+        assert adm.stats()["inflight_tasks"] == 25
+        adm.release("c", 25)
+        assert adm.stats()["inflight_tasks"] == 0
+
+
+def test_server_task_budget_from_the_params():
+    from parsec_tpu_torch.core.params import params
+    saved = params.get("serve_max_inflight_tasks")
+    params.set("serve_max_inflight_tasks", 4)
+    try:
+        server = RuntimeServer(nb_cores=1)
+    finally:
+        params.set("serve_max_inflight_tasks", saved)
+    assert server._adm.max_inflight_tasks == 4
+    slow, check = _chain_pool(nb=3, body_sleep=0.2)   # costs 3
+    tk = server.submit(slow)
+    assert server.stats()["admission"]["inflight_tasks"] == 3
+    with pytest.raises(AdmissionRejected):
+        server.submit(_chain_pool(nb=2)[0], block=False)   # 3 + 2 > 4
+    tk.result(timeout=30)
+    check()
+    tk2 = server.submit(_chain_pool(nb=4)[0])
+    tk2.result(timeout=30)
+    server.drain(timeout=30)
+    assert server.stats()["admission"]["inflight_tasks"] == 0
+
+
+def _lowered_gemm_pool(seed: int, n: int = 16, nb: int = 4):
+    import numpy as np
+
+    from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+    from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    b = rng.standard_normal((n, n)).astype(np.float32)
+    return a, b, tiled_gemm_ptg(
+        TiledMatrix.from_dense("A", a, nb, nb),
+        TiledMatrix.from_dense("B", b, nb, nb),
+        TiledMatrix.from_dense("C", np.zeros((n, n), np.float32), nb, nb))
+
+
+def test_repeat_lowered_submissions_hit_the_cache():
+    """Two submissions of one structure: the second reuses the first's
+    step; each resolves to host tensors that match the JAX server's
+    ``submit_lowered`` on the same inputs (fp32 sums of 16 products,
+    ``rtol=1e-5, atol=1e-4``)."""
+    import numpy as np
+    import torch
+
+    from parsec_tpu.data_dist.matrix import TiledMatrix as JTiled
+    from parsec_tpu.models.tiled_gemm import tiled_gemm_ptg as j_gemm
+    from parsec_tpu.serve import RuntimeServer as JServer
+    from parsec_tpu_torch.ptg.lowering import lowering_cache
+
+    server = RuntimeServer(nb_cores=1)
+    a, b, tp1 = _lowered_gemm_pool(seed=1)
+    r1 = server.submit_lowered(tp1, device="cpu").result(timeout=120)
+    h0 = lowering_cache.hits
+    a2, b2, tp2 = _lowered_gemm_pool(seed=2)
+    r2 = server.submit_lowered(tp2, device="cpu").result(timeout=120)
+    assert lowering_cache.hits - h0 == 1
+    server.drain(timeout=60)
+    assert set(r1) == set(r2) == {"A", "B", "C"}
+    assert all(v.device.type == "cpu" and isinstance(v, torch.Tensor)
+               for v in r2.values())
+    for (x, y, r) in ((a, b, r1), (a2, b2, r2)):
+        np.testing.assert_allclose(r["C"].numpy(), x.astype(np.float64) @ y,
+                                   rtol=1e-5, atol=1e-4)
+    with JServer(nb_cores=1) as js:
+        jr = js.submit_lowered(j_gemm(
+            JTiled.from_dense("A", a2, 4, 4), JTiled.from_dense("B", b2, 4, 4),
+            JTiled.from_dense("C", np.zeros((16, 16), np.float32), 4, 4))
+        ).result(timeout=120)
+    np.testing.assert_allclose(r2["C"].numpy(), np.asarray(jr["C"]),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_a_failing_lowered_submission_fails_its_ticket_alone():
+    """``device="cuda"`` with no card raises inside the lowering: that
+    ticket fails, and the server keeps serving."""
+    import torch
+
+    server = RuntimeServer(nb_cores=1)
+    _, _, tp = _lowered_gemm_pool(seed=3)
+    tk = server.submit_lowered(tp, device="meta" if torch.cuda.is_available()
+                               else "cuda")
+    with pytest.raises(Exception):
+        tk.result(timeout=60)
+    assert tk.state == "failed" and not server.stats()["poisoned"]
+    _, _, tp2 = _lowered_gemm_pool(seed=4)
+    assert "C" in server.submit_lowered(tp2, device="cpu").result(timeout=60)
+    server.drain(timeout=30)
+
+
+def test_a_server_over_a_callers_context():
+    from parsec_tpu_torch.runtime import Context
+    ctx = Context(nb_cores=1)
+    ctx.start()
+    server = RuntimeServer(context=ctx)
+    assert server.context is ctx and isinstance(ctx.scheduler,
+                                                FairScheduler)
+    tp, check = _chain_pool(nb=3)
+    assert server.submit(tp).result(timeout=30) is tp
+    check()
+    again = RuntimeServer(context=ctx)      # never a second shim
+    assert again._fair is server._fair
+    server.drain(timeout=30)
+    with pytest.raises(ValueError):
+        RuntimeServer(context=Context(nb_cores=0))

@@ -296,8 +296,9 @@ def _serve_streams(server_cls, prompts, max_new):
         out = {name: tk.result(timeout=120)["tokens"]
                for name, tk in tks.items()}
         traces = {tk.trace.trace_id for tk in tks.values()}
-    # after the drain: every pool's samples have landed
-    return out, server.metrics(), traces
+    # after the drain: every pool's samples have landed.  The server goes
+    # back too: ``runtime_report`` merges the LIVE planes, held weakly
+    return out, server.metrics(), traces, server
 
 
 def test_two_tenant_streams_equal_the_jax_server_and_the_oracle(
@@ -305,8 +306,8 @@ def test_two_tenant_streams_equal_the_jax_server_and_the_oracle(
     rng = np.random.default_rng(21)
     prompts = {f"s{i}": [int(t) for t in rng.integers(
         0, MODEL.vocab, int(rng.integers(3, 30)))] for i in range(5)}
-    got, m, traces = _serve_streams(RuntimeServer, prompts, 9)
-    jgot, jm, _ = _serve_streams(JRuntimeServer, prompts, 9)
+    got, m, traces, _server = _serve_streams(RuntimeServer, prompts, 9)
+    jgot, jm, _, _ = _serve_streams(JRuntimeServer, prompts, 9)
     for name, prompt in prompts.items():
         assert got[name] == jgot[name] == \
             MODEL.reference_generate(prompt, 9), name
