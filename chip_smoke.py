@@ -318,6 +318,36 @@ any phase fails:
    tokens, rank 2 killed with ``fail_rank`` once it shipped a token: its
    live streams requeue on survivors as prompt plus shipped tokens and
    finish oracle-exact, and the zombie's late deltas land nothing.
+30. **path region_cholesky** (after **tuned_cholesky**) — the JAX bench's
+   ``region_cholesky`` stage (``bench.py:591-650``) at its size: n=8192,
+   nb=512 (816 tasks), fp32 from ``make_spd_fast``, ``lower_regions``
+   at the default ``lowering_region_max_tasks`` (256): the regions
+   prepared under a 90 s budget, then the region pool on a ``Context``
+   timed as the bench times it (K1 ``mma_tf32`` in the SYRK, GEMM and
+   TRSM groups); again on a cold cache under a budget half the first
+   region's preparation, so the later regions shed to the eager path;
+   and the whole-pool ``lower_taskpool`` at the same n.  The three
+   factors within the TF32 tile gate of each other and of the float64
+   factor; regions, prepared and shed, ``compile_s``, seconds, GFLOPS
+   and K1's launches by form.
+31. **path llm_wide_regions** (after **llm_sharded**) — the llm_wide
+   width (ToyLM with 32 heads of 128), 8 streams of 16 new tokens from
+   seed 11, with ``llm_lower_regions`` on: every decode superpool
+   lowered to regions, its ATTN on K2 through the ``ragged_attn_page``
+   traceable; every stream equal to the oracle, beside the same streams
+   with the option off (off, on, on, off): superpools lowered and fallen
+   back, regions a superpool, K2 launches and tokens/s.
+32. **commcheck** (after **multiproc_traced**) — commcheck over the
+   four-rank GEMM, Cholesky and LU pools of phase 16 (2 x 2 grid,
+   n=8192, nb=1024): each pool's predicted cross-rank activation bytes
+   held against the payload its GETs landed in phase 16 (not run again),
+   within 15% (the JAX package's agreement gate); the GEMM's predicted
+   collection reads of A and B are printed apart (the rank bodies build
+   their inputs on every rank, so they cross no wire).  Then
+   ``predict_collective_traffic(4)`` against one four-process run of
+   ``comm/collectives.py:_mp_collective_body`` (a 4 MiB broadcast and a
+   64-element reduction over the socket fabric): its framed bytes sent,
+   under the same gate.
 
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
@@ -4173,6 +4203,362 @@ def phase_llm_sharded(card: str, torch, seed: int = 29, max_new: int = 16,
     return rec
 
 
+# the megakernel regions: the region Cholesky of the JAX bench's
+# ``region_cholesky`` stage (bench.py:591-650)
+REGION_BUDGET_S = 90.0
+
+
+def _region_run(torch, plan, budget_s: float) -> dict:
+    """Prepare ``plan`` under ``budget_s`` (the notes kept), then run its
+    region pool to completion on a Context, timed as the JAX bench times
+    it: the table's materialization is set-up, the write-back rides the
+    pool's completion listener inside the clock."""
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.runtime import Context
+
+    notes: list = []
+    t0 = time.perf_counter()
+    plan.compile(budget_s=budget_s, note=lambda **kw: notes.append(
+        dict(kw, at_s=time.perf_counter() - t0)))
+    prep_wall = time.perf_counter() - t0
+    table = plan.materialize_table()
+    torch.cuda.synchronize()
+    _k1_reset(tg)                        # counts from here are the path's
+    ctx = Context(nb_cores=0)
+    try:
+        t0 = time.perf_counter()
+        ctx.add_taskpool(plan.taskpool(table))
+        ctx.wait(timeout=600)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        ctx.fini(timeout=60)
+    plan.finalize(table)                 # a no-op: the listener ran
+    del table
+    st = plan.stats()
+    return dict(st, seconds=seconds, prepare_wall_s=prep_wall,
+                notes=notes, gemm_launches=tg.gemm_update.launches,
+                gemm_launches_by_variant=dict(
+                    tg.gemm_update.launches_by_variant),
+                gemm_launches_by_form=dict(tg.gemm_update.launches_by_form))
+
+
+def _pair_error(torch, d1, d2, nb: int) -> float:
+    """The tile error of one factor (on the host) against another, in
+    float64 on the card: how far two incarnations disagree."""
+    from parsec_tpu_torch.ops.factor import tile_error
+    a = torch.tril(torch.from_numpy(d1).cuda().double())
+    b = torch.tril(torch.from_numpy(d2).cuda().double())
+    err = tile_error(a, b, nb)
+    del a, b
+    torch.cuda.empty_cache()
+    return err
+
+
+def phase_region_cholesky(card: str, torch, n: int = 8192,
+                          nb: int = 512) -> dict:
+    """The Cholesky lowered to megakernel regions on the card (the JAX
+    bench's ``region_cholesky`` stage at its size), three ways: prepared
+    under the 90 s budget; with a budget so small that the regions after
+    the first shed to the eager path (a cold cache); and the whole-pool
+    ``lower_taskpool`` at the same n.  The three factors must agree with
+    each other and with the float64 factor under the TF32 gate."""
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.models.cholesky import cholesky_flops
+    from parsec_tpu_torch.ptg.lowering import (lower_regions, lower_taskpool,
+                                               lowering_cache)
+    from parsec_tpu_torch.ops import gemm as tg
+
+    params.set("gemm_precision", "default")
+    nt = n // nb
+    want_tasks = sum(_expected_tasks("cholesky", nt).values())
+    flops = cholesky_flops(n)
+    a, A = _factor_input("cholesky", n, nb)
+    t0 = time.perf_counter()
+    plan = lower_regions(_factor_ptg("cholesky", A))
+    lower_s = time.perf_counter() - t0
+    _check(plan.stats()["ntasks"] == want_tasks,
+           f"region_cholesky: {plan.stats()['ntasks']} tasks, expected "
+           f"{want_tasks}")
+    run = _region_run(torch, plan, REGION_BUDGET_S)
+    data = sum(r.step_fn is not None for r in plan.regions)
+    _check(run["regions_compiled"] == data and run["regions_eager"] == 0,
+           f"region_cholesky: {run['regions_compiled']} of {data} regions "
+           f"prepared under {REGION_BUDGET_S} s")
+    _check(run["xla_calls"] == data,
+           f"region_cholesky: {run['xla_calls']} prepared-step calls for "
+           f"{data} regions")
+    launches = run["gemm_launches"]
+    _check(launches > 0
+           and run["gemm_launches_by_variant"]["mma_tf32"] == launches,
+           f"region_cholesky: K1 ran {run['gemm_launches_by_variant']}")
+    _check(set(run["gemm_launches_by_form"]) == K1_FORMS["cholesky"],
+           f"region_cholesky: K1 forms {run['gemm_launches_by_form']}")
+    dense = A.to_dense()
+    checks = _factor_check(torch, "cholesky", dense, a, nb, "default")
+    del A
+
+    # the same structure on a cold cache, under a budget that admits the
+    # first (smallest) region and that its preparation overruns, so the
+    # rate it measures sheds the rest: the cost of the first region's
+    # cache probe (timed here, twice for the sort) plus half the least
+    # preparation of a later region in the run above (the first one's
+    # also loaded the kernel libraries)
+    starts = [x["at_s"] for x in run["notes"] if x.get("compiling")]
+    preps = [x["compile_s"] for x in run["notes"] if "compile_s" in x
+             and not x.get("cached")]
+    lowering_cache.clear()
+    A2 = _factor_matrix("cholesky", a, nb)
+    plan2 = lower_regions(_factor_ptg("cholesky", A2))
+    smallest = min(plan2.regions, key=lambda r: r.ntasks)
+    t0 = time.perf_counter()
+    lowering_cache.peek(plan2._cache_key(smallest))
+    probe = time.perf_counter() - t0
+    budget = 2 * probe + 0.5 * min(preps[1:] or preps)
+    shed = _region_run(torch, plan2, budget)
+    _check(shed["regions_eager"] >= 1
+           and shed["regions_compiled"] + shed["regions_eager"] == data,
+           f"region_cholesky shed: {shed['regions_compiled']} prepared, "
+           f"{shed['regions_eager']} eager of {data} under {budget} s")
+    eager_flags = [bool(x.get("eager")) for x in shed["notes"]
+                   if "compiling" not in x]
+    _check(eager_flags == sorted(eager_flags),
+           f"region_cholesky shed: shedding not monotone {eager_flags}")
+    dense_shed = A2.to_dense()
+    shed_checks = _factor_check(torch, "cholesky", dense_shed, a, nb,
+                                "default")
+    del A2
+
+    A3 = _factor_matrix("cholesky", a, nb)
+    low = lower_taskpool(_factor_ptg("cholesky", A3))
+    _k1_reset(tg)
+    t0 = time.perf_counter()
+    low.execute()
+    torch.cuda.synchronize()
+    whole_s = time.perf_counter() - t0
+    whole_launches = tg.gemm_update.launches
+    dense_whole = A3.to_dense()
+    whole_checks = _factor_check(torch, "cholesky", dense_whole, a, nb,
+                                 "default")
+    del A3, low
+    pairs = {"compiled_vs_shed": _pair_error(torch, dense, dense_shed, nb),
+             "compiled_vs_whole": _pair_error(torch, dense, dense_whole,
+                                              nb),
+             "shed_vs_whole": _pair_error(torch, dense_shed, dense_whole,
+                                          nb)}
+    for what, err in pairs.items():
+        _check(err <= FACTOR_TOL["default"],
+               f"region_cholesky: {what} tile error {err} above "
+               f"{FACTOR_TOL['default']}")
+    del dense, dense_shed, dense_whole
+    rec = dict(n=n, nb=nb, tasks=want_tasks,
+               region_max_tasks=params.get("lowering_region_max_tasks"),
+               regions=run["regions"], regions_compiled=run[
+                   "regions_compiled"], regions_eager=run["regions_eager"],
+               region_tasks=[r.ntasks for r in plan.regions],
+               region_preds=[sorted(r.preds) for r in plan.regions],
+               lower_s=lower_s, compile_s=run["compile_s"],
+               trace_s=run["trace_s"], prepare_wall_s=run["prepare_wall_s"],
+               budget_s=REGION_BUDGET_S, xla_calls=run["xla_calls"],
+               seconds=run["seconds"], gflops=flops / run["seconds"] / 1e9,
+               gemm_launches=launches,
+               gemm_launches_by_variant=run["gemm_launches_by_variant"],
+               gemm_launches_by_form=run["gemm_launches_by_form"],
+               **checks,
+               prepare_s_by_region=preps, prepare_start_s=starts,
+               shed=dict(budget_s=budget, probe_s=probe,
+                         prepare_start_s=[x["at_s"] for x in shed["notes"]
+                                          if x.get("compiling")],
+                         regions_compiled=shed["regions_compiled"],
+                         regions_eager=shed["regions_eager"],
+                         compile_s=shed["compile_s"],
+                         eager_runs=shed["eager_runs"],
+                         xla_calls=shed["xla_calls"],
+                         seconds=shed["seconds"],
+                         gflops=flops / shed["seconds"] / 1e9,
+                         gemm_launches=shed["gemm_launches"],
+                         gemm_launches_by_form=shed["gemm_launches_by_form"],
+                         tile_error=shed_checks["tile_error"]),
+               whole_pool=dict(execute_s=whole_s,
+                               gflops=flops / whole_s / 1e9,
+                               gemm_launches=whole_launches,
+                               tile_error=whole_checks["tile_error"]),
+               pair_tile_errors=pairs)
+    _emit(card, phase="path", name="region_cholesky", **rec)
+    return rec
+
+
+def _wide_serve(torch, model, backlog: list, max_new: int) -> tuple:
+    """The backlog through a ``ContinuousBatcher`` of the wide model on a
+    ``RuntimeServer(nb_cores=2)``: the results, the wall, the batcher's
+    stats and K2's launches."""
+    from parsec_tpu_torch.llm import ContinuousBatcher
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    from parsec_tpu_torch.serve import RuntimeServer
+
+    ra.attn_page_update.launches = 0
+    t0 = time.perf_counter()
+    with RuntimeServer(nb_cores=2) as server:
+        batcher = ContinuousBatcher(server, model=model)
+        tickets = [batcher.submit_stream(p, max_new_tokens=max_new,
+                                         tenant=t)
+                   for p, t, _f, _e in backlog]
+        results = [tk.result(timeout=600) for tk in tickets]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = batcher.stats()
+        batcher.stop()
+    return results, wall, stats, ra.attn_page_update.launches
+
+
+def phase_llm_wide_regions(card: str, torch, seed: int = 11, n: int = 8,
+                           max_new: int = 16) -> dict:
+    """The llm_wide width (ToyLM with 32 heads of 128) with
+    ``llm_lower_regions`` on: 8 streams, 16 new tokens, every decode pool
+    lowered to regions (its ATTN on K2 through the ``ragged_attn_page``
+    traceable); every stream the oracle's, beside the same streams with
+    the option off (off, on, on, off)."""
+    from parsec_tpu_torch.core.params import params
+
+    model, backlog = _wide_backlog(seed, n=n)
+    want = [model.reference_generate(p, max_new) for p, *_ in backlog]
+    runs = {}
+    for i, on in enumerate((False, True, True, False)):
+        params.set("llm_lower_regions", on)
+        try:
+            results, wall, stats, launches = _wide_serve(
+                torch, model, backlog, max_new)
+        finally:
+            params.set("llm_lower_regions", False)
+        for j, (r, w) in enumerate(zip(results, want)):
+            _check(r["tokens"] == w,
+                   f"llm_wide_regions ({'on' if on else 'off'}): stream {j} "
+                   f"differs from the oracle")
+        ntok = sum(len(r["tokens"]) for r in results)
+        runs.setdefault("on" if on else "off", []).append(dict(
+            wall_s=wall, tokens=ntok, tokens_per_s=ntok / wall,
+            ragged_attn_page_launches=launches,
+            decode_submits=stats["decode_submits"],
+            regions=stats.get("regions")))
+    on = runs["on"]
+    for r in on:
+        reg = r["regions"] or {}
+        _check(reg.get("pools", 0) == r["decode_submits"] > 0
+               and reg.get("fallbacks", 1) == 0,
+               f"llm_wide_regions: region pools {reg}, decode submits "
+               f"{r['decode_submits']}")
+        _check(r["ragged_attn_page_launches"] > 0,
+               "llm_wide_regions: the region pools launched no K2")
+    first = on[0]
+    rec = dict(streams=n, heads=model.num_heads, head_dim=model.head_dim,
+               max_new=max_new, tokens=first["tokens"],
+               superpools_lowered=first["regions"]["pools"],
+               superpools_fallback=first["regions"]["fallbacks"],
+               regions=first["regions"]["regions"],
+               regions_per_superpool=first["regions"]["regions"]
+               / first["regions"]["pools"],
+               ragged_attn_page_launches=first["ragged_attn_page_launches"],
+               wall_s=[r["wall_s"] for r in on],
+               tokens_per_s=[r["tokens_per_s"] for r in on],
+               off_wall_s=[r["wall_s"] for r in runs["off"]],
+               off_tokens_per_s=[r["tokens_per_s"] for r in runs["off"]],
+               off_ragged_attn_page_launches=[
+                   r["ragged_attn_page_launches"] for r in runs["off"]],
+               order="off, on, on, off")
+    _emit(card, phase="path", name="llm_wide_regions", **rec)
+    return rec
+
+
+COMM_AGREE_RELERR_MAX = 0.15     # the JAX package's agreement gate
+
+
+def _grid_pool(kind: str, n: int, nb: int):
+    """The pool of ``mp_bodies`` for ``kind`` on rank 0's view of the
+    2 x 2 grid, no tile made: commcheck reads geometry and owners."""
+    from parsec_tpu_torch.data_dist.matrix import (SymTwoDimBlockCyclic,
+                                                   TwoDimBlockCyclic)
+    kw = dict(P=MR_P, Q=MR_Q, myrank=0)
+    if kind == "gemm":
+        mats = [TwoDimBlockCyclic(x, n, n, nb, nb, **kw) for x in "ABC"]
+    else:
+        cls = SymTwoDimBlockCyclic if kind == "cholesky" \
+            else TwoDimBlockCyclic
+        mats = [cls("A", n, n, nb, nb, **kw)]
+    from parsec_tpu_torch.comm.mp_bodies import _pool
+    return _pool(kind, tuple(mats), "cuda")
+
+
+def phase_commcheck(card: str, torch, multiproc: dict, n: int = 8192,
+                    nb: int = 1024) -> dict:
+    """commcheck over the four-rank GEMM, Cholesky and LU pools of the
+    ``multiproc_*`` phases (2 x 2 grid, their sizes), each pool's
+    predicted cross-rank bytes held against the payload bytes those runs
+    landed through their GETs (not run again); then
+    ``predict_collective_traffic(4)`` against one four-process run of the
+    collectives' body (its framed bytes on the wire, as the JAX bench
+    compares them).  The gate is the JAX agreement gate, 15% relative."""
+    from parsec_tpu_torch.analysis.commcheck import (
+        agreement_rel_err, check_comm, predict_collective_traffic)
+    from parsec_tpu_torch.comm import run_multiproc
+
+    out = {}
+    for kind in MP_KINDS:
+        t0 = time.perf_counter()
+        cr = check_comm(_grid_pool(kind, n, nb), nb_ranks=MR_RANKS)
+        check_s = time.perf_counter() - t0
+        measured = multiproc[f"multiproc_{kind}"]["payload_in_by_rank"]
+        pred_by_rank = [sum(b for (_s, d), b in cr.rank_bytes.items()
+                            if d == r) for r in range(MR_RANKS)]
+        # the rank bodies build their input tiles on every rank (SPMD),
+        # so only activations cross: the GEMM's collection reads of A and
+        # B stay on each rank
+        err = agreement_rel_err(cr.activation_bytes, sum(measured))
+        _check(cr.ok, f"commcheck {kind}: {[repr(f) for f in cr.errors]}")
+        _check(err <= COMM_AGREE_RELERR_MAX,
+               f"commcheck {kind}: predicted {cr.activation_bytes} "
+               f"activation bytes, the run landed {sum(measured)} "
+               f"(rel err {err})")
+        rec = dict(kind=kind, ranks=MR_RANKS, grid=[MR_P, MR_Q], n=n,
+                   nb=nb, tasks=cr.ntasks, pattern=cr.pattern,
+                   compared="payload", predicted_bytes=cr.total_bytes,
+                   predicted_activation_bytes=cr.activation_bytes,
+                   predicted_read_bytes=cr.read_bytes,
+                   predicted_bytes_by_rank=pred_by_rank,
+                   measured_payload_bytes=sum(measured),
+                   measured_payload_by_rank=measured,
+                   rel_err=err, edge_classes=dict(cr.edge_bytes),
+                   recommended_tree=cr.to_dict()["recommended_tree"],
+                   check_s=check_s)
+        _emit(card, phase="commcheck", name=f"multiproc_{kind}", **rec)
+        out[kind] = rec
+    pred = predict_collective_traffic(MR_RANKS)
+    t0 = time.perf_counter()
+    res = run_multiproc(
+        MR_RANKS, "parsec_tpu_torch.comm.collectives:_mp_collective_body",
+        timeout=240, nb_cores=1)
+    launch_s = time.perf_counter() - t0
+    _check(len({r["digest"] for r in res}) == 1,
+           "commcheck collectives: the broadcast's copies differ")
+    _check(res[0]["reduce0"] == float(sum(range(1, MR_RANKS + 1))),
+           f"commcheck collectives: the reduction gave {res[0]['reduce0']}")
+    observed = sum(d["bytes"] for r in res
+                   for d in r["peer_stats"]["tx"].values())
+    err = agreement_rel_err(pred["total_bytes"], observed)
+    _check(err <= COMM_AGREE_RELERR_MAX,
+           f"commcheck collectives: predicted {pred['total_bytes']}, the "
+           f"wire carried {observed} (rel err {err})")
+    coll = dict(ranks=MR_RANKS, compared="framed", predicted=pred,
+                observed_tx_bytes=observed, rel_err=err,
+                root_tx_bytes=sum(d["bytes"] for d in
+                                  res[0]["peer_stats"]["tx"].values()),
+                bcast_s=max(r["bcast_s"] for r in res),
+                reduce_s=max(r["reduce_s"] for r in res),
+                launch_s=launch_s, tree=res[0]["tree"])
+    _emit(card, phase="commcheck", name="collectives", **coll)
+    out["collectives"] = coll
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4223,9 +4609,10 @@ def _run(torch) -> int:
     spec = phase_llm_spec(card, torch)
     tiers = phase_llm_tiers(card, torch)
     sharded = phase_llm_sharded(card, torch)
+    wide_regions = phase_llm_wide_regions(card, torch)
     k2_paths = {"llm": llm, "llm_wide": wide, "llm_wide_pins": wide_pins,
                 "llm_wide_slo": wide_slo, "llm_wide_adaptive": adaptive,
-                "llm_sharded": sharded,
+                "llm_sharded": sharded, "llm_wide_regions": wide_regions,
                 "llm_sharded_control": {
                     "ragged_attn_page_launches":
                         sharded["control_ragged_attn_page_launches"]},
@@ -4261,6 +4648,7 @@ def _run(torch) -> int:
           backward_error=tf32_run["backward_error"],
           backward_tol=BACKWARD_TOL["highest"])
     tuned = phase_tuned_cholesky(card, torch)
+    region = phase_region_cholesky(card, torch)
     multirank = {
         "multirank_gemm": phase_multirank(card, torch, "gemm", path),
         "multirank_cholesky": phase_multirank(
@@ -4270,10 +4658,12 @@ def _run(torch) -> int:
     multiproc = phase_multiproc(card, torch, multirank)
     comm_thread = phase_multiproc_comm_thread(card, torch, multiproc)
     traced = phase_multiproc_traced(card, torch, multiproc, comm_thread)
+    phase_commcheck(card, torch, multiproc)
     mr_dtd = phase_multirank_dtd(card, torch)
     k1_paths = {"gemm": path, "dtd_gemm": dtd, "path_checked": checked,
                 "lowered_gemm": lgemm, "lowered_cache": lcache,
-                **factor_paths, "tuned_cholesky": tuned, **multirank,
+                **factor_paths, "tuned_cholesky": tuned,
+                "region_cholesky": region, **multirank,
                 **multiproc, "multiproc_comm_thread": comm_thread,
                 "multiproc_traced": traced,
                 "multirank_dtd_gemm": mr_dtd}

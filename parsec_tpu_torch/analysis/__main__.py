@@ -1,20 +1,22 @@
 """CLI: ``python -m parsec_tpu_torch.analysis``.
 
 Runs graphcheck over small instances of every model builder of the port
-(or one of them) and exits nonzero on any error-severity finding.  Every
-pool is built for the host (``devices="cpu"``): the check runs no body
-and needs no card.
+(or one of them) and the runtime lint over the port's own source, and
+exits nonzero on any error-severity finding.  Every pool is built for the
+host (``devices="cpu"``): the checks run no body and need no card.
 
 Usage::
 
-    python -m parsec_tpu_torch.analysis                 # every model
+    python -m parsec_tpu_torch.analysis                 # self-lint + models
+    python -m parsec_tpu_torch.analysis --self-lint [PATH ...]
     python -m parsec_tpu_torch.analysis --graph cholesky --nt 6 --ranks 4
+    python -m parsec_tpu_torch.analysis --comm [--ranks 8]  # comm patterns
     python -m parsec_tpu_torch.analysis -v              # warnings too
 
-Port of ``parsec_tpu/analysis/__main__.py``.  Left out: the self-lint and
-commcheck prongs (``--self-lint``, ``--comm``; queue item 7), JDF files
+Port of ``parsec_tpu/analysis/__main__.py``.  Left out: JDF files
 (``--graph x.jdf``, ``--bind``; queue item 9), and the models the port
-does not have yet (pingpong, reduction, all2all; queue item 10) or
+does not have yet (pingpong, reduction, all2all; queue item 10, so the
+``--comm`` sweep has no reduction, pingpong or irregular pool) or
 dropped (the one-step ``llm_decode`` pool).
 """
 
@@ -24,9 +26,12 @@ import argparse
 import sys
 
 
-def _model_graphs(nt: int):
+def _model_graphs(nt: int, ranks: int = 1):
     """Small instances of every model builder of the port, as
-    ``(name, taskpool)``, on one rank's collections."""
+    ``(name, taskpool)``.  ``ranks > 1`` deals the vector-backed pools
+    round-robin over that many ranks, so commcheck sees cross-rank edges;
+    the dense-matrix and LLM pools stay on one rank (classified ``none``,
+    legitimately rank-local)."""
     import torch
 
     from ..comm.collectives import bcast_taskpool, reduce_taskpool
@@ -44,7 +49,7 @@ def _model_graphs(nt: int):
     n = nt * nb
 
     def _vec(name):
-        return VectorTwoDimCyclic(name, lm=n, mb=nb)
+        return VectorTwoDimCyclic(name, lm=n, mb=nb, P=ranks)
 
     yield "cholesky", cholesky.tiled_cholesky_ptg(
         SymTwoDimBlockCyclic("A", n, n, nb, nb), devices="cpu")
@@ -123,7 +128,8 @@ def _model_graphs(nt: int):
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m parsec_tpu_torch.analysis",
-        description="static dataflow verification of the port's pools")
+        description="static dataflow verification of the port's pools "
+                    "and the runtime's concurrency lint")
     ap.add_argument("--graph", metavar="MODEL",
                     help="verify one model: cholesky, lu, stencil1d, "
                          "stencil2d, tiled_gemm, ep, llm_prefill, "
@@ -133,23 +139,54 @@ def main(argv: list[str] | None = None) -> int:
                     help="tile-grid size of the model graphs (default 5)")
     ap.add_argument("--ranks", type=int, default=1,
                     help="verify for this many ranks (default 1)")
+    ap.add_argument("--self-lint", action="store_true",
+                    help="run runtimelint over parsec_tpu_torch/ (or PATHs)")
+    ap.add_argument("--comm", action="store_true",
+                    help="derive every model pool's comm pattern "
+                         "statically (commcheck; --ranks defaults to 4 "
+                         "here so cross-rank edges exist)")
+    ap.add_argument("paths", nargs="*", help="paths for --self-lint")
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="also print warnings")
     args = ap.parse_args(argv)
 
-    from . import check_ptg
-    graphs = list(_model_graphs(args.nt))
-    if args.graph:
-        graphs = [(g, tp) for g, tp in graphs if g == args.graph]
-        if not graphs:
-            ap.error(f"unknown model {args.graph!r}")
+    from . import check_ptg, lint_paths, lint_self
     failed = False
-    for _name, tp in graphs:
-        r = check_ptg(tp, nb_ranks=args.ranks)
-        print(r.summary())
-        for f in r.errors + (r.warnings if args.verbose else []):
+    run_all = not args.graph and not args.self_lint and not args.comm
+
+    if args.comm:
+        from . import check_comm
+        ranks = args.ranks if args.ranks > 1 else 4
+        for gname, tp in _model_graphs(args.nt, ranks=ranks):
+            if args.graph and gname != args.graph:
+                continue
+            cr = check_comm(tp, nb_ranks=ranks)
+            print(cr.summary())
+            for f in cr.errors + (cr.warnings if args.verbose else []):
+                print("  " + repr(f))
+            failed |= not cr.ok
+        return 1 if failed else 0
+
+    if args.graph or run_all:
+        graphs = list(_model_graphs(args.nt))
+        if args.graph:
+            graphs = [(g, tp) for g, tp in graphs if g == args.graph]
+            if not graphs:
+                ap.error(f"unknown model {args.graph!r}")
+        for _name, tp in graphs:
+            r = check_ptg(tp, nb_ranks=args.ranks)
+            print(r.summary())
+            for f in r.errors + (r.warnings if args.verbose else []):
+                print("  " + repr(f))
+            failed |= not r.ok
+
+    if args.self_lint or run_all:
+        lr = lint_paths(args.paths) if args.paths else lint_self()
+        print(lr.summary())
+        for f in lr.errors + (lr.warnings if args.verbose else []):
             print("  " + repr(f))
-        failed |= not r.ok
+        failed |= not lr.ok
+
     return 1 if failed else 0
 
 

@@ -53,9 +53,9 @@ retained concrete graph (:attr:`GraphReport.graph`, ``(class, key) ->
 successors``) are the JAX package's on the same pool; ``analysis_max_tasks``
 caps the enumeration as there.
 
-Left out: ``check_jdf`` (the JDF front-ends are not ported,
-``ROADMAP.md`` §1 item 9), ``GraphReport.select_regions`` (regions,
-queue item 6), and the branches for a class's ``startup_fn`` override,
+:meth:`GraphReport.select_regions` carves the retained graph into
+megakernel regions (:mod:`.regions`).  Left out: ``check_jdf`` (the JDF
+front-ends are not ported, ``ROADMAP.md`` §1 item 9) and the branches for a class's ``startup_fn`` override,
 which the port's task classes do not have.
 :meth:`GraphReport.critical_path` runs critpath's
 ``dag_critical_path`` over the retained graph.
@@ -179,6 +179,17 @@ class GraphReport:
         if not self.ok:
             raise GraphCheckError(self)
         return self
+
+    def select_regions(self, max_tasks: int = 0) -> list:
+        """Carve the verified concrete task graph into maximal acyclic
+        subregions (:mod:`.regions`): convex wavefront-level bands per
+        weakly-connected component, capped at ``max_tasks`` members (0 =
+        unbounded).  The megakernel lowering
+        (``ptg/lowering.lower_regions``) prepares one step per region.
+        Raises on a truncated or failing report: regions over an
+        unverified graph could hide the hazards this report surfaces."""
+        from .regions import regions_of_report
+        return regions_of_report(self, max_tasks=max_tasks)
 
     def critical_path(self, class_costs: dict | None = None) -> dict:
         """Longest-cost chain over the concrete graph

@@ -34,6 +34,11 @@ from ..data.data import data_create
 from .remote_dep import (TREE_KINDS, resolve_tree_kind, tree_children,
                          tree_parent)
 
+# the runtime lint's contract (analysis/runtimelint.py): empty, since
+# the collectives hold no state of their own across threads
+_LOCK_PROTECTED = {}
+_LOCK_ORDER = ()
+
 __all__ = ["bcast_taskpool", "reduce_taskpool", "register_reduce_op",
            "reduce_op", "tree_children", "tree_parent", "TREE_KINDS",
            "resolve_tree_kind"]

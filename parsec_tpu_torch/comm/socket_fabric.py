@@ -64,6 +64,21 @@ from ..prof import spans as _spans
 from . import codec
 from .engine import AM_TAG_GET_FRAG, InprocCommEngine
 
+# the runtime lint's contract (analysis/runtimelint.py)
+_LOCK_PROTECTED = {
+    "SocketFabric._inbox": "_ilock",
+    "SocketFabric._seen": "_ilock",
+    "SocketFabric._unacked_in": "_ilock",
+    "SocketFabric.peer_rx": "_ilock",
+    "SocketFabric.bytes_recv": "_ilock",
+    "SocketFabric.dup_frames": "_ilock",
+    "SocketFabric._peers": "_plock",
+    "SocketFabric._accepted": "_plock",
+    "SocketFabric.bytes_sent": "_plock",
+    "SocketFabric.peer_tx": "_plock",
+}
+_LOCK_ORDER = ("_plock", "_ilock")
+
 _params.register("comm_socket_ack_every", 16,
                  "receiver sends a cumulative ack after this many frames "
                  "(bounds the sender's replay window)")

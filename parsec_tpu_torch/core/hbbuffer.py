@@ -12,6 +12,11 @@ import threading
 from collections import deque
 from typing import Any, Callable
 
+# the runtime lint's contract (analysis/runtimelint.py)
+_LOCK_PROTECTED = {
+    "HBBuffer._items": "_lock",
+}
+
 
 class StealDeque:
     """Bounded per-stream deque that spills to a parent store when full.

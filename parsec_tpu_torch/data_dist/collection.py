@@ -6,8 +6,9 @@ owning rank (``rank_of``), the master :class:`Data` (``data_of``) and a
 virtual-process hint (``vpid_of``).  :class:`DictCollection` is the
 host-dict-backed collection the LLM pools keep their side tiles in.
 :func:`enumerate_keys` lists a collection's keys for the taskpool
-lowering.  Left out: ``key_to_string`` and ``open_key_space`` (no ported
-taskpool writes fresh keys into a lowered dict collection).
+lowering; an undeclared dict collection has an *open* key space
+(``open_key_space``), which the lowering's stores extend as a plan
+references fresh keys.  Left out: ``key_to_string``.
 """
 
 from __future__ import annotations
@@ -66,6 +67,14 @@ class DictCollection(DataCollection):
         self._keys = None if keys is None else frozenset(self._key_list)
         self._store: dict[tuple, Data] = {}
         self._lock = threading.Lock()
+
+    @property
+    def open_key_space(self) -> bool:
+        """Whether the key space is OPEN (no declared ``keys=``):
+        ``has_key`` answers True for anything and new keys materialize on
+        first touch, so the lowering's stores keep room to extend even
+        when some keys already exist (a seeded token chain)."""
+        return self._keys is None
 
     def rank_of(self, *key) -> int:
         return 0 if self._rank_of_fn is None else self._rank_of_fn(*key)

@@ -33,8 +33,8 @@ the host and go on to the card by the prefetch like any other
 host-tier page.
 
 Locking: the tier lock is a leaf, never held across calls into the
-collection, the device or the engine.  Left out: the runtime-lint
-contract tables of the JAX module.
+collection, the device or the engine; the runtimelint contract tables
+(``_LOCK_PROTECTED``, ``_LOCK_ORDER``) check it.
 """
 
 from __future__ import annotations
@@ -49,6 +49,23 @@ import torch
 from ..core.params import params as _params
 from ..data.data import COHERENCY_INVALID, COHERENCY_SHARED, nbytes_of
 from .paged_kv import PagedKVCollection
+
+# the runtime lint's contract (analysis/runtimelint.py)
+_LOCK_PROTECTED = {
+    "KVTierMap._host": "_lock",
+    "KVTierMap._peer": "_lock",
+    "KVTierMap._spill_ref": "_lock",
+    "KVTierMap._issued": "_lock",
+    "KVTierMap.prefetch_inflight": "_lock",
+    "KVTierMap.prefetched_pages": "_lock",
+    "KVTierMap.spills": "_lock",
+    "KVTierMap.peer_spills": "_lock",
+    "KVTierMap.peer_fetches": "_lock",
+    "PeerKVStore._held": "_lock",
+    "PeerKVStore.pages_held": "_lock",
+    "PeerKVStore.bytes_held": "_lock",
+}
+_LOCK_ORDER = ("_lock",)
 
 _params.register("kv_host_tier_bytes", 0,
                  "byte budget for host-tier (device-evicted) KV pages; "
@@ -102,7 +119,7 @@ class KVTierMap:
             self.spills += 1
         self._maybe_spill_to_peer()
 
-    def _host_pages_locked(self) -> list[tuple[Any, Any, int]]:  # holds(_lock)
+    def _host_pages_locked(self) -> list[tuple[Any, Any, int]]:  # lint: holds(_lock)
         """Live, still host-resident-only entries; prunes the rest."""
         out, dead = [], []
         for key, (ref, nb) in self._host.items():

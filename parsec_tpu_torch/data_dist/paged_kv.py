@@ -141,7 +141,7 @@ class PagedKVCollection(DataCollection):
     def _zeros(self) -> torch.Tensor:
         return torch.zeros(self.default_dtt.shape, dtype=self.dtype)
 
-    def _new_page_locked(self) -> int:  # holds(_lock)
+    def _new_page_locked(self) -> int:  # lint: holds(_lock)
         if self._free:
             phys = self._free.pop()
             self.pages_recycled += 1
@@ -193,7 +193,7 @@ class PagedKVCollection(DataCollection):
             return page, slot
 
     def _privatize_locked(self, table: list[int],
-                          page: int) -> int:  # holds(_lock)
+                          page: int) -> int:  # lint: holds(_lock)
         """Replace ``table[page]`` with a private copy of its bytes, the
         CoW divergence point.  The copy sources the NEWEST live copy (a
         sibling's on-device writes run ahead of the host copy), and the

@@ -96,6 +96,25 @@ from ..runtime.task import DEV_CPU, DEV_CUDA, HOOK_RETURN_DONE, Chore, Flow
 from ..runtime.task import Task, TaskClass
 from ..runtime.taskpool import Taskpool
 
+# the runtime lint's contract (analysis/runtimelint.py): each attribute
+# mutates only under its lock, and nested acquisitions follow the order
+_LOCK_PROTECTED = {
+    "DTDTile.last_writer": "_lock",
+    "DTDTile.last_users": "_lock",
+    "DTDTaskpool._tiles": "_tlock",
+    "DTDTaskpool._tiles_by_wire": "_tlock",
+    "DTDTaskpool._pending_flush": "_tlock",
+    "DTDTaskpool._arrivals": "_alock",
+    "DTDTaskpool._insert_seq": "_insert_lock",
+    "DTDTaskpool._inflight": "_icond",
+    "DTDTask.successors": "_dlock",
+    "DTDTask.push_records": "_dlock",
+    "DTDTask.deps_pending": "_dlock",
+    "DTDTask.completed": "_dlock",
+}
+_LOCK_ORDER = ("_insert_lock", "_tlock", "_lock", "_dlock", "_alock",
+               "_icond")
+
 # argument flags (cf. insert_function.h:53-70)
 INPUT = ACCESS_READ
 OUTPUT = ACCESS_WRITE
@@ -517,7 +536,8 @@ class DTDTaskpool(Taskpool):
         return task
 
     def _insert_task_locked(self, body: Callable, args: tuple, name,
-                            priority, cuda_kernel, _rank) -> DTDTask:
+                            priority, cuda_kernel,
+                            _rank) -> DTDTask:  # lint: holds(_insert_lock)
         multirank = self.context.nb_ranks > 1
         specs: list[_ArgSpec] = []
         for a in args:

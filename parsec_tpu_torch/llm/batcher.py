@@ -67,7 +67,14 @@ one rank of a multi-rank context (the sharded server's ranks each run a
 batcher), and :meth:`residency_len` and :meth:`load` are its placement
 hooks.
 
-Left out: region lowering of superpools.
+**Region-lowered pools** (``llm_lower_regions``, off by default): each
+decode or spec pool is lowered to megakernel regions
+(:func:`~parsec_tpu_torch.ptg.lowering.lower_regions`: the per-sequence
+chains become parallel regions, one prepared step each, on the card)
+and the region pool is submitted instead; a pool the lowering refuses
+(``LoweringError``) runs task by task on the card as before.
+``stats()["regions"]`` counts the pools lowered, the fallbacks and the
+regions.
 """
 
 from __future__ import annotations
@@ -114,6 +121,12 @@ _params.register("llm_steps_per_pool", 8,
                  "between steps)")
 # the autotuner's declared domain: superpool depth in powers of two
 _params.declare_knob("llm_steps_per_pool", lo=1, hi=32, scale="log2")
+_params.register("llm_lower_regions", False,
+                 "region-lower each decode superpool and spec pool "
+                 "(ptg.lowering.lower_regions) before submission: one "
+                 "prepared step per verified region instead of a task "
+                 "per page and step; a pool the lowering refuses runs "
+                 "task by task")
 _params.register("llm_spec_k", 0,
                  "speculative decode: draft tokens the per-stream n-gram "
                  "drafter proposes per pool (0 = off); a spec pool "
@@ -315,6 +328,10 @@ class ContinuousBatcher:
         seed_emb_table(self.model, self.EMB)
         self.max_batch = max_batch or _params.get("llm_max_batch")
         self.devices = devices
+        # llm_lower_regions: pools lowered, pools that fell back, regions
+        self.region_pools = 0
+        self.region_fallbacks = 0
+        self.regions_lowered = 0
         self.prefix = (PrefixTree(self.kv)
                        if _params.get("llm_prefix_cache") else None)
         self.tiers = KVTierMap(self.kv)
@@ -454,6 +471,11 @@ class ContinuousBatcher:
         if out["spec_submits"]:
             out["spec_tokens_per_submit"] = round(
                 out["spec_tokens"] / out["spec_submits"], 4)
+        if self.region_pools or self.region_fallbacks:
+            with self._lock:
+                out["regions"] = {"pools": self.region_pools,
+                                  "fallbacks": self.region_fallbacks,
+                                  "regions": self.regions_lowered}
         if self._k_ctl:
             # each controller's start too: the tuning DB's seed or the
             # configured depth
@@ -871,6 +893,31 @@ class ContinuousBatcher:
             seed_stream_step(self.model, self.Q, self.TOK, st.seq, st.cur,
                              eos=st.eos)
 
+    def _maybe_lower_regions(self, tp: Any) -> Any:
+        """Opt-in (``llm_lower_regions``): lower the pool to megakernel
+        regions on the batcher's device, prepare them and submit the
+        REGION pool instead.  The lowering cache makes repeat geometries
+        free to prepare; a pool the lowering refuses runs task by task,
+        on the card all the same."""
+        if not _params.get("llm_lower_regions"):
+            return tp
+        from ..ptg.lowering import LoweringError, lower_regions
+        cards = registry.by_type("cuda")
+        device = (cards[0].torch_device if self.devices == "cuda" and cards
+                  else torch.device("cpu"))
+        try:
+            plan = lower_regions(tp, device=device)
+            plan.compile()
+            pool = plan.taskpool(plan.materialize_table())
+        except LoweringError:
+            with self._lock:
+                self.region_fallbacks += 1
+            return tp
+        with self._lock:
+            self.region_pools += 1
+            self.regions_lowered += len(plan.regions)
+        return pool
+
     def _decode_step(self, live: list[_Stream]) -> None:
         """One continuous-batching iteration: ONE pool per (tenant, mode)
         over its live streams: the batched speculative pool for streams
@@ -911,6 +958,7 @@ class ContinuousBatcher:
                     tp = decode_superpool_ptg(
                         self.kv, self.Q, self.O, self.TOK, self.EMB, seqs,
                         ks, devices=self.devices, name=name)
+                tp = self._maybe_lower_regions(tp)
                 submitted.append((self._server.submit(
                     tp, tenant=tenant,
                     priority=max(st.priority for st in group)), tp, group,

@@ -63,7 +63,7 @@ from ..data_dist.collection import DictCollection
 from ..data_dist.paged_kv import META_CH, PagedKVCollection
 from ..device.device import registry
 from ..device.kernels import find_incarnation
-from ..ops import ragged_attention  # noqa: F401  (registers the bodies)
+from ..ops import ragged_attention  # noqa: F401  # lint: keep-import
 
 _F32 = torch.float32
 

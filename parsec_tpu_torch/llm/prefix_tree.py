@@ -22,9 +22,8 @@ where many requests carry the same system prompt.
   lock, so an entry cannot be evicted between the two; after the fork the
   child's refcounts keep the shared pages alive.
 
-One RLock; the lock order is tree -> collection.
-
-Left out: the runtime-lint contract tables of the JAX module.
+One RLock; the lock order is tree -> collection, and the runtimelint
+contract tables (``_LOCK_PROTECTED``, ``_LOCK_ORDER``) check it.
 """
 
 from __future__ import annotations
@@ -36,6 +35,20 @@ from typing import Any, Sequence
 
 from ..core.params import params as _params
 from ..data_dist.paged_kv import PagedKVCollection
+
+# the runtime lint's contract (analysis/runtimelint.py)
+_LOCK_PROTECTED = {
+    "_Node.children": "_lock",
+    "_Node.entries": "_lock",
+    "PrefixTree._lru": "_lock",
+    "PrefixTree._clock": "_lock",
+    "PrefixTree._bytes": "_lock",
+    "PrefixTree.hits": "_lock",
+    "PrefixTree.misses": "_lock",
+    "PrefixTree.donations": "_lock",
+    "PrefixTree.evictions": "_lock",
+}
+_LOCK_ORDER = ("_lock",)
 
 _params.register("llm_prefix_cache", False,
                  "automatic prefix cache: match every incoming prompt "
@@ -135,7 +148,7 @@ class PrefixTree:
         who stays warm, in O(entries at this node)."""
         return max(node.entries, key=lambda e: e.touch)
 
-    def _touch_locked(self, entry: _Entry) -> None:  # holds(_lock)
+    def _touch_locked(self, entry: _Entry) -> None:  # lint: holds(_lock)
         self._clock += 1
         entry.touch = self._clock
         if entry.seq in self._lru:
@@ -212,11 +225,11 @@ class PrefixTree:
             return retained
 
     # -- eviction ---------------------------------------------------------
-    def _evict_over_budget_locked(self) -> None:  # holds(_lock)
+    def _evict_over_budget_locked(self) -> None:  # lint: holds(_lock)
         while self._bytes > self.budget_bytes and len(self._lru) > 1:
             self._evict_one_locked()
 
-    def _evict_one_locked(self) -> bool:  # holds(_lock)
+    def _evict_one_locked(self) -> bool:  # lint: holds(_lock)
         if not self._lru:
             return False
         seq, entry = self._lru.popitem(last=False)   # coldest first

@@ -37,8 +37,10 @@ with it attached, including the device module's and the release sites;
 ``prof_flightrec_size=0`` leaves every slot on its one-branch disabled
 path.  A callback never waits on the card.
 
-Left out: the ``comm_pattern`` block (the static comm analysis,
-``analysis/commcheck.py``, has no port yet).  ``prof_flightrec_dir``
+The ``comm_pattern`` block (the static comm analysis,
+``analysis/commcheck.py``, in its compact form) appears only in processes
+that ran commcheck: it is read from ``sys.modules``, so a serving process
+that never imported the analysis stack never loads it.  ``prof_flightrec_dir``
 defaults to ``$PARSEC_TPU_ARTIFACT_DIR``, else the process's temporary
 directory (``tempfile.gettempdir()``, which honours ``TMPDIR``).
 """
@@ -511,6 +513,16 @@ def runtime_report(max_workers: int = 6) -> dict:
                 keep.add(name)
         return {n: snap[n] for n in sorted(keep) if n in snap}
     rep["knobs"] = _best_effort(_knobs, default={})
+    # statically derived comm patterns (analysis/commcheck.py): present
+    # only in processes that ran check_comm (the sys.modules gate keeps
+    # the analysis stack out of processes that never imported it); before
+    # the flightrec-disabled early return, and in the compact form
+    cmod = sys.modules.get("parsec_tpu_torch.analysis.commcheck")
+    if cmod is not None:
+        cpat = _best_effort(lambda: cmod.report_block(compact=True),
+                            default={})
+        if cpat:
+            rep["comm_pattern"] = cpat
     r = recorder
     if r is None:
         rep["flightrec"] = "disabled"

@@ -72,19 +72,36 @@ puts the plan's index tensors on the device, executing nothing.
 signs workloads with (:mod:`parsec_tpu_torch.tune.signature`); it gives
 the JAX package's dict on the same pool.
 
-Left out, each still in ``ROADMAP.md``: open stores (see
-:class:`_Stores`); the JAX package's persistent compile cache
-(``_ensure_persistent_compile_cache``): it has no counterpart, since the
-kernel libraries already persist in their build directory
-(:mod:`..ops._build`); ``lowering_scan_min`` folding of identical levels
-into a ``lax.scan`` (the levels run in a Python loop; CUDA-graph capture
-of the step is later work); megakernel regions (``lower_regions``,
-``warm_cache``, the CLI, ``lowering_region_max_tasks``); mesh SPMD and
-multi-rank lowering, which raise ``NotImplementedError``.
+**Open stores.**  A collection that cannot list its keys (the paged KV
+cache), or an undeclared dict collection, gets a store that grows while
+the plan is built, for each key its ``has_key`` oracle vouches for (see
+:class:`_Stores`); so the LLM pools lower, and their lowered
+fingerprints are the JAX package's.
+
+**Megakernel regions** (:func:`lower_regions`): graphcheck's verified
+graph is carved into convex regions of at most
+``lowering_region_max_tasks`` tasks (:mod:`..analysis.regions`), each
+lowered to one step over its local rows of a shared table on the
+device, and scheduled as one task of a region pool
+(:class:`RegionLoweredTaskpool`).  ``compile()`` prepares the regions
+smallest first under ``lowering_compile_budget_s`` and sheds what the
+budget cannot afford to the eager path (prepared at first run).
+:func:`warm_cache` and ``python -m parsec_tpu_torch.ptg.lowering --warm
+<workload>`` prepare a named workload's lowerings ahead of a run,
+launching no kernel.
+
+Left out, each still in ``ROADMAP.md``: the JAX package's persistent
+compile cache (``_ensure_persistent_compile_cache``): it has no
+counterpart, since the kernel libraries already persist in their build
+directory (:mod:`..ops._build`); ``lowering_scan_min`` folding of
+identical levels into a ``lax.scan`` (the levels run in a Python loop;
+CUDA-graph capture of a step or a region step is later work); mesh SPMD
+and multi-rank lowering, which raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import itertools
 import threading
@@ -97,15 +114,32 @@ import torch
 from ..core.params import params as _params
 from ..data.data import ACCESS_RW, ACCESS_WRITE
 
-__all__ = ["LoweringCache", "LoweringError", "LoweredTaskpool", "Traceable",
-           "find_traceable", "lower_taskpool", "lowering_cache",
-           "register_traceable", "structural_fingerprint"]
+__all__ = ["LoweredRegion", "LoweringCache", "LoweringError",
+           "LoweredTaskpool", "RegionLoweredTaskpool", "Traceable",
+           "find_traceable", "lower_regions", "lower_taskpool",
+           "lowering_cache", "register_traceable", "structural_fingerprint",
+           "warm_cache"]
 
 _params.register(
     "lowering_cache", True,
     "memoize built lowered steps process-wide, keyed by the lowering's "
     "structural signature (task classes, store rows, kernels, device): a "
     "re-lowered identical taskpool reuses the step and its index tensors")
+_params.register(
+    "lowering_region_max_tasks", 256,
+    "member cap per megakernel region (analysis.regions): regions are "
+    "convex wavefront-level bands of the verified task graph, one "
+    "prepared step each; smaller regions mean cheaper preparations under "
+    "lowering_compile_budget_s and more runtime boundaries; 0 lowers "
+    "each weakly-connected component whole")
+# the autotuner's declared domain: region caps move in powers of two
+_params.declare_knob("lowering_region_max_tasks", lo=16, hi=1024,
+                     scale="log2")
+_params.register(
+    "lowering_compile_budget_s", 0.0,
+    "wall-clock budget for staged region preparation (smallest region "
+    "first): once it is spent, the remaining regions run eager (prepared "
+    "at first run); cache hits are always free; 0.0 = unbudgeted")
 
 
 class LoweringError(RuntimeError):
@@ -441,10 +475,16 @@ class _Stores:
     any gather) or ``dense`` (the whole matrix ``[lm, ln]``, chosen when a
     pass proves its accesses form the identity tile grid, so the kernel
     reads the operand in its natural layout with no gather).  NEW arrows
-    get synthetic zero-initialized scratch stores.  A collection must
-    enumerate its keys: the JAX package's *open* stores, extended as a
-    plan references keys (only its LLM region lowering uses them), are
-    not ported."""
+    get synthetic zero-initialized scratch stores.
+
+    **Open stores.**  A collection that cannot list its keys (the paged
+    KV cache), or an undeclared dict collection (``open_key_space``) even
+    when some of its keys exist (a seeded token chain), is *open*: its
+    rows start with the keys it knows, and grow while the plan is built,
+    for each key its ``has_key`` oracle vouches for (a tiled grid's
+    out-of-bounds key stays an error).  Every row exists before any
+    tensor is made, so a store never grows on the device, and never
+    inside a step."""
 
     def __init__(self) -> None:
         self.dcs: dict[str, Any] = {}
@@ -454,16 +494,28 @@ class _Stores:
         self.nrows: dict[str, int] = {}
         self.shape: dict[str, tuple] = {}   # uniform tile shape per store
         self.dtype: dict[str, torch.dtype] = {}
+        self.open: set[str] = set()         # lazily extended key spaces
         self.scratch: set[str] = set()      # synthetic NEW-flow stores
 
     def _ensure(self, dc) -> None:
         name = dc.name
         if name in self.dcs:
             return
-        keys = _collection_keys(dc)
-        if not keys:
-            raise LoweringError(f"collection {name} has no keys to lay "
-                                f"out (open key spaces are not ported)")
+        try:
+            keys = _collection_keys(dc)
+        except LoweringError:
+            keys = []                   # not enumerable: an open key space
+        if not keys or bool(getattr(dc, "open_key_space", False)):
+            self.dcs[name] = dc
+            self.rows[name] = {_norm_key(k): i for i, k in enumerate(keys)}
+            self.nrows[name] = len(keys)
+            self.layout[name] = "stacked"
+            self.open.add(name)
+            if keys:
+                first = _value(dc, _norm_key(keys[0]))
+                self.shape[name] = tuple(first.shape)
+                self.dtype[name] = first.dtype
+            return
         shapes = {dc.tile_shape(*k) if hasattr(dc, "tile_shape")
                   else tuple(_value(dc, k).shape) for k in keys}
         if len(shapes) != 1:
@@ -483,9 +535,24 @@ class _Stores:
         self._ensure(dc)
         name = dc.name
         r = self.rows[name].get(key)
-        if r is None:
-            raise LoweringError(f"{name}: key {key} outside the store")
-        return r
+        if r is not None:
+            return r
+        # an open store grows only for a key its collection vouches for
+        if name in self.open and getattr(dc, "has_key",
+                                         lambda *k: False)(*key):
+            val = _value(dc, key)
+            shape = self.shape.setdefault(name, tuple(val.shape))
+            self.dtype.setdefault(name, val.dtype)
+            if tuple(val.shape) != shape:
+                raise LoweringError(
+                    f"collection {name}: ragged tiles "
+                    f"({tuple(val.shape)} vs {shape}); lowering needs "
+                    f"uniform tile shapes")
+            r = self.nrows[name]
+            self.rows[name][key] = r
+            self.nrows[name] = r + 1
+            return r
+        raise LoweringError(f"{name}: key {key} outside the store")
 
     def scratch_row(self, cname: str, fname: str, key: tuple,
                     shape: tuple, dtype: torch.dtype) -> tuple[str, int]:
@@ -526,33 +593,49 @@ class _Stores:
         self.layout[dc.name] = "dense"
 
     def materialize(self, device: torch.device) -> dict[str, torch.Tensor]:
-        """The stores on ``device``: each built as one host tensor (a stack
-        of its tiles in row order, or the dense matrix) and moved with one
-        copy; scratch stores start as zeros on the device."""
+        """The stores on ``device``: each a stack of its tiles in row order
+        (or the dense matrix), built on the host and moved with one copy
+        when every tile is on the host, else stacked on ``device`` (a tile
+        already there is not moved); scratch stores start as zeros on the
+        device.  A store no plan referenced is left out."""
         out = {}
         for name, dc in self.dcs.items():
             if self.layout[name] == "dense":
                 out[name] = dc.to_tensor().to(device)
                 continue
+            if not self.rows[name]:
+                continue
             tiles: list[Any] = [None] * self.nrows[name]
             for k, i in self.rows[name].items():
-                tiles[i] = _value(dc, k).to("cpu")
-            out[name] = torch.stack(tiles).to(device)
+                tiles[i] = _value(dc, k)
+            if all(t.device.type == "cpu" for t in tiles):
+                out[name] = torch.stack(tiles).to(device)
+            else:
+                out[name] = torch.stack([t.to(device) for t in tiles])
         for name in self.scratch:
             out[name] = torch.zeros((self.nrows[name],) + self.shape[name],
                                     dtype=self.dtype[name], device=device)
         return out
 
     def writeback(self, values: dict[str, torch.Tensor]) -> None:
-        """Each written store comes back to the host in one copy; every
-        tile then becomes a host tensor of its own on its collection's
-        newest copy, whose version is bumped."""
+        """Every tile of a written store becomes a tensor of its own on its
+        collection's newest copy, whose version is bumped, on the device
+        of the value it replaces: a host copy's tiles come back in one
+        copy of the store, a copy already on the store's device stays
+        there with no round trip."""
         for name in self.written:
             dc = self.dcs[name]
-            arr = values[name].to("cpu")
+            src = values[name]
+            moved: dict[torch.device, torch.Tensor] = {src.device: src}
             dense = self.layout[name] == "dense"
             for key, i in self.rows[name].items():
                 copy = dc.data_of(*key).newest_copy()
+                old = copy.value
+                dev = (old.device if isinstance(old, torch.Tensor)
+                       else torch.device("cpu"))
+                arr = moved.get(dev)
+                if arr is None:
+                    arr = moved[dev] = src.to(dev)
                 if dense:
                     m, n = key
                     tile = arr[m * dc.mb:(m + 1) * dc.mb,
@@ -1094,16 +1177,22 @@ def _build_wavefront(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
 
     step_fn.levels = len(levels)
     step_fn.groups = sum(len(specs) for specs in levels)
-    step_fn.indices = tuple(dirty.values()) + tuple(
-        x for specs in levels for _k, _nw, gathers, scatters, _G in specs
-        for x in ([g[2] for g in gathers if g is not None]
-                  + [sc[1] for sc in scatters])
-        if isinstance(x, _Index))
+    step_fn.indices = tuple(dirty.values()) + _level_indices(levels)
     sig = ("wavefront", _freeze(dirty_by_name), tuple(
         tuple((kernel, nw, _freeze(gathers), _freeze(scatters), G)
               for kernel, nw, gathers, scatters, G in specs)
         for specs in levels))
     return step_fn, sig
+
+
+def _level_indices(levels: list) -> tuple:
+    """Every index tensor a list of levels' groups gathers or scatters
+    by (what :func:`_prepare` puts on the device)."""
+    return tuple(
+        x for specs in levels for _k, _nw, gathers, scatters, _G in specs
+        for x in ([g[2] for g in gathers if g is not None]
+                  + [sc[1] for sc in scatters])
+        if isinstance(x, _Index))
 
 
 def _run_level(st: dict, specs) -> None:
@@ -1346,24 +1435,33 @@ class LoweredTaskpool:
         (``load_s``; none on the host, whose wrappers take the plain
         versions) and put the plan's index tensors on the device
         (``upload_s``).  Returns the seconds of each part."""
-        t0 = time.perf_counter()
-        if self.device.type == "cuda":
-            from ..ops import _build
-            for name in sorted({lib for k in self._kernels
-                                for lib in k.libs}):
-                _build.load(name)
-        t1 = time.perf_counter()
-        for idx in getattr(self.step_fn, "indices", ()):
-            idx.on(self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return {"load_s": round(t1 - t0, 4),
-                "upload_s": round(time.perf_counter() - t1, 4)}
+        load_s, upload_s = _prepare(self.step_fn, self._kernels,
+                                    self.device)
+        return {"load_s": round(load_s, 4), "upload_s": round(upload_s, 4)}
 
     def execute(self) -> dict[str, torch.Tensor]:
         out = self.step_fn(self.initial_stores())
         self._stores.writeback(out)
         return out
+
+
+def _prepare(step: Callable, kernels: tuple,
+             device: torch.device) -> tuple[float, float]:
+    """What the card prepares for a step, executing nothing: the kernel
+    libraries its traceables name, loaded (or built; none on the host,
+    whose wrappers take the plain versions), then its index tensors on
+    the device.  Returns the seconds of each part."""
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        from ..ops import _build
+        for name in sorted({lib for k in kernels for lib in k.libs}):
+            _build.load(name)
+    t1 = time.perf_counter()
+    for idx in getattr(step, "indices", ()):
+        idx.on(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return t1 - t0, time.perf_counter() - t1
 
 
 def _cached(mode: str, device: torch.device, step: Callable,
@@ -1428,3 +1526,754 @@ def lower_taskpool(tp, context: Any = None, mesh: Any = None,
                 raise
     stores = _Stores()
     return lowered(_build_unrolled(tp, infos, stores), stores, "unrolled")
+
+
+# ---------------------------------------------------------------------------
+# megakernel regions (MPK): one prepared step per verified subgraph,
+# runtime scheduling only at region boundaries, under a compile budget
+# ---------------------------------------------------------------------------
+
+class LoweredRegion:
+    """One convex subregion of a taskpool, lowered to one step.
+
+    The step is a function over *region-local row slices*: the runtime
+    boundary gathers the rows the region touches from the shared table
+    on the device (``index_select``), calls the step, and scatters the
+    written rows back (``index_copy_``): deps and scheduling live at this
+    boundary alone, the MPK contract."""
+
+    __slots__ = ("index", "ntasks", "level_lo", "level_hi", "step_fn",
+                 "signature", "touched", "written", "shapes", "kernels",
+                 "preds", "succs", "eager", "compiled", "compile_s",
+                 "trace_s", "_exec", "_dev_rows")
+
+    def __init__(self, index: int, ntasks: int, level_lo: int,
+                 level_hi: int, step_fn: Callable | None, signature: Any,
+                 touched: dict[str, np.ndarray],
+                 written: dict[str, tuple[np.ndarray, np.ndarray]],
+                 shapes: dict[str, tuple], kernels: tuple = ()) -> None:
+        self.index = index
+        self.ntasks = ntasks
+        self.level_lo = level_lo
+        self.level_hi = level_hi
+        self.step_fn = step_fn          # None: CTL-only region (no data)
+        self.signature = signature
+        self.touched = touched          # store -> global rows gathered
+        self.written = written          # store -> (global rows, local rows)
+        self.shapes = shapes            # store -> (shape, dtype), local
+        self.kernels = kernels          # the traceables its step calls
+        self.preds: set[int] = set()    # region deps (task + row-conflict)
+        self.succs: set[int] = set()
+        self.eager = False              # budget-shed: prepared at first run
+        self.compiled = False
+        self.compile_s = 0.0
+        self.trace_s = 0.0
+        self._exec = None
+        self._dev_rows: dict[tuple, torch.Tensor] = {}
+
+    def rows_on(self, what: tuple, rows: np.ndarray,
+                device: torch.device) -> torch.Tensor:
+        """The boundary rows ``what`` as a long tensor on ``device``, made
+        once."""
+        t = self._dev_rows.get((what, device))
+        if t is None:
+            t = self._dev_rows[(what, device)] = torch.as_tensor(
+                rows, dtype=torch.long, device=device)
+        return t
+
+    def __repr__(self) -> str:
+        state = ("compiled" if self.compiled
+                 else "eager" if self.eager else "cold")
+        return (f"<LoweredRegion {self.index}: {self.ntasks} tasks, "
+                f"levels {self.level_lo}..{self.level_hi}, {state}>")
+
+
+
+
+class RegionLoweredTaskpool:
+    """A taskpool lowered to a DAG of megakernel regions.
+
+    **What "compile" means here.**  PyTorch has no program to compile: a
+    region is *compiled* once it is prepared, which executes nothing.
+    Its step is built through :data:`lowering_cache` (regions with the
+    same signature and local shapes share one step, whose index tensors
+    are then on the device already), the kernel libraries its
+    traceables name are loaded (``Traceable.libs``, :mod:`..ops._build`),
+    and its index tensors are put on the device.  ``compile_s`` is that
+    preparation's wall (synchronized on a card); ``trace_s`` stays 0.0
+    (the step is built by :func:`lower_regions`, there is no trace).  An
+    *eager* region (shed by the budget) runs the same step, which then
+    uploads its indices and loads its libraries at first run.  A region
+    is never captured into a CUDA graph.
+
+    ``compile(budget_s=)`` prepares region by region, smallest first,
+    under the wall-clock budget; regions the budget cannot afford run
+    eager.  ``taskpool()`` builds a PTG pool with ONE task per region
+    (CTL edges mirroring the region DAG), so the runtime schedules
+    regions like tasks: deps, priorities, worker concurrency.
+    ``execute()`` materializes the shared row table on the device, runs
+    the region pool on a Context and writes the tiles back.
+
+    ``stats()`` has the JAX package's keys; ``xla_calls`` counts calls of
+    a prepared region's step (one per compiled region run), and
+    ``eager_runs`` the runs of a shed one.
+
+    **Ordering on the card.**  Every region body issues on the table's
+    stream, the current stream of the thread that materialized the
+    table, so the region DAG, which orders the bodies on the host, also
+    orders their scatters and gathers on the card.
+    """
+
+    def __init__(self, tp, stores: _Stores, regions: list[LoweredRegion],
+                 dirty_by_name: dict[str, np.ndarray],
+                 device: torch.device) -> None:
+        self.source = tp            # the task-grained pool this lowers
+        self.mode = "region"
+        self.device = device
+        self._stores = stores
+        self.regions = regions
+        self.dirty_by_name = dirty_by_name
+        self._lock = threading.Lock()
+        self._compile_done = False
+        self._dirty_saved: dict[str, torch.Tensor] = {}
+        self._finalized = True
+        self._stream = None
+        self.xla_calls = 0          # prepared-step calls (lifetime)
+        self.eager_runs = 0
+
+    # -- compile budget ------------------------------------------------------
+    def _cache_key(self, reg: LoweredRegion):
+        if not _params.get("lowering_cache"):
+            return None
+        shapes = tuple(sorted((nm, tuple(sh), str(dt))
+                              for nm, (sh, dt) in reg.shapes.items()))
+        return ("region", str(self.device), _backend_signature(), shapes,
+                reg.signature)
+
+    def compile(self, budget_s: float | None = None,
+                note: Callable | None = None) -> dict:
+        """Staged preparation, SMALLEST region first.
+
+        ``budget_s`` defaults to the ``lowering_compile_budget_s`` param
+        (0 = unbudgeted).  The budget is enforced *between* regions:
+        before each one the spent wall clock plus a per-task cost
+        estimate (measured from the regions already prepared) must fit,
+        else the region is shed to the eager path.  Ascending order makes
+        the estimate load-bearing: the cheap regions measure the rate
+        that guards the expensive ones.  Cache hits are free and never
+        shed, so a warm process prepares nothing.  ``note(**kw)``
+        receives one progress record per region."""
+        if budget_s is None:
+            b = _params.get("lowering_compile_budget_s")
+            budget_s = float(b) if b and b > 0 else None
+        t_start = time.perf_counter()
+        rate = 0.0                  # measured preparation seconds per task
+        for reg in sorted(self.regions, key=lambda r: r.ntasks):
+            if reg.step_fn is None or reg.compiled or reg._exec is not None:
+                continue
+            key = self._cache_key(reg)
+            cached = lowering_cache.peek(key)
+            if cached is not None:
+                reg._exec = lowering_cache.get_or_build(key, lambda: cached)
+                reg.compiled, reg.eager = True, False
+                reg.compile_s = reg.trace_s = 0.0
+                if note is not None:
+                    note(region=reg.index, ntasks=reg.ntasks,
+                         compile_s=0.0, cached=True)
+                continue
+            if budget_s is not None:
+                remaining = budget_s - (time.perf_counter() - t_start)
+                if remaining <= 0 or rate * reg.ntasks > remaining:
+                    reg.eager = True
+                    if note is not None:
+                        note(region=reg.index, ntasks=reg.ntasks,
+                             eager=True, budget_s=budget_s)
+                    continue
+            if note is not None:
+                note(region=reg.index, ntasks=reg.ntasks, compiling=True)
+
+            def build(reg=reg):
+                t0 = time.perf_counter()
+                for nm, rows in reg.touched.items():
+                    reg.rows_on(("t", nm), rows, self.device)
+                for nm, (grows, lrows) in reg.written.items():
+                    reg.rows_on(("g", nm), grows, self.device)
+                    reg.rows_on(("l", nm), lrows, self.device)
+                _prepare(reg.step_fn, reg.kernels, self.device)
+                reg.compile_s = time.perf_counter() - t0
+                return reg.step_fn
+
+            reg._exec = lowering_cache.get_or_build(key, build)
+            reg.compiled, reg.eager = True, False
+            if reg.ntasks:
+                rate = max(rate, (reg.compile_s + reg.trace_s) / reg.ntasks)
+            if note is not None:
+                note(region=reg.index, ntasks=reg.ntasks,
+                     compile_s=round(reg.compile_s, 4),
+                     trace_s=round(reg.trace_s, 4))
+        self._compile_done = True
+        return self.stats()
+
+    def stats(self) -> dict:
+        data_regions = [r for r in self.regions if r.step_fn is not None]
+        return {
+            "regions": len(self.regions),
+            "regions_compiled": sum(r.compiled for r in data_regions),
+            "regions_eager": sum(r.eager for r in data_regions),
+            "ntasks": sum(r.ntasks for r in self.regions),
+            "trace_s": round(sum(r.trace_s for r in data_regions), 4),
+            "compile_s": round(sum(r.compile_s for r in data_regions), 4),
+            "xla_calls": self.xla_calls,
+            "eager_runs": self.eager_runs,
+        }
+
+    # -- execution -----------------------------------------------------------
+    def materialize_table(self) -> dict[str, torch.Tensor]:
+        """The shared row table the regions gather from and scatter into:
+        the stores' tensors on the lowering device (regions write
+        disjoint rows, ordered by the region DAG).  Dirty rows (in-place
+        value homes the source program never writes back) are
+        snapshotted for the restore at finalize."""
+        table = self._stores.materialize(self.device)
+        self._dirty_saved = {
+            nm: table[nm].index_select(0, torch.as_tensor(
+                rows, dtype=torch.long, device=self.device))
+            for nm, rows in self.dirty_by_name.items()}
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._finalized = False
+        return table
+
+    def run_region(self, r: int, table: dict[str, torch.Tensor]) -> None:
+        """Execute region ``r`` against the shared table: gather the rows
+        it touches, run its step (prepared, or eager), scatter the rows
+        it writes back.  The region task's body: what a worker thread
+        runs when the scheduler releases it."""
+        reg = self.regions[r]
+        if reg.step_fn is None:
+            return
+        with self._on_stream():
+            self._run_region(reg, table)
+
+    def _on_stream(self):
+        """The table's stream, where every region body issues."""
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
+
+    def _run_region(self, reg: LoweredRegion,
+                    table: dict[str, torch.Tensor]) -> None:
+        dev = self.device
+        inputs = {nm: table[nm].index_select(
+                      0, reg.rows_on(("t", nm), rows, dev))
+                  for nm, rows in reg.touched.items()}
+        if reg._exec is not None:
+            out = reg._exec(inputs)
+            with self._lock:
+                self.xla_calls += 1
+        else:
+            out = reg.step_fn(inputs)
+            with self._lock:
+                self.eager_runs += 1
+        for nm, (grows, lrows) in reg.written.items():
+            table[nm].index_copy_(
+                0, reg.rows_on(("g", nm), grows, dev),
+                out[nm].index_select(0, reg.rows_on(("l", nm), lrows, dev)))
+
+    def taskpool(self, table: dict[str, torch.Tensor]):
+        """The schedulable region pool: one REGION(r) task per region and
+        the region DAG as CTL edges, a plain PTG pool, so graphcheck
+        verifies it and the runtime (Context, RuntimeServer) schedules
+        it like any other.  The port has no goal-counted (ranged) input
+        deps, so a region's fan-in rides one CTL flow per predecessor
+        slot: flow ``p<j>`` of REGION(s) waits on its j-th predecessor,
+        which sends on its own flow ``p<j>``.  Completion finalizes the
+        table back into the source collections."""
+        from . import dsl
+        preds = tuple(tuple(sorted(r.preds)) for r in self.regions)
+        # slot_succ[q][j]: the regions whose j-th predecessor is q
+        width = max((len(p) for p in preds), default=0)
+        slot_succ = [[[] for _ in range(width)] for _ in self.regions]
+        for s, ps in enumerate(preds):
+            for j, q in enumerate(ps):
+                slot_succ[q][j].append(s)
+        slot_succ = tuple(tuple(tuple(x) for x in row) for row in slot_succ)
+        p = dsl.PTGBuilder(f"{self.source.name}_regions",
+                           NR=len(self.regions), RPRED=preds,
+                           RSLOT=slot_succ)
+        t = p.task("REGION", r=dsl.span(0, lambda g, l: g.NR - 1))
+        for j in range(width):
+            f = t.flow(f"p{j}", dsl.CTL)
+            f.input(pred=("REGION", f"p{j}",
+                          lambda g, l, j=j: {"r": g.RPRED[l.r][j]}),
+                    guard=lambda g, l, j=j: j < len(g.RPRED[l.r]))
+            f.output(succ=("REGION", f"p{j}",
+                           lambda g, l, j=j: [{"r": s}
+                                              for s in g.RSLOT[l.r][j]]),
+                     guard=lambda g, l, j=j: bool(g.RSLOT[l.r][j]))
+        # earlier wavefront bands first: the region-grain critical path
+        t.priority(lambda g, l: -self.regions[l.r].level_lo)
+        plan = self
+
+        def body(es: Any, task: Any, g: Any, l: Any) -> None:
+            plan.run_region(l.r, table)
+
+        t.body(body)
+        pool = p.build()
+        pool.region_plan = self
+        pool.add_completion_listener(lambda _tp: self.finalize(table))
+        return pool
+
+    def finalize(self, table: dict[str, torch.Tensor]) -> None:
+        """Restore dirty rows (in-place homes the source program never
+        writes back) and write the table's tiles into the collections
+        with version bumps, the dynamic path's completion semantics.
+        Idempotent: fires from the pool's completion listener and from
+        explicit callers."""
+        with self._lock:
+            if self._finalized:
+                return
+            self._finalized = True
+        with self._on_stream():
+            for nm, rows in self.dirty_by_name.items():
+                table[nm].index_copy_(0, torch.as_tensor(
+                    rows, dtype=torch.long, device=self.device),
+                    self._dirty_saved[nm])
+            self._stores.writeback(table)
+
+    def execute(self, context: Any = None, timeout: float = 300.0,
+                budget_s: float | None = None) -> dict[str, torch.Tensor]:
+        """Compile (under the budget), run the region pool to completion,
+        write back.  With ``context=`` the pool rides a live runtime
+        (worker threads run independent regions concurrently); a bare
+        call drives a Context of its own with no worker thread."""
+        if not self._compile_done:
+            self.compile(budget_s=budget_s)
+        table = self.materialize_table()
+        pool = self.taskpool(table)
+        if context is not None:
+            context.add_taskpool(pool)
+            pool.wait(timeout=timeout)
+        else:
+            from ..runtime import Context
+            ctx = Context(nb_cores=0)
+            try:
+                ctx.add_taskpool(pool)
+                ctx.wait(timeout=timeout)
+            finally:
+                ctx.fini()
+        self.finalize(table)        # a no-op when the listener already ran
+        return table
+
+
+def _written_rows(out_plan) -> list[tuple[str, int]]:
+    """Every (store, row) a task's out_plan writes: extras plus the
+    writable primary.  ONE home for this extraction: the region
+    anti-dependency ledger and the per-region written-set builder must
+    agree on it, or the region DAG under-orders the write-backs."""
+    rows: list[tuple[str, int]] = []
+    for primary, extras, writable in out_plan:
+        rows.extend(extras)
+        if writable and primary is not None:
+            rows.append(primary)
+    return rows
+
+
+def _localize(plan, lmap: dict[str, dict[int, int]]):
+    """A task plan with its store rows renumbered region-local."""
+    node, L, cname, key, in_plan, out_plan = plan
+    ins = [(ip[0], ip[1], lmap[ip[1]][ip[2]]) if ip[0] == "row" else ip
+           for ip in in_plan]
+    outs = [((p[0], lmap[p[0]][p[1]]) if p is not None else None,
+             [(nm, lmap[nm][r]) for nm, r in ex], w)
+            for p, ex, w in out_plan]
+    return node, L, cname, key, ins, outs
+
+
+def _region_step(levels: list) -> Callable:
+    """A region's step over its local slices, which the boundary gathered
+    (the step owns them and updates them in place, level by level)."""
+
+    def step_fn(st: dict) -> dict:
+        st = dict(st)
+        for specs in levels:
+            _run_level(st, specs)
+        return st
+
+    step_fn.indices = _level_indices(levels)
+    return step_fn
+
+
+def lower_regions(tp, context: Any = None, max_tasks: int | None = None,
+                  report: Any = None,
+                  device: str | torch.device = "cuda"
+                  ) -> RegionLoweredTaskpool:
+    """Lower an irregular PTG taskpool to a DAG of megakernel regions.
+
+    Region selection is driven by graphcheck's *verified* execution
+    space: the pool is checked (``analysis.check_ptg``) and its concrete
+    task graph carved into convex wavefront-level bands per
+    weakly-connected component (``analysis.regions``), at most
+    ``max_tasks`` tasks each (default: the ``lowering_region_max_tasks``
+    param).  Each region lowers to one step over its local store-row
+    slices through the same grouped wavefront emission as the whole-pool
+    pass, so a step's size is O(wavefronts x classes), not O(tasks).
+    Cross-region dataflow resolves through the shared row table; row
+    conflicts that task edges alone would not order become extra
+    region-DAG edges, so region scheduling never hides a WAR/WAW hazard
+    the whole-pool pass proves ordered.
+
+    ``device="cuda"`` (the default) raises where no card is visible; the
+    tests pass ``device="cpu"``.  Raises :class:`LoweringError` (or
+    ``analysis.GraphCheckError``) when the pool cannot be region-lowered,
+    and on a context over more than one rank; callers fall back to
+    :func:`lower_taskpool` or the dynamic runtime.
+    """
+    if context is not None and getattr(context, "nb_ranks", 1) > 1:
+        raise LoweringError("region lowering is single-rank")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("lower_regions: no CUDA device is visible; "
+                           "pass device='cpu' to lower onto the host")
+    from ..analysis import check_ptg
+    if report is None:
+        report = check_ptg(tp)
+    if max_tasks is None:
+        max_tasks = _params.get("lowering_region_max_tasks")
+    try:
+        regs = report.select_regions(max_tasks=max_tasks)
+    except ValueError as e:
+        # a truncated enumeration (analysis_max_tasks) cannot give sound
+        # regions: surface it as this function's documented exception
+        raise LoweringError(str(e))
+
+    infos = _analyze(tp)
+    stores = _Stores()
+    plans, dirty_by_name = _wavefront_plan(tp, infos, stores)
+
+    assign: dict[tuple, int] = {}
+    for r in regs:
+        for node in r.members:
+            assign[node] = r.index
+
+    plans_by_region: list[list] = [[] for _ in regs]
+    # row-access ledger for conflict ordering: row -> [(region, level, w)]
+    accesses: dict[tuple, list[tuple[int, int, bool]]] = {}
+    for plan in plans:
+        node, L, cname, key, in_plan, out_plan = plan
+        try:
+            ri = assign[(cname, key)]
+        except KeyError:
+            raise LoweringError(
+                f"{cname}{key}: enumerated by the lowering but absent "
+                f"from graphcheck's execution space")
+        plans_by_region[ri].append(plan)
+        for ip in in_plan:
+            if ip[0] == "row":
+                accesses.setdefault((ip[1], ip[2]), []).append(
+                    (ri, L, False))
+        for w in _written_rows(out_plan):
+            accesses.setdefault(w, []).append((ri, L, True))
+
+    # ---- region DAG: task edges + row-conflict ordering edges --------------
+    preds = [set(r.preds) for r in regs]
+    succs = [set(r.succs) for r in regs]
+
+    def add_edge(a: int, b: int) -> None:
+        if a != b:
+            succs[a].add(b)
+            preds[b].add(a)
+
+    for acc in accesses.values():
+        writes = [(ri, L) for ri, L, w in acc if w]
+        if not writes:
+            continue
+        for wri, wl in writes:
+            for ri, L, w in acc:
+                if ri == wri:
+                    continue
+                if L > wl:
+                    add_edge(wri, ri)       # write before later access
+                elif L < wl:
+                    add_edge(ri, wri)       # earlier access before write
+                elif not w:
+                    # same wavefront, different regions: the reader sees
+                    # the PRE-level value, so it runs first
+                    add_edge(ri, wri)
+    # the combined region DAG must stay acyclic (anti-dependency edges
+    # could close a cycle: then regions cannot honour the snapshots)
+    indeg = [len(p) for p in preds]
+    ready = [i for i, n in enumerate(indeg) if n == 0]
+    seen = 0
+    while ready:
+        i = ready.pop()
+        seen += 1
+        for s in succs[i]:
+            indeg[s] -= 1
+            if indeg[s] == 0:
+                ready.append(s)
+    if seen != len(regs):
+        raise LoweringError(
+            "region ordering cycle: row-conflict anti-dependencies are "
+            "not satisfiable at region granularity (dynamic path)")
+
+    # ---- per-region emission: local row slices, grouped levels -------------
+    regions: list[LoweredRegion] = []
+    for r, rplans in zip(regs, plans_by_region):
+        if not rplans:                      # CTL-only region: ordering only
+            regions.append(LoweredRegion(
+                r.index, r.ntasks, r.level_lo, r.level_hi,
+                None, None, {}, {}, {}))
+            continue
+        touched_sets: dict[str, set[int]] = {}
+        written_sets: dict[str, set[int]] = {}
+        for _node, _L, _c, _k, in_plan, out_plan in rplans:
+            for ip in in_plan:
+                if ip[0] == "row":
+                    touched_sets.setdefault(ip[1], set()).add(ip[2])
+            for nm, row in _written_rows(out_plan):
+                touched_sets.setdefault(nm, set()).add(row)
+                written_sets.setdefault(nm, set()).add(row)
+        touched = {nm: np.array(sorted(rs), np.int64)
+                   for nm, rs in sorted(touched_sets.items())}
+        lmap = {nm: {g: i for i, g in enumerate(arr.tolist())}
+                for nm, arr in touched.items()}
+        level_specs = _group_plans([_localize(pl, lmap) for pl in rplans],
+                                   infos)
+        levels = [level_specs[L] for L in sorted(level_specs)]
+        step_fn = _region_step(levels)
+        written = {}
+        for nm, rs in sorted(written_sets.items()):
+            grows = np.array(sorted(rs), np.int64)
+            written[nm] = (grows,
+                           np.array([lmap[nm][g] for g in grows.tolist()],
+                                    np.int64))
+        shapes = {nm: ((len(arr),) + stores.shape[nm], stores.dtype[nm])
+                  for nm, arr in touched.items()}
+        kernels = tuple({id(k): k for specs in levels
+                         for k, *_ in specs if k is not None}.values())
+        # the signature covers ONLY what the step depends on: the grouped
+        # levels in region-LOCAL rows (the local shapes join it in the
+        # cache key); folding in the global rows would give structurally
+        # identical regions (the decode superpool's parallel per-sequence
+        # chains) distinct keys and redundant preparations of one step
+        sig = ("region", tuple(
+            tuple((kernel, nw, _freeze(gathers), _freeze(scatters), G)
+                  for kernel, nw, gathers, scatters, G in specs)
+            for specs in levels))
+        regions.append(LoweredRegion(
+            r.index, r.ntasks, r.level_lo, r.level_hi,
+            step_fn, sig, touched, written, shapes, kernels))
+    for reg, p_, s_ in zip(regions, preds, succs):
+        reg.preds, reg.succs = p_, s_
+    return RegionLoweredTaskpool(tp, stores, regions, dirty_by_name, device)
+
+
+# ---------------------------------------------------------------------------
+# cache warming: prepare a workload's lowerings ahead of a run
+# ---------------------------------------------------------------------------
+
+def _warm_workload(workload: str, n: int | None, nb: int | None):
+    """One named workload's taskpool at the given geometry, on zero
+    tiles (warming executes nothing, so contents never matter)."""
+    if workload == "gemm":
+        from ..data_dist.matrix import TiledMatrix
+        from ..models.tiled_gemm import tiled_gemm_ptg
+        n, nb = n or 16384, nb or 512
+        A = TiledMatrix("A", n, n, nb, nb, dtype=torch.bfloat16)
+        B = TiledMatrix("B", n, n, nb, nb, dtype=torch.bfloat16)
+        C = TiledMatrix("C", n, n, nb, nb, dtype=torch.float32)
+        return tiled_gemm_ptg(A, B, C), dict(n=n, nb=nb)
+    if workload == "cholesky":
+        from ..data_dist.matrix import SymTwoDimBlockCyclic
+        from ..models.cholesky import tiled_cholesky_ptg
+        n, nb = n or 8192, nb or 512
+        A = SymTwoDimBlockCyclic("A", n, n, nb, nb)
+        return tiled_cholesky_ptg(A), dict(n=n, nb=nb)
+    if workload == "lu":
+        from ..data_dist.matrix import TiledMatrix
+        from ..models.lu import tiled_lu_ptg
+        n, nb = n or 8192, nb or 512
+        A = TiledMatrix("A", n, n, nb, nb, dtype=torch.float32)
+        return tiled_lu_ptg(A), dict(n=n, nb=nb)
+    if workload == "stencil":
+        from ..data_dist.matrix import VectorTwoDimCyclic
+        from ..models.stencil import stencil_1d_ptg
+        n, mb = n or (1 << 24), nb or (1 << 18)
+        V = VectorTwoDimCyclic("V", lm=n, mb=mb)
+        return stencil_1d_ptg(V, [1.0 / 9.0] * 9, 64), dict(n=n, mb=mb)
+    from ..data.datatype import TileType
+    from ..data_dist.collection import DictCollection
+    from ..data_dist.paged_kv import PagedKVCollection
+    from ..llm.model import ToyLM
+    f32 = torch.float32
+    model = ToyLM()
+    if workload in ("llm_decode", "llm_decode_k"):
+        # llm_decode: the one-step pool (a superpool of one step: the
+        # ATTN -> OUT chain with its SAMPLE; the JAX package's one-step
+        # builder is not ported); llm_decode_k: n sequences, nb steps
+        from ..llm.decode import (decode_superpool_ptg,
+                                  preallocate_decode_steps)
+        one = workload == "llm_decode"
+        nseqs = n or 8
+        npages, ksteps = ((nb or 4), 1) if one else (3, nb or 8)
+        kv = PagedKVCollection("KV", page_size=16,
+                               num_heads=model.num_heads,
+                               head_dim=model.head_dim)
+        H, D = kv.num_heads, kv.head_dim
+        Q = DictCollection("Q", dtt=TileType((3, H, D), f32))
+        O = DictCollection("O", dtt=TileType((H, D), f32))
+        TOK = DictCollection("TOK", dtt=TileType((3,), f32))
+        EMB = DictCollection("EMB", dtt=TileType(
+            tuple(model.q3_table().shape), f32))
+        seqs = [f"s{i}" for i in range(nseqs)]
+        for s in seqs:
+            kv.alloc_seq(s)
+            for _ in range(npages):
+                kv.alloc_page(s)
+            kv.note_appended(s, npages * kv.page_size - 1)
+            preallocate_decode_steps(kv, s, ksteps)
+            TOK.data_of(s, -1)          # the chain's seed tile
+        tp = decode_superpool_ptg(kv, Q, O, TOK, EMB, seqs,
+                                  [ksteps] * nseqs)
+        geom = (dict(nseqs=nseqs, npages=npages) if one
+                else dict(nseqs=nseqs, steps=ksteps))
+        return tp, geom
+    if workload == "llm_spec_k":
+        # the batched speculative pool: n sequences, nb draft tokens a
+        # stream (1 + nb positions, the serving path's pad)
+        from ..llm.decode import (preallocate_decode_steps,
+                                  seed_spec_batched, spec_batched_ptg)
+        nseqs, kdraft = n or 8, nb or 8
+        kv = PagedKVCollection("KV", page_size=16,
+                               num_heads=model.num_heads,
+                               head_dim=model.head_dim)
+        H, D = kv.num_heads, kv.head_dim
+        QS = DictCollection("QS", dtt=TileType((kdraft + 1, 3, H, D), f32))
+        LIM = DictCollection("LIM", dtt=TileType((kdraft + 1,), f32))
+        DTOKS = DictCollection("DTOKS", dtt=TileType((kdraft + 3,), f32))
+        VOUT = DictCollection("VOUT", dtt=TileType((kdraft + 3,), f32))
+        EMB = DictCollection("EMB", dtt=TileType(
+            tuple(model.q3_table().shape), f32))
+        seqs = [f"s{i}" for i in range(nseqs)]
+        for s in seqs:
+            kv.alloc_seq(s)
+            for _ in range(3):
+                kv.alloc_page(s)
+            kv.note_appended(s, 3 * kv.page_size - 1)
+            preallocate_decode_steps(kv, s, kdraft + 1)
+            seed_spec_batched(model, kv, QS, LIM, DTOKS, s, 0,
+                              list(range(1, kdraft + 1)), kdraft + 1)
+        tp = spec_batched_ptg(kv, QS, LIM, DTOKS, VOUT, EMB, seqs,
+                              [kdraft + 1] * nseqs, pad=kdraft + 1)
+        return tp, dict(nseqs=nseqs, draft=kdraft)
+    if workload == "llm_prefill_tail":
+        # the prefix-cache admission shape: streams whose prompt matched
+        # the radix tree prefill only their tail (n sequences, nb tail
+        # pages each, past a 4-page shared prefix)
+        from ..llm.decode import prefill_ptg
+        nseqs, tail_pages = n or 8, nb or 2
+        prefix_pages = 4
+        kv = PagedKVCollection("KV", page_size=16)
+        seqs = [f"s{i}" for i in range(nseqs)]
+        tkeys = []
+        for s in seqs:
+            kv.alloc_seq(s)
+            for _ in range(prefix_pages + tail_pages):
+                kv.alloc_page(s)
+            kv.note_appended(s, (prefix_pages + tail_pages)
+                             * kv.page_size)
+            tkeys += [(s, c) for c in range(prefix_pages,
+                                            prefix_pages + tail_pages)]
+        T = DictCollection("T", dtt=kv.default_dtt, keys=tkeys)
+        tp = prefill_ptg(kv, T, seqs, starts=[prefix_pages] * nseqs)
+        return tp, dict(nseqs=nseqs, tail_pages=tail_pages)
+    raise ValueError(f"unknown warm workload {workload!r} (gemm, "
+                     f"cholesky, lu, stencil, llm_decode, llm_decode_k, "
+                     f"llm_spec_k, llm_prefill_tail)")
+
+
+def warm_cache(workload: str, n: int | None = None, nb: int | None = None,
+               modes: tuple = ("auto", "region"),
+               budget_s: float | None = None,
+               device: str | torch.device = "cuda") -> dict:
+    """Prepare one workload's lowerings ahead of a run, launching no
+    kernel: ``auto`` (or a named pass) lowers the pool and calls
+    :meth:`LoweredTaskpool.warm` (the kernel libraries loaded, the index
+    tensors on the device); ``region`` lowers it to regions and calls
+    :meth:`RegionLoweredTaskpool.compile` under ``budget_s``.  The
+    prepared steps stay in :data:`lowering_cache`, so a later lowering
+    of the same structure in this process prepares nothing.  Returns
+    each mode's readings and wall."""
+    tp, geom = _warm_workload(workload, n, nb)
+    out: dict = {"workload": workload, **geom,
+                 "backend": list(_backend_signature())}
+    for mode in modes:
+        t0 = time.perf_counter()
+        try:
+            if mode == "region":
+                plan = lower_regions(tp, device=device)
+                st = plan.compile(budget_s=budget_s)
+                out["region"] = {k: st[k] for k in
+                                 ("regions", "regions_compiled",
+                                  "regions_eager", "trace_s", "compile_s")}
+            else:
+                low = lower_taskpool(tp, passes=mode, device=device)
+                out[mode] = {"mode": low.mode, **low.warm()}
+        except LoweringError as e:
+            out[mode] = {"error": str(e)}
+        out.setdefault("wall_s", {})[mode] = round(
+            time.perf_counter() - t0, 3)
+    return out
+
+
+def _main(argv: list[str] | None = None) -> int:
+    """``python -m parsec_tpu_torch.ptg.lowering --warm <workload> [--n
+    --nb --nt --modes --budget --device]``: the cache-warming CLI."""
+    import argparse
+    import json
+    ap = argparse.ArgumentParser(
+        prog="python -m parsec_tpu_torch.ptg.lowering",
+        description="lowering cache warmer: prepare a workload's lowered "
+                    "steps (kernel libraries loaded, index tensors on "
+                    "the device) before a run, launching no kernel")
+    ap.add_argument("--warm", metavar="WORKLOAD", required=True,
+                    help="gemm | cholesky | lu | stencil | llm_decode | "
+                         "llm_decode_k | llm_spec_k | llm_prefill_tail")
+    ap.add_argument("--n", type=int, default=None,
+                    help="problem size (stencil: vector length; "
+                    "llm_decode/llm_decode_k/llm_spec_k/"
+                    "llm_prefill_tail: sequence count)")
+    ap.add_argument("--nb", type=int, default=None,
+                    help="tile size (stencil: segment size; llm_decode: "
+                    "pages per sequence; llm_decode_k: steps per "
+                    "superpool; llm_spec_k: draft tokens per stream; "
+                    "llm_prefill_tail: tail pages)")
+    ap.add_argument("--nt", type=int, default=None,
+                    help="tile count (alternative to --n: n = nt * nb)")
+    ap.add_argument("--modes", default="auto,region",
+                    help="comma list of lowering modes to warm "
+                    "(auto, wavefront, unrolled, chain-collapse, region)")
+    ap.add_argument("--budget", type=float, default=None,
+                    help="preparation budget seconds for the region mode "
+                    "(default: the lowering_compile_budget_s param)")
+    ap.add_argument("--device", default="cuda",
+                    help="the lowering device (default cuda; cpu lowers "
+                    "onto the host)")
+    args = ap.parse_args(argv)
+    n = args.n
+    if n is None and args.nt is not None:
+        n = args.nt * (args.nb or 512)
+    out = warm_cache(args.warm, n=n, nb=args.nb,
+                     modes=tuple(m.strip() for m in args.modes.split(",")
+                                 if m.strip()),
+                     budget_s=args.budget, device=args.device)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    # under `python -m` runpy executes a FRESH copy of this module, whose
+    # traceable registry the model modules never see: delegate to the
+    # canonical module object so registration and lookup share state
+    from parsec_tpu_torch.ptg.lowering import _main as _canonical_main
+    raise SystemExit(_canonical_main())

@@ -98,6 +98,19 @@ from .scheduling import (ExecutionStream, VirtualProcess, schedule_tasks,
 from .taskpool import Taskpool
 from .termdet import open_termdet
 
+# the runtime lint's contract (analysis/runtimelint.py); ``_cond`` wraps
+# ``_lock``, so holding either is holding both
+_LOCK_PROTECTED = {
+    "Context._active_taskpools": "_lock",
+    "Context._tp_by_comm_id": "_lock",
+    "Context._next_comm_id": "_lock",
+    "Context._failure_listeners": "_lock",
+    "Context._worker_error": "_lock",
+    "Context._shutdown": "_lock",
+}
+_LOCK_ALIASES = {"_cond": "_lock"}
+_LOCK_ORDER = ("_submit_lock", "_lock")
+
 _params.register("runtime_num_cores", 0, "worker threads (0 = caller-driven)")
 _params.register("sched", "lfq", "scheduler module to use")
 # the autotuner's declared domain: the general-purpose scheduler modules

@@ -19,8 +19,9 @@ The trackers live in one of three tiers that share that protocol:
 - **hashed**: a Python table for any other key.
 
 Left out: the goal-counted mode of ranged deps and user-defined key and
-dep-location functions (the port's task classes have none), and the
-lock-contract table that the JAX package's runtime lint reads.
+dep-location functions (the port's task classes have none).  The
+runtimelint contract table (``_LOCK_PROTECTED``) names the locks of the
+index and input tables.
 """
 
 from __future__ import annotations
@@ -31,6 +32,13 @@ from typing import Any
 from ..core.hash_table import ConcurrentHashTable
 from ..core.params import params as _params
 from .task import Task, TaskClass
+
+# the runtime lint's contract (analysis/runtimelint.py)
+_LOCK_PROTECTED = {
+    "_IndexArrayStore._arrays": "_lock",
+    "_IndexArrayStore._dead": "_lock",
+    "DependencyTracking._inputs": "_inputs_lock",
+}
 
 _params.register(
     "deps_storage", "index-array",

@@ -35,6 +35,12 @@ from .task import (HOOK_RETURN_AGAIN, HOOK_RETURN_ASYNC, HOOK_RETURN_DISABLE,
                    HOOK_RETURN_DONE, HOOK_RETURN_ERROR, HOOK_RETURN_NEXT,
                    Task, TaskClass)
 
+# the runtime lint's contract (analysis/runtimelint.py): the port's
+# scheduling core holds no lock of its own (the simulation dates and the
+# write-back marks the JAX module guards are not ported)
+_LOCK_PROTECTED = {}
+_LOCK_ORDER = ()
+
 _params.register(
     "runtime_keep_highest_priority_task", True,
     "hold the best released task as the stream's next task")

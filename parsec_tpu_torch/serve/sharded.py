@@ -36,9 +36,8 @@ budget (greedy decode makes the splice oracle-exact), and the handle's
 index-deduped token ledger drops any late duplicate a zombie rank still
 ships.
 
-Left out: the JAX module's runtimelint contract table
-(``_LOCK_PROTECTED``); its rule holds all the same: the live-stream
-table mutates only under ``_lock``.
+The runtimelint contract table (``_LOCK_PROTECTED``) holds the rule:
+the live-stream table mutates only under ``_lock``.
 """
 
 from __future__ import annotations
@@ -55,6 +54,13 @@ from ..core.params import params as _params
 from ..prof import spans as _spans
 from ..prof.histogram import LogHistogram, _summarize
 from .server import RuntimeServer
+
+# the runtime lint's contract (analysis/runtimelint.py): the live-stream
+# table mutates only under ``_lock``
+_LOCK_PROTECTED = {
+    "ShardedRuntimeServer._live": "_lock",
+}
+_LOCK_ORDER = ("_lock",)
 
 _now = time.perf_counter_ns
 

@@ -19,8 +19,8 @@ compared across processes or packages take an explicit ``stagger``.
 
 MCA knob: ``tune_adaptive`` (default off: an explicit
 ``llm_steps_per_pool`` stays authoritative unless the operator opts in).
-Left out: the JAX module's empty runtimelint contract table; every
-controller is single-owner (one tenant's batcher loop drives it).
+Its runtimelint contract table is empty: every controller is
+single-owner (one tenant's batcher loop drives it).
 """
 
 from __future__ import annotations
@@ -30,6 +30,11 @@ import math
 from ..core.params import params as _params
 from .db import TuneDB
 from .signature import ambient_signature
+
+# the runtime lint's contract (analysis/runtimelint.py): empty, since
+# every controller is single-owner (one tenant's batcher loop drives it)
+_LOCK_PROTECTED = {}
+_LOCK_ORDER = ()
 
 _params.register("tune_adaptive", False,
                  "live per-tenant adaptation of llm_steps_per_pool from "

@@ -21,9 +21,9 @@ the best-per-key reduction happens at read time, and a torn last line is
 skipped, never fatal.
 
 MCA knobs: ``tune_db`` (0 disables every consult), ``tune_db_path``
-(overrides the store location).  Left out: the JAX module's runtimelint
-contract table (``_LOCK_PROTECTED``); its rule holds all the same: the
-process-wide cache mutates only under ``_cache_lock``.
+(overrides the store location).  The runtimelint contract table
+(``_LOCK_PROTECTED``) holds the rule: the process-wide cache mutates
+only under ``_cache_lock``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,13 @@ import time
 
 from ..core.params import params as _params
 from ..prof.perfdb import backend_signature, better_of
+
+# the runtime lint's contract (analysis/runtimelint.py): the
+# process-wide cache mutates only under ``_cache_lock``
+_LOCK_PROTECTED = {
+    "db._cached": "_cache_lock",
+}
+_LOCK_ORDER = ("_cache_lock",)
 
 _params.register("tune_db", True,
                  "consult the persistent tuning DB at Context start and "

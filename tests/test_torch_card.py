@@ -43,7 +43,7 @@ from parsec_tpu_torch.ops import factor
 from parsec_tpu_torch.ops import gemm as tg
 from parsec_tpu_torch.ops import ragged_attention as ra
 from parsec_tpu_torch.ops import stencil as ks
-from parsec_tpu_torch.ptg.lowering import lower_taskpool
+from parsec_tpu_torch.ptg.lowering import lower_regions, lower_taskpool
 from parsec_tpu_torch.runtime import Context
 from parsec_tpu_torch.serve import RuntimeServer
 
@@ -687,9 +687,10 @@ def test_dynamic_cholesky_syncs_no_host(card):
 
 
 @pytest.mark.parametrize("kind", ["cholesky", "lu"])
-@pytest.mark.parametrize("path", ["dynamic", "lowered"])
+@pytest.mark.parametrize("path", ["dynamic", "lowered", "region"])
 def test_factorization_on_the_card(card, kind, path):
-    """Both factorizations through both paths at n=1024, nb=256, fp32 at
+    """Both factorizations through the three paths (the region path at a
+    cap of 8 tasks, its regions on two worker threads) at n=1024, nb=256, fp32 at
     the default knob; every tile product on K1 (``mma_tf32``), the
     backward error within a few TF32 roundings (2^-11): under 5e-3, and
     each tile within ``TF32_TILE_TOL`` of the float64 factor."""
@@ -716,6 +717,17 @@ def _factor_run(card, kind, path, n, nb):
         low = lower_taskpool(tp)
         assert low.mode == "wavefront"
         low.execute()
+    elif path == "region":
+        plan = lower_regions(tp, max_tasks=8)
+        assert len(plan.regions) > 2
+        ctx = Context(nb_cores=2)
+        try:
+            plan.execute(context=ctx)
+            torch.cuda.synchronize()
+        finally:
+            ctx.fini(timeout=30)
+        assert plan.stats()["xla_calls"] == sum(
+            r.step_fn is not None for r in plan.regions)
     else:
         ctx = Context(nb_cores=2)
         try:
@@ -1079,6 +1091,32 @@ def test_spec_and_prefix_serving_on_the_card(card, mode):
     else:
         assert llm["kv"]["prefix_hits"] == 3
     assert card.stats()["spill_hook_failures"] == 0
+
+
+def test_region_superpools_serve_on_the_card(card):
+    """``llm_lower_regions`` on the card: oracle tokens, every decode pool
+    lowered to regions whose ATTN launches K2, no decode task through the
+    device module."""
+    saved = params.get("llm_lower_regions")
+    params.set("llm_lower_regions", True)
+    model = ToyLM()
+    prompts = [[5, 9, 13] * 12, [2, 4] * 9, [7] * 30]
+    before = dict(card.stats()["tasks_by_class"])
+    launches = ra.attn_page_update.launches
+    try:
+        with RuntimeServer(nb_cores=2) as server:
+            tks = [server.submit_stream(p, max_new_tokens=10)
+                   for p in prompts]
+            for p, tk in zip(prompts, tks):
+                assert tk.result(timeout=120)["tokens"] == \
+                    model.reference_generate(p, 10)
+            llm = server.stats()["llm"]
+    finally:
+        params.set("llm_lower_regions", saved)
+    assert llm["regions"]["pools"] == llm["decode_submits"] > 0
+    assert ra.attn_page_update.launches > launches
+    s = card.stats()["tasks_by_class"]
+    assert s.get("ATTN", 0) == before.get("ATTN", 0)
 
 
 def _gemm_pool_on_the_card(n=2048, nb=512, drop_chain=False):

@@ -9,8 +9,9 @@ keeping its counts, the allocation-free disabled slots, a typed
 bounded ``fini``, the switch that turns the dump off, the metrics
 snapshotter, the unified Chrome export read back, and a JSON-compact
 ``runtime_report``.  Then the port's own: ``runtime_report()``'s keys
-equal the JAX package's on the same served run (the one block the port
-leaves out, ``comm_pattern``, is listed); four rank threads of one
+equal the JAX package's on the same served run, after each package's
+commcheck analysed the same four-rank broadcast (so both carry the
+``comm_pattern`` block, whose entry for it is equal); four rank threads of one
 process count each event once; the device module's ``debug_state`` and
 the schedulers' ``queue_depths`` answer while their locks are held.
 """
@@ -40,11 +41,6 @@ from parsec_tpu_torch.prof.pins import PinsEvent
 from parsec_tpu_torch.runtime import Context
 from parsec_tpu_torch.runtime.context import ContextWaitTimeout
 from parsec_tpu_torch.serve import RuntimeServer
-
-# blocks of runtime_report() that the port leaves out: the static comm
-# analysis (analysis/commcheck.py) has no port yet
-UNPORTED_BLOCKS = {"comm_pattern"}
-
 
 @pytest.fixture
 def param():
@@ -439,13 +435,33 @@ def _served_report(server_cls, build, report_fn, spans_mod, rec_mod,
         pins_mod.recorder = old[0].note if old[0] is not None else None
 
 
+def _bcast_analysed(pkg: str) -> str:
+    """Run each package's commcheck over a four-rank broadcast (the
+    ``comm_pattern`` block then appears in its reports); the pool's name."""
+    if pkg == "jax":
+        from parsec_tpu.analysis.commcheck import check_comm
+        from parsec_tpu.comm.collectives import bcast_taskpool
+        from parsec_tpu.data_dist.matrix import VectorTwoDimCyclic
+    else:
+        from parsec_tpu_torch.analysis.commcheck import check_comm
+        from parsec_tpu_torch.comm.collectives import bcast_taskpool
+        from parsec_tpu_torch.data_dist.matrix import VectorTwoDimCyclic
+    tp = bcast_taskpool(VectorTwoDimCyclic("FRV", lm=4096, mb=1024, P=4),
+                        n=4)
+    check_comm(tp, nb_ranks=4)
+    return tp.name
+
+
 def test_runtime_report_keys_equal_the_jax_packages_on_a_served_run():
     from parsec_tpu import ptg as jptg
+    name = _bcast_analysed("port")
+    assert _bcast_analysed("jax") == name
     rep = _served_report(RuntimeServer, ptg, runtime_report, spans,
                          flight_recorder, pins)
     jrep = _served_report(JRuntimeServer, jptg, jruntime_report, jspans,
                           jflight, jpins)
-    keys, jkeys = set(rep) - UNPORTED_BLOCKS, set(jrep) - UNPORTED_BLOCKS
+    assert rep["comm_pattern"][name] == jrep["comm_pattern"][name]
+    keys, jkeys = set(rep), set(jrep)
     # ``llm`` follows whether a batcher ever ran in the process, in each
     # package: compare it only when both have it
     if ("llm" in keys) != ("llm" in jkeys):

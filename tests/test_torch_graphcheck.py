@@ -599,9 +599,11 @@ def test_the_cli_prints_an_ok_line_for_every_graph(capsys):
     assert cli_main(["--nt", "3"]) == 0
     lines = capsys.readouterr().out.splitlines()
     names = [tp.name for _n, tp in _model_graphs(3)]
-    assert len(lines) == len(names) == 12
+    # the default run is the graph sweep, then the self-lint's line
+    assert len(lines) - 1 == len(names) == 12
     for line, name in zip(lines, names):
         assert line.startswith(f"graphcheck {name}: OK"), line
+    assert lines[-1].startswith("runtimelint: OK"), lines[-1]
     assert cli_main(["--graph", "cholesky", "--ranks", "1", "-v"]) == 0
     assert capsys.readouterr().out.startswith("graphcheck cholesky: OK")
 

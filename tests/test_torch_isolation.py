@@ -402,7 +402,7 @@ def test_the_ast_scan_covers_the_comm_layer():
 
 
 def test_the_ast_scan_covers_analysis_and_prof():
-    for pkg, n in (("analysis", 3), ("prof", 18), ("tune", 6),
+    for pkg, n in (("analysis", 6), ("prof", 18), ("tune", 6),
                    ("serve", 5)):
         mods = [f for f in PORT_FILES
                 if f.startswith(f"parsec_tpu_torch/{pkg}/")]
@@ -448,7 +448,8 @@ def test_graphcheck_and_the_task_profiler_load_no_jax_and_no_parsec_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    assert out["rc"] == 0 and out["ok_lines"] == 12
+    # 12 graphcheck lines, then the self-lint's
+    assert out["rc"] == 0 and out["ok_lines"] == 13
     assert out["execs"] == 8 and out["ok"]
     assert "parsec_tpu_torch.analysis.graphcheck" in out["modules"]
     assert "parsec_tpu_torch.prof.task_profiler" in out["modules"]
@@ -578,6 +579,62 @@ def test_the_tuner_and_the_sharded_server_load_no_jax_and_no_parsec_tpu():
     assert out["adapted"] == out["toks"][0]
     for m in ("parsec_tpu_torch.tune.search", "parsec_tpu_torch.tune.adaptive",
               "parsec_tpu_torch.serve.sharded", "parsec_tpu_torch.prof.perfdb"):
+        assert m in out["modules"], m
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_regions_commcheck_and_the_lint_load_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter region-lowers and runs a Cholesky, serves one
+    stream through region-lowered superpools, warms a workload through
+    the CLI entry, runs commcheck's self-test and the ``--comm`` sweep,
+    and lints the port's own source, all on the host."""
+    code = textwrap.dedent("""
+        import contextlib, io, json, sys
+        import numpy as np
+        from parsec_tpu_torch.analysis import lint_self
+        from parsec_tpu_torch.analysis.__main__ import main
+        from parsec_tpu_torch.analysis.commcheck import self_test
+        from parsec_tpu_torch.core.params import params
+        from parsec_tpu_torch.data_dist.matrix import SymTwoDimBlockCyclic
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.models.cholesky import (make_spd,
+                                                      tiled_cholesky_ptg)
+        from parsec_tpu_torch.ptg import lowering
+        from parsec_tpu_torch.serve import RuntimeServer
+        a = make_spd(64)
+        A = SymTwoDimBlockCyclic.from_dense("A", a.copy(), 16, 16)
+        plan = lowering.lower_regions(tiled_cholesky_ptg(A), max_tasks=6,
+                                      device="cpu")
+        plan.execute()
+        err = float(np.abs(np.tril(A.to_dense())
+                           - np.linalg.cholesky(a.astype(np.float64))).max())
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = lowering._main(["--warm", "cholesky", "--n", "64", "--nb",
+                                 "16", "--modes", "region", "--device",
+                                 "cpu"])
+            rc += self_test() + main(["--comm", "--nt", "3"])
+        init_cuda_devices(device="cpu")
+        params.set("llm_lower_regions", True)
+        with RuntimeServer(nb_cores=1) as srv:
+            toks = srv.submit_stream([3, 7, 11], max_new_tokens=4).result(
+                timeout=60)["tokens"]
+            regions = srv.stats()["llm"]["regions"]["pools"]
+        print(json.dumps({"rc": rc, "err": err, "lint": lint_self().ok,
+                          "nreg": len(plan.regions), "toks": toks,
+                          "region_pools": regions,
+                          "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["rc"] == 0 and out["lint"] and out["nreg"] > 1
+    assert out["err"] < 1e-4 and len(out["toks"]) == 4
+    assert out["region_pools"] >= 1
+    for m in ("parsec_tpu_torch.analysis.regions",
+              "parsec_tpu_torch.analysis.commcheck",
+              "parsec_tpu_torch.analysis.runtimelint"):
         assert m in out["modules"], m
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded

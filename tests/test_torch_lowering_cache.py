@@ -5,9 +5,10 @@
 package's exactly on every pool builder both have: the tiled GEMM,
 Cholesky, LU and both stencils, each as a pool and lowered; the prefill,
 k-step decode, speculative and batched-speculative superpools as pools
-(the port does not lower them: their collections have open key spaces,
-which its stores leave out).  The kernel-name axis is ``""`` for every
-class in both (a ``Traceable`` has no ``name``).
+and lowered too (their collections have open key spaces, whose stores
+grow as the plan references keys: the same rows as the JAX package's).
+The kernel-name axis is ``""`` for every class in both (a ``Traceable``
+has no ``name``).
 
 Then the cache, mirroring ``tests/test_lowering.py``'s cache cases: a
 structurally identical re-lowering is a hit that returns the SAME step
@@ -147,6 +148,25 @@ def test_fingerprint_of_a_lowering_is_the_jax_fingerprint(name, nt):
     fp = structural_fingerprint(plow)
     assert fp == j_fingerprint(jlow)
     assert fp["mode"] == plow.mode and fp["stores"]
+    assert workload_signature(plow) == j_signature(jlow)
+
+
+LLM_POOLS = ["llm_prefill", "llm_decode_k", "llm_decode_spec",
+             "llm_decode_spec_batched"]
+
+
+@pytest.mark.parametrize("nt", [3, 4])
+@pytest.mark.parametrize("name", LLM_POOLS)
+def test_an_llm_pools_lowered_fingerprint_is_the_jax_fingerprint(name, nt):
+    """The open stores: the paged KV cache (not enumerable) and the
+    undeclared dict collections grow a row for each key the plan
+    references, so the lowered store rows equal the JAX package's."""
+    jtp, ptp = _both(name, nt)
+    jlow, plow = j_lower(jtp), lower_taskpool(ptp, device="cpu")
+    fp = structural_fingerprint(plow)
+    assert fp == j_fingerprint(jlow)
+    assert fp["mode"] == plow.mode == "wavefront"
+    assert plow._stores.open and all(fp["stores"].values())
     assert workload_signature(plow) == j_signature(jlow)
 
 

@@ -2,8 +2,8 @@
 (``parsec_tpu_torch/core/params.py``) against the JAX package's.
 
 Mirrors ``tests/test_tune.py``: knob declarations and scoped overrides
-(the port's ``knob_space()`` equals the JAX package's, less
-``lowering_region_max_tasks``, whose regions are not ported), workload
+(the port's ``knob_space()`` equals the JAX package's, now with
+``lowering_region_max_tasks``, since the regions are ported), workload
 signatures equal to the JAX package's, the tuning DB (a file one package
 writes parses in the other; ``best`` misses across them only because the
 backend column differs), the ambient consults, the search (the same trial
@@ -164,11 +164,11 @@ def _production(space: dict) -> dict:
 def test_knob_space_equals_the_jax_package_less_regions():
     jspace = _production(jparams.knob_space())
     pspace = _production(params.knob_space())
-    jspace.pop("lowering_region_max_tasks", None)
+    # the regions are ported: the space is the JAX package's, whole
     assert pspace == jspace
     assert set(pspace) == {"sched", "deps_storage", "llm_steps_per_pool",
                            "comm_get_frag_bytes", "comm_get_window",
-                           "comm_bcast_tree"}
+                           "comm_bcast_tree", "lowering_region_max_tasks"}
 
 
 def test_runtime_report_carries_knob_vector(port_param):
