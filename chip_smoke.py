@@ -348,6 +348,34 @@ any phase fails:
    ``comm/collectives.py:_mp_collective_body`` (a 4 MiB broadcast and a
    64-element reduction over the socket fabric): its framed bytes sent,
    under the same gate.
+33. **path jdf_gemm** (after the earlier phases) — phase 3's GEMM built
+   from JDF text (:data:`JDF_GEMM`, ``tests/test_jdf.py``'s GEMM with a
+   ``BODY [type = cuda dyld = gemm]`` ahead of its Python body) at
+   n=8192, nb=1024, fp32: all 512 tasks on the card through K1, none on
+   the Python body, K1's launches by variant equal to phase 3's, C
+   within phase 3's TF32 gate; the wall beside phase 3's, and the JDF's
+   parse and build seconds beside the DSL builder's.
+34. **path multirank_stencil_ptg, multirank_stencil_jdf** — the 1-D
+   stencil on 4 rank threads (host bodies, as in the JAX package) at
+   the lowered stencil's width, n=2^24, mb=2^18, R=4, 8 iterations,
+   float64: through ``stencil_1d_ptg``, then through the port's
+   ``examples/jdf/stencil_1D.jdf`` on 1-row tiles, whose halos to another
+   rank ship the ``LR`` wire region.  Each within 1e-12 of
+   ``stencil_reference``; each run's landed payload equal to commcheck's
+   predicted activation bytes; every JDF halo exactly ``1 * R * 8``
+   bytes.  Wall, tasks and bytes by rank.
+35. **path multiproc_legacy_wire** — phase 16's four-process Cholesky
+   with ``comm_wire_binary`` off (the legacy pickle framing, a GET's
+   payload whole) and on, in turns (off, on, on, off): the factors equal
+   to every digit, GETs and payload bytes equal to phase 16's; the
+   framed bytes and the wall of each.
+36. **control resume_get** — 4 rank engines sharing the card (the device
+   fabric): a 4 MiB tile pulled by two children from its staging parent
+   in 256 KiB fragments; the parent dies after one window, a zombie
+   fragment of it lands late, and both resume from the grandparent:
+   each copy equal to the root's, each offset landed once.
+37. **path examples** — the port's ladder (Ex00–Ex07, Ex10–Ex12), each
+   ``main()`` self-checking; Ex12 serves on the card through K2.
 
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
@@ -600,23 +628,12 @@ def phase_kernel(card: str, torch) -> tuple[dict, list]:
     return recs[0], recs
 
 
-def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
-               seed: int = 0, checked: dict | None = None) -> dict:
-    """The dynamic-runtime tiled GEMM through the entry points.  Given
-    ``checked`` (phase ``path``'s record), the same run again as
-    ``path_checked``, under the enqueue gate with the task profiler and
-    the SDE module on (see :func:`_observed`)."""
+def _path_mats(n: int, nb: int, seed: int) -> tuple:
+    """Phase ``path``'s A, B (seeded fp32 tiles) and C (zeros), every
+    host tile made before the clock; and the seconds that took."""
     import numpy as np
 
-    from parsec_tpu_torch.core.params import params
     from parsec_tpu_torch.data_dist.matrix import TiledMatrix
-    from parsec_tpu_torch.device import registry
-    from parsec_tpu_torch.device.cuda import init_cuda_devices
-    from parsec_tpu_torch.models.tiled_gemm import gemm_flops, tiled_gemm_ptg
-    from parsec_tpu_torch.ops import gemm as tg
-    from parsec_tpu_torch.runtime import Context
-
-    params.set("gemm_precision", "default")    # whatever the environment says
 
     def init(tag):
         def fn(m, n_, shape):
@@ -632,7 +649,24 @@ def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
         for i in range(M.mt):
             for j in range(M.nt):
                 M.data_of(i, j)
-    t_gen = time.perf_counter() - t_gen
+    return A, B, C, time.perf_counter() - t_gen
+
+
+def phase_path(card: str, torch, n: int = 8192, nb: int = 1024,
+               seed: int = 0, checked: dict | None = None) -> dict:
+    """The dynamic-runtime tiled GEMM through the entry points.  Given
+    ``checked`` (phase ``path``'s record), the same run again as
+    ``path_checked``, under the enqueue gate with the task profiler and
+    the SDE module on (see :func:`_observed`)."""
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops, tiled_gemm_ptg
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.runtime import Context
+
+    params.set("gemm_precision", "default")    # whatever the environment says
+    A, B, C, t_gen = _path_mats(n, nb, seed)
     dev = init_cuda_devices()[0]
     tp = tiled_gemm_ptg(A, B, C)
     chores = [c.device_type for c in tp.task_classes[0].chores]
@@ -4559,6 +4593,453 @@ def phase_commcheck(card: str, torch, multiproc: dict, n: int = 8192,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the JDF front-end, the multi-rank stencils, the legacy framing, the
+# mid-tree fault path and the examples ladder
+# ---------------------------------------------------------------------------
+
+# ``tests/test_jdf.py``'s GEMM_JDF with a CUDA body ahead of its Python
+# body (``tests/test_torch_jdf.py`` holds the two texts together)
+JDF_GEMM = """
+%{
+import numpy as np
+%}
+A [type = data]
+B [type = data]
+C [type = data]
+MT [type = int]
+NT [type = int]
+KT [type = int]
+
+GEMM(m, n, k)
+  m = 0 .. MT-1
+  n = 0 .. NT-1
+  k = 0 .. KT-1
+  : C(m, n)
+  READ X <- A(m, k)
+  READ Y <- B(k, n)
+  RW   Z <- (k == 0) ? C(m, n) : Z GEMM(m, n, k-1)
+        -> (k < KT-1) ? Z GEMM(m, n, k+1) : C(m, n)
+  ; KT - k
+BODY [type = cuda dyld = gemm]
+END
+BODY
+  Z += X @ Y
+END
+"""
+
+
+def phase_jdf_gemm(card: str, torch, path: dict, n: int = 8192,
+                   nb: int = 1024, seed: int = 0) -> dict:
+    """Phase ``path``'s GEMM built from JDF text (:data:`JDF_GEMM`): the
+    CUDA body runs every task through K1, the Python body none; C within
+    the TF32 gate of the float64 product, K1's launches by variant equal
+    to ``path``'s.  The JDF's parse and build seconds beside the DSL
+    builder's."""
+    from parsec_tpu_torch import ptg
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops, tiled_gemm_ptg
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.runtime import Context
+
+    params.set("gemm_precision", "default")
+    A, B, C, _ = _path_mats(n, nb, seed)
+    t0 = time.perf_counter()
+    jdf = ptg.parse_jdf(JDF_GEMM, "jdf_gemm")
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp = jdf.build(A=A, B=B, C=C, MT=C.mt, NT=C.nt, KT=A.nt)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiled_gemm_ptg(A, B, C)           # the DSL's build, for scale only
+    dsl_build_s = time.perf_counter() - t0
+    chores = [c.device_type for c in tp.task_class("GEMM").chores]
+    _check(chores == ["cuda", "cpu"], f"jdf_gemm: chores {chores}")
+    python_ran = []
+    cpu_chore = tp.task_class("GEMM").chores[1]
+    inner = cpu_chore.hook
+
+    def counted(es, task):
+        python_ran.append(task.key)
+        return inner(es, task)
+    cpu_chore.hook = counted
+    dev = init_cuda_devices()[0]
+    cpu = registry.get(0)
+    cpu_before, dev_before = cpu.executed_tasks, dev.executed_tasks
+    _k1_reset(tg)                        # counts from here are the path's
+    ctx = Context(nb_cores=0)
+    t0 = time.perf_counter()
+    try:
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=600)
+        dev.sync()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.fini(timeout=60)
+    launches = tg.gemm_update.launches
+    by_variant = dict(tg.gemm_update.launches_by_variant)
+    dev.flush_cache()
+    ran = dev.executed_tasks - dev_before
+    _check(ran == 512, f"jdf_gemm: {ran} tasks on the card, expected 512")
+    _check(not python_ran and cpu.executed_tasks == cpu_before,
+           f"jdf_gemm: the Python body ran {len(python_ran)} tasks")
+    _check(by_variant == path["gemm_launches_by_variant"],
+           f"jdf_gemm: K1 ran {by_variant}, path "
+           f"{path['gemm_launches_by_variant']}")
+    worst = _check_c(torch, C.to_dense(), A.to_dense(), B.to_dense(), nb,
+                     "jdf_gemm")
+    rec = dict(n=n, nb=nb, tasks=ran, python_body_tasks=len(python_ran),
+               wall_s=wall, path_wall_s=path["wall_s"],
+               gflops=gemm_flops(n, n, n) / wall / 1e9,
+               parse_s=parse_s, build_s=build_s, dsl_build_s=dsl_build_s,
+               gemm_launches=launches, gemm_launches_by_variant=by_variant,
+               max_abs_err=worst)
+    _emit(card, phase="path", name="jdf_gemm", **rec)
+    return rec
+
+
+STENCIL_JDF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "parsec_tpu_torch", "examples", "jdf",
+                           "stencil_1D.jdf")
+
+
+def phase_multirank_stencil(card: str, torch, n: int = 1 << 24,
+                            mb: int = 1 << 18, radius: int = 4,
+                            iterations: int = 8, seed: int = 5) -> dict:
+    """The 1-D stencil on 4 rank threads (host bodies, as in the JAX
+    package), twice: ``stencil_1d_ptg`` on a float64 vector of n in
+    segments of mb, then the port's ``stencil_1D.jdf`` on 1-row tiles of
+    mb interior columns and 2R ghosts, whose halos to another rank ship
+    the ``LR`` wire region (R columns).  Each against
+    ``stencil_reference`` in float64; the JDF run's every halo payload
+    is ``rows * R * itemsize`` bytes and its landed total equals
+    commcheck's predicted activation bytes (the ptg run's too)."""
+    import numpy as np
+
+    from parsec_tpu_torch import ptg
+    from parsec_tpu_torch.analysis.commcheck import check_comm
+    from parsec_tpu_torch.comm import run_multirank
+    from parsec_tpu_torch.data_dist.matrix import (TwoDimBlockCyclic,
+                                                   VectorTwoDimCyclic)
+    from parsec_tpu_torch.models.stencil import (stencil_1d_ptg,
+                                                 stencil_flops,
+                                                 stencil_reference)
+
+    R, nt, nranks = radius, n // mb, MR_RANKS
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal(n)
+    w = rng.random(2 * R + 1)
+    w /= w.sum()
+    want = stencil_reference(torch.from_numpy(base).cuda(),
+                             torch.from_numpy(w).cuda(), iterations)
+    nbj, rows = mb + 2 * R, 1
+
+    def vector(rank):
+        return VectorTwoDimCyclic(
+            "V", lm=n, mb=mb, P=nranks, myrank=rank, dtype=torch.float64,
+            init_fn=lambda m, size: base[m * mb:m * mb + size])
+
+    def desc(rank):
+        def init(m, j, shape):
+            tile = np.zeros(shape)
+            if m == 0:
+                tile[:, R:R + mb] = base[j * mb:(j + 1) * mb]
+            return tile
+        return TwoDimBlockCyclic("descA", lm=2 * rows, ln=nt * nbj, mb=rows,
+                                 nb=nbj, P=1, Q=nranks, myrank=rank,
+                                 dtype=torch.float64, init_fn=init)
+
+    def jdf_pool(d):
+        return ptg.load_jdf(STENCIL_JDF).build(
+            descA=d, iter=iterations, R=R, W=w, LMT=2, LNT=nt)
+
+    def body(kind):
+        def fn(ctx, rank, nranks_):
+            coll = vector(rank) if kind == "ptg" else desc(rank)
+            tiles = ([(i,) for i in range(coll.mt)] if kind == "ptg"
+                     else [(0, j) for j in range(nt)])
+            for key in tiles:
+                if coll.rank_of(*key) == rank:
+                    coll.data_of(*key)        # set-up, off the clock
+            tp = (stencil_1d_ptg(coll, w, iterations) if kind == "ptg"
+                  else jdf_pool(coll))
+            seen = []
+            eng = ctx.comm_engine
+            inner = eng._complete_incoming
+
+            def landed(tp_, src, msg, payloads):
+                # each remote halo's payload, as it lands
+                seen.extend(int(v.numel() * v.element_size())
+                            for v in payloads.values())
+                return inner(tp_, src, msg, payloads)
+            eng._complete_incoming = landed
+            t_add = time.perf_counter()
+            ctx.add_taskpool(tp)
+            ntasks = tp.nb_local_tasks()
+            ctx.wait(timeout=600)
+            t_wait = time.perf_counter()
+            ctx.comm_barrier()
+            if kind == "ptg":
+                out = {i: coll.data_of(i).newest_copy().value.clone()
+                       for i in range(coll.mt) if coll.rank_of(i) == rank}
+            else:
+                m = iterations % 2
+                out = {j: coll.data_of(m, j).newest_copy().value[
+                    0, R:R + mb].clone()
+                    for j in range(nt) if coll.rank_of(m, j) == rank}
+            return dict(out=out, tasks=ntasks, t_add=t_add, t_wait=t_wait,
+                        staged=eng.payload_bytes_staged,
+                        received=eng.payload_bytes_received,
+                        landed=seen)
+        return fn
+
+    out = {}
+    for kind in ("ptg", "jdf"):
+        res = run_multirank(nranks, body(kind), timeout=900)
+        got = torch.cat([r["out"][j] for j in range(nt) for r in res
+                         if j in r["out"]]).cuda()
+        _check(got.shape == (n,) and got.dtype == torch.float64,
+               f"multirank_stencil {kind}: result {tuple(got.shape)} "
+               f"{got.dtype}")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        _check(err <= 1e-12 * max(scale, 1.0),
+               f"multirank_stencil {kind}: max abs err {err} from the "
+               f"float64 reference")
+        cc = check_comm(stencil_1d_ptg(vector(0), w, iterations)
+                        if kind == "ptg" else jdf_pool(desc(0)),
+                        nb_ranks=nranks)
+        received = [r["received"] for r in res]
+        landed = [x for r in res for x in r["landed"]]
+        _check(cc.ok and cc.activation_bytes == sum(received),
+               f"multirank_stencil {kind}: commcheck predicts "
+               f"{cc.activation_bytes} activation bytes, the ranks landed "
+               f"{received}")
+        if kind == "jdf":
+            region = rows * R * 8
+            _check(landed and set(landed) == {region},
+                   f"multirank_stencil jdf: halo payloads "
+                   f"{sorted(set(landed))} bytes, the LR region is "
+                   f"{region}")
+            _check(sum(received) == len(landed) * region,
+                   f"multirank_stencil jdf: {received} bytes landed for "
+                   f"{len(landed)} halos")
+        wall = max(r["t_wait"] for r in res) - min(r["t_add"] for r in res)
+        rec = dict(kind=kind, n=n, mb=mb, radius=R, iterations=iterations,
+                   ranks=nranks, wall_s=wall,
+                   gflops=stencil_flops(n, R, iterations) / wall / 1e9,
+                   tasks_by_rank=[r["tasks"] for r in res],
+                   staged_bytes_by_rank=[r["staged"] for r in res],
+                   landed_bytes_by_rank=received, halos=len(landed),
+                   halo_bytes=sorted(set(landed)),
+                   commcheck_activation_bytes=cc.activation_bytes,
+                   commcheck_pattern=cc.pattern, max_abs_err=err)
+        _emit(card, phase="path", name=f"multirank_stencil_{kind}", **rec)
+        out[kind] = rec
+    return out
+
+
+def phase_multiproc_legacy_wire(card: str, torch, multiproc: dict,
+                                n: int = 8192, nb: int = 1024,
+                                seed: int = 0) -> dict:
+    """The four-process Cholesky of ``multiproc_cholesky`` with
+    ``comm_wire_binary`` off (the legacy length-prefixed pickle framing,
+    a GET's payload whole) and on, in turns (off, on, on, off), a launch
+    each: the legacy factor equal to the binary one to every digit, GETs
+    and payload bytes equal; the framed bytes and the wall of each."""
+    from parsec_tpu_torch.comm.mp_bodies import factor_input
+
+    a = factor_input("cholesky", n)
+    runs, dense0 = [], {}
+    for binary in (False, True, True, False):
+        res, launch_s = _mp_launch(torch, ("cholesky",), n, nb, seed, {
+            "PARSEC_MCA_comm_wire_binary": "1" if binary else "0"})
+        recs = [r["kinds"]["cholesky"] for r in res]
+        dense = _mp_dense(recs, n, nb)
+        checks = _factor_check(torch, "cholesky", dense, a, nb, "default")
+        if binary not in dense0:
+            dense0[binary] = dense
+        else:
+            _check(bool((dense == dense0[binary]).all()),
+                   f"multiproc_legacy_wire: binary={binary} factors differ "
+                   f"between runs")
+            del dense
+        gets = [r["gets"] for r in recs]
+        tiers = [{k: r["tiers"][k] for k in ("payload_in", "payload_out")}
+                 for r in recs]
+        _check(gets == multiproc["multiproc_cholesky"]["gets_by_rank"],
+               f"multiproc_legacy_wire: GETs {gets}")
+        _check([t["payload_in"] for t in tiers]
+               == multiproc["multiproc_cholesky"]["payload_in_by_rank"],
+               f"multiproc_legacy_wire: payload {tiers}")
+        frags = [r["frags_in"] for r in recs]
+        # a legacy GET comes back whole, in one pickled reply
+        _check(binary or not sum(frags),
+               f"multiproc_legacy_wire: the legacy framing landed {frags} "
+               f"fragments")
+        launches = sum(r["k1"] for r in recs)
+        run = dict(comm_wire_binary=binary,
+                   wall_s=max(r["t_wait"] for r in recs)
+                   - min(r["t_add"] for r in recs),
+                   launch_s=launch_s, gets_by_rank=gets,
+                   payload_in_by_rank=[t["payload_in"] for t in tiers],
+                   wire_sent_by_rank=[r["tiers"]["wire_total_sent"]
+                                      for r in recs],
+                   frags_in_by_rank=frags,
+                   get_ms_mean=(sum(r["tier_s"]["get_s"] for r in recs)
+                                / max(1, sum(gets)) * 1e3),
+                   tier_seconds={hop: [r["tier_s"][hop] for r in recs]
+                                 for hop in ("d2h_s", "send_s", "recv_s",
+                                             "h2d_s", "get_s")},
+                   gemm_launches=launches,
+                   gemm_launches_by_variant=_by_variant(_sum_counts(
+                       r["k1_by_variant"] for r in recs)), **checks)
+        _emit(card, phase="path", name="multiproc_legacy_wire", **run)
+        runs.append(run)
+    _check(bool((dense0[False] == dense0[True]).all()),
+           "multiproc_legacy_wire: the legacy factor differs from the "
+           "binary one")
+    return dict(gemm_launches=sum(r["gemm_launches"] for r in runs),
+                gemm_launches_by_variant=_sum_counts(
+                    r["gemm_launches_by_variant"] for r in runs),
+                walls={"legacy": [r["wall_s"] for r in runs
+                                  if not r["comm_wire_binary"]],
+                       "binary": [r["wall_s"] for r in runs
+                                  if r["comm_wire_binary"]]})
+
+
+def phase_resume_get(card: str, torch, nb: int = 1024,
+                     device: str = "cuda") -> dict:
+    """The mid-tree fault path on 4 rank engines sharing the card (the
+    device fabric): rank 0 holds a 4 MiB tile, rank 1 (the staging
+    parent) a staged copy; ranks 2 and 3 pull it from rank 1 in 256 KiB
+    fragments, two in flight.  Rank 1 dies after its first window; a
+    zombie fragment of it lands late at rank 2; both resume from rank 0
+    (the grandparent), which serves only the missing offsets.  Gates:
+    each copy equal to the root's, each offset landed exactly once."""
+    from parsec_tpu_torch.comm.device_fabric import DeviceFabric
+    from parsec_tpu_torch.comm.engine import AM_TAG_GET_FRAG
+    from parsec_tpu_torch.core.params import params
+
+    frag, window = 256 << 10, 2
+    saved = {k: params.get(k) for k in ("comm_get_frag_bytes",
+                                        "comm_get_window")}
+    params.set("comm_get_frag_bytes", frag)
+    params.set("comm_get_window", window)
+    try:
+        dev0 = torch.device(device, 0) if device == "cuda" \
+            else torch.device(device)
+        fabric = DeviceFabric(MR_RANKS, [dev0] * MR_RANKS)
+        eng = [fabric.attach(r) for r in range(MR_RANKS)]
+        g = torch.Generator(device=dev0).manual_seed(3)
+        tile = torch.randn(nb, nb, device=dev0, generator=g)
+        nfrags = tile.numel() * 4 // frag
+        h0 = eng[0].mem_register(tile, refcount=2)
+        h1 = eng[1].mem_register(tile, refcount=2)
+        got, gids = {}, {}
+        for r in (2, 3):
+            gids[r] = eng[r].get(h1.wire(),
+                                 lambda v, r=r: got.__setitem__(r, v))
+        eng[1].progress()                 # the parent serves one window
+        for r in (2, 3):
+            eng[r].progress()             # each child lands it
+        partial = {}
+        for r in (2, 3):
+            with eng[r]._frag_lock:
+                partial[r] = sorted(eng[r]._landing[gids[r]].landed)
+        _check(all(len(p) == window for p in partial.values()) and not got,
+               f"resume_get: partial windows {partial}, done {sorted(got)}")
+        # a zombie fragment the dead parent had already sent
+        off = partial[2][0]
+        zombie = tile.reshape(-1)[off // 4:(off + frag) // 4].clone()
+        fabric.deliver(2, AM_TAG_GET_FRAG, 1,
+                       (gids[2], off, frag, None, zombie))
+        eng[2].progress()
+        t0 = time.perf_counter()
+        for r in (2, 3):
+            _check(eng[r].resume_get(h0.wire(), gids[r]),
+                   f"resume_get: rank {r} had nothing to resume")
+            eng[r].on_peer_failed(1)
+        for _ in range(4 * nfrags):
+            for r in (0, 2, 3):
+                eng[r].progress()
+            if len(got) == 2:
+                break
+        if dev0.type == "cuda":
+            torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        _check(sorted(got) == [2, 3], f"resume_get: landed {sorted(got)}")
+        for r in (2, 3):
+            _check(torch.equal(got[r], tile),
+                   f"resume_get: rank {r}'s copy differs from the root's")
+            _check(eng[r].frags_in == nfrags,
+                   f"resume_get: rank {r} landed {eng[r].frags_in} "
+                   f"fragments of {nfrags}")
+        _check(eng[2].dup_frags == 1 and eng[3].dup_frags == 0,
+               f"resume_get: deduplicated {eng[2].dup_frags}, "
+               f"{eng[3].dup_frags}")
+        resumed = eng[0].frags_out
+        _check(resumed == 2 * (nfrags - window),
+               f"resume_get: the grandparent served {resumed} fragments, "
+               f"expected {2 * (nfrags - window)}")
+        for r in (2, 3):
+            with eng[r]._frag_lock:
+                _check(gids[r] not in eng[r]._landing,
+                       f"resume_get: rank {r}'s zone did not retire")
+        rec = dict(ranks=MR_RANKS, tile_bytes=tile.numel() * 4,
+                   frag_bytes=frag, window=window, fragments=nfrags,
+                   landed_before_death=partial,
+                   resumed_fragments=resumed,
+                   dedup_fragments=eng[2].dup_frags + eng[3].dup_frags,
+                   frags_in_by_rank=[e.frags_in for e in eng],
+                   resume_s=resume_s)
+        _emit(card, phase="control", name="resume_get", **rec)
+        for e in eng:
+            e.fini()
+        return rec
+    finally:
+        for k, v in saved.items():
+            params.set(k, v)
+
+
+EXAMPLES = ("Ex00_StartStop", "Ex01_HelloWorld", "Ex02_Chain",
+            "Ex03_ChainMPI", "Ex04_ChainData", "Ex05_Broadcast", "Ex06_RAW",
+            "Ex07_RAW_CTL", "Ex10_WireHalo", "Ex11_Serve", "Ex12_LLMServe")
+
+
+def phase_examples(card: str, torch) -> dict:
+    """The port's examples ladder on the card machine, each ``main()``
+    self-checking; Ex12 serves its streams on the card through K2."""
+    import contextlib
+    import importlib
+    import io
+
+    from parsec_tpu_torch.ops import ragged_attention as ra
+
+    seconds, k2 = {}, 0
+    for name in EXAMPLES:
+        mod = importlib.import_module(f"parsec_tpu_torch.examples.{name}")
+        if name == "Ex12_LLMServe":
+            ra.attn_page_update.launches = 0     # counts from here: Ex12's
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = mod.main()
+        seconds[name] = time.perf_counter() - t0
+        if name == "Ex12_LLMServe":
+            k2 = ra.attn_page_update.launches
+            llm = result["llm"]
+            _check(llm["tokens_generated"] == 32 and k2 > 0,
+                   f"examples: Ex12 made {llm['tokens_generated']} tokens "
+                   f"with {k2} K2 launches")
+    rec = dict(examples=list(EXAMPLES), seconds=seconds,
+               ragged_attn_page_launches=k2)
+    _emit(card, phase="path", name="examples", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4660,13 +5141,20 @@ def _run(torch) -> int:
     traced = phase_multiproc_traced(card, torch, multiproc, comm_thread)
     phase_commcheck(card, torch, multiproc)
     mr_dtd = phase_multirank_dtd(card, torch)
+    jdf_gemm = phase_jdf_gemm(card, torch, path)
+    phase_multirank_stencil(card, torch)
+    legacy = phase_multiproc_legacy_wire(card, torch, multiproc)
+    phase_resume_get(card, torch)
+    examples = phase_examples(card, torch)
+    k2_paths["examples"] = examples
     k1_paths = {"gemm": path, "dtd_gemm": dtd, "path_checked": checked,
                 "lowered_gemm": lgemm, "lowered_cache": lcache,
                 **factor_paths, "tuned_cholesky": tuned,
                 "region_cholesky": region, **multirank,
                 **multiproc, "multiproc_comm_thread": comm_thread,
                 "multiproc_traced": traced,
-                "multirank_dtd_gemm": mr_dtd}
+                "multirank_dtd_gemm": mr_dtd, "jdf_gemm": jdf_gemm,
+                "multiproc_legacy_wire": legacy}
     row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "gemm_update", "route": "cuda",

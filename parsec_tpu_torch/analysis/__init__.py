@@ -10,7 +10,8 @@ Port of ``parsec_tpu/analysis`` (the verification half of the reference's
   body: edge symmetry both ways, access and CTL consistency, WAR/WAW
   ordering, cycles, tile and rank bounds, dead flows and edge functions
   that raise.  Findings carry task-class, flow and instance provenance;
-  :func:`check_taskpool` raises :class:`GraphCheckError` in gate mode.
+  :func:`check_taskpool` raises :class:`GraphCheckError` in gate mode,
+  and :func:`check_jdf` parses a JDF text or file and checks its pool.
 - :mod:`.regions`: the verified graph carved into convex, size-bounded
   megakernel regions (``GraphReport.select_regions``), which
   ``ptg.lowering.lower_regions`` prepares one step each.
@@ -36,17 +37,15 @@ checks a DTD pool).  The per-task dynamic twin,
 checker never loads the profiling stack; commcheck is lazy too, so the
 ``comm_pattern`` block of ``runtime_report()`` appears only in processes
 that ran it.
-
-Left out: the JDF prong ``check_jdf`` (queue item 9).
 """
 
 from .graphcheck import (Finding, GraphCheckError, GraphReport, check_dtd,
-                         check_ptg, check_taskpool)
+                         check_jdf, check_ptg, check_taskpool)
 from .regions import Region, select_regions, task_levels
 from .runtimelint import LintReport, lint_file, lint_paths, lint_self
 
 __all__ = ["Finding", "GraphCheckError", "GraphReport", "check_taskpool",
-           "check_ptg", "check_dtd", "Region", "select_regions",
+           "check_ptg", "check_dtd", "check_jdf", "Region", "select_regions",
            "task_levels", "LintReport", "lint_file", "lint_paths",
            "lint_self", "CommReport", "check_comm", "recommend_tree",
            "predict_collective_traffic", "IteratorsCheckerError",

@@ -10,12 +10,14 @@ Usage::
     python -m parsec_tpu_torch.analysis                 # self-lint + models
     python -m parsec_tpu_torch.analysis --self-lint [PATH ...]
     python -m parsec_tpu_torch.analysis --graph cholesky --nt 6 --ranks 4
+    python -m parsec_tpu_torch.analysis --graph x.jdf --bind NT=4
     python -m parsec_tpu_torch.analysis --comm [--ranks 8]  # comm patterns
     python -m parsec_tpu_torch.analysis -v              # warnings too
 
-Port of ``parsec_tpu/analysis/__main__.py``.  Left out: JDF files
-(``--graph x.jdf``, ``--bind``; queue item 9), and the models the port
-does not have yet (pingpong, reduction, all2all; queue item 10, so the
+Port of ``parsec_tpu/analysis/__main__.py``.  ``--graph`` takes a
+``.jdf`` path too, parsed by :mod:`parsec_tpu_torch.ptg.jdf` and built
+with its ``--bind NAME=INT`` globals (:func:`.graphcheck.check_jdf`).
+Left out: the models the port does not have yet (pingpong, reduction, all2all; queue item 10, so the
 ``--comm`` sweep has no reduction, pingpong or irregular pool) or
 dropped (the one-step ``llm_decode`` pool).
 """
@@ -130,11 +132,14 @@ def main(argv: list[str] | None = None) -> int:
         prog="python -m parsec_tpu_torch.analysis",
         description="static dataflow verification of the port's pools "
                     "and the runtime's concurrency lint")
-    ap.add_argument("--graph", metavar="MODEL",
-                    help="verify one model: cholesky, lu, stencil1d, "
-                         "stencil2d, tiled_gemm, ep, llm_prefill, "
-                         "llm_decode_k, llm_decode_spec, "
-                         "llm_decode_spec_batched, comm_bcast, comm_reduce")
+    ap.add_argument("--graph", metavar="MODEL|JDF",
+                    help="verify one graph: a model name (cholesky, lu, "
+                         "stencil1d, stencil2d, tiled_gemm, ep, "
+                         "llm_prefill, llm_decode_k, llm_decode_spec, "
+                         "llm_decode_spec_batched, comm_bcast, "
+                         "comm_reduce) or a .jdf path")
+    ap.add_argument("--bind", action="append", default=[],
+                    metavar="NAME=INT", help="JDF global binding")
     ap.add_argument("--nt", type=int, default=5,
                     help="tile-grid size of the model graphs (default 5)")
     ap.add_argument("--ranks", type=int, default=1,
@@ -150,7 +155,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="also print warnings")
     args = ap.parse_args(argv)
 
-    from . import check_ptg, lint_paths, lint_self
+    from . import check_jdf, check_ptg, lint_paths, lint_self
     failed = False
     run_all = not args.graph and not args.self_lint and not args.comm
 
@@ -168,13 +173,19 @@ def main(argv: list[str] | None = None) -> int:
         return 1 if failed else 0
 
     if args.graph or run_all:
-        graphs = list(_model_graphs(args.nt))
-        if args.graph:
-            graphs = [(g, tp) for g, tp in graphs if g == args.graph]
-            if not graphs:
-                ap.error(f"unknown model {args.graph!r}")
-        for _name, tp in graphs:
-            r = check_ptg(tp, nb_ranks=args.ranks)
+        if args.graph and args.graph.endswith(".jdf"):
+            binds = dict((k, int(v)) for k, v in
+                         (b.split("=", 1) for b in args.bind))
+            reports = [check_jdf(args.graph, **binds)]
+        else:
+            graphs = list(_model_graphs(args.nt))
+            if args.graph:
+                graphs = [(g, tp) for g, tp in graphs if g == args.graph]
+                if not graphs:
+                    ap.error(f"unknown model {args.graph!r}")
+            reports = [check_ptg(tp, nb_ranks=args.ranks)
+                       for _name, tp in graphs]
+        for r in reports:
             print(r.summary())
             for f in r.errors + (r.warnings if args.verbose else []):
                 print("  " + repr(f))

@@ -54,9 +54,8 @@ successors``) are the JAX package's on the same pool; ``analysis_max_tasks``
 caps the enumeration as there.
 
 :meth:`GraphReport.select_regions` carves the retained graph into
-megakernel regions (:mod:`.regions`).  Left out: ``check_jdf`` (the JDF
-front-ends are not ported, ``ROADMAP.md`` §1 item 9) and the branches for a class's ``startup_fn`` override,
-which the port's task classes do not have.
+megakernel regions (:mod:`.regions`).  :func:`check_jdf` parses a JDF
+source with :mod:`parsec_tpu_torch.ptg.jdf` and verifies the built pool.
 :meth:`GraphReport.critical_path` runs critpath's
 ``dag_critical_path`` over the retained graph.
 """
@@ -524,12 +523,16 @@ def check_ptg(tp: Any, nb_ranks: int | None = None,
                         any_ready = True
                 except Exception:
                     pass
+            elif tc.startup_fn is not None:
+                any_ready = True
 
     report.nedges = sum(len(v) for v in adj.values())
     report.graph = adj
 
     # ---- phase 3: class-level structure ----------------------------------
     for tc in tp.task_classes:
+        if tc.startup_fn is not None:
+            any_ready = any_ready or bool(instances[tc.name])
         for flow in tc.flows:
             fkey = (tc.name, flow.name)
             if not instances[tc.name]:
@@ -846,6 +849,17 @@ class _Reachability:
 # ---------------------------------------------------------------------------
 # DTD verification
 # ---------------------------------------------------------------------------
+
+
+def check_jdf(src: str, name: str = "jdf", **bindings: Any) -> GraphReport:
+    """Parse a JDF source (text or path) and verify the built pool."""
+    import os
+    from ..ptg.jdf import load_jdf, parse_jdf
+    if os.path.exists(src) or "\n" not in src and src.endswith(".jdf"):
+        jdf = load_jdf(src)
+    else:
+        jdf = parse_jdf(src, name=name)
+    return check_ptg(jdf.build(**bindings))
 
 
 def check_dtd(tp: Any, nb_ranks: int | None = None) -> GraphReport:

@@ -31,6 +31,11 @@ A payload node outside them rides as a ``T_PICKLE`` blob decoded through
 a few harmless builtins, never ``torch``: a torch object that is not a
 tensor (a dtype, a device) is refused at the sender.
 
+The socket fabric's legacy framing (``comm_wire_binary=False``) pickles
+whole frames instead (:func:`legacy_dumps`): a tensor there reduces to a
+call of :func:`tensor_from_wire` on its bytes, a function of this package,
+so the same restricted unpickler reads it back.
+
 Left out: nothing the port ships needs more.
 """
 
@@ -380,3 +385,31 @@ class RestrictedUnpickler(pickle.Unpickler):
 def restricted_loads(data: bytes) -> Any:
     """``pickle.loads`` through the allowlist."""
     return RestrictedUnpickler(io.BytesIO(data)).load()
+
+
+def tensor_from_wire(dtype: str, shape: tuple, data: bytes) -> torch.Tensor:
+    """A CPU tensor from its legacy-pickled bytes."""
+    dt = torch_dtype_of(dtype)
+    if not data:
+        return torch.empty(shape, dtype=dt)
+    flat = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    return flat.view(dt).reshape(shape)
+
+
+class _LegacyPickler(pickle.Pickler):
+    def reducer_override(self, obj: Any):  # noqa: D102
+        if isinstance(obj, torch.Tensor):
+            return tensor_from_wire, (dtype_name(obj.dtype),
+                                      tuple(obj.shape),
+                                      _byte_view(obj.detach().to("cpu")
+                                                 .contiguous()).tobytes())
+        return NotImplemented
+
+
+def legacy_dumps(obj: Any) -> bytes:
+    """Pickle a legacy frame: tensors (a CUDA one is copied to the host)
+    ride as :func:`tensor_from_wire` calls the restricted unpickler
+    admits."""
+    buf = io.BytesIO()
+    _LegacyPickler(buf, protocol=pickle.HIGHEST_PROTOCOL).dump(obj)
+    return buf.getvalue()

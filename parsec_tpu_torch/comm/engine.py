@@ -65,7 +65,15 @@ or its fragment window), both flow-keyed ``get:<requester>:<get_id>``
 for :mod:`~parsec_tpu_torch.prof.tracemerge`; the requester's open span
 lives in ``_get_spans``, which the disabled path never touches.
 
-Left out: resumed GETs (``resume_get``) and the ``Capabilities`` record.
+**Resumed GETs.**  :meth:`InprocCommEngine.resume_get` is the mid-tree
+fault path: when a staging parent dies with a transfer partly landed, the
+requester re-issues the same GET against a surviving holder (the
+grandparent).  The landing zone is retargeted to the new owner before any
+``on_peer_failed`` sweep of the dead one, the offsets already landed ride
+a ``resume`` list that the new owner skips, and a zombie fragment of the
+dead parent deduplicates against ``zone.landed`` (``dup_frags``), so each
+offset lands exactly once.  :class:`Capabilities` is the backend record
+(``parsec_comm_engine_capabilities_t``).
 """
 
 from __future__ import annotations
@@ -110,6 +118,18 @@ _params.declare_knob("comm_get_frag_bytes", lo=256 << 10, hi=16 << 20,
 _params.declare_knob("comm_get_window", lo=1, hi=16, scale="log2")
 
 _now_ns = time.perf_counter_ns
+
+
+class Capabilities:
+    """What a backend supports (cf. ``parsec_comm_engine_capabilities_t``)."""
+
+    __slots__ = ("sided", "multithreaded", "supports_noncontiguous")
+
+    def __init__(self, sided: int = 1, multithreaded: bool = True,
+                 supports_noncontiguous: bool = True) -> None:
+        self.sided = sided
+        self.multithreaded = multithreaded
+        self.supports_noncontiguous = supports_noncontiguous
 
 
 class MemHandle:
@@ -218,6 +238,7 @@ class InprocFabric:
 class CommEngine:
     """The abstract vtable (``parsec_comm_engine.h:176-199``)."""
 
+    capabilities = Capabilities()
     frag_active = 0      # open landing zones and send windows
 
     def __init__(self, nranks: int, rank: int) -> None:
@@ -398,6 +419,30 @@ class InprocCommEngine(CommEngine):
         self.send_am(AM_TAG_GET_REQ, owner, msg, trace_id=trace or 0)
         return get_id
 
+    def resume_get(self, rwire: tuple[int, int], get_id: int,
+                   trace: int | None = None) -> bool:
+        """Re-issue a still-pending GET against another owner (a staging
+        parent died mid-transfer): the offsets already landed ride a
+        ``resume`` list the new owner skips.  False when the GET already
+        completed."""
+        owner, handle_id = rwire
+        if get_id not in self._pending_gets:
+            return False
+        with self._frag_lock:
+            zone = self._landing.get(get_id)
+            resume = sorted(zone.landed) if zone is not None else []
+            if zone is not None:
+                # retarget before any on_peer_failed(dead parent) sweep,
+                # which would reap a zone still pointing at the dead rank
+                zone.src = owner
+        msg = {"handle": handle_id, "get_id": get_id, "reply_to": self.rank}
+        if resume:
+            msg["resume"] = resume
+        if trace:
+            msg["trace"] = trace
+        self.send_am(AM_TAG_GET_REQ, owner, msg, trace_id=trace or 0)
+        return True
+
     def _record_get_span(self, get_id: int, nbytes: int) -> None:
         """The requester's ``comm.get`` span, request sent to payload
         landed, flow-keyed ``get:<requester>:<get_id>``."""
@@ -419,6 +464,17 @@ class InprocCommEngine(CommEngine):
         value = self._serve_value(h)
         plan = self._plan_frags(value)
         trace = msg.get("trace") or 0
+        landed = set(msg.get("resume") or ())
+        if plan is not None and landed:
+            # a resumed pull: serve only the offsets still missing
+            pieces, meta = plan
+            pieces = [p for p in pieces if p[0] not in landed]
+            if not pieces:
+                # all landed already: the requester's zone completes off
+                # the fragments in flight; drop this pull's share
+                self.mem_release(msg["handle"], peer=msg["reply_to"])
+                return
+            plan = (pieces, meta)
         if plan is not None:
             # the receiver copies each fragment into a destination of its
             # own, so the pieces may be views of the registered snapshot
@@ -443,6 +499,10 @@ class InprocCommEngine(CommEngine):
         self.mem_release(msg["handle"], peer=msg["reply_to"])
 
     def _finish_get(self, eng: CommEngine, src: int, msg: dict) -> None:
+        with self._frag_lock:
+            # a resumed GET answered whole supersedes a half-landed zone
+            if self._landing.pop(msg["get_id"], None) is not None:
+                self.frag_active -= 1
         cb = self._pending_gets.pop(msg["get_id"], None)
         if cb is None:
             self.dup_get_replies += 1     # a replayed reply: idempotent

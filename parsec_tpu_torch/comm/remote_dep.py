@@ -80,9 +80,12 @@ in :data:`parsec_tpu_torch.prof.sde` and the ``comm`` / ``rank<r>``
 property (fragment state and per-peer ledgers) in
 :data:`parsec_tpu_torch.prof.properties`, and drops them at ``fini``.
 
-Left out: typed-edge reshape on a remote edge (the port raises
-``NotImplementedError`` where the JAX package repacks, ``ROADMAP.md`` §1
-item 10), the switches that turn coalescing and wire views off
+The wire carries the producer's type; a typed edge repacks on the
+receiving side (:mod:`parsec_tpu_torch.data.reshape`): a successor's input
+dep type wins over the output dep's, and a write-back converts to the
+dep's type or back to the home tile's.
+
+Left out: the switches that turn coalescing and wire views off
 (``comm_coalesce``, ``comm_wire_datatypes``: nothing in the port turns
 them off).
 """
@@ -100,7 +103,8 @@ from ..core.backoff import Backoff
 from ..core.params import MCAParamValueError
 from ..core.params import params as _params
 from ..data.data import data_create, nbytes_of
-from ..data.datatype import to_tensor, torch_dtype, wire_slice_key
+from ..data.reshape import reshape_for_edge, reshape_for_writeback
+from ..data.datatype import to_tensor, wire_slice_key
 from ..prof import pins, spans as _spans
 from ..prof.counters import properties, sde
 from ..prof.pins import PinsEvent
@@ -146,17 +150,6 @@ def _slice_view(value: torch.Tensor, view_key: tuple) -> torch.Tensor:
                 f"{tuple(value.shape)} on axis {axis}")
         sl.append(s)
     return value[tuple(sl)].clone()
-
-
-def _refuse_reshape(copy: Any, shape: tuple, dtype: Any, where: str) -> None:
-    """A landed payload whose edge wants another shape or dtype would
-    need a typed reshape, which the port refuses."""
-    v = copy.value
-    if tuple(v.shape) != tuple(shape) or v.dtype != torch_dtype(dtype):
-        raise NotImplementedError(
-            f"{where}: the edge wants {tuple(shape)} {dtype}, the payload "
-            f"is {tuple(v.shape)} {v.dtype}; typed-edge reshape is not "
-            f"ported (ROADMAP.md §1 item 10)")
 
 
 # ---------------------------------------------------------------------------
@@ -793,13 +786,9 @@ class RemoteDepEngine:
                 if wb.get(flow.flow_index) and dep.data_ref is not None:
                     dc, key = dep.data_ref(t.locals)
                     if copy is not None and dc.rank_of(*key) == self.my_rank:
-                        home = dc.data_of(*key).get_copy(0)
-                        want = dep.dtt or (home.value if home is not None
-                                           else None)
-                        if want is not None:
-                            _refuse_reshape(copy, want.shape, want.dtype,
-                                            f"write-back to {dc.name}{key}")
-                        apply_writeback_to_home(dc, key, copy)
+                        apply_writeback_to_home(
+                            dc, key,
+                            reshape_for_writeback(copy, dep, dc, key))
                 return
             succ_tc = tp.task_class(dep.target_class)
             for succ_locals in dep.each_target(t.locals):
@@ -811,12 +800,11 @@ class RemoteDepEngine:
                     continue
                 fi, di = _find_input_dep(succ_tc, dep.target_flow, tc.name,
                                          succ_locals)
-                want = succ_tc.flows[fi].deps_in[di].dtt or dep.dtt
-                if copy is not None and want is not None:
-                    _refuse_reshape(copy, want.shape, want.dtype,
-                                    f"{tc.name} -> {succ_tc.name}")
+                # a typed edge: a lazy shared repack of the landed copy
+                send = reshape_for_edge(copy, dep,
+                                        succ_tc.flows[fi].deps_in[di])
                 rt = self.ctx.deps.release_dep(tp, succ_tc, succ_locals, fi,
-                                               di, copy, None)
+                                               di, send, None)
                 if rt is not None:
                     ready.append(rt)
 

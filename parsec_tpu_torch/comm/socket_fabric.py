@@ -5,9 +5,9 @@ process, active messages and rendezvous payloads move over TCP, and the
 protocol above the engine vtable (activations, propagation trees,
 coalescing, termination waves, DTD pushes) runs unchanged.
 
-Wire format, the JAX package's byte for byte: every frame is a 40-byte
-header ``<BBHIQQQQ`` = (kind, flags, tag, src, seq, u0, u1, u2) and a
-body by kind:
+Wire format (``comm_wire_binary``, the default), the JAX package's byte
+for byte: every frame is a 40-byte header ``<BBHIQQQQ`` = (kind, flags,
+tag, src, seq, u0, u1, u2) and a body by kind:
 
 - ``CTRL``, an active message: u0 = meta length, u1 = the raw segments'
   bytes, u2 = the 8-byte trace context of the request the message
@@ -26,6 +26,17 @@ body by kind:
   (:meth:`~parsec_tpu_torch.comm.engine.InprocCommEngine.landing_view`)
   and ``recv_into``\\ s it there.
 
+``comm_wire_binary=False`` falls back to the legacy framing, the JAX
+package's measured baseline: length-prefixed (``<Q``) pickle frames, a
+data frame ``("d", seq, pickle((tag, src, payload)))`` and an ack frame
+``("a", src, upto)``; a GET's payload comes back whole, unfragmented.
+Both ends of a fabric read the param and must agree.  Received bytes go
+through the codec's restricted unpickler, never bare ``pickle.loads``: a
+tensor is pickled as a call of :func:`.codec.tensor_from_wire` on its
+bytes, which the allowlist admits with the rest of this package.  A frame
+that does not decode drops only its connection, with a warning, and the
+peer's replay window resends what was in flight.
+
 Rank *i* listens on ``base_port + i``; connections are made lazily with
 connect-retry (ranks boot in any order).  The host list is localhost
 unless ``PARSEC_TPU_HOSTS=h0,h1,...`` names one host a rank.
@@ -42,9 +53,8 @@ the fabric.  ``comm_socket_fault_p`` breaks connections on purpose
 Use :func:`parsec_tpu_torch.comm.multiproc.run_multiproc` to launch N
 rank processes (the ``mpiexec -np N`` analog).
 
-Left out: the legacy length-prefixed pickle framing
-(``comm_wire_binary=False``) and the pooled wire buffers of the JAX
-package's ``data/arena.py`` (a plain buffer per meta here).
+Left out: the pooled wire buffers of the JAX package's ``data/arena.py``
+(a plain buffer per meta here).
 """
 
 from __future__ import annotations
@@ -79,6 +89,11 @@ _LOCK_PROTECTED = {
 }
 _LOCK_ORDER = ("_plock", "_ilock")
 
+_params.register("comm_wire_binary", True,
+                 "binary wire framing on the socket fabric: struct headers "
+                 "+ scatter-gather raw segments (sendmsg/recv_into); off "
+                 "reverts to length-prefixed pickle frames (both ends of a "
+                 "fabric must agree)")
 _params.register("comm_socket_ack_every", 16,
                  "receiver sends a cumulative ack after this many frames "
                  "(bounds the sender's replay window)")
@@ -97,6 +112,9 @@ _REPLAY_WINDOW = 4096
 _SOCK_BUF_BYTES = 1 << 22
 
 _log = logging.getLogger(__name__)
+
+# legacy framing: an 8-byte length, then a pickle
+_LEN = struct.Struct("<Q")
 
 # binary frame header: kind, flags, tag, src, seq, u0, u1, u2
 _HDR = struct.Struct("<BBHIQQQQ")
@@ -126,6 +144,20 @@ def _hosts(nranks: int) -> list[str]:
     if not hosts:
         hosts = ["127.0.0.1"]
     return [hosts[r % len(hosts)] for r in range(nranks)]
+
+
+def _frame(obj: Any) -> bytes:
+    """A legacy length-prefixed pickle frame."""
+    data = codec.legacy_dumps(obj)
+    return _LEN.pack(len(data)) + data
+
+
+def _recv_exact(sock: socket.socket, n: int) -> bytearray | None:
+    """Exactly ``n`` bytes into one buffer; None on EOF."""
+    buf = bytearray(n)
+    if not _recv_exact_into(sock, memoryview(buf)):
+        return None
+    return buf
 
 
 def _recv_exact_into(sock: socket.socket, mv: memoryview) -> bool:
@@ -186,6 +218,9 @@ class SocketFabric:
     window under that entry's own send lock.  No site holds ``_plock``
     and ``_ilock`` together."""
 
+    # the framing; each fabric reads ``comm_wire_binary`` when it starts
+    binary = True
+
     def __init__(self, nranks: int, rank: int, base_port: int) -> None:
         self.nranks = nranks
         self.rank = rank
@@ -203,6 +238,7 @@ class SocketFabric:
         self.dup_frames = 0       # duplicate frames dropped
         self.bytes_sent = 0       # framed bytes sent
         self.bytes_recv = 0       # framed bytes received
+        self.binary = bool(_params.get("comm_wire_binary"))
         # seconds spent sending frames (the replay window's copy and the
         # sendmsg) and receiving frame bodies (their bytes arriving)
         self.send_s = 0.0
@@ -257,6 +293,9 @@ class SocketFabric:
     def _recv_main(self, conn: socket.socket) -> None:
         _tune_socket(conn)
         ack_every = _params.get("comm_socket_ack_every")
+        if not self.binary:
+            self._recv_main_legacy(conn, ack_every)
+            return
         hdr = bytearray(_HDR.size)
         while not self._stop.is_set():
             try:
@@ -282,6 +321,50 @@ class SocketFabric:
                              "on undecodable frame: %r", self.rank, e)
                 _close(conn)
                 return
+
+    def _recv_main_legacy(self, conn: socket.socket, ack_every: int) -> None:
+        """The legacy receive loop: length-prefixed pickle frames, each
+        decoded through the restricted unpickler."""
+        while not self._stop.is_set():
+            try:
+                head = _recv_exact(conn, _LEN.size)
+                if head is None:
+                    return
+                body = _recv_exact(conn, _LEN.unpack(head)[0])
+                if body is None:
+                    return
+                frame = codec.restricted_loads(bytes(body))
+                if frame[0] == "a":                  # cumulative ack
+                    _, src, upto = frame
+                    self._prune_unacked(src, upto)
+                    continue
+                _, seq, inner = frame
+                tag, src, payload = codec.restricted_loads(inner)
+            except OSError:
+                return
+            except Exception as e:
+                # a corrupt frame kills only this connection, visibly; the
+                # peer's replay window re-sends what it had in flight
+                _log.warning("socket fabric rank %d: dropping connection "
+                             "on undecodable frame: %r", self.rank, e)
+                _close(conn)
+                return
+            ack_now = None
+            with self._ilock:
+                self._rx_account(src, _LEN.size + len(body), frag=False)
+                if seq <= self._seen.get(src, 0):
+                    self.dup_frames += 1         # replay overlap: drop
+                else:
+                    self._seen[src] = seq
+                    self._inbox.append((tag, src, payload))
+                n = self._unacked_in.get(src, 0) + 1
+                if n >= ack_every:
+                    self._unacked_in[src] = 0
+                    ack_now = self._seen[src]
+                else:
+                    self._unacked_in[src] = n
+            if ack_now is not None:
+                self._send_ack(src, ack_now)
 
     def _rx_account(self, src: int, nbytes: int, frag: bool) -> None:
         """Caller holds ``_ilock``."""
@@ -417,7 +500,8 @@ class SocketFabric:
         budget; a failed send drops the socket (the next ack reconnects)
         and never declares the peer dead."""
         ent = self._peer_entry(src)
-        ack = _HDR.pack(K_ACK, 0, 0, self.rank, upto, 0, 0, 0)
+        ack = (_HDR.pack(K_ACK, 0, 0, self.rank, upto, 0, 0, 0)
+               if self.binary else _frame(("a", self.rank, upto)))
         with ent[1]:
             try:
                 if ent[0] is None:
@@ -470,6 +554,15 @@ class SocketFabric:
             with self._ilock:
                 self._inbox.append((tag, src, payload))
             return
+        if not self.binary:
+            # the payload is pickled once, outside the send lock; a
+            # replay resends these bytes as they were
+            body = codec.legacy_dumps((tag, src, payload))
+
+            def legacy(seq: int) -> list:
+                return [_frame(("d", seq, body))]
+            self._send_frame(dst, legacy, None, frag=False)
+            return
         # encoding runs outside the send lock; only the seq-stamped header
         # is built inside
         meta, segs = codec.encode(payload)
@@ -500,7 +593,7 @@ class SocketFabric:
                               get_id, offset, nbytes), *head, data]
         self._send_frame(dst, frame, _HDR.size + extra + nbytes, frag=True)
 
-    def _send_frame(self, dst: int, frame, nbytes: int, frag: bool,
+    def _send_frame(self, dst: int, frame, nbytes: int | None, frag: bool,
                     snapshot: bool = False) -> None:
         """Seq-stamp, window, account and transmit one frame.
 
@@ -519,6 +612,8 @@ class SocketFabric:
             ent[2] += 1
             seq = ent[2]
             bufs = frame(seq)
+            if nbytes is None:
+                nbytes = sum(len(b) for b in bufs)
             with self._plock:
                 self.bytes_sent += nbytes
                 tx = self.peer_tx.get(dst)
@@ -631,6 +726,13 @@ class SocketCommEngine(InprocCommEngine):
         # DATA-frame bytes land through the engine's zones from the
         # fabric's receive threads
         fabric.landing_view = self.landing_view
+
+    def _plan_frags(self, value: Any) -> tuple | None:
+        # fragments need the binary DATA frames; the legacy framing sends
+        # a GET's payload whole
+        if not self.fabric.binary:
+            return None
+        return super()._plan_frags(value)
 
     def snapshot_value(self, value: Any) -> Any:
         """A message's payload is encoded and sent (its bytes copied into

@@ -46,7 +46,7 @@ class DataCopy:
     """One device's copy of a datum (cf. ``parsec_data_copy_t``)."""
 
     __slots__ = ("original", "device_index", "coherency", "readers",
-                 "version", "value", "dtt")
+                 "version", "value", "dtt", "reshaped")
 
     def __init__(self, original: "Data", device_index: int,
                  value: Any = None, dtt: TileType | None = None) -> None:
@@ -58,6 +58,7 @@ class DataCopy:
         self.version = 0
         self.value = value
         self.dtt = dtt
+        self.reshaped = None   # type key -> shared repack future (reshape)
 
     def __repr__(self) -> str:
         return (f"<DataCopy key={self.original.key} dev={self.device_index} "

@@ -136,12 +136,16 @@ def _fire_spill(data: Any, nbytes: int) -> int:
 class CUDADeviceTask:
     """Device task descriptor (cf. ``parsec_gpu_task_t``)."""
 
-    __slots__ = ("task", "submit", "es")
+    __slots__ = ("task", "submit", "es", "stage_in", "stage_out")
 
     def __init__(self, es: Any, task: Any, submit: Callable) -> None:
         self.es = es
         self.task = task
         self.submit = submit
+        # a class's user transfer hooks (DSL ``stage_hooks``), each
+        # ``fn(device, task)`` in place of the default staging
+        self.stage_in = getattr(task.task_class, "stage_in_hook", None)
+        self.stage_out = getattr(task.task_class, "stage_out_hook", None)
 
 
 def _flop_rating(kind: str) -> tuple[float, float]:
@@ -589,6 +593,9 @@ class CUDADevice(Device):
         from ..runtime.scheduling import prepare_input
         first = batch[0]
         tc = first.task.task_class
+        if (getattr(tc, "stage_in_hook", None) is not None
+                or getattr(tc, "stage_out_hook", None) is not None):
+            return   # custom staging dispatches task by task
         if self._batched_body(tc) is None:
             return
         es = first.es
@@ -617,7 +624,11 @@ class CUDADevice(Device):
         from ..runtime.scheduling import complete_execution
         pins.fire(PinsEvent.DEVICE_BATCH_BEGIN, None, len(batch))
         t0 = time.perf_counter()
-        self.stage_in_many([d.task for d in batch])
+        # user-hooked tasks stage one by one, the rest in one batch
+        for dtask in batch:
+            if dtask.stage_in is not None:
+                dtask.stage_in(self, dtask.task)
+        self.stage_in_many([d.task for d in batch if d.stage_in is None])
         t1 = time.perf_counter()
         self.t_stage_in += t1 - t0
         name = batch[0].task.task_class.name
@@ -635,6 +646,8 @@ class CUDADevice(Device):
         t2 = time.perf_counter()
         self.t_dispatch += t2 - t1
         for dtask in batch:
+            if dtask.stage_out is not None:
+                dtask.stage_out(self, dtask.task)
             complete_execution(dtask.es, dtask.task)
         self.t_complete += time.perf_counter() - t2
         pins.fire(PinsEvent.DEVICE_BATCH_END, None, len(batch))
@@ -655,6 +668,9 @@ class CUDADevice(Device):
         or the batch's tiles differ in shape or dtype (ragged edge
         tiles)."""
         tc = batch[0].task.task_class
+        if any(d.stage_in is not None or d.stage_out is not None
+               for d in batch):
+            return False   # custom stage hooks own data placement
         tr = self._batched_body(tc)
         if tr is None:
             return False

@@ -27,8 +27,14 @@ lies on this rank (``nb_local_tasks``, ``startup``).
 :meth:`PTGTaskpool.validate` verifies the built graph without running a
 body (:mod:`parsec_tpu_torch.analysis.graphcheck`).
 
-Left out: the JDF text front-ends, user-defined key/dep/startup
-overrides, SIMCOST, stage hooks, ranged inputs and pool options.
+A class may override its key (``make_key``), its tracker location
+(``find_deps``), its key hashing (``hash_struct``) and its startup
+enumeration (``startup``), carry a simulated cost (``simcost``) and
+device stage hooks (``stage_hooks``); an input may be a ranged fan-in
+(``ranged=True``, CTL only, counted toward a goal); the builder's
+``option`` sets the pool's ``nb_local_tasks_fn`` and its termination
+detector.  The JDF text front-ends (:mod:`parsec_tpu_torch.ptg.jdf` and
+:mod:`parsec_tpu_torch.ptg.jdf_c`) parse into this builder.
 """
 
 from __future__ import annotations
@@ -73,6 +79,10 @@ class _DictNS:
     def __getitem__(self, k):
         return self._d[k]
 
+    @property
+    def __dict__(self):   # vars(g), as the JDF expression evaluator reads
+        return self._d
+
 
 class FlowBuilder:
     def __init__(self, tcb: "TaskClassBuilder", name: str, access: Any,
@@ -86,14 +96,26 @@ class FlowBuilder:
 
     def input(self, pred: tuple | None = None, data: tuple | None = None,
               guard: Callable | None = None, dtt: Any = None,
-              new: bool = False, null: bool = False) -> "FlowBuilder":
+              new: bool = False, null: bool = False,
+              ranged: bool = False) -> "FlowBuilder":
         """Add an input arrow: ``pred=(class, flow, params_fn)`` from a
         task, ``data=(collection, key_fn)`` from a collection, ``new=True``
-        for a fresh tile of the flow's type, ``null=True`` for no data."""
+        for a fresh tile of the flow's type, ``null=True`` for no data.
+        ``ranged=True`` marks a fan-in whose ``params_fn`` returns a
+        sequence of predecessor instances, each expected to arrive (the
+        JDF ``<- ctl T(k, 0 .. NB .. 2)``; CTL joins only)."""
         if new and dtt is None and self.dtt is None:
-            raise ValueError(f"flow {self.name}: NEW needs a tile type")
+            raise ValueError(
+                f"flow {self.name}: NEW needs a tile type to allocate "
+                f"(pass dtt= on the arrow or declare it on the flow)")
+        if ranged and self.access != CTL:
+            # N producers racing one datum slot is nondeterministic
+            raise ValueError(
+                f"flow {self.name}: ranged fan-in input on a data flow; "
+                f"range inputs are CTL-only")
         self._deps_in.append(self._tcb._mk_dep(pred, data, guard, dtt,
-                                               new=new, null=null))
+                                               new=new, null=null,
+                                               ranged=ranged))
         if new and dtt is not None and self.dtt is None:
             self.dtt = dtt
         return self
@@ -124,6 +146,14 @@ class TaskClassBuilder:
         self._affinity: Callable | None = None
         self._priority: Callable | None = None
         self._time_estimate: Callable | None = None
+        # user-defined overrides and the simulated cost
+        self._make_key: Callable | None = None
+        self._find_deps: Callable | None = None
+        self._hash_struct: Any = None
+        self._startup: Callable | None = None
+        self._simcost: Callable | None = None
+        self._stage_in_hook: Callable | None = None
+        self._stage_out_hook: Callable | None = None
 
     def affinity(self, collection: Any, key_fn: Callable) -> "TaskClassBuilder":
         dc_get = self._ptg._dc_getter(collection)
@@ -145,6 +175,55 @@ class TaskClassBuilder:
     def time_estimate(self, fn: Callable) -> "TaskClassBuilder":
         """``fn(task, device) -> seconds``, fed to best-device selection."""
         self._time_estimate = fn
+        return self
+
+    def make_key(self, fn: Callable) -> "TaskClassBuilder":
+        """``make_key_fn``: the task key ``fn(g, l)`` (any hashable; a
+        non-tuple is wrapped by the runtime)."""
+        g_ns = self._ptg._g_ns
+        self._make_key = lambda locals_: fn(g_ns(), _ns(locals_))
+        return self
+
+    def find_deps(self, fn: Callable) -> "TaskClassBuilder":
+        """``find_deps_fn``: the tracker's identity
+        ``fn(taskpool, g, l)``."""
+        g_ns = self._ptg._g_ns
+        self._find_deps = lambda tp, locals_: fn(tp, g_ns(), _ns(locals_))
+        return self
+
+    def hash_struct(self, key_hash: Callable | None = None,
+                    key_equal: Callable | None = None,
+                    key_print: Callable | None = None) -> "TaskClassBuilder":
+        """``hash_struct``: user hashing, equality and printing of the
+        raw key tuples."""
+        from ..runtime.task import KeyHashStruct
+        self._hash_struct = KeyHashStruct(key_hash, key_equal, key_print)
+        return self
+
+    def startup(self, fn: Callable) -> "TaskClassBuilder":
+        """``startup_fn``: ``fn(taskpool, context, g) -> iterable of locals
+        dicts`` naming the initially-ready instances (in place of the
+        empty-IN-mask scan)."""
+        self._startup = fn
+        return self
+
+    def simcost(self, fn: Callable) -> "TaskClassBuilder":
+        """``SIMCOST``: a simulated cost ``fn(g, l) -> float``; the pool
+        then tracks ``largest_simulation_date``."""
+        g_ns = self._ptg._g_ns
+        self._simcost = lambda locals_: fn(g_ns(), _ns(locals_))
+        return self
+
+    def stage_hooks(self, stage_in: Callable | None = None,
+                    stage_out: Callable | None = None
+                    ) -> "TaskClassBuilder":
+        """User transfer hooks of this class's device tasks, each
+        ``fn(device, task)`` in place of the default stage-in or
+        stage-out; only the hooks given are updated."""
+        if stage_in is not None:
+            self._stage_in_hook = stage_in
+        if stage_out is not None:
+            self._stage_out_hook = stage_out
         return self
 
     def body(self, fn: Callable | None = None, device: str = "cpu",
@@ -186,7 +265,7 @@ class TaskClassBuilder:
     def _mk_dep(self, ref: tuple | None, data: tuple | None,
                 guard: Callable | None, dtt: Any,
                 new: bool = False, null: bool = False,
-                wire: Any = None) -> Dep:
+                ranged: bool = False, wire: Any = None) -> Dep:
         g_ns = self._ptg._g_ns
         gfn = None
         if guard is not None:
@@ -201,7 +280,8 @@ class TaskClassBuilder:
             return Dep(guard=gfn, target_class=cls_name,
                        target_flow=flow_name,
                        target_params=lambda locals_: params_fn(
-                           g_ns(), _ns(locals_)), dtt=dtt, wire=wfn)
+                           g_ns(), _ns(locals_)), dtt=dtt, ranged=ranged,
+                       wire=wfn)
         if data is not None:
             collection, key_fn = data
             dc_get = self._ptg._dc_getter(collection)
@@ -235,7 +315,16 @@ class TaskClassBuilder:
                        flows=[fb._build() for fb in self._flows],
                        chores=list(self._chores), affinity=self._affinity,
                        priority=self._priority,
-                       time_estimate=self._time_estimate)
+                       time_estimate=self._time_estimate,
+                       make_key_fn=self._make_key,
+                       find_deps_fn=self._find_deps,
+                       hash_struct=self._hash_struct,
+                       startup_fn=self._startup, simcost=self._simcost)
+        # the device module reads the transfer overrides per dispatch
+        if self._stage_in_hook is not None:
+            tc.stage_in_hook = self._stage_in_hook
+        if self._stage_out_hook is not None:
+            tc.stage_out_hook = self._stage_out_hook
         g_ns = self._ptg._g_ns
         ranges = self.param_ranges
 
@@ -289,8 +378,10 @@ class PTGTaskpool(Taskpool):
         self.local_traceables: dict[str, Any] = {}
 
     @property
-    def globals(self) -> dict:
-        return self._builder.globals
+    def globals(self) -> Any:
+        """The bound globals as a live view (``g.NT`` and ``g["NT"]``); UD
+        override functions read problem sizes through it."""
+        return self._builder._g_ns()
 
     def validate(self, nb_ranks: int | None = None,
                  raise_on_error: bool = True) -> Any:
@@ -320,7 +411,10 @@ class PTGTaskpool(Taskpool):
         return foreign
 
     def nb_local_tasks(self) -> int:
-        """Tasks whose affinity lands on this rank."""
+        """Tasks whose affinity lands on this rank; a pool-level
+        ``nb_local_tasks_fn`` replaces the scan."""
+        if self._builder._nb_local_tasks_fn is not None:
+            return int(self._builder._nb_local_tasks_fn(self))
         foreign = self._foreign(self.context)
         return sum(sum(1 for l in self._tc_builders[tc.name]._enumerate_space()
                        if not foreign(tc, l))
@@ -332,8 +426,15 @@ class PTGTaskpool(Taskpool):
         foreign = self._foreign(context)
         out = []
         for tc in self.task_classes:
-            for locals_ in self._tc_builders[tc.name]._enumerate_space():
-                if tc.input_dep_mask(locals_) or foreign(tc, locals_):
+            tcb = self._tc_builders[tc.name]
+            if tc.startup_fn is not None:
+                # UD startup: the user names the initially-ready instances
+                space = tc.startup_fn(self, context, tcb._ptg._g_ns())
+            else:
+                space = (l for l in tcb._enumerate_space()
+                         if tc.input_dep_mask(l) == 0)
+            for locals_ in space:
+                if foreign(tc, locals_):
                     continue
                 prio = tc.priority(locals_) if tc.priority else 0
                 t = Task(self, tc, dict(locals_), priority=prio)
@@ -351,6 +452,19 @@ class PTGBuilder:
         self.globals = dict(globals_)
         self._classes: list[TaskClassBuilder] = []
         self._g_view = _DictNS(self.globals)
+        self._nb_local_tasks_fn: Callable | None = None
+        self._termdet: str | None = None
+
+    def option(self, nb_local_tasks_fn: Callable | None = None,
+               termdet: str | None = None) -> "PTGBuilder":
+        """Pool options (the JDF ``%option``): ``nb_local_tasks_fn(taskpool)
+        -> int`` replaces the execution-space count; ``termdet`` names the
+        pool's termination detector."""
+        if nb_local_tasks_fn is not None:
+            self._nb_local_tasks_fn = nb_local_tasks_fn
+        if termdet is not None:
+            self._termdet = termdet
+        return self
 
     def _g_ns(self) -> _DictNS:
         return self._g_view
@@ -367,6 +481,7 @@ class PTGBuilder:
 
     def build(self) -> PTGTaskpool:
         tp = PTGTaskpool(self.name, self)
+        tp.termdet_name = self._termdet
         for tcb in self._classes:
             tc = tp.add_task_class(tcb._build())
             tp._tc_builders[tc.name] = tcb

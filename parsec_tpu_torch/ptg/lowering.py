@@ -431,6 +431,11 @@ def _analyze(tp) -> dict[str, _ClassInfo]:
             raise LoweringError(
                 f"task class {tc.name} has data flows but no traceable "
                 f"kernel incarnation (register_traceable under its dyld name)")
+        if getattr(tc, "stage_in_hook", None) is not None \
+                or getattr(tc, "stage_out_hook", None) is not None:
+            raise LoweringError(
+                f"task class {tc.name}: custom stage hooks own data "
+                f"placement — they run on the dynamic device path only")
         for f in tc.flows:
             for d in (*f.deps_in, *f.deps_out):
                 if d.dtt is not None:

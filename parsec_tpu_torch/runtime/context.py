@@ -36,9 +36,9 @@ worker of stream 0 (and by a busy one while fragments are in flight) or
 by the caller-driven loop, and finalized by :meth:`fini`;
 :meth:`comm_barrier` fences until the fabric is silent, and the release
 path reaches it through :meth:`remote_dep_accumulate` /
-:meth:`remote_dep_activate`.  The detector of a pool is the
-``termdet`` param (``local`` when empty); a rank-private pool always
-takes ``local``.
+:meth:`remote_dep_activate`.  The detector of a pool is its own
+``termdet_name``, else the ``termdet`` param (``local`` when empty); a
+rank-private pool always takes ``local``.
 
 **Enqueue gate.**  Under the ``analysis_check`` param,
 :meth:`add_taskpool` verifies a PTG pool with
@@ -253,8 +253,9 @@ class Context:
             tp.local_only = local_only = tp.local_only or local_only
             pins.fire(PinsEvent.TASKPOOL_INIT, None, tp)
             if tp.tdm is None:
+                # rank-private forces local > the pool's own > the param
                 name = "local" if local_only else \
-                    (_params.get("termdet") or "local")
+                    (tp.termdet_name or _params.get("termdet") or "local")
                 tp.tdm = open_termdet(name, self)
             tp.tdm.monitor_taskpool(tp, tp.terminated)
             with self._lock:

@@ -578,6 +578,10 @@ def _check_eligible(classes) -> None:
     for tc in classes:
         if tc.prepare_input is not None or tc.complete_execution is not None:
             raise _Ineligible
+        if (tc.make_key_fn is not None or tc.find_deps_fn is not None
+                or tc.hash_struct is not None or tc.startup_fn is not None
+                or tc.simcost is not None or tc.counted):
+            raise _Ineligible   # UD overrides / SIM dates run dynamically
         if len(tc.chores) != 1:
             raise _Ineligible   # multi-incarnation selection is dynamic
         ch = tc.chores[0]

@@ -18,8 +18,12 @@ The trackers live in one of three tiers that share that protocol:
   taken by classes the index tier does not hold when the key packs;
 - **hashed**: a Python table for any other key.
 
-Left out: the goal-counted mode of ranged deps and user-defined key and
-dep-location functions (the port's task classes have none).  The
+A counted class (one with a ranged input dep) decrements a per-task goal
+in the hashed Python tier (:meth:`DependencyTracking._release_counted`)
+before any other tier is consulted: the native table keeps bitmasks only.
+A user ``find_deps_fn`` names the tracker's location itself
+(:func:`_tracker_key`) and keeps its class out of the index and native
+tiers; a user ``make_key_fn`` keeps it out of the index tier.  The
 runtimelint contract table (``_LOCK_PROTECTED``) names the locks of the
 index and input tables.
 """
@@ -73,14 +77,25 @@ def _pack_key64(tpid: int, tcid: int, key: tuple) -> int | None:
     return (tpid << (_TC_BITS + _PARAM_BITS)) | (tcid << _PARAM_BITS) | v
 
 
+def _tracker_key(taskpool: Any, tc: TaskClass, locals_: dict,
+                 tkey: tuple) -> tuple:
+    """Where a task's tracker lives in the hashed tier: a user
+    ``find_deps_fn`` answers with any hashable identity."""
+    if tc.find_deps_fn is not None:
+        return (taskpool.taskpool_id, tc.find_deps_fn(taskpool, locals_))
+    return (taskpool.taskpool_id, tc.task_class_id, tkey)
+
+
 class _DepTracker:
-    __slots__ = ("required_mask", "satisfied_mask", "inputs", "repo_refs")
+    __slots__ = ("required_mask", "satisfied_mask", "inputs", "repo_refs",
+                 "goal")
 
     def __init__(self, required_mask: int, nflows: int) -> None:
         self.required_mask = required_mask
         self.satisfied_mask = 0
         self.inputs: list[Any] = [None] * nflows
         self.repo_refs: list[Any] = [None] * nflows
+        self.goal = -1   # >= 0: counted mode, arrivals still expected
 
 
 class _IndexArrayStore:
@@ -173,6 +188,11 @@ class DependencyTracking:
         ``repo_ref`` is (repo_entry, src_flow_index), consumed at
         completion."""
         tkey = tc.make_key(locals_)
+        if tc.counted:
+            # goal-counted (ranged deps): N arrivals may land on one
+            # declared dep, so they count down instead of setting bits
+            return self._release_counted(taskpool, tc, locals_, tkey,
+                                         flow_index, data_copy, repo_ref)
         bit = 1 << tc.dep_bit(flow_index, dep_index)
         if self._indexed_eligible(tc):
             li = _IndexArrayStore.slot(tc.space_extents, tkey)
@@ -181,13 +201,14 @@ class DependencyTracking:
                     taskpool, tc, [((tc, locals_, flow_index, dep_index,
                                      data_copy, repo_ref), li)])
                 return ready[0] if ready else None
-        if self._native is not None:
+        if self._native is not None and tc.find_deps_fn is None:
+            # a UD key with non-int elements refuses to pack
             k64 = _pack_key64(taskpool.taskpool_id, tc.task_class_id, tkey)
             if k64 is not None:
                 return self._release_native(taskpool, tc, locals_, k64,
                                             bit, flow_index, data_copy,
                                             repo_ref)
-        key = (taskpool.taskpool_id, tc.task_class_id, tkey)
+        key = _tracker_key(taskpool, tc, locals_, tkey)
         with self._table.locked(key):
             trk = self._table.get(key)
             if trk is None:
@@ -213,7 +234,9 @@ class DependencyTracking:
         predicate both release paths share (a split would route one
         successor's records through two trackers and hang the pool)."""
         store = self._index_store
-        return (store is not None and tc.space_extents is not None
+        return (store is not None and not tc.counted
+                and tc.find_deps_fn is None and tc.make_key_fn is None
+                and tc.space_extents is not None
                 and store.fits(tc.space_extents))
 
     def release_many(self, taskpool: Any,
@@ -290,6 +313,31 @@ class DependencyTracking:
         return [self._make_ready(taskpool, tc, locals_, trk.inputs,
                                  trk.repo_refs)
                 for locals_, trk in done]
+
+    def _release_counted(self, taskpool: Any, tc: TaskClass, locals_: dict,
+                         tkey: tuple, flow_index: int, data_copy: Any,
+                         repo_ref: Any) -> Task | None:
+        key = _tracker_key(taskpool, tc, locals_, tkey)
+        with self._table.locked(key):
+            trk = self._table.get(key)
+            if trk is None:
+                trk = _DepTracker(0, len(tc.flows))
+                trk.goal = tc.input_dep_goal(locals_)
+                self._table.insert(key, trk)
+            if trk.goal <= 0:
+                raise RuntimeError(
+                    f"dep {tc.name}{tkey}: more arrivals than the goal")
+            trk.goal -= 1
+            if data_copy is not None:
+                trk.inputs[flow_index] = data_copy
+                trk.repo_refs[flow_index] = repo_ref
+            ready = trk.goal == 0
+            if ready:
+                self._table.remove(key)
+        if not ready:
+            return None
+        return self._make_ready(taskpool, tc, locals_, trk.inputs,
+                                trk.repo_refs)
 
     def _release_native(self, taskpool: Any, tc: TaskClass, locals_: dict,
                         k64: int, bit: int, flow_index: int,

@@ -19,8 +19,13 @@ PREPARE_INPUT, EXEC, COMPLETE_EXEC, SCHEDULE, RELEASE_DEPS) through the
 dispatch table bound once at import: a disabled site is one index load
 and a falsy branch.
 
-Left out: typed-edge reshape, the simulation cost model and the paranoid
-write-back checks.
+A typed edge hands its consumer a lazy shared repack
+(:mod:`parsec_tpu_torch.data.reshape`): the release stores the future as
+the input, and ``prepare_input`` resolves it on the consumer's thread.  A
+pool whose classes carry a ``simcost`` tracks the simulated critical path
+(``Taskpool.largest_simulation_date``).
+
+Left out: the paranoid write-back checks.
 """
 
 from __future__ import annotations
@@ -28,17 +33,23 @@ from __future__ import annotations
 import threading
 from typing import Any
 
+from ..core.future import DataCopyFuture
 from ..core.params import params as _params
+from ..data.reshape import (reshape_for_edge, reshape_for_writeback,
+                            resolve_copy)
 from ..prof import pins
 from ..prof.pins import PinsEvent
 from .task import (HOOK_RETURN_AGAIN, HOOK_RETURN_ASYNC, HOOK_RETURN_DISABLE,
                    HOOK_RETURN_DONE, HOOK_RETURN_ERROR, HOOK_RETURN_NEXT,
                    Task, TaskClass)
 
-# the runtime lint's contract (analysis/runtimelint.py): the port's
-# scheduling core holds no lock of its own (the simulation dates and the
-# write-back marks the JAX module guards are not ported)
-_LOCK_PROTECTED = {}
+# the runtime lint's contract (analysis/runtimelint.py): the simulation
+# dates move under the pool's _sim_lock (the JAX module's paranoid
+# write-back marks are not ported)
+_LOCK_PROTECTED = {
+    "Taskpool._sim_ready": "_sim_lock",
+    "Taskpool.largest_simulation_date": "_sim_lock",
+}
 _LOCK_ORDER = ()
 
 _params.register(
@@ -209,7 +220,8 @@ def resolve_data_inputs(task: Task) -> None:
                 if copy is None:
                     raise RuntimeError(
                         f"{task}: flow {f.name} has no valid copy")
-                task.data[f.flow_index] = copy
+                # a typed collection read: a lazy shared repack
+                task.data[f.flow_index] = reshape_for_edge(copy, None, d)
                 break
 
 
@@ -222,6 +234,10 @@ def prepare_input(es: ExecutionStream, task: Task) -> None:
         task.task_class.prepare_input(es, task)
         return
     resolve_data_inputs(task)
+    # the first consumer to prepare runs a pending repack on its thread
+    for i, v in enumerate(task.data):
+        if isinstance(v, DataCopyFuture):
+            task.data[i] = resolve_copy(v)
     for f in task.task_class.flows:
         if f.is_ctl or task.data[f.flow_index] is not None:
             continue
@@ -252,8 +268,18 @@ def complete_execution(es: ExecutionStream, task: Task) -> None:
     h = _hooks[_COMPLETE_EXEC_BEGIN]
     if h is not None:
         h(es, task)
-    if task.task_class.complete_execution is not None:
-        task.task_class.complete_execution(es, task)
+    tc = task.task_class
+    tp = task.taskpool
+    if tc.complete_execution is not None:
+        tc.complete_execution(es, task)
+    if tp.sim_enabled:
+        # exec date = the latest predecessor's date + this task's cost
+        with tp._sim_lock:
+            start = tp._sim_ready.pop((tc.name, task.key), 0.0)
+            task.sim_exec_date = start + (
+                float(tc.simcost(task.locals)) if tc.simcost else 0.0)
+            if task.sim_exec_date > tp.largest_simulation_date:
+                tp.largest_simulation_date = task.sim_exec_date
     release_deps(es, task)
     for ref in task.repo_entries:
         if ref is not None:
@@ -296,7 +322,8 @@ def release_deps(es: ExecutionStream, task: Task) -> None:
                 return
             if out_copy is not None and dep.data_ref is not None:
                 dc, key = dep.data_ref(t.locals)
-                apply_writeback_to_home(dc, key, out_copy)
+                apply_writeback_to_home(
+                    dc, key, reshape_for_writeback(out_copy, dep, dc, key))
             return
         succ_tc = tp.task_class(dep.target_class)
         for succ_locals in dep.each_target(t.locals):
@@ -308,16 +335,27 @@ def release_deps(es: ExecutionStream, task: Task) -> None:
                 remote = ctx.remote_dep_accumulate(remote, t, flow, dep,
                                                    succ_tc, succ_locals, rank)
                 continue
+            if tp.sim_enabled:
+                # simulated dates are rank-local: only successors that run
+                # here record a ready date
+                skey = (succ_tc.name, succ_tc.make_key(succ_locals))
+                with tp._sim_lock:
+                    if t.sim_exec_date > tp._sim_ready.get(skey, 0.0):
+                        tp._sim_ready[skey] = t.sim_exec_date
             fi, di = _find_input_dep(succ_tc, dep.target_flow, tc.name,
                                      succ_locals)
             repo_ref = None
+            send = out_copy
             if out_copy is not None:
                 if entry is None:
                     entry = tc.repo.lookup_and_create(t.key)
                 entry.set_output(flow.flow_index, out_copy)
                 repo_ref = (entry, flow.flow_index)
                 nconsumers += 1
-            pending.append((succ_tc, succ_locals, fi, di, out_copy, repo_ref))
+                # a typed edge: the consumer gets a lazy shared repack
+                send = reshape_for_edge(out_copy, dep,
+                                        succ_tc.flows[fi].deps_in[di])
+            pending.append((succ_tc, succ_locals, fi, di, send, repo_ref))
 
     tc.iterate_successors(task, visitor)
     if entry is not None:

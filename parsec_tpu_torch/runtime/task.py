@@ -11,9 +11,12 @@ A class may carry its own ``prepare_input`` and ``complete_execution``
 records), and ``space_extents``: the static box of its execution space
 that the index-array dep tier indexes.
 
-Left out: ranged (goal-counted) input deps, user-defined key functions
-(``make_key_fn``, ``find_deps_fn``, ``hash_struct``), custom startup and
-the simulation cost model.
+A ranged input dep (``Dep.ranged``, the JDF ``<- ctl T(k, 0 .. NB)``
+fan-in) makes its class *counted*: arrivals count toward
+:meth:`TaskClass.input_dep_goal` instead of setting mask bits.  The
+user-defined overrides (``make_key_fn``, ``find_deps_fn``,
+``hash_struct`` through :class:`UDKey`, ``startup_fn``) and the
+simulation cost (``simcost``) ride on the class.
 """
 
 from __future__ import annotations
@@ -51,11 +54,12 @@ class Dep:
     a NEW arrow (fresh tile of the flow's type) or, with ``null=True``, a
     NULL arrow.  ``wire`` is the sub-view a remote successor receives
     (slices, or a function of the locals); same-rank edges carry the
-    whole tile.
+    whole tile.  A ``ranged`` input dep expects one arrival per instance
+    of ``each_target`` (a counted fan-in).
     """
 
     __slots__ = ("guard", "target_class", "target_flow", "target_params",
-                 "dtt", "data_ref", "null", "wire")
+                 "dtt", "data_ref", "null", "ranged", "wire")
 
     def __init__(self, guard: Callable[[dict], bool] | None = None,
                  target_class: str | None = None,
@@ -63,7 +67,8 @@ class Dep:
                  target_params: Callable[[dict], Any] | None = None,
                  dtt: Any = None,
                  data_ref: Callable[[dict], tuple] | None = None,
-                 null: bool = False, wire: Any = None) -> None:
+                 null: bool = False, ranged: bool = False,
+                 wire: Any = None) -> None:
         self.guard = guard
         self.target_class = target_class
         self.target_flow = target_flow
@@ -71,6 +76,7 @@ class Dep:
         self.dtt = dtt
         self.data_ref = data_ref
         self.null = null
+        self.ranged = ranged
         self.wire = wire
 
     def wire_slices(self, locals_: dict) -> tuple | None:
@@ -125,6 +131,48 @@ class Chore:
         self.enabled = True
 
 
+class KeyHashStruct:
+    """User key semantics (the JDF ``hash_struct`` property):
+    ``key_hash(key) -> int``, ``key_equal(a, b) -> bool``,
+    ``key_print(key) -> str``, applied through :class:`UDKey`."""
+
+    __slots__ = ("key_hash", "key_equal", "key_print")
+
+    def __init__(self, key_hash: Callable[[Any], int] | None = None,
+                 key_equal: Callable[[Any, Any], bool] | None = None,
+                 key_print: Callable[[Any], str] | None = None) -> None:
+        self.key_hash = key_hash
+        self.key_equal = key_equal
+        self.key_print = key_print
+
+
+class UDKey:
+    """A task key carrying a :class:`KeyHashStruct`: the tracker and repo
+    hash tables call the user's hash and equality."""
+
+    __slots__ = ("key", "hs")
+
+    def __init__(self, key: tuple, hs: KeyHashStruct) -> None:
+        self.key = key
+        self.hs = hs
+
+    def __hash__(self) -> int:
+        if self.hs.key_hash is not None:
+            return int(self.hs.key_hash(self.key))
+        return hash(self.key)
+
+    def __eq__(self, other: Any) -> bool:
+        ok = other.key if isinstance(other, UDKey) else other
+        if self.hs.key_equal is not None:
+            return bool(self.hs.key_equal(self.key, ok))
+        return self.key == ok
+
+    def __repr__(self) -> str:
+        if self.hs.key_print is not None:
+            return self.hs.key_print(self.key)
+        return repr(self.key)
+
+
 class TaskClass:
     """Static description of one task kind (cf. ``parsec_task_class_t``)."""
 
@@ -135,7 +183,12 @@ class TaskClass:
                  priority: Callable[[dict], int] | None = None,
                  time_estimate: Callable[[Any, Any], float] | None = None,
                  prepare_input: Callable | None = None,
-                 complete_execution: Callable | None = None) -> None:
+                 complete_execution: Callable | None = None,
+                 make_key_fn: Callable[[dict], Any] | None = None,
+                 find_deps_fn: Callable | None = None,
+                 hash_struct: Any = None,
+                 startup_fn: Callable | None = None,
+                 simcost: Callable[[dict], float] | None = None) -> None:
         self.name = name
         self.params = list(params)
         self.flows = list(flows)
@@ -150,6 +203,13 @@ class TaskClass:
         # successor walk (DTD's per-instance release)
         self.prepare_input = prepare_input
         self.complete_execution = complete_execution
+        # user-defined overrides: key construction, tracker location, key
+        # hashing, startup enumeration, and the simulated cost
+        self.make_key_fn = make_key_fn
+        self.find_deps_fn = find_deps_fn
+        self.hash_struct = hash_struct
+        self.startup_fn = startup_fn
+        self.simcost = simcost
         # static execution-space box ((lo, stop) per param) for the
         # index-array dep tier, computed lazily at first use so globals
         # bound between build and execution count
@@ -159,6 +219,9 @@ class TaskClass:
         # builder: out-of-space successor edges are dropped at release
         self.in_space: Callable[[dict], bool] | None = None
         self.repo = None                  # DataRepo, attached by the taskpool
+        # a ranged input dep counts arrivals toward a goal instead of
+        # OR-ing mask bits (the dependencies_goal protocol)
+        self.counted = any(d.ranged for f in self.flows for d in f.deps_in)
         if len(self.params) >= 2:
             self._keyget = itemgetter(*self.params)
         elif len(self.params) == 1:
@@ -175,7 +238,17 @@ class TaskClass:
                 bit += 1
 
     def make_key(self, locals_: dict) -> tuple:
-        return self._keyget(locals_)
+        """The task key: the params in order, or the user ``make_key_fn``'s
+        key (a non-tuple is wrapped); a ``hash_struct`` wraps it in a
+        :class:`UDKey`."""
+        if self.make_key_fn is not None:
+            k = self.make_key_fn(locals_)
+            k = k if isinstance(k, tuple) else (k,)
+        else:
+            k = self._keyget(locals_)
+        if self.hash_struct is not None:
+            return (UDKey(k, self.hash_struct),)
+        return k
 
     @property
     def space_extents(self) -> tuple | None:
@@ -192,9 +265,23 @@ class TaskClass:
         for f in self.flows:
             for d in f.deps_in:
                 if d.target_class is not None and d.active(locals_):
-                    mask |= 1 << bit
+                    # an active ranged dep over an empty range expects no
+                    # arrival and must not gate readiness
+                    if not d.ranged or d.each_target(locals_):
+                        mask |= 1 << bit
                 bit += 1
         return mask
+
+    def input_dep_goal(self, locals_: dict) -> int:
+        """Expected arrivals of a counted class: one per active
+        task-predecessor dep, one per target instance of a ranged dep."""
+        goal = 0
+        for f in self.flows:
+            for d in f.deps_in:
+                if d.target_class is None or not d.active(locals_):
+                    continue
+                goal += len(d.each_target(locals_)) if d.ranged else 1
+        return goal
 
     def dep_bit(self, flow_index: int, dep_index: int) -> int:
         return self._dep_bits[(flow_index, dep_index)]
@@ -215,7 +302,7 @@ class Task:
 
     __slots__ = ("taskpool", "task_class", "locals", "priority", "data",
                  "repo_entries", "status", "chore_mask", "uid",
-                 "selected_device")
+                 "selected_device", "sim_exec_date")
 
     def __init__(self, taskpool: Any, task_class: TaskClass,
                  locals_: dict, priority: int = 0) -> None:
@@ -230,6 +317,7 @@ class Task:
         self.chore_mask = (1 << len(task_class.chores)) - 1
         self.uid = next(_task_counter)
         self.selected_device = None
+        self.sim_exec_date = 0.0   # simulated completion date (simcost)
 
     @property
     def key(self) -> tuple:

@@ -6,9 +6,11 @@ repos, a termination-detection monitor (the only path to ``nb_tasks``),
 startup enumeration and completion listeners
 (:meth:`Taskpool.add_completion_listener`).  On several ranks a pool
 carries the rank-agreed ``comm_id`` its context gives it at enqueue (None
-for a rank-private ``local_only`` pool).  Left out: the process-wide
-taskpool registry, sequential composition (``compose``), region plans and
-the simulation date.
+for a rank-private ``local_only`` pool).  ``termdet_name`` picks the
+pool's own termination detector (the JDF ``%option termdet``), and a pool
+whose classes carry a ``simcost`` tracks ``largest_simulation_date``.
+Left out: the process-wide taskpool registry, sequential composition
+(``compose``) and region plans.
 """
 
 from __future__ import annotations
@@ -34,6 +36,14 @@ class Taskpool:
         # wire identity, set at enqueue (None: never on the wire)
         self.comm_id: int | None = None
         self.local_only = False
+        # this pool's termination detector by name (None: the termdet
+        # param's)
+        self.termdet_name: str | None = None
+        # the simulated cost model: on when a class carries a simcost
+        self.sim_enabled = False
+        self._sim_ready: dict = {}      # (class, key) -> latest pred date
+        self._sim_lock = threading.Lock()
+        self.largest_simulation_date = 0.0
         self.task_classes: list[TaskClass] = []
         self.task_classes_by_name: dict[str, TaskClass] = {}
         for tc in task_classes:
@@ -47,6 +57,8 @@ class Taskpool:
         self.task_classes.append(tc)
         self.task_classes_by_name[tc.name] = tc
         tc.repo = DataRepo(len(tc.flows), name=f"{self.name}.{tc.name}")
+        if tc.simcost is not None:
+            self.sim_enabled = True
         return tc
 
     def task_class(self, name: str) -> TaskClass:

@@ -13,11 +13,11 @@ activation in flight until its consumer acknowledges it.
 are the hooks the remote-dep engine calls for every activation message;
 they count nothing here.  The distributed four-counter detector
 (:mod:`parsec_tpu_torch.comm.termdet_fourcounter`) overrides them and the
-idle check, and registers itself under ``fourcounter``.
-:func:`open_termdet` opens a detector by name (the ``termdet`` param);
-the registry stands in for the JAX package's MCA component query.
-
-Left out: the user-trigger detector.
+idle check, and registers itself under ``fourcounter``.  The user-trigger
+detector (``user_trigger``) counts but terminates only on
+:meth:`UserTriggerTermDet.trigger`.  :func:`open_termdet` opens a detector
+by name (a pool's ``termdet_name``, else the ``termdet`` param); the
+registry stands in for the JAX package's MCA component query.
 """
 
 from __future__ import annotations
@@ -118,8 +118,26 @@ class LocalTermDet(TermDetMonitor):
     name = "local"
 
 
+class UserTriggerTermDet(TermDetMonitor):
+    """Application-driven termination (``termdet/user_trigger``): the
+    counters are kept, but only :meth:`trigger` terminates the pool."""
+
+    name = "user_trigger"
+
+    def _check_idle_locked(self) -> bool:
+        return False
+
+    def trigger(self) -> None:
+        with self._lock:
+            already = self.state == STATE_TERMINATED
+            self.state = STATE_TERMINATED
+        if not already:
+            self._terminate()
+
+
 _DETECTORS: dict[str, Callable[[Any], TermDetMonitor]] = {
-    "local": lambda context: LocalTermDet()}
+    "local": lambda context: LocalTermDet(),
+    "user_trigger": lambda context: UserTriggerTermDet()}
 
 
 def register_termdet(name: str,

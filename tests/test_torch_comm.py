@@ -630,10 +630,11 @@ def test_wire_view_ships_the_sub_tile(both_params, wire):
 
 def test_typed_remote_edge_is_refused():
     """A remote edge whose consumer (on rank 0) declares another tile type
-    would need the typed reshape, which is not ported: the run fails with
-    ``NotImplementedError``, never silently, and rank 1, whose
-    activation is never acknowledged, is released at once."""
-    def build(V):
+    is no longer refused: the wire carries the producer's (4,) tile and
+    the consumer's rank repacks it to its (2, 2) type on arrival (the
+    typed-edge reshape, ``data/reshape.py``), so the run completes with
+    the converted values and rank 1's activation is acknowledged."""
+    def build(V, seen):
         p = ptg.PTGBuilder("typed", V=V)
         w = p.task("W", z=ptg.span(0, 0))
         w.affinity("V", lambda g, l: (1,))
@@ -646,23 +647,26 @@ def test_typed_remote_edge_is_refused():
         r.flow("X", ptg.READ).input(
             pred=("W", "A", lambda g, l: {"z": 0}),
             dtt=TileType((2, 2), torch.float32))
-        r.body(lambda es, task, g, l: None)
+        r.body(lambda es, task, g, l:
+               seen.append(task.flow_data("X").value.clone()))
         return p.build()
 
     def body(ctx, rank, nranks):
-        ctx.add_taskpool(build(VectorTwoDimCyclic("V", 8, 4, P=2,
-                                                  myrank=rank)))
-        ctx.wait(timeout=60)    # rank 0's failure poisons rank 1 at once
+        seen = []
+        V = VectorTwoDimCyclic("V", 8, 4, P=2, myrank=rank,
+                               init_fn=lambda m, size:
+                               np.arange(size, dtype=np.float32) + 10 * m)
+        ctx.add_taskpool(build(V, seen))
+        ctx.wait(timeout=60)
+        ctx.comm_barrier()
+        return seen
 
     t0 = time.monotonic()
-    with pytest.raises(RuntimeError) as ei:
-        run_multirank(2, body, timeout=30)
+    res = run_multirank(2, body, timeout=30)
     assert time.monotonic() - t0 < 20
-    cause = ei.value.__cause__
-    while cause is not None and not isinstance(cause, NotImplementedError):
-        cause = cause.__cause__
-    assert isinstance(cause, NotImplementedError)
-    assert "item 10" in str(cause)
+    assert res[1] == [] and len(res[0]) == 1
+    assert torch.equal(res[0][0], torch.tensor([[10.0, 11.0],
+                                                [12.0, 13.0]]))
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,12 @@ layer, a chain across 2 rank processes of ``run_multiproc`` (each rank
 reports its own), the graphcheck CLI with a GEMM under the enqueue
 gate and the task profiler, and the tuner's and the perf ledger's
 self-tests with two cached lowerings, a sharded two-rank serving plane
-and an adaptive stream, then inspect ``sys.modules``
+and an adaptive stream, the port's ``stencil_1D.jdf`` copy on two rank
+threads with a JDF graph check and two rungs of the examples ladder,
+then inspect ``sys.modules``
 (subprocesses, because this test process already holds jax through
 ``conftest.py``); and an AST scan of every module of the package finds
-no such import.
+no such import (the JDF copy's prologue is scanned the same way).
 Names match exactly or by dotted prefix: ``parsec_tpu_torch`` itself
 starts with the string ``parsec_tpu``.
 """
@@ -635,6 +637,79 @@ def test_regions_commcheck_and_the_lint_load_no_jax_and_no_parsec_tpu():
     for m in ("parsec_tpu_torch.analysis.regions",
               "parsec_tpu_torch.analysis.commcheck",
               "parsec_tpu_torch.analysis.runtimelint"):
+        assert m in out["modules"], m
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_the_ast_scan_covers_the_jdf_front_ends_reshape_and_examples():
+    for rel in ("ptg/jdf.py", "ptg/jdf_c.py", "data/reshape.py",
+                "analysis/__main__.py"):
+        assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
+    ladder = sorted(Path(f).stem.split("_")[0] for f in PORT_FILES
+                    if f.startswith("parsec_tpu_torch/examples/Ex"))
+    assert ladder == [f"Ex{i:02d}" for i in (*range(8), 10, 11, 12)]
+
+
+def test_the_port_stencil_jdf_prologue_imports_no_jax_package():
+    """The prologue of the port's ``stencil_1D.jdf`` copy is Python the
+    JDF front-end executes: its imports are scanned like a module's."""
+    import re
+    text = (PORT / "examples" / "jdf" / "stencil_1D.jdf").read_text()
+    prologues = re.findall(r"%\{(.*?)%\}", text, flags=re.S)
+    assert prologues
+    names = set()
+    for src in prologues:
+        for node in ast.walk(ast.parse(textwrap.dedent(src))):
+            if isinstance(node, ast.Import):
+                names.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names.add(node.module)
+    assert "parsec_tpu_torch.data.datatype" in names
+    bad = [n for n in names if _forbidden(n)]
+    assert bad == [], bad
+
+
+def test_the_jdf_stencil_and_the_ladder_load_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter loads the port's ``stencil_1D.jdf`` copy, runs
+    it on two rank threads, checks a JDF with graphcheck's JDF prong and
+    runs Ex02 and Ex04 of the ladder."""
+    code = textwrap.dedent("""
+        import json, sys
+        import numpy as np
+        from parsec_tpu_torch import ptg
+        from parsec_tpu_torch.analysis import check_jdf
+        from parsec_tpu_torch.comm import run_multirank
+        from parsec_tpu_torch.data_dist.matrix import TwoDimBlockCyclic
+        from parsec_tpu_torch.examples import Ex02_Chain, Ex04_ChainData
+        JDF = "parsec_tpu_torch/examples/jdf/stencil_1D.jdf"
+        def body(ctx, rank, nranks):
+            init = lambda m, n, s: np.ones(s, np.float32) * (m == 0)
+            d = TwoDimBlockCyclic("descA", lm=4, ln=32, mb=2, nb=8, P=1,
+                                  Q=nranks, myrank=rank, init_fn=init)
+            tp = ptg.load_jdf(JDF).build(descA=d, iter=2, R=1,
+                                         W=np.array([0.25, 0.5, 0.25]),
+                                         LMT=2, LNT=4)
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=60)
+            ctx.comm_barrier()
+            return tp.nb_local_tasks()
+        ntasks = run_multirank(2, body)
+        from parsec_tpu_torch.data_dist.collection import DictCollection
+        rep = check_jdf(Ex04_ChainData.JDF, NB=3, A=DictCollection("A"))
+        print(json.dumps({"ntasks": ntasks, "chain": Ex02_Chain.main(),
+                          "data": Ex04_ChainData.main(),
+                          "checked": rep.ntasks,
+                          "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ntasks"] == [6, 6] and out["chain"] == 10.0
+    assert out["data"] == 15.0 and out["checked"] == 3
+    for m in ("parsec_tpu_torch.ptg.jdf", "parsec_tpu_torch.data.reshape",
+              "parsec_tpu_torch.examples.Ex02_Chain"):
         assert m in out["modules"], m
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded

@@ -225,13 +225,17 @@ def test_pack_key64_is_exact_or_refused_like_the_jax_package():
 
 
 class _CountingTable:
-    """A native dep table that counts its releases."""
+    """A native dep table that counts its releases.  The pool's worker
+    threads release concurrently (the native release holds no Python
+    lock), so the count moves under a lock of its own."""
 
     def __init__(self, inner):
         self.inner, self.calls = inner, 0
+        self._lock = threading.Lock()
 
     def release(self, *a):
-        self.calls += 1
+        with self._lock:
+            self.calls += 1
         return self.inner.release(*a)
 
     def __len__(self):
