@@ -127,7 +127,7 @@ any phase fails:
    and a run on the same tiles after the DTD run, under the same bound.
 14. **dispatch** — per-task dispatch on the card machine's host: the EP
    pool of ``models/ep.py`` (50 lanes, 10,000 CTL-only tasks with
-   empty bodies), median of 5: ``dispatch_us`` on the compiled-DAG
+   empty bodies), median of 3: ``dispatch_us`` on the compiled-DAG
    executor (it fails unless the executor and the native core engaged)
    and ``dynamic_dispatch_us`` under each of the eleven schedulers,
    beside the host CPU, with the always-on flight recorder at its
@@ -244,11 +244,11 @@ any phase fails:
    span a task run, no pool with an error; K2's launches on the line.
 22. **path multiproc_comm_thread** (after **multiproc_***) — the
    four-process Cholesky of **multiproc_cholesky** (n=8192, nb=1024, K1)
-   with ``comm_thread`` off, on, on, off, one launch each: every factor
-   under the gates, every run's GETs and payload bytes by tier equal to
-   the first run's (and its GETs to **multiproc_cholesky**'s); each line
-   carries the wall, ``get_ms_mean`` and the hops' host seconds
-   (``tier_seconds``).
+   with ``comm_thread`` on, one launch, beside phase 16's launch (the
+   same Cholesky with the thread off): the factor under the gates, its
+   GETs and payload bytes by tier equal to **multiproc_cholesky**'s; the
+   line carries the wall, ``get_ms_mean`` and the hops' host seconds
+   (``tier_seconds``), with the off run's beside them.
 23. **slo llm_wide_slo** (after **path llm_wide_pins**) — the ``llm_wide``
    backlog (seed 11, 16 streams, 32 new tokens, 32 heads of 128, K2)
    through a ``RuntimeServer`` with the span recorder on
@@ -366,16 +366,54 @@ any phase fails:
    bytes.  Wall, tasks and bytes by rank.
 35. **path multiproc_legacy_wire** — phase 16's four-process Cholesky
    with ``comm_wire_binary`` off (the legacy pickle framing, a GET's
-   payload whole) and on, in turns (off, on, on, off): the factors equal
-   to every digit, GETs and payload bytes equal to phase 16's; the
-   framed bytes and the wall of each.
+   payload whole), one launch, against phase 16's run of the same
+   Cholesky over the binary framing: the factors equal to every digit,
+   GETs and payload bytes equal to phase 16's; the framed bytes and the
+   wall beside the binary runs'.
 36. **control resume_get** — 4 rank engines sharing the card (the device
    fabric): a 4 MiB tile pulled by two children from its staging parent
    in 256 KiB fragments; the parent dies after one window, a zombie
    fragment of it lands late, and both resume from the grandparent:
    each copy equal to the root's, each offset landed once.
-37. **path examples** — the port's ladder (Ex00–Ex07, Ex10–Ex12), each
-   ``main()`` self-checking; Ex12 serves on the card through K2.
+37. **path examples** — the port's ladder (Ex00–Ex12), each ``main()``
+   self-checking; Ex08 runs its nested GEMM pools on the card through K1
+   (its launches counted), Ex12 serves on the card through K2.
+38. **region_fanin** lines (after **region_cholesky** and
+   **llm_wide_regions**) — the region pools those phases enqueued: one
+   ranged CTL flow each (gated), the region edges, and the CTL flows the
+   earlier one-flow-per-predecessor-slot pool had.
+39. **path recursive_gemm** — ``tiled_gemm_recursive_ptg`` at n=8192,
+   outer tiles of 2048 (64 outer tasks), each recursing into a nested
+   ``tiled_gemm_ptg`` over 512 sub-tiles (4,096 sub-GEMMs, fp32,
+   ``default``): every outer task completed once, 64 nested pools with
+   the CUDA chore alone, 4,096 sub-GEMMs on the card and none on the host
+   body, K1 (``mma_tf32``) launched, every sub-tile's device copy
+   released, C within the TF32 bound; again with ``min_tile=2048`` (no
+   recursion, 64 whole-tile K1 tasks).  Wall, GFLOPS, K1's batch sizes,
+   phase 3's wall beside.
+40. **path apps** — on rank threads sharing the card (the device
+   fabric), tiles and bodies on the card: the binomial-forest reduction
+   of 37 segments of 256^2 fp32 on 4 ranks against the float64 sum;
+   pingpong on 2 ranks, 64 hops of 8 B and of 4 MiB (µs a hop, GB/s);
+   the all-to-all on 4 ranks over 2 rounds; the adaptive Haar tree
+   (DTD, host scalars) against its oracle; the DTD merge sort of 2^20
+   float32 on the card against ``torch.sort``.
+41. **path parallel_ptg** — ``pipeline_ptg`` (4 stages x 8 microbatches
+   of [512, 4096], Linear+ReLU on the card) and ``moe_ptg`` (8 experts of
+   [4096, 4096] placed by a ``TwoDimTabular``) on 4 rank threads over
+   the device fabric, against the sequential stages and
+   ``reference_moe``.
+42. **path parallel_mesh** — one 4-process gloo launch on the card
+   (``parallel/bodies.py``) at the Llama-2-7B block width: the MLP step
+   (dp 2 x tp 2), the transformer step (tp 2 x sp 2, seq 4096, 3 steps,
+   its loss falling), ring attention and Ulysses (sp 4), the GPipe step
+   (pp 4) and the MoE step (ep 4), each held against the same function
+   on one process; seconds and the bytes staged through the host for
+   gloo, by operation.
+
+Every line a phase prints carries ``phase_s``, the seconds since that
+phase began; the ``phases`` line before ``done`` lists every phase's
+seconds, the largest first.
 
 TF32 is off for every PyTorch matmul and convolution, so the plain
 versions and the yardsticks compute strict fp32, but for the one
@@ -464,7 +502,26 @@ def _bound(flops: float, nbytes: int, in_dtype: str) -> tuple[float, str]:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# the running phase's start (set by _timed) and every phase's seconds
+_PHASE_T0: list[float] = []
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def _timed(phase: str, fn, /, *args, **kw):
+    """Run one phase: every line it prints carries ``phase_s`` (seconds
+    since it started), and its seconds add to ``PHASE_SECONDS[phase]``."""
+    _PHASE_T0.append(time.perf_counter())
+    try:
+        return fn(*args, **kw)
+    finally:
+        t0 = _PHASE_T0.pop()
+        PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) \
+            + time.perf_counter() - t0
+
+
 def _emit(card: str, **kw) -> None:
+    if _PHASE_T0:
+        kw["phase_s"] = round(time.perf_counter() - _PHASE_T0[-1], 3)
     print(json.dumps({**kw, "card": card}))
 
 
@@ -507,6 +564,7 @@ def _k1_reset(tg) -> None:
     tg.gemm_update.launches = 0
     tg.gemm_update.launches_by_variant = dict.fromkeys(tg.K1_VARIANTS, 0)
     tg.gemm_update.launches_by_form = {}
+    tg.gemm_update.launches_by_batch = {}
 
 
 def phase_kernel(card: str, torch) -> tuple[dict, list]:
@@ -524,6 +582,12 @@ def phase_kernel(card: str, torch) -> tuple[dict, list]:
               "simt_fp32"),
              ("batch64x512^3 bf16->fp32", (64, 512, 512, 512), bf16,
               "default", "wgmma_bf16"),
+             # one nested pool's k-step of phase recursive_gemm, and of
+             # the examples' Ex08
+             ("batch16x512^3 fp32", (16, 512, 512, 512), f32, "default",
+              "mma_tf32"),
+             ("batch16x8^3 fp32", (16, 8, 8, 8), f32, "default",
+              "mma_tf32"),
              ("ragged 1000x700x300 fp32", (1000, 700, 300), f32, "default",
               "mma_tf32"),
              ("ragged 1000x700x300 fp32", (1000, 700, 300), f32, "highest",
@@ -586,9 +650,11 @@ def phase_kernel(card: str, torch) -> tuple[dict, list]:
             lib_err = (lib_out - want).abs().max().item()
             if not tf32:
                 torch.testing.assert_close(lib_out, want, **tol)
-            # enough launches that the small ragged shape times the
-            # kernel and not the launch overhead
-            iters = 5 if lead else 200
+            batch = lead[0] if lead else 1
+            flops = 2.0 * batch * m * n * k
+            # enough launches that the small shapes time the kernel and
+            # not the launch overhead
+            iters = 5 if flops >= 1e10 else 200
             ms = _time_ms(torch, run, iters)
             strided_ms = (_time_ms(torch, lambda: tg.gemm_update(a, b, c),
                                    iters) if lead else ms)
@@ -597,8 +663,6 @@ def phase_kernel(card: str, torch) -> tuple[dict, list]:
             lib_ms = _time_ms(torch, lib, iters)
             # the wrapper's own host time a call (enqueue, no sync)
             host_ms = _host_ms(torch, run, iters)
-            batch = lead[0] if lead else 1
-            flops = 2.0 * batch * m * n * k
             nbytes = sum(t.numel() * t.element_size() for t in (a, b, c, got))
             peak = "tfloat32" if tf32 else str(in_dtype)[6:]
             bound_ms, bound_by = _bound(flops, nbytes, peak)
@@ -1138,7 +1202,7 @@ class _FlightRecorderOff:
         pins.recorder = rec.note if rec is not None else None
 
 
-def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 5) -> dict:
+def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 3) -> dict:
     """Per-task dispatch cost on the host of the card's machine: the EP
     pool (50 lanes, 10,000 tasks, empty bodies) drained by the caller,
     median of ``reps``; ``dispatch_us`` on the compiled-DAG executor (the
@@ -3020,6 +3084,10 @@ def phase_multiproc(card: str, torch, multirank: dict, n: int = 8192,
             checks = _factor_check(torch, kind, dense, a, nb, "default")
             reading = "tile_error"
             flops = _factor_flops(kind, n)
+            if kind == "cholesky":
+                # the binary framing's factor, which phase
+                # multiproc_legacy_wire holds the legacy one against
+                binary_dense = dense
         del dense
         rec = dict(n=n, nb=nb, ranks=MR_RANKS, grid=[MR_P, MR_Q],
                    processes=MR_RANKS, world_size=res[0]["world_size"],
@@ -3051,6 +3119,7 @@ def phase_multiproc(card: str, torch, multirank: dict, n: int = 8192,
                                 f"multirank_{reading}": inproc[reading]})
         _emit(card, phase="path", name=name, **rec)
         out[name] = rec
+    out["multiproc_cholesky"]["binary_dense"] = binary_dense
     return out
 
 
@@ -3385,53 +3454,55 @@ def phase_multiproc_comm_thread(card: str, torch, multiproc: dict,
                                 n: int = 8192, nb: int = 1024,
                                 seed: int = 0) -> dict:
     """The four-process Cholesky of ``multiproc_cholesky`` with
-    ``comm_thread`` off, on, on, off, a launch each: the factor gates in
-    every run, and every run's GETs and bytes by tier equal to the first
-    off run's; each line carries the wall, ``get_ms_mean`` and the hops'
-    host seconds.  Returns the four runs' K1 counts as one path."""
+    ``comm_thread`` on, one launch, beside phase ``multiproc``'s launch
+    (the same Cholesky with the thread off, its line's numbers repeated
+    here as the off run): the factor gates, the GETs and the payload
+    bytes by tier equal to ``multiproc_cholesky``'s; each line carries
+    the wall, ``get_ms_mean`` and the hops' host seconds.  Returns the
+    run's K1 counts as a path, and both walls."""
     from parsec_tpu_torch.comm.mp_bodies import factor_input
 
+    off = multiproc["multiproc_cholesky"]
     a = factor_input("cholesky", n)
-    runs, first = [], None
-    for on in (False, True, True, False):
-        res, launch_s = _mp_launch(torch, ("cholesky",), n, nb, seed, {
-            "PARSEC_MCA_comm_thread": "1" if on else "0"})
-        _check([r["comm_thread"] for r in res] == [on] * MR_RANKS,
-               f"multiproc_comm_thread: threads {[r['comm_thread'] for r in res]}")
-        recs = [r["kinds"]["cholesky"] for r in res]
-        dense = _mp_dense(recs, n, nb)
-        checks = _factor_check(torch, "cholesky", dense, a, nb, "default")
-        del dense
-        gets = [r["gets"] for r in recs]
-        tiers = [{k: r["tiers"][k] for k in ("payload_in", "payload_out")}
-                 for r in recs]
-        if first is None:
-            first = (gets, tiers)
-            _check(gets == multiproc["multiproc_cholesky"]["gets_by_rank"],
-                   f"multiproc_comm_thread: GETs {gets}")
-        _check((gets, tiers) == first, f"multiproc_comm_thread: GETs "
-               f"{gets} and bytes {tiers}, first run {first}")
-        launches = sum(r["k1"] for r in recs)
-        run = dict(comm_thread=on,
-                   wall_s=max(r["t_wait"] for r in recs)
-                   - min(r["t_add"] for r in recs),
-                   launch_s=launch_s, gets_by_rank=gets,
-                   payload_in_by_rank=[t["payload_in"] for t in tiers],
-                   get_ms_mean=(sum(r["tier_s"]["get_s"] for r in recs)
-                                / max(1, sum(gets)) * 1e3),
-                   tier_seconds={hop: [r["tier_s"][hop] for r in recs]
-                                 for hop in ("d2h_s", "send_s", "recv_s",
-                                             "h2d_s", "get_s")},
-                   manager_s_by_rank=[r["dev"]["t_manager"] for r in recs],
-                   gemm_launches=launches,
-                   gemm_launches_by_variant=_by_variant(_sum_counts(
-                       r["k1_by_variant"] for r in recs)), **checks)
-        _emit(card, phase="path", name="multiproc_comm_thread", **run)
-        runs.append(run)
-    return dict(gemm_launches=sum(r["gemm_launches"] for r in runs),
-                gemm_launches_by_variant=_sum_counts(
-                    r["gemm_launches_by_variant"] for r in runs),
-                walls_on=[r["wall_s"] for r in runs if r["comm_thread"]])
+    res, launch_s = _mp_launch(torch, ("cholesky",), n, nb, seed, {
+        "PARSEC_MCA_comm_thread": "1"})
+    _check([r["comm_thread"] for r in res] == [True] * MR_RANKS,
+           f"multiproc_comm_thread: threads {[r['comm_thread'] for r in res]}")
+    recs = [r["kinds"]["cholesky"] for r in res]
+    dense = _mp_dense(recs, n, nb)
+    checks = _factor_check(torch, "cholesky", dense, a, nb, "default")
+    del dense
+    gets = [r["gets"] for r in recs]
+    tiers = [{k: r["tiers"][k] for k in ("payload_in", "payload_out")}
+             for r in recs]
+    _check(gets == off["gets_by_rank"]
+           and [t["payload_in"] for t in tiers] == off["payload_in_by_rank"]
+           and [t["payload_out"] for t in tiers]
+           == off["payload_out_by_rank"],
+           f"multiproc_comm_thread: GETs {gets} and bytes {tiers} against "
+           f"the off run's {off['gets_by_rank']}, "
+           f"{off['payload_in_by_rank']}, {off['payload_out_by_rank']}")
+    launches = sum(r["k1"] for r in recs)
+    run = dict(comm_thread=True,
+               wall_s=max(r["t_wait"] for r in recs)
+               - min(r["t_add"] for r in recs),
+               launch_s=launch_s, gets_by_rank=gets,
+               payload_in_by_rank=[t["payload_in"] for t in tiers],
+               get_ms_mean=(sum(r["tier_s"]["get_s"] for r in recs)
+                            / max(1, sum(gets)) * 1e3),
+               tier_seconds={hop: [r["tier_s"][hop] for r in recs]
+                             for hop in ("d2h_s", "send_s", "recv_s",
+                                         "h2d_s", "get_s")},
+               manager_s_by_rank=[r["dev"]["t_manager"] for r in recs],
+               gemm_launches=launches,
+               gemm_launches_by_variant=_by_variant(_sum_counts(
+                   r["k1_by_variant"] for r in recs)), **checks,
+               off=dict(wall_s=off["wall_s"], get_ms_mean=off["get_ms_mean"],
+                        from_phase="multiproc"))
+    _emit(card, phase="path", name="multiproc_comm_thread", **run)
+    return dict(gemm_launches=launches,
+                gemm_launches_by_variant=run["gemm_launches_by_variant"],
+                walls_on=[run["wall_s"]], walls_off=[off["wall_s"]])
 
 
 # the SLO histograms' bucket error: a reported quantile is its bucket's
@@ -4843,72 +4914,64 @@ def phase_multirank_stencil(card: str, torch, n: int = 1 << 24,
 
 
 def phase_multiproc_legacy_wire(card: str, torch, multiproc: dict,
-                                n: int = 8192, nb: int = 1024,
-                                seed: int = 0) -> dict:
+                                comm_thread: dict, n: int = 8192,
+                                nb: int = 1024, seed: int = 0) -> dict:
     """The four-process Cholesky of ``multiproc_cholesky`` with
     ``comm_wire_binary`` off (the legacy length-prefixed pickle framing,
-    a GET's payload whole) and on, in turns (off, on, on, off), a launch
-    each: the legacy factor equal to the binary one to every digit, GETs
-    and payload bytes equal; the framed bytes and the wall of each."""
+    a GET's payload whole), one launch, against phase ``multiproc``'s
+    run of the same Cholesky over the binary framing: the legacy factor
+    equal to the binary one to every digit, GETs and payload bytes equal
+    to ``multiproc_cholesky``'s; the framed bytes and the wall beside the
+    binary runs' (``multiproc`` and ``multiproc_comm_thread``'s)."""
     from parsec_tpu_torch.comm.mp_bodies import factor_input
 
     a = factor_input("cholesky", n)
-    runs, dense0 = [], {}
-    for binary in (False, True, True, False):
-        res, launch_s = _mp_launch(torch, ("cholesky",), n, nb, seed, {
-            "PARSEC_MCA_comm_wire_binary": "1" if binary else "0"})
-        recs = [r["kinds"]["cholesky"] for r in res]
-        dense = _mp_dense(recs, n, nb)
-        checks = _factor_check(torch, "cholesky", dense, a, nb, "default")
-        if binary not in dense0:
-            dense0[binary] = dense
-        else:
-            _check(bool((dense == dense0[binary]).all()),
-                   f"multiproc_legacy_wire: binary={binary} factors differ "
-                   f"between runs")
-            del dense
-        gets = [r["gets"] for r in recs]
-        tiers = [{k: r["tiers"][k] for k in ("payload_in", "payload_out")}
-                 for r in recs]
-        _check(gets == multiproc["multiproc_cholesky"]["gets_by_rank"],
-               f"multiproc_legacy_wire: GETs {gets}")
-        _check([t["payload_in"] for t in tiers]
-               == multiproc["multiproc_cholesky"]["payload_in_by_rank"],
-               f"multiproc_legacy_wire: payload {tiers}")
-        frags = [r["frags_in"] for r in recs]
-        # a legacy GET comes back whole, in one pickled reply
-        _check(binary or not sum(frags),
-               f"multiproc_legacy_wire: the legacy framing landed {frags} "
-               f"fragments")
-        launches = sum(r["k1"] for r in recs)
-        run = dict(comm_wire_binary=binary,
-                   wall_s=max(r["t_wait"] for r in recs)
-                   - min(r["t_add"] for r in recs),
-                   launch_s=launch_s, gets_by_rank=gets,
-                   payload_in_by_rank=[t["payload_in"] for t in tiers],
-                   wire_sent_by_rank=[r["tiers"]["wire_total_sent"]
-                                      for r in recs],
-                   frags_in_by_rank=frags,
-                   get_ms_mean=(sum(r["tier_s"]["get_s"] for r in recs)
-                                / max(1, sum(gets)) * 1e3),
-                   tier_seconds={hop: [r["tier_s"][hop] for r in recs]
-                                 for hop in ("d2h_s", "send_s", "recv_s",
-                                             "h2d_s", "get_s")},
-                   gemm_launches=launches,
-                   gemm_launches_by_variant=_by_variant(_sum_counts(
-                       r["k1_by_variant"] for r in recs)), **checks)
-        _emit(card, phase="path", name="multiproc_legacy_wire", **run)
-        runs.append(run)
-    _check(bool((dense0[False] == dense0[True]).all()),
+    res, launch_s = _mp_launch(torch, ("cholesky",), n, nb, seed, {
+        "PARSEC_MCA_comm_wire_binary": "0"})
+    recs = [r["kinds"]["cholesky"] for r in res]
+    dense = _mp_dense(recs, n, nb)
+    checks = _factor_check(torch, "cholesky", dense, a, nb, "default")
+    binary = multiproc["multiproc_cholesky"].pop("binary_dense")
+    _check(binary is not None and bool((dense == binary).all()),
            "multiproc_legacy_wire: the legacy factor differs from the "
            "binary one")
-    return dict(gemm_launches=sum(r["gemm_launches"] for r in runs),
-                gemm_launches_by_variant=_sum_counts(
-                    r["gemm_launches_by_variant"] for r in runs),
-                walls={"legacy": [r["wall_s"] for r in runs
-                                  if not r["comm_wire_binary"]],
-                       "binary": [r["wall_s"] for r in runs
-                                  if r["comm_wire_binary"]]})
+    del dense, binary
+    gets = [r["gets"] for r in recs]
+    tiers = [{k: r["tiers"][k] for k in ("payload_in", "payload_out")}
+             for r in recs]
+    _check(gets == multiproc["multiproc_cholesky"]["gets_by_rank"],
+           f"multiproc_legacy_wire: GETs {gets}")
+    _check([t["payload_in"] for t in tiers]
+           == multiproc["multiproc_cholesky"]["payload_in_by_rank"],
+           f"multiproc_legacy_wire: payload {tiers}")
+    frags = [r["frags_in"] for r in recs]
+    # a legacy GET comes back whole, in one pickled reply
+    _check(not sum(frags), f"multiproc_legacy_wire: the legacy framing "
+           f"landed {frags} fragments")
+    launches = sum(r["k1"] for r in recs)
+    run = dict(comm_wire_binary=False,
+               wall_s=max(r["t_wait"] for r in recs)
+               - min(r["t_add"] for r in recs),
+               launch_s=launch_s, gets_by_rank=gets,
+               payload_in_by_rank=[t["payload_in"] for t in tiers],
+               wire_sent_by_rank=[r["tiers"]["wire_total_sent"]
+                                  for r in recs],
+               frags_in_by_rank=frags,
+               get_ms_mean=(sum(r["tier_s"]["get_s"] for r in recs)
+                            / max(1, sum(gets)) * 1e3),
+               tier_seconds={hop: [r["tier_s"][hop] for r in recs]
+                             for hop in ("d2h_s", "send_s", "recv_s",
+                                         "h2d_s", "get_s")},
+               binary_wall_s=comm_thread["walls_off"]
+               + comm_thread["walls_on"],
+               gemm_launches=launches,
+               gemm_launches_by_variant=_by_variant(_sum_counts(
+                   r["k1_by_variant"] for r in recs)), **checks)
+    _emit(card, phase="path", name="multiproc_legacy_wire", **run)
+    return dict(gemm_launches=launches,
+                gemm_launches_by_variant=run["gemm_launches_by_variant"],
+                walls={"legacy": [run["wall_s"]],
+                       "binary": run["binary_wall_s"]})
 
 
 def phase_resume_get(card: str, torch, nb: int = 1024,
@@ -5007,27 +5070,39 @@ def phase_resume_get(card: str, torch, nb: int = 1024,
 
 EXAMPLES = ("Ex00_StartStop", "Ex01_HelloWorld", "Ex02_Chain",
             "Ex03_ChainMPI", "Ex04_ChainData", "Ex05_Broadcast", "Ex06_RAW",
-            "Ex07_RAW_CTL", "Ex10_WireHalo", "Ex11_Serve", "Ex12_LLMServe")
+            "Ex07_RAW_CTL", "Ex08_Recursive", "Ex09_DTD_Tree",
+            "Ex10_WireHalo", "Ex11_Serve", "Ex12_LLMServe")
 
 
 def phase_examples(card: str, torch) -> dict:
     """The port's examples ladder on the card machine, each ``main()``
-    self-checking; Ex12 serves its streams on the card through K2."""
+    self-checking; Ex08 runs its nested GEMM pools on the card through
+    K1, Ex12 serves its streams there through K2."""
     import contextlib
     import importlib
     import io
 
+    from parsec_tpu_torch.ops import gemm as tg
     from parsec_tpu_torch.ops import ragged_attention as ra
 
-    seconds, k2 = {}, 0
+    seconds, k2, k1, k1_variant, results = {}, 0, 0, {}, {}
     for name in EXAMPLES:
         mod = importlib.import_module(f"parsec_tpu_torch.examples.{name}")
         if name == "Ex12_LLMServe":
             ra.attn_page_update.launches = 0     # counts from here: Ex12's
+        if name == "Ex08_Recursive":
+            _k1_reset(tg)                        # counts from here: Ex08's
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             result = mod.main()
         seconds[name] = time.perf_counter() - t0
+        if name == "Ex08_Recursive":
+            k1 = tg.gemm_update.launches
+            k1_variant = dict(tg.gemm_update.launches_by_variant)
+            results[name] = result
+            _check(k1 > 0, f"examples: Ex08 launched no K1 ({result})")
+        if name == "Ex09_DTD_Tree":
+            results[name] = result
         if name == "Ex12_LLMServe":
             k2 = ra.attn_page_update.launches
             llm = result["llm"]
@@ -5035,9 +5110,564 @@ def phase_examples(card: str, torch) -> dict:
                    f"examples: Ex12 made {llm['tokens_generated']} tokens "
                    f"with {k2} K2 launches")
     rec = dict(examples=list(EXAMPLES), seconds=seconds,
-               ragged_attn_page_launches=k2)
+               ragged_attn_page_launches=k2, gemm_launches=k1,
+               gemm_launches_by_variant=k1_variant,
+               ex08_max_abs_err=results["Ex08_Recursive"],
+               ex09_nodes=results["Ex09_DTD_Tree"])
     _emit(card, phase="path", name="examples", **rec)
     return rec
+
+
+def _sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+class _region_pools:
+    """Record the shape of the region pools enqueued inside: for each
+    pool with a ``region_plan``, its REGION class's CTL flows (and
+    whether the fan-in is ranged), its region edges, and the CTL flows
+    the earlier one-flow-per-predecessor-slot pool had (the largest
+    predecessor count)."""
+
+    def __init__(self) -> None:
+        self.pools: list[dict] = []
+
+    def _init(self, es, tp) -> None:
+        plan = getattr(tp, "region_plan", None)
+        if plan is None:
+            return
+        tc = tp.task_class("REGION")
+        ctl = [f for f in tc.flows if f.is_ctl]
+        self.pools.append(dict(
+            ctl_flows=len(ctl),
+            ranged=all(d.ranged for f in ctl for d in f.deps_in),
+            region_edges=sum(len(r.preds) for r in plan.regions),
+            regions=len(plan.regions),
+            slot_flows_before=max((len(r.preds) for r in plan.regions),
+                                  default=0)))
+
+    def __enter__(self) -> "_region_pools":
+        from parsec_tpu_torch.prof import pins
+        from parsec_tpu_torch.prof.pins import PinsEvent
+        pins.register(PinsEvent.TASKPOOL_INIT, self._init)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from parsec_tpu_torch.prof import pins
+        from parsec_tpu_torch.prof.pins import PinsEvent
+        pins.unregister(PinsEvent.TASKPOOL_INIT, self._init)
+
+    def summary(self, what: str) -> dict:
+        _check(self.pools and all(p["ctl_flows"] == 1 and p["ranged"]
+                                  for p in self.pools),
+               f"{what}: region pools {self.pools[:3]} are not one ranged "
+               f"CTL flow")
+        first = self.pools[0]
+        return dict(region_pools=len(self.pools),
+                    ctl_flows=first["ctl_flows"],
+                    region_edges=first["region_edges"],
+                    slot_flows_before=first["slot_flows_before"])
+
+
+def _rec_gemm_run(torch, tg, dev, n: int, nb: int, sub: int, seed: int,
+                  min_tile: int) -> dict:
+    """One recursive GEMM run (phase ``recursive_gemm``): the wall, the
+    outer completions, the nested pools, the sub-GEMMs on the card and on
+    the host body, K1's launches and batches, and the release of the
+    sub-tiles' device copies."""
+    from collections import Counter
+
+    from parsec_tpu_torch.models import tiled_gemm as tgm
+    from parsec_tpu_torch.ops import gemm as gemm_ops
+    from parsec_tpu_torch.prof import pins
+    from parsec_tpu_torch.prof.pins import PinsEvent
+    from parsec_tpu_torch.runtime import Context
+
+    A, B, C, _t = _path_mats(n, nb, seed)
+    tp = tgm.tiled_gemm_recursive_ptg(A, B, C, sub, sub, min_tile=min_tile)
+    done: Counter = Counter()
+    inner: list = []
+    host = [0]
+    real_cpu_body = gemm_ops.gemm_cpu_body
+
+    def on_complete(es, task) -> None:
+        if task.taskpool is tp:
+            done[task.key] += 1
+
+    def on_init(es, pool) -> None:
+        if pool is not tp and pool.name == "tiled_gemm":
+            inner.append([c.device_type
+                          for c in pool.task_classes[0].chores])
+
+    def host_body(es, task) -> None:
+        host[0] += 1
+        real_cpu_body(es, task)
+
+    before = dict(tasks=dev.tasks_by_class.get("GEMM", 0),
+                  released=dev.released, dispatches=dev.dispatches_by_class
+                  .get("GEMM", 0))
+    _k1_reset(tg)
+    pins.register(PinsEvent.COMPLETE_EXEC_END, on_complete)
+    pins.register(PinsEvent.TASKPOOL_INIT, on_init)
+    gemm_ops.gemm_cpu_body = host_body
+    ctx = Context(nb_cores=2)
+    try:
+        _sync(torch, dev.torch_device.type)
+        t0 = time.perf_counter()
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=600)
+        dev.sync()
+        _sync(torch, dev.torch_device.type)
+        wall = time.perf_counter() - t0
+    finally:
+        ctx.fini(timeout=60)
+        gemm_ops.gemm_cpu_body = real_cpu_body
+        pins.unregister(PinsEvent.COMPLETE_EXEC_END, on_complete)
+        pins.unregister(PinsEvent.TASKPOOL_INIT, on_init)
+    out = dict(wall_s=wall, outer_tasks=len(done),
+               outer_completions=sorted(set(done.values())),
+               nested_pools=len(inner),
+               nested_chores=sorted({tuple(c) for c in inner}),
+               gemm_on_card=dev.tasks_by_class.get("GEMM", 0)
+               - before["tasks"],
+               gemm_dispatches=dev.dispatches_by_class.get("GEMM", 0)
+               - before["dispatches"],
+               gemm_on_host=host[0],
+               released=dev.released - before["released"],
+               gemm_launches=tg.gemm_update.launches,
+               gemm_launches_by_variant=dict(
+                   tg.gemm_update.launches_by_variant),
+               k1_batches={str(k): v for k, v in sorted(
+                   tg.gemm_update.launches_by_batch.items())},
+               lru_sub_tiles=sum(
+                   1 for k in list(dev._mem_lru) if isinstance(k, tuple)
+                   and str(k[0]).startswith(("Asub", "Bsub", "Csub"))))
+    dev.flush_cache()
+    out["max_abs_err"] = _check_c(torch, C.to_dense(), A.to_dense(),
+                                  B.to_dense(), nb, "recursive_gemm")
+    return out
+
+
+def phase_recursive_gemm(card: str, torch, path: dict, n: int = 8192,
+                         nb: int = 2048, sub: int = 512, seed: int = 0,
+                         device: str | None = None) -> dict:
+    """``tiled_gemm_recursive_ptg`` through ``Context(nb_cores=2)`` on the
+    card: n=8192 in outer tiles of 2048 (64 outer tasks), each recursing
+    into a nested ``tiled_gemm_ptg`` over 512 sub-tiles (64 sub-GEMMs an
+    outer task, 4,096 in all), fp32 under ``default``, so every sub-GEMM
+    is K1 (``mma_tf32``).  Gates: every outer task completed once, 64
+    nested pools carrying the CUDA chore alone, 4,096 sub-GEMMs on the
+    card and none on the host body, K1 launched, every sub-tile's device
+    copy released as its pool drained, C within the TF32 bound.  Then
+    ``min_tile=2048``: no recursion, the 64 outer tasks on K1 whole,
+    under the same gates.  The wall, GFLOPS, K1's batch sizes and
+    phase ``path``'s wall at the same n beside them.  ``device="cpu"``
+    rehearses the phase on the device module around the host."""
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops
+    from parsec_tpu_torch.ops import gemm as tg
+
+    params.set("gemm_precision", "default")
+    dev = init_cuda_devices(device=device)[0]
+    outer = (n // nb) ** 3
+    per = (nb // sub) ** 3
+    runs = {}
+    for label, cut in (("recursive", 0), ("min_tile", nb)):
+        r = _rec_gemm_run(torch, tg, dev, n, nb, sub, seed, cut)
+        nested = 0 if cut else outer
+        subs = outer if cut else outer * per
+        _check(r["outer_tasks"] == outer and r["outer_completions"] == [1],
+               f"recursive_gemm {label}: {r['outer_tasks']} outer tasks "
+               f"completed {r['outer_completions']} times, expected "
+               f"{outer} once each")
+        _check(r["nested_pools"] == nested
+               and r["nested_chores"] in ([], [("cuda",)]),
+               f"recursive_gemm {label}: {r['nested_pools']} nested pools "
+               f"with chores {r['nested_chores']}")
+        _check(r["gemm_on_card"] == subs and r["gemm_on_host"] == 0,
+               f"recursive_gemm {label}: {r['gemm_on_card']} GEMMs on the "
+               f"card and {r['gemm_on_host']} on the host, expected {subs} "
+               f"and 0")
+        _check(r["gemm_launches"] > 0
+               and r["gemm_launches_by_variant"]["mma_tf32"]
+               == r["gemm_launches"],
+               f"recursive_gemm {label}: K1 ran "
+               f"{r['gemm_launches_by_variant']}")
+        _check(r["released"] == (0 if cut else 3 * outer * (nb // sub) ** 2)
+               and r["lru_sub_tiles"] == 0,
+               f"recursive_gemm {label}: {r['released']} sub-tile copies "
+               f"released, {r['lru_sub_tiles']} left in the LRU")
+        r["gflops"] = gemm_flops(n, n, n) / r["wall_s"] / 1e9
+        runs[label] = r
+    rec = dict(n=n, nb=nb, sub=sub, sub_gemms=outer * per,
+               **runs["recursive"],
+               min_tile=runs["min_tile"], path_wall_s=path["wall_s"],
+               path_nb=path["nb"])
+    _emit(card, phase="path", name="recursive_gemm", **rec)
+    return dict(rec, gemm_launches=runs["recursive"]["gemm_launches"]
+                + runs["min_tile"]["gemm_launches"],
+                gemm_launches_by_variant=_sum_counts(
+                    r["gemm_launches_by_variant"] for r in runs.values()))
+
+
+def _card_vector(torch, name: str, nt: int, mb: int, nranks: int,
+                 rank: int, seed: int, device: str = "cuda"):
+    """A ``VectorTwoDimCyclic`` over ``nranks`` whose segments are drawn on
+    the card (one generator a segment, so every rank's copy of a segment
+    is the same)."""
+    from parsec_tpu_torch.data_dist.matrix import VectorTwoDimCyclic
+
+    def init(m, size):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed * 1000 + m)
+        return torch.randn(size, generator=g, device=device)
+
+    return VectorTwoDimCyclic(name, lm=nt * mb, mb=mb, P=nranks,
+                              myrank=rank, init_fn=init)
+
+
+def phase_apps(card: str, torch, seed: int = 0,
+               device: str = "cuda") -> dict:
+    """The app tier on rank threads sharing the card (``run_multirank``
+    over the device fabric, ``devices=[cuda:0] * n``), the tiles on the
+    card and each body's arithmetic there:
+
+    - ``bt_reduction_ptg`` over NT=37 segments of 256^2 fp32 (three
+      trees) on 4 ranks, equal to the float64 sum within fp32 rounding;
+    - pingpong on 2 ranks, 64 hops of 8 B (the round trip) and of 4 MiB
+      (the bandwidth): each rank's home tile equal to its last visit's
+      count of increments;
+    - ``all2all_ptg`` on 4 ranks over 2 rounds, equal to its reference;
+    - ``haar_project_dtd`` (``min_depth=4``, ``max_depth=22``, host
+      scalars as in the JAX package) equal to ``haar_project_reference``;
+    - ``merge_sort_dtd`` of 2^20 float32 on the card, equal to
+      ``torch.sort``.
+
+    ``device="cpu"`` rehearses the phase on the host."""
+    import torch as _torch
+
+    from parsec_tpu_torch.comm import run_multirank
+    from parsec_tpu_torch.dtd import DTDTaskpool
+    from parsec_tpu_torch.models import irregular, pingpong, reduction
+    from parsec_tpu_torch.runtime import Context
+
+    cuda0 = _torch.device("cuda", 0) if device == "cuda" \
+        else _torch.device(device)
+    out = {}
+
+    def on_card(nranks, body):
+        t0 = time.perf_counter()
+        res = run_multirank(nranks, body, transport="device",
+                            devices=[cuda0] * nranks, timeout=600)
+        return res, time.perf_counter() - t0
+
+    # the binomial forest
+    nt, mb = 37, 256 * 256
+
+    def red_body(ctx, rank, nranks):
+        V = _card_vector(torch, "R", nt, mb, nranks, rank, seed, device)
+        tp = reduction.bt_reduction_ptg(V)
+        ctx.add_taskpool(tp)
+        ntasks = tp.nb_local_tasks()
+        ctx.wait(timeout=300)
+        ctx.comm_barrier()
+        got = V.data_of(0).newest_copy().value.clone() \
+            if V.rank_of(0) == rank else None
+        return got, ntasks
+
+    res, wall = on_card(4, red_body)
+    got = res[0][0]
+    ref = _card_vector(torch, "R", nt, mb, 1, 0, seed, device)
+    want = sum(ref.data_of(i).newest_copy().value.double()
+               for i in range(nt))
+    err = float((got.double() - want).abs().max())
+    tol = nt * 2 ** -23 * float(want.abs().max()) + 1e-5
+    _check(got.device.type == device and err <= tol,
+           f"apps bt_reduction: max error {err} above {tol}")
+    out["bt_reduction"] = dict(nt=nt, segment=mb, trees=reduction.count_bits(
+        nt), ranks=4, tasks_by_rank=[r[1] for r in res], wall_s=wall,
+        max_abs_err=err, tol=tol)
+
+    # pingpong: the round trip and the bandwidth shapes
+    hops = 64
+    out["pingpong"] = {}
+    for label, elems in (("rtt_8B", 2), ("bw_4MiB", 1 << 20)):
+        def ping_body(ctx, rank, nranks, elems=elems):
+            from parsec_tpu_torch.data_dist.matrix import VectorTwoDimCyclic
+            V = VectorTwoDimCyclic(
+                "P", lm=nranks * elems, mb=elems, P=nranks, myrank=rank,
+                init_fn=lambda m, size: _torch.zeros(size, device=device))
+            r = pingpong.run_pingpong(ctx, V, hops)
+            ctx.comm_barrier()
+            return r, V.data_of(rank).newest_copy().value.clone()
+
+        res, wall = on_card(2, ping_body)
+        for rank, (r, tile) in enumerate(res):
+            last = max(k for k in range(hops) if k % 2 == rank)
+            _check(tile.device.type == device
+                   and bool((tile == last + 1.0).all()),
+                   f"apps pingpong {label}: rank {rank}'s tile is not "
+                   f"{last + 1}")
+        sec = max(r["seconds"] for r, _ in res)
+        nbytes = res[0][0]["payload_bytes"]
+        out["pingpong"][label] = dict(
+            hops=hops, payload_bytes=nbytes, seconds=sec,
+            us_per_hop=sec / hops * 1e6,
+            gbytes_per_s=nbytes * hops / sec / 1e9, wall_s=wall)
+
+    # the all-to-all
+    a_nt, a_mb, rounds = 8, 1 << 16, 2
+
+    def a2a_body(ctx, rank, nranks):
+        A = _card_vector(torch, "IA", a_nt, a_mb, nranks, rank,
+                         seed + 1, device)
+        B = _card_vector(torch, "IB", a_nt, a_mb, nranks, rank,
+                         seed + 2, device)
+        tp = irregular.all2all_ptg(A, B, rounds)
+        ctx.add_taskpool(tp)
+        ntasks = tp.nb_local_tasks()
+        ctx.wait(timeout=300)
+        ctx.comm_barrier()
+        return ({s: B.data_of(s).newest_copy().value.clone()
+                 for s in range(a_nt) if B.rank_of(s) == rank}, ntasks)
+
+    res, wall = on_card(4, a2a_body)
+    A0 = _card_vector(torch, "IA", a_nt, a_mb, 1, 0, seed + 1, device)
+    B0 = _card_vector(torch, "IB", a_nt, a_mb, 1, 0, seed + 2, device)
+    total = sum(A0.data_of(t).newest_copy().value.double()
+                for t in range(a_nt))
+    err = 0.0
+    for tiles, _n in res:
+        for s_, t in tiles.items():
+            want = B0.data_of(s_).newest_copy().value.double() \
+                + rounds * total
+            err = max(err, float((t.double() - want).abs().max()))
+    _check(err <= 1e-3, f"apps all2all: max error {err}")
+    out["all2all"] = dict(nt=a_nt, segment=a_mb, rounds=rounds, ranks=4,
+                          tasks_by_rank=[r[1] for r in res], wall_s=wall,
+                          max_abs_err=err)
+
+    # the Haar tree and the merge sort, DTD in one process
+    with Context(nb_cores=4) as ctx:
+        tp = DTDTaskpool("haar")
+        ctx.add_taskpool(tp)
+        t0 = time.perf_counter()
+        tree = irregular.haar_project_dtd(tp, 1.0, 1e-5, min_depth=4,
+                                          max_depth=22)
+        tp.wait(timeout=300)
+        haar_s = time.perf_counter() - t0
+    want = irregular.haar_project_reference(1.0, 1e-5, min_depth=4,
+                                            max_depth=22)
+    _check(set(tree) == set(want) and len(tree) == len(want),
+           f"apps haar: {len(tree)} nodes against the oracle's {len(want)}")
+    out["haar"] = dict(nodes=len(tree), depth=max(k[0] for k in tree),
+                       seconds=haar_s)
+    g = _torch.Generator(device=device)
+    g.manual_seed(seed)
+    data = _torch.randn(1 << 20, generator=g, device=device)
+    with Context(nb_cores=4) as ctx:
+        tp = DTDTaskpool("msort")
+        ctx.add_taskpool(tp)
+        t0 = time.perf_counter()
+        got = irregular.merge_sort_dtd(tp, data, run=1 << 14)
+        tp.wait(timeout=300)
+        _sync(torch, device)
+        sort_s = time.perf_counter() - t0
+    _check(got.device.type == device
+           and bool(_torch.equal(got, _torch.sort(data).values)),
+           "apps merge_sort: the result differs from torch.sort")
+    out["merge_sort"] = dict(n=1 << 20, run=1 << 14, seconds=sort_s)
+    _emit(card, phase="path", name="apps", **out)
+    return out
+
+
+def phase_parallel_ptg(card: str, torch, seed: int = 0,
+                       device: str = "cuda") -> dict:
+    """The dataflow-core halves of PP and EP on 4 rank threads sharing
+    the card (the device fabric), the tiles and every stage and expert
+    on the card: ``pipeline_ptg`` with 4 stages x 8 microbatches of
+    [512, 4096] fp32 through a Linear+ReLU stage, equal to the
+    sequential stages; ``moe_ptg`` with 8 experts of [4096, 4096] placed
+    by a ``TwoDimTabular`` (expert e on rank (3e + 1) % 4) over 4 token
+    blocks of 512, equal to ``reference_moe`` within fp32 rounding.
+    ``device="cpu"`` rehearses the phase on the host."""
+    import torch as _torch
+
+    from parsec_tpu_torch.comm import run_multirank
+    from parsec_tpu_torch.data_dist.matrix import (TwoDimBlockCyclic,
+                                                   TwoDimTabular)
+    from parsec_tpu_torch.parallel.expert import moe_ptg, reference_moe
+    from parsec_tpu_torch.parallel.pipeline import pipeline_ptg
+
+    cuda0 = _torch.device("cuda", 0) if device == "cuda" \
+        else _torch.device(device)
+    nranks, S, M, mb, d = 4, 4, 8, 512, 4096
+    g = _torch.Generator(device=device)
+    g.manual_seed(seed)
+    W = [(_torch.randn(d, d, generator=g, device=device) * d ** -0.5,
+          _torch.randn(d, generator=g, device=device) * 0.1)
+         for _ in range(S)]
+    X0 = _torch.randn(M * mb, d, generator=g, device=device)
+    fns = [lambda x, w=w, b=b: _torch.relu(x @ w + b) for w, b in W]
+
+    def pp_body(ctx, rank, n):
+        X = TwoDimBlockCyclic("X", lm=M * mb, ln=d, mb=mb, nb=d, P=1, Q=1,
+                              myrank=rank, nodes=n,
+                              init_fn=lambda m, _n, sh:
+                              X0[m * mb:(m + 1) * mb].clone())
+        tp = pipeline_ptg(X, fns, n)
+        t0 = time.perf_counter()
+        ctx.add_taskpool(tp)
+        ntasks = tp.nb_local_tasks()
+        ctx.wait(timeout=300)
+        ctx.comm_barrier()
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        ys = _torch.cat([X.data_of(m, 0).newest_copy().value
+                         for m in range(M)]) if rank == 0 else None
+        return ys, ntasks, wall
+
+    res = run_multirank(nranks, pp_body, transport="device",
+                        devices=[cuda0] * nranks, timeout=600)
+    want = X0
+    for f in fns:
+        want = f(want)
+    err = float((res[0][0] - want).abs().max())
+    _check(res[0][0].device.type == device and err <= 1e-3,
+           f"parallel_ptg pipeline: max error {err}")
+    pp = dict(stages=S, micro=M, micro_shape=[mb, d], ranks=nranks,
+              tasks_by_rank=[r[1] for r in res],
+              wall_s=max(r[2] for r in res), max_abs_err=err)
+
+    E, B_, ntok = 8, 4, 512
+    x = _torch.randn(B_ * ntok, d, generator=g, device=device)
+    wg = _torch.randn(d, E, generator=g, device=device)
+    we = _torch.randn(E, d, d, generator=g, device=device) * d ** -0.5
+    table = {(e, 0): (3 * e + 1) % nranks for e in range(E)}
+
+    def ep_body(ctx, rank, n):
+        X = TwoDimBlockCyclic.from_dense("Xep", x, ntok, d, P=1, Q=1,
+                                         myrank=rank, nodes=n)
+        Wt = TwoDimTabular("Wep", lm=E * d, ln=d, mb=d, nb=d,
+                           rank_table=table, nodes=n, myrank=rank,
+                           init_fn=lambda m, _n, sh: we[m])
+        tp = moe_ptg(X, Wt, wg, E)
+        t0 = time.perf_counter()
+        ctx.add_taskpool(tp)
+        ntasks = tp.nb_local_tasks()
+        ctx.wait(timeout=300)
+        ctx.comm_barrier()
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        ys = _torch.cat([X.data_of(b, 0).newest_copy().value
+                         for b in range(B_)]) if rank == 0 else None
+        return ys, ntasks, wall
+
+    res = run_multirank(nranks, ep_body, transport="device",
+                        devices=[cuda0] * nranks, timeout=600)
+    want = reference_moe(x, wg, we)
+    err = float((res[0][0] - want).abs().max())
+    tol = 1e-4 * float(want.abs().max()) + 1e-4
+    _check(res[0][0].device.type == device and err <= tol,
+           f"parallel_ptg moe: max error {err} above {tol}")
+    ep = dict(experts=E, expert_shape=[d, d], token_blocks=B_,
+              block_tokens=ntok, ranks=nranks,
+              placement={e: r for (e, _n), r in table.items()},
+              tasks_by_rank=[r[1] for r in res],
+              wall_s=max(r[2] for r in res), max_abs_err=err, tol=tol)
+    rec = dict(pipeline=pp, moe=ep)
+    _emit(card, phase="path", name="parallel_ptg", **rec)
+    return rec
+
+
+# the mesh recipes at the serving paths' Llama-2-7B block width
+MESH_JOBS = [
+    {"kind": "mlp", "mesh": {"dp": 2, "tp": 2}, "d_model": 4096,
+     "d_ff": 11008, "batch": 4, "seq": 512, "seed": 1, "check": 1},
+    {"kind": "transformer", "mesh": {"dp": 1, "tp": 2, "sp": 2},
+     "d_model": 4096, "n_heads": 32, "d_head": 128, "d_ff": 11008,
+     "batch": 1, "seq": 4096, "steps": 3, "lr": 0.1, "causal": True,
+     "seed": 2, "check": 1, "target": "half_x"},
+    {"kind": "ring", "mesh": {"sp": 4}, "shape": [1, 32, 4096, 128],
+     "causal": True, "seed": 3, "check": 1},
+    {"kind": "ulysses", "mesh": {"sp": 4}, "shape": [1, 32, 4096, 128],
+     "causal": True, "seed": 4, "check": 1},
+    {"kind": "pipeline", "mesh": {"pp": 4}, "stages": 4, "micro": 8,
+     "nb": 512, "d": 4096, "act": "relu", "w_scale": 4096 ** -0.5,
+     "seed": 5, "check": 1},
+    {"kind": "moe", "mesh": {"ep": 4}, "tokens": 2048, "d": 4096,
+     "experts": 8, "we_scale": 4096 ** -0.5, "seed": 6, "check": 1},
+]
+# each recipe against the same function on one process, on the card in
+# strict fp32: summation order alone differs
+MESH_TOL = {"mlp": 1e-5, "transformer": 1e-4, "ring": 1e-4,
+            "ulysses": 1e-4, "pipeline": 1e-3, "moe": 1e-3}
+
+
+def phase_parallel_mesh(card: str, torch, jobs: list | None = None,
+                        device: str | None = None) -> dict:
+    """The mesh recipes in ONE ``run_multiproc`` launch of 4 processes on
+    a gloo group, all on the card (``parallel/bodies.py:mesh_body``), at
+    the width of the serving paths' Llama-2-7B block (d_model 4096, 32
+    heads of 128, d_ff 11008), fp32: the MLP step at dp 2 x tp 2; the
+    transformer step at tp 2 x sp 2, seq 4096, batch 1, 3 steps; ring
+    attention (sp 4, causal) and Ulysses (sp 4); the GPipe mesh step
+    (pp 4, 8 microbatches of [512, 4096]); the MoE mesh step (ep 4, 8
+    experts, 2048 tokens).  Each rank holds its blocks against the same
+    function on one process (the whole inputs on the card, within
+    ``MESH_TOL``); the transformer's loss falls over its steps; the bytes
+    each rank staged through the host for gloo are counted.  ``jobs`` and
+    ``device="cpu"`` rehearse the phase on the host at other sizes."""
+    from parsec_tpu_torch.comm import run_multiproc
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+
+    jobs = MESH_JOBS if jobs is None else jobs
+    dev = init_cuda_devices(device=device)[0]
+    dev.flush_cache()
+    if device is None:
+        torch.cuda.empty_cache()
+    saved = os.environ.get("PARSEC_PAR_SPEC")
+    os.environ["PARSEC_PAR_SPEC"] = json.dumps(jobs)
+    try:
+        t0 = time.perf_counter()
+        res = run_multiproc(4, "parsec_tpu_torch.parallel.bodies:mesh_body",
+                            timeout=600, transport="device",
+                            distributed=True, device=device)
+        launch_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            os.environ.pop("PARSEC_PAR_SPEC", None)
+        else:
+            os.environ["PARSEC_PAR_SPEC"] = saved
+    recipes = {}
+    for i, job in enumerate(jobs):
+        rs = [r[i] for r in res]
+        kind = job["kind"]
+        err = max(r["err"] for r in rs)
+        _check(err <= MESH_TOL[kind],
+               f"parallel_mesh {kind}: max error {err} above "
+               f"{MESH_TOL[kind]}")
+        rec = dict(mesh=job["mesh"], seconds=max(r["seconds"] for r in rs),
+                   max_abs_err=err, tol=MESH_TOL[kind],
+                   staged_bytes_by_rank=[r["staged_bytes"] for r in rs],
+                   staged_s_by_rank=[r["staged_s"] for r in rs],
+                   staged_by_op=_sum_counts(r["staged_by_op"] for r in rs))
+        if kind == "transformer":
+            losses = rs[0]["losses"]
+            _check(all(r["losses"] == losses for r in rs)
+                   and losses[-1] < losses[0],
+                   f"parallel_mesh transformer: losses {losses}")
+            rec.update(losses=losses, step_seconds=rs[0]["step_seconds"],
+                       loss_err=max(r["loss_err"] for r in rs))
+        if device is None:
+            _check(sum(rec["staged_bytes_by_rank"]) > 0,
+                   f"parallel_mesh {kind}: nothing staged through the host")
+        recipes[kind] = rec
+    out = dict(processes=4, launch_s=launch_s, recipes=recipes)
+    _emit(card, phase="path", name="parallel_mesh", **out)
+    return out
 
 
 def main() -> int:
@@ -5068,29 +5698,36 @@ def _run(torch) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    phase_build(card)
-    main_rec, k1_recs = phase_kernel(card, torch)
-    path = phase_path(card, torch)
-    dtd = phase_dtd_gemm(card, torch, path)
-    checked = phase_path(card, torch, checked=path)
-    phase_analysis(card, torch, dtd)
-    phase_dispatch(card)
-    attn_recs = phase_attn_kernel(card, torch)
+    T = _timed
+    T("build", phase_build, card)
+    main_rec, k1_recs = T("kernel", phase_kernel, card, torch)
+    path = T("path", phase_path, card, torch)
+    dtd = T("dtd_gemm", phase_dtd_gemm, card, torch, path)
+    checked = T("path_checked", phase_path, card, torch, checked=path)
+    T("analysis", phase_analysis, card, torch, dtd)
+    T("dispatch", phase_dispatch, card)
+    attn_recs = T("attn_kernel", phase_attn_kernel, card, torch)
     attn_rec = attn_recs[0]
-    llm = phase_llm(card, torch)
-    phase_llm_trace(card, torch)
-    wide = phase_llm(card, torch, seed=11, max_new=32, label="llm_wide",
-                     wide=True)
-    wide_trace = phase_llm_trace(card, torch, max_new=8, wide=True)
-    wide_pins = phase_llm_wide_pins(card, torch)
-    wide_slo = phase_llm_wide_slo(card, torch, wide_trace)
-    adaptive = phase_llm_wide_adaptive(card, torch)
-    phase_stall(card, torch)
-    prefix = phase_llm_prefix(card, torch)
-    spec = phase_llm_spec(card, torch)
-    tiers = phase_llm_tiers(card, torch)
-    sharded = phase_llm_sharded(card, torch)
-    wide_regions = phase_llm_wide_regions(card, torch)
+    llm = T("llm", phase_llm, card, torch)
+    T("trace_llm", phase_llm_trace, card, torch)
+    wide = T("llm_wide", phase_llm, card, torch, seed=11, max_new=32,
+             label="llm_wide", wide=True)
+    wide_trace = T("trace_llm_wide", phase_llm_trace, card, torch,
+                   max_new=8, wide=True)
+    wide_pins = T("llm_wide_pins", phase_llm_wide_pins, card, torch)
+    wide_slo = T("llm_wide_slo", phase_llm_wide_slo, card, torch,
+                 wide_trace)
+    adaptive = T("llm_wide_adaptive", phase_llm_wide_adaptive, card, torch)
+    T("stall", phase_stall, card, torch)
+    prefix = T("llm_prefix", phase_llm_prefix, card, torch)
+    spec = T("llm_spec", phase_llm_spec, card, torch)
+    tiers = T("llm_tiers", phase_llm_tiers, card, torch)
+    sharded = T("llm_sharded", phase_llm_sharded, card, torch)
+    with _region_pools() as wide_pools:
+        wide_regions = T("llm_wide_regions", phase_llm_wide_regions, card,
+                         torch)
+    _emit(card, phase="region_fanin", name="llm_wide_regions",
+          **wide_pools.summary("llm_wide_regions"))
     k2_paths = {"llm": llm, "llm_wide": wide, "llm_wide_pins": wide_pins,
                 "llm_wide_slo": wide_slo, "llm_wide_adaptive": adaptive,
                 "llm_sharded": sharded, "llm_wide_regions": wide_regions,
@@ -5102,20 +5739,24 @@ def _run(torch) -> int:
                 "llm_spec_control": spec["llm_spec_control"],
                 "llm_spec_superpool": spec["llm_spec_superpool"],
                 "llm_tiers": tiers}
-    sten_rec = phase_stencil_kernel(card, torch)
-    sten = phase_lowered_stencil(card, torch)
-    phase_lowered_stencil2d(card, torch)
-    lgemm = phase_lowered_gemm(card, torch)
-    lcache = phase_lowered_cache(card, torch)
-    form_recs = phase_k1_forms(card, torch)
+    sten_rec = T("stencil_kernel", phase_stencil_kernel, card, torch)
+    sten = T("lowered_stencil", phase_lowered_stencil, card, torch)
+    T("lowered_stencil2d", phase_lowered_stencil2d, card, torch)
+    lgemm = T("lowered_gemm", phase_lowered_gemm, card, torch)
+    lcache = T("lowered_cache", phase_lowered_cache, card, torch)
+    form_recs = T("k1_forms", phase_k1_forms, card, torch)
     factor_paths = {
-        "dynamic_cholesky": phase_dynamic_factor(card, torch, "cholesky"),
-        "dynamic_cholesky_highest": phase_dynamic_factor(
-            card, torch, "cholesky", precision="highest"),
-        "dynamic_lu": phase_dynamic_factor(card, torch, "lu"),
-        "lowered_cholesky": phase_lowered_factor(card, torch, "cholesky",
-                                                 16384),
-        "lowered_lu": phase_lowered_factor(card, torch, "lu", 8192)}
+        "dynamic_cholesky": T("dynamic_cholesky", phase_dynamic_factor,
+                              card, torch, "cholesky"),
+        "dynamic_cholesky_highest": T(
+            "dynamic_cholesky_highest", phase_dynamic_factor, card, torch,
+            "cholesky", precision="highest"),
+        "dynamic_lu": T("dynamic_lu", phase_dynamic_factor, card, torch,
+                        "lu"),
+        "lowered_cholesky": T("lowered_cholesky", phase_lowered_factor,
+                              card, torch, "cholesky", 16384),
+        "lowered_lu": T("lowered_lu", phase_lowered_factor, card, torch,
+                        "lu", 8192)}
     # the TF32 run is the control of the ``highest`` gates
     tf32_run = factor_paths["dynamic_cholesky"]
     for key, tol in (("tile_error", FACTOR_TOL), ("backward_error",
@@ -5128,25 +5769,37 @@ def _run(torch) -> int:
           tile_tol=FACTOR_TOL["highest"],
           backward_error=tf32_run["backward_error"],
           backward_tol=BACKWARD_TOL["highest"])
-    tuned = phase_tuned_cholesky(card, torch)
-    region = phase_region_cholesky(card, torch)
+    tuned = T("tuned_cholesky", phase_tuned_cholesky, card, torch)
+    with _region_pools() as chol_pools:
+        region = T("region_cholesky", phase_region_cholesky, card, torch)
+    _emit(card, phase="region_fanin", name="region_cholesky",
+          **chol_pools.summary("region_cholesky"))
     multirank = {
-        "multirank_gemm": phase_multirank(card, torch, "gemm", path),
-        "multirank_cholesky": phase_multirank(
-            card, torch, "cholesky", factor_paths["dynamic_cholesky"]),
-        "multirank_lu": phase_multirank(card, torch, "lu",
-                                        factor_paths["dynamic_lu"])}
-    multiproc = phase_multiproc(card, torch, multirank)
-    comm_thread = phase_multiproc_comm_thread(card, torch, multiproc)
-    traced = phase_multiproc_traced(card, torch, multiproc, comm_thread)
-    phase_commcheck(card, torch, multiproc)
-    mr_dtd = phase_multirank_dtd(card, torch)
-    jdf_gemm = phase_jdf_gemm(card, torch, path)
-    phase_multirank_stencil(card, torch)
-    legacy = phase_multiproc_legacy_wire(card, torch, multiproc)
-    phase_resume_get(card, torch)
-    examples = phase_examples(card, torch)
+        "multirank_gemm": T("multirank_gemm", phase_multirank, card, torch,
+                            "gemm", path),
+        "multirank_cholesky": T(
+            "multirank_cholesky", phase_multirank, card, torch, "cholesky",
+            factor_paths["dynamic_cholesky"]),
+        "multirank_lu": T("multirank_lu", phase_multirank, card, torch,
+                          "lu", factor_paths["dynamic_lu"])}
+    multiproc = T("multiproc", phase_multiproc, card, torch, multirank)
+    comm_thread = T("multiproc_comm_thread", phase_multiproc_comm_thread,
+                    card, torch, multiproc)
+    traced = T("multiproc_traced", phase_multiproc_traced, card, torch,
+               multiproc, comm_thread)
+    T("commcheck", phase_commcheck, card, torch, multiproc)
+    mr_dtd = T("multirank_dtd_gemm", phase_multirank_dtd, card, torch)
+    jdf_gemm = T("jdf_gemm", phase_jdf_gemm, card, torch, path)
+    T("multirank_stencil", phase_multirank_stencil, card, torch)
+    legacy = T("multiproc_legacy_wire", phase_multiproc_legacy_wire, card,
+               torch, multiproc, comm_thread)
+    T("resume_get", phase_resume_get, card, torch)
+    examples = T("examples", phase_examples, card, torch)
     k2_paths["examples"] = examples
+    recursive = T("recursive_gemm", phase_recursive_gemm, card, torch, path)
+    T("apps", phase_apps, card, torch)
+    T("parallel_ptg", phase_parallel_ptg, card, torch)
+    T("parallel_mesh", phase_parallel_mesh, card, torch)
     k1_paths = {"gemm": path, "dtd_gemm": dtd, "path_checked": checked,
                 "lowered_gemm": lgemm, "lowered_cache": lcache,
                 **factor_paths, "tuned_cholesky": tuned,
@@ -5154,7 +5807,8 @@ def _run(torch) -> int:
                 **multiproc, "multiproc_comm_thread": comm_thread,
                 "multiproc_traced": traced,
                 "multirank_dtd_gemm": mr_dtd, "jdf_gemm": jdf_gemm,
-                "multiproc_legacy_wire": legacy}
+                "multiproc_legacy_wire": legacy,
+                "recursive_gemm": recursive, "examples": examples}
     row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "gemm_update", "route": "cuda",
@@ -5215,6 +5869,8 @@ def _run(torch) -> int:
                 "bound_by": sten_rec["bound_by"],
                 "library_ms": sten_rec["library_ms"]}]
     _check(all(math.isfinite(k["ms"]) for k in kernels), "a time is not finite")
+    _emit(card, phase="phases", seconds=dict(sorted(
+        PHASE_SECONDS.items(), key=lambda kv: -kv[1])))
     _emit(card, phase="done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,7 @@ Usage::
 Port of ``parsec_tpu/analysis/__main__.py``.  ``--graph`` takes a
 ``.jdf`` path too, parsed by :mod:`parsec_tpu_torch.ptg.jdf` and built
 with its ``--bind NAME=INT`` globals (:func:`.graphcheck.check_jdf`).
-Left out: the models the port does not have yet (pingpong, reduction, all2all; queue item 10, so the
-``--comm`` sweep has no reduction, pingpong or irregular pool) or
-dropped (the one-step ``llm_decode`` pool).
+Left out: the one-step ``llm_decode`` pool, which the port dropped.
 """
 
 from __future__ import annotations
@@ -46,7 +44,8 @@ def _model_graphs(nt: int, ranks: int = 1):
                        prefill_chunks, prefill_ptg, seed_spec_batched_pool,
                        seed_spec_superpool, spec_batched_ptg,
                        spec_superpool_ptg)
-    from ..models import cholesky, ep, lu, stencil, stencil2d, tiled_gemm
+    from ..models import (cholesky, ep, irregular, lu, pingpong, reduction,
+                          stencil, stencil2d, tiled_gemm)
     nb = 8
     n = nt * nb
 
@@ -57,6 +56,8 @@ def _model_graphs(nt: int, ranks: int = 1):
         SymTwoDimBlockCyclic("A", n, n, nb, nb), devices="cpu")
     yield "lu", lu.tiled_lu_ptg(
         TiledMatrix.from_dense("A", lu.make_dd(n), nb, nb), devices="cpu")
+    yield "pingpong", pingpong.pingpong_ptg(_vec("V"), 2 * nt)
+    yield "reduction", reduction.bt_reduction_ptg(_vec("R"))
     yield "stencil1d", stencil.stencil_1d_ptg(_vec("S"), [0.25, 0.5, 0.25],
                                               3)
     yield "stencil2d", stencil2d.stencil_2d_ptg(
@@ -66,6 +67,7 @@ def _model_graphs(nt: int, ranks: int = 1):
     B = TiledMatrix.from_dense("B", torch.zeros(n, n), nb, nb)
     yield "tiled_gemm", tiled_gemm.tiled_gemm_ptg(
         A, B, TiledMatrix("C", n, n, nb, nb), devices="cpu")
+    yield "all2all", irregular.all2all_ptg(_vec("IA"), _vec("IB"), 2)
     yield "ep", ep.ep_pool(nt, 4).build()
 
     model = ToyLM()
@@ -134,7 +136,8 @@ def main(argv: list[str] | None = None) -> int:
                     "and the runtime's concurrency lint")
     ap.add_argument("--graph", metavar="MODEL|JDF",
                     help="verify one graph: a model name (cholesky, lu, "
-                         "stencil1d, stencil2d, tiled_gemm, ep, "
+                         "pingpong, reduction, stencil1d, stencil2d, "
+                         "tiled_gemm, all2all, ep, "
                          "llm_prefill, llm_decode_k, llm_decode_spec, "
                          "llm_decode_spec_batched, comm_bcast, "
                          "comm_reduce) or a .jdf path")

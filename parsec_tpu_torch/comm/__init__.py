@@ -25,8 +25,13 @@ Port of ``parsec_tpu/comm`` (the reference's communication stack):
   ``mpiexec -np N`` analog), with the rank bodies the tests and
   ``chip_smoke.py`` share in :mod:`.mp_bodies`.
 
-Left out: the legacy pickle framing of the socket fabric, trace spans,
-resumed GETs (``resume_get``) and an NCCL process group (``run_multiproc(distributed=True)`` joins gloo).
+The socket fabric also speaks the legacy pickle framing
+(``comm_wire_binary=0``), the comm layer records trace spans
+(``prof_spans``), and an interrupted fragmented GET resumes where it
+stopped (``resume_get``).
+
+Left out: an NCCL process group (``run_multiproc(distributed=True)``
+joins gloo; NCCL refuses two ranks on one card).
 """
 
 from .collectives import (bcast_taskpool, reduce_op, reduce_taskpool,

@@ -26,7 +26,12 @@ over ``P`` ranks.  A rank may still read a tile another rank owns through
 ``data_of`` (the GEMM reads A and B on C's rank): the tile is made from
 ``init_fn`` where it is read.
 
-Left out: the band, tabular, sub-tile and hash distributions.
+:class:`TwoDimTabular` places tiles by an arbitrary table (the expert
+placement of ``parallel/expert.py``); :class:`SubtileCollection` views one
+tile, or any flow copy, as a tiled matrix for a recursive body's nested
+pool, and writes the sub-tiles back into it (``sync_parent``).
+
+Left out: the band and hash distributions.
 
 :meth:`TiledMatrix.from_numpy_tiles` / :meth:`to_numpy_tiles` carry the
 JAX package's ``{(i, j): np.ndarray}`` host tiles of the stored tiles
@@ -280,3 +285,111 @@ class VectorTwoDimCyclic(DataCollection):
                                 dtt=TileType((size,), self.dtype), dc=self)
                 self._store[(m,)] = d
             return d
+
+
+class TwoDimTabular(TiledMatrix):
+    """An arbitrary tile -> rank table (``two_dim_tabular.c``): a callable
+    ``rank_table(m, n)`` or a dict keyed by ``(m, n)``; every tile on rank
+    0 without one.  The substrate of irregular placements such as the
+    experts of ``parallel/expert.py``."""
+
+    def __init__(self, name: str, lm: int, ln: int, mb: int, nb: int,
+                 rank_table: Callable[[int, int], int] | dict | None = None,
+                 **kw) -> None:
+        super().__init__(name, lm, ln, mb, nb, **kw)
+        self._table = rank_table or (lambda m, n: 0)
+
+    def rank_of(self, m: int, n: int) -> int:
+        if callable(self._table):
+            return self._table(m, n)
+        return self._table[(m, n)]
+
+
+class SubtileCollection(TiledMatrix):
+    """One tile seen as a ``sub_mb x sub_nb`` tiled matrix
+    (``matrix/subtile.c``), so that a recursive body can spawn a nested
+    pool over it (``PARSEC_DEV_RECURSIVE``).
+
+    Each sub-tile's home value is a strided view of the parent tensor
+    (its row pitch is the parent's), never a copy: a body that writes in
+    place writes the parent.  :meth:`sync_parent` publishes the newest
+    copy of every sub-tile into the parent with ``copy_`` (a D2H where
+    that copy lies on the card; nothing where it is still the view),
+    releases the sub-tiles' device copies (their keys carry the outer
+    task's, so no other pool reads them), and bumps the parent copy's
+    version.  :meth:`release_copies` only releases, for a view that was
+    read.  The recursive GEMM calls both from the nested pool's drain
+    chain, before the outer task completes.
+    """
+
+    def __init__(self, parent: TiledMatrix, m: int, n: int,
+                 sub_mb: int, sub_nb: int) -> None:
+        self.parent = parent
+        self._view_init(parent.data_of(m, n).newest_copy(),
+                        f"{parent.name}[{m},{n}]", sub_mb, sub_nb)
+
+    @classmethod
+    def of_copy(cls, copy: Any, sub_mb: int, sub_nb: int,
+                name: str = "subview") -> "SubtileCollection":
+        """View any :class:`DataCopy`'s tensor as a tiled matrix: the form
+        recursive bodies use on their flow copies (a chained RW tile's
+        flow copy need not be its collection's home copy)."""
+        self = cls.__new__(cls)
+        self.parent = None
+        self._view_init(copy, name, sub_mb, sub_nb)
+        return self
+
+    def _view_init(self, copy: Any, name: str, sub_mb: int,
+                   sub_nb: int) -> None:
+        self.parent_copy = copy
+        value = copy.value
+        if not isinstance(value, torch.Tensor) or value.dim() != 2:
+            raise TypeError(f"{name}: a sub-tiled copy must hold a 2-D "
+                            f"tensor, got {type(value).__name__}")
+        TiledMatrix.__init__(self, name, value.shape[0], value.shape[1],
+                             sub_mb, sub_nb, dtype=value.dtype)
+
+    def _region(self, m: int, n: int) -> torch.Tensor:
+        r, c = self.tile_shape(m, n)
+        return self.parent_copy.value[m * self.mb:m * self.mb + r,
+                                      n * self.nb:n * self.nb + c]
+
+    def data_of(self, m: int, n: int) -> Data:
+        with self._lock:
+            d = self._store.get((m, n))
+            if d is None:
+                if not self.has_tile(m, n):
+                    raise KeyError(f"{self.name}: no tile ({m},{n})")
+                view = self._region(m, n)
+                d = data_create(view, key=(self.name, m, n),
+                                dtt=TileType(tuple(view.shape), self.dtype),
+                                dc=self)
+                self._store[(m, n)] = d
+            return d
+
+    def sync_parent(self) -> None:
+        """Write every sub-tile's newest copy into the parent tensor in
+        place, release the sub-tiles' device copies, and bump the parent
+        copy's version."""
+        with self._lock:
+            stored = list(self._store.items())
+        for (m, n), d in stored:
+            region = self._region(m, n)
+            t = d.newest_copy().value
+            if not (t.data_ptr() == region.data_ptr()
+                    and t.device == region.device
+                    and t.stride() == region.stride()):
+                region.copy_(t)
+        self.release_copies()
+        self.parent_copy.version += 1
+
+    def release_copies(self) -> None:
+        """Drop the sub-tiles' device copies without a write-back and
+        leave the parent's version alone: the end of a nested pool that
+        only read this view."""
+        from ..device.device import registry
+        with self._lock:
+            stored = list(self._store.values())
+        for d in stored:
+            for idx in [i for i in d.device_copies if i != 0]:
+                registry.get(idx).release_data(d)

@@ -193,6 +193,7 @@ class CUDADevice(Device):
         self._evict_q: deque[DataCopy] = deque()
         self._evict_bytes = 0
         self.deferred_evictions = 0
+        self.released = 0             # copies dropped by release_data
         # in-flight window of recorded events
         self._inflight: deque[Any] = deque()
         self._max_inflight = _params.get("device_cuda_max_inflight")
@@ -339,6 +340,22 @@ class CUDADevice(Device):
             for d, nb in spilled:
                 self.spill_hook_failures += _fire_spill(d, nb)
 
+    def release_data(self, d: Any) -> None:
+        """Drop ``d``'s copy on this device without a write-back: its
+        LRU entry, and the copy itself (marked invalid, so a queued
+        eviction skips it).  A recursive body's sub-tiles call it once
+        their values are home (``SubtileCollection.release_copies``)."""
+        with d._lock:
+            c = d.device_copies.pop(self.device_index, None)
+        if c is None:
+            return
+        with self._lru_lock:
+            if self._mem_lru.get(d.key) is c:
+                del self._mem_lru[d.key]
+                self._mem_bytes -= nbytes_of(c.value)
+        c.coherency = COHERENCY_INVALID
+        self.released += 1
+
     def flush_cache(self) -> None:
         """Write every dirty tile back to its host copy (a taskpool's
         epilog)."""
@@ -356,9 +373,11 @@ class CUDADevice(Device):
         goes through a pinned staging buffer from PyTorch's caching host
         allocator, which recycles the buffer once its H2D has run; the
         copy stream does not queue behind the kernels, so a few buffers
-        serve the whole run."""
+        serve the whole run.  A strided view (a sub-tile of a recursive
+        body, ``SubtileCollection``) lands contiguous: the kernels take
+        dense tiles."""
         if v.device == self.torch_device:
-            return v
+            return v if v.is_contiguous() else v.contiguous()
         if v.device.type == "cpu" and not v.is_pinned():
             t0 = time.perf_counter()
             v = torch.empty(v.shape, dtype=v.dtype,
@@ -769,6 +788,7 @@ class CUDADevice(Device):
                  prefetched=self.prefetched,
                  spill_hook_failures=self.spill_hook_failures,
                  deferred_evictions=self.deferred_evictions,
+                 released=self.released,
                  t_stage_in=self.t_stage_in, t_pin=self.t_pin,
                  t_dispatch=self.t_dispatch,
                  t_complete=self.t_complete, t_drain=self.t_drain,

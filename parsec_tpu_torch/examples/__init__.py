@@ -1,5 +1,5 @@
-"""The examples ladder, ported: ``Ex00_StartStop`` through ``Ex07_RAW_CTL``,
-then ``Ex10_WireHalo``, ``Ex11_Serve`` and ``Ex12_LLMServe``.
+"""The examples ladder, ported: ``Ex00_StartStop`` through
+``Ex12_LLMServe``.
 
 Port of the JAX package's ``examples/`` (the reference's
 ``examples/Ex00…Ex07`` tutorial sequence).  Each module runs as
@@ -12,11 +12,8 @@ port's ``WireRegion`` and computes with torch); the JAX package's
 ``examples/jdf/Ex05``–``Ex07`` files import nothing and the port reads
 them where they lie.
 
-Most rungs run host chores only.  ``Ex12_LLMServe`` decodes on the card
-through K2 (``main(device="cpu")`` runs it on the host, as the tests
+Most rungs run host chores only.  ``Ex08_Recursive`` runs its nested
+GEMM pools on the card through K1, and ``Ex12_LLMServe`` decodes there
+through K2 (``main(device="cpu")`` runs either on the host, as the tests
 do).
-
-Left out: ``Ex08_Recursive`` (it needs ``runtime/recursive.py``) and
-``Ex09_DTD_Tree`` (``models/irregular.py``), which wait for the nested
-runtime.
 """

@@ -21,7 +21,12 @@ Over several ranks (``TwoDimBlockCyclic`` grids, one pool a rank through
 which reads its A and B tiles through their collections: no tile crosses
 ranks, and the ranks' ``to_dense`` of C sum to the product.
 
-Left out until later slices: the recursive variant.
+:func:`tiled_gemm_recursive_ptg` is the GEMM whose bodies recurse
+(``PARSEC_DEV_RECURSIVE``): each outer GEMM(m,n,k) views its three flow
+tiles as :class:`~parsec_tpu_torch.data_dist.matrix.SubtileCollection`
+views and runs a nested :func:`tiled_gemm_ptg` over them, whose chore is K1 on
+the card (``devices="cuda"``) or the host body (``devices="cpu"``, the
+JAX function's exact counterpart).
 """
 
 from __future__ import annotations
@@ -30,27 +35,22 @@ import time
 from typing import Any, Callable
 
 from .. import ptg
-from ..data_dist.matrix import TiledMatrix
+from ..data_dist.matrix import SubtileCollection, TiledMatrix
 from ..dtd.insert import INOUT, INPUT
 from ..ops import gemm as gemm_ops
+from ..runtime.recursive import recursive_call
+from ..runtime.task import HOOK_RETURN_DONE, HOOK_RETURN_NEXT
 
 
-def tiled_gemm_ptg(A: TiledMatrix, B: TiledMatrix, C: TiledMatrix,
-                   devices: str = "cuda") -> ptg.PTGTaskpool:
-    """Build the GEMM(m,n,k) PTG over tiled matrices: C += A·B.
-
-    Flows (positionally fixed for the kernel bodies): 0=A READ, 1=B READ,
-    2=C RW chained over k.
-    """
-    if devices not in ("cuda", "cpu"):
-        raise ValueError(f"tiled_gemm_ptg: devices must be 'cuda' or 'cpu', "
-                         f"got {devices!r}")
+def _gemm_graph(name: str, A: TiledMatrix, B: TiledMatrix,
+                C: TiledMatrix) -> tuple[ptg.PTGBuilder, Any]:
+    """The GEMM(m,n,k) DAG both builders share: the builder and its task
+    class, with its flows and no chore yet."""
     MT, NT, KT = C.mt, C.nt, A.nt
     if not (A.mt == MT and B.nt == NT and B.mt == KT):
-        raise ValueError(f"tiled_gemm_ptg: tile grids do not chain: "
+        raise ValueError(f"{name}: tile grids do not chain: "
                          f"A {A.mt}x{A.nt}, B {B.mt}x{B.nt}, C {MT}x{NT}")
-
-    p = ptg.PTGBuilder("tiled_gemm", A=A, B=B, C=C, MT=MT, NT=NT, KT=KT)
+    p = ptg.PTGBuilder(name, A=A, B=B, C=C, MT=MT, NT=NT, KT=KT)
     t = p.task("GEMM",
                m=ptg.span(0, lambda g, l: g.MT - 1),
                n=ptg.span(0, lambda g, l: g.NT - 1),
@@ -69,18 +69,85 @@ def tiled_gemm_ptg(A: TiledMatrix, B: TiledMatrix, C: TiledMatrix,
               guard=lambda g, l: l.k < g.KT - 1)
     fc.output(data=("C", lambda g, l: (l.m, l.n)),
               guard=lambda g, l: l.k == g.KT - 1)
-    # flops-based time estimate feeds best-device selection
-    flops = 2.0 * A.mb * C.nb * A.nb
-    t.time_estimate(lambda task, dev: flops / (dev.gflops_fp32 * 1e9))
+    return p, t
+
+
+def _pool_chore(t: Any, devices: str) -> None:
     if devices == "cuda":
         t.body(device="cuda", dyld="gemm")
     else:
         t.body(_cpu_wrap, device="cpu")
+
+
+def tiled_gemm_ptg(A: TiledMatrix, B: TiledMatrix, C: TiledMatrix,
+                   devices: str = "cuda") -> ptg.PTGTaskpool:
+    """Build the GEMM(m,n,k) PTG over tiled matrices: C += A·B.
+
+    Flows (positionally fixed for the kernel bodies): 0=A READ, 1=B READ,
+    2=C RW chained over k.
+    """
+    if devices not in ("cuda", "cpu"):
+        raise ValueError(f"tiled_gemm_ptg: devices must be 'cuda' or 'cpu', "
+                         f"got {devices!r}")
+    p, t = _gemm_graph("tiled_gemm", A, B, C)
+    # flops-based time estimate feeds best-device selection
+    flops = 2.0 * A.mb * C.nb * A.nb
+    t.time_estimate(lambda task, dev: flops / (dev.gflops_fp32 * 1e9))
+    _pool_chore(t, devices)
     return p.build()
 
 
 def _cpu_wrap(es: Any, task: Any, g: Any, l: Any) -> None:
     gemm_ops.gemm_cpu_body(es, task)
+
+
+def tiled_gemm_recursive_ptg(A: TiledMatrix, B: TiledMatrix, C: TiledMatrix,
+                             sub_mb: int, sub_nb: int, min_tile: int = 0,
+                             devices: str = "cuda") -> ptg.PTGTaskpool:
+    """The GEMM PTG whose bodies recurse: each GEMM(m,n,k) spawns a
+    nested :func:`tiled_gemm_ptg` over ``sub_mb x sub_nb`` sub-tiles of
+    its own flow tiles and detaches until it drains.
+
+    ``devices`` is the chore of the nested pools and of the cut-off:
+    ``"cuda"`` (each sub-GEMM a K1 task) or ``"cpu"`` (the host body).
+    ``min_tile`` is the recursion cut-off, the role of a recursive
+    chore's evaluate hook: a tile whose dims are all ``<= min_tile``
+    skips the recursive chore and takes the pool's own chore, K1 on the
+    whole tile (``"cuda"``) or the host body (``"cpu"``)."""
+    if devices not in ("cuda", "cpu"):
+        raise ValueError(f"tiled_gemm_recursive_ptg: devices must be "
+                         f"'cuda' or 'cpu', got {devices!r}")
+    p, t = _gemm_graph("tiled_gemm_rec", A, B, C)
+
+    def _too_small(es: Any, task: Any) -> int:
+        if max(task.data[2].value.shape) <= min_tile:
+            return HOOK_RETURN_NEXT   # fall through to the pool's chore
+        return HOOK_RETURN_DONE
+
+    def _recurse(es: Any, task: Any, g: Any, l: Any) -> int:
+        a = SubtileCollection.of_copy(task.data[0], sub_mb, sub_nb,
+                                      name=f"Asub{task.key}")
+        b = SubtileCollection.of_copy(task.data[1], sub_mb, sub_nb,
+                                      name=f"Bsub{task.key}")
+        c = SubtileCollection.of_copy(task.data[2], sub_mb, sub_nb,
+                                      name=f"Csub{task.key}")
+        inner = tiled_gemm_ptg(a, b, c, devices=devices)
+
+        def _release_inputs(tp: Any, outer: Any) -> None:
+            a.release_copies()
+            b.release_copies()
+
+        # A's and B's sub-tiles were only read: their device copies go
+        # and their parents keep their versions.  C's sync_parent
+        # publishes the sub-writes into the outer flow tile before the
+        # outer task completes
+        return recursive_call(es, task, inner, callback=_release_inputs,
+                              collections=(c,))
+
+    t.body(_recurse, device="recursive",
+           evaluate=_too_small if min_tile else None)
+    _pool_chore(t, devices)
+    return p.build()
 
 
 def tiled_gemm_fused(a: Any, b: Any, c: Any,

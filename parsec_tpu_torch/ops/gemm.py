@@ -9,8 +9,9 @@ to a batch dimension for the device module's fused dispatch.
   ``c.dtype``; 2-D tiles or batched ``(B, m, k) x (B, k, n) + (B, m, n)``.
   fp32 or bf16 A/B, fp32 or bf16 C.  On a CUDA tensor it launches the
   kernel (``gemm_update.launches`` counts launches, and
-  ``gemm_update.launches_by_variant`` and ``launches_by_form`` the same
-  launches by variant and by :func:`k1_form`) or raises; on a CPU
+  ``gemm_update.launches_by_variant``, ``launches_by_form`` and
+  ``launches_by_batch`` the same launches by variant, by :func:`k1_form`
+  and by the tiles a launch) or raises; on a CPU
   tensor it takes :func:`gemm_update_plain`.  Two forms for the
   Cholesky and LU trailing updates: ``trans_b=True`` takes B as ``(n,
   k)`` and computes ``a @ bᵀ``, ``subtract=True`` computes ``c - a@b``
@@ -254,9 +255,11 @@ def k1_form(trans_b: bool, subtract: bool, add_c: bool) -> str:
             + ("" if add_c else "-noc"))
 
 
-def _count(variant: str, key: str = "nn") -> None:
+def _count(variant: str, key: str = "nn", batch: int = 1) -> None:
     gemm_update.launches += 1
     gemm_update.launches_by_variant[variant] += 1
+    gemm_update.launches_by_batch[batch] = \
+        gemm_update.launches_by_batch.get(batch, 0) + 1
     gemm_update.launches_by_form[key] = \
         gemm_update.launches_by_form.get(key, 0) + 1
 
@@ -287,13 +290,14 @@ def gemm_update(a: torch.Tensor, b: torch.Tensor,
                          precision, trans_b, subtract)
     _launch(a, b, c, out, batch, m, n, k, variant, trans_b=trans_b,
             subtract=subtract)
-    _count(variant, k1_form(trans_b, subtract, c is not None))
+    _count(variant, k1_form(trans_b, subtract, c is not None), batch)
     return out
 
 
 gemm_update.launches = 0
 gemm_update.launches_by_variant = dict.fromkeys(K1_VARIANTS, 0)
 gemm_update.launches_by_form = {}
+gemm_update.launches_by_batch = {}   # tiles a launch -> launches
 
 
 def gemm_update_tiles(as_: list[torch.Tensor], bs: list[torch.Tensor],
@@ -377,7 +381,7 @@ def gemm_update_tiles(as_: list[torch.Tensor], bs: list[torch.Tensor],
             ptrs=dev.data_ptr(),
             maps=dev.data_ptr() + maps_at if nmaps else None,
             trans_b=trans_b, subtract=subtract)
-    _count(variant, k1_form(trans_b, subtract, cs is not None))
+    _count(variant, k1_form(trans_b, subtract, cs is not None), batch)
     return outs
 
 

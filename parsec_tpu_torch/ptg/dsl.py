@@ -231,9 +231,12 @@ class TaskClassBuilder:
              evaluate: Callable | None = None) -> Any:
         """Attach a body for ``device``.  CPU bodies are callables
         ``fn(es, task, g, l)``; device bodies may instead name a
-        kernel-registry entry via ``dyld``.  Usable as a decorator."""
+        kernel-registry entry via ``dyld``.  A ``"recursive"`` body is a
+        host callable too: it spawns a nested pool through
+        :func:`~parsec_tpu_torch.runtime.recursive.recursive_call` and
+        returns its ASYNC.  Usable as a decorator."""
         def attach(f: Callable | None) -> Callable | None:
-            if device == "cpu":
+            if device in ("cpu", "recursive"):
                 hook = self._wrap_cpu_body(f)
             else:
                 from ..device.hooks import make_device_hook

@@ -622,18 +622,25 @@ class _Stores:
                                     dtype=self.dtype[name], device=device)
         return out
 
-    def writeback(self, values: dict[str, torch.Tensor]) -> None:
+    def writeback(self, values: dict[str, torch.Tensor],
+                  only: dict[str, set] | None = None) -> None:
         """Every tile of a written store becomes a tensor of its own on its
         collection's newest copy, whose version is bumped, on the device
         of the value it replaces: a host copy's tiles come back in one
         copy of the store, a copy already on the store's device stays
-        there with no round trip."""
+        there with no round trip.  With ``only`` (store -> rows), a
+        store's other rows are left alone: a row the plan never wrote
+        holds the value it had when the stores were built, which another
+        pool may have replaced since."""
         for name in self.written:
             dc = self.dcs[name]
             src = values[name]
             moved: dict[torch.device, torch.Tensor] = {src.device: src}
             dense = self.layout[name] == "dense"
+            keep = None if only is None else only.get(name, set())
             for key, i in self.rows[name].items():
+                if keep is not None and i not in keep:
+                    continue
                 copy = dc.data_of(*key).newest_copy()
                 old = copy.value
                 dev = (old.device if isinstance(old, torch.Tensor)
@@ -1786,35 +1793,25 @@ class RegionLoweredTaskpool:
 
     def taskpool(self, table: dict[str, torch.Tensor]):
         """The schedulable region pool: one REGION(r) task per region and
-        the region DAG as CTL edges, a plain PTG pool, so graphcheck
-        verifies it and the runtime (Context, RuntimeServer) schedules
-        it like any other.  The port has no goal-counted (ranged) input
-        deps, so a region's fan-in rides one CTL flow per predecessor
-        slot: flow ``p<j>`` of REGION(s) waits on its j-th predecessor,
-        which sends on its own flow ``p<j>``.  Completion finalizes the
-        table back into the source collections."""
+        the region DAG as one CTL flow, a ranged fan-in from the
+        region's predecessors (counted toward their number; a region with
+        none starts at once) and a fan-out to its successors, a plain PTG
+        pool, so graphcheck verifies it and the runtime (Context,
+        RuntimeServer) schedules it like any other.  Completion finalizes
+        the table back into the source collections."""
         from . import dsl
         preds = tuple(tuple(sorted(r.preds)) for r in self.regions)
-        # slot_succ[q][j]: the regions whose j-th predecessor is q
-        width = max((len(p) for p in preds), default=0)
-        slot_succ = [[[] for _ in range(width)] for _ in self.regions]
-        for s, ps in enumerate(preds):
-            for j, q in enumerate(ps):
-                slot_succ[q][j].append(s)
-        slot_succ = tuple(tuple(tuple(x) for x in row) for row in slot_succ)
+        succs = tuple(tuple(sorted(r.succs)) for r in self.regions)
         p = dsl.PTGBuilder(f"{self.source.name}_regions",
-                           NR=len(self.regions), RPRED=preds,
-                           RSLOT=slot_succ)
+                           NR=len(self.regions), RPRED=preds, RSUCC=succs)
         t = p.task("REGION", r=dsl.span(0, lambda g, l: g.NR - 1))
-        for j in range(width):
-            f = t.flow(f"p{j}", dsl.CTL)
-            f.input(pred=("REGION", f"p{j}",
-                          lambda g, l, j=j: {"r": g.RPRED[l.r][j]}),
-                    guard=lambda g, l, j=j: j < len(g.RPRED[l.r]))
-            f.output(succ=("REGION", f"p{j}",
-                           lambda g, l, j=j: [{"r": s}
-                                              for s in g.RSLOT[l.r][j]]),
-                     guard=lambda g, l, j=j: bool(g.RSLOT[l.r][j]))
+        f = t.flow("ctl", dsl.CTL)
+        f.input(pred=("REGION", "ctl",
+                      lambda g, l: [{"r": q} for q in g.RPRED[l.r]]),
+                guard=lambda g, l: bool(g.RPRED[l.r]), ranged=True)
+        f.output(succ=("REGION", "ctl",
+                       lambda g, l: [{"r": q} for q in g.RSUCC[l.r]]),
+                 guard=lambda g, l: bool(g.RSUCC[l.r]))
         # earlier wavefront bands first: the region-grain critical path
         t.priority(lambda g, l: -self.regions[l.r].level_lo)
         plan = self
@@ -1830,20 +1827,27 @@ class RegionLoweredTaskpool:
 
     def finalize(self, table: dict[str, torch.Tensor]) -> None:
         """Restore dirty rows (in-place homes the source program never
-        writes back) and write the table's tiles into the collections
-        with version bumps, the dynamic path's completion semantics.
-        Idempotent: fires from the pool's completion listener and from
-        explicit callers."""
+        writes back) and write the tiles the regions wrote into the
+        collections with version bumps, the dynamic path's completion
+        semantics.  Idempotent: fires from the pool's completion listener
+        and from explicit callers."""
         with self._lock:
             if self._finalized:
                 return
             self._finalized = True
+        # only the rows a region wrote go back: a store's other rows (the
+        # keys of every stream an open collection knows) are stale copies,
+        # which a pool running beside this one may have replaced since
+        written: dict[str, set] = {}
+        for reg in self.regions:
+            for nm, (grows, _lrows) in reg.written.items():
+                written.setdefault(nm, set()).update(grows.tolist())
         with self._on_stream():
             for nm, rows in self.dirty_by_name.items():
                 table[nm].index_copy_(0, torch.as_tensor(
                     rows, dtype=torch.long, device=self.device),
                     self._dirty_saved[nm])
-            self._stores.writeback(table)
+            self._stores.writeback(table, only=written)
 
     def execute(self, context: Any = None, timeout: float = 300.0,
                 budget_s: float | None = None) -> dict[str, torch.Tensor]:

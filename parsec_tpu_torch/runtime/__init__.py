@@ -2,16 +2,20 @@
 
 from .context import Context, ContextWaitTimeout
 from .scheduling import complete_execution, prepare_input, schedule_tasks
-from .task import (DEV_CPU, DEV_CUDA, FLOW_CTL, HOOK_RETURN_ASYNC,
+from .recursive import recursive_call
+from .task import (DEV_CPU, DEV_CUDA, DEV_RECURSIVE, FLOW_CTL,
+                   HOOK_RETURN_ASYNC,
                    HOOK_RETURN_DONE, HOOK_RETURN_NEXT, Chore, Dep, Flow,
                    KeyHashStruct, Task, TaskClass, UDKey)
 from .taskpool import Taskpool
 from .termdet import UserTriggerTermDet
 
 __all__ = [
-    "Chore", "Context", "ContextWaitTimeout", "DEV_CPU", "DEV_CUDA", "Dep",
+    "Chore", "Context", "ContextWaitTimeout", "DEV_CPU", "DEV_CUDA",
+    "DEV_RECURSIVE", "Dep",
     "FLOW_CTL", "Flow", "HOOK_RETURN_ASYNC", "HOOK_RETURN_DONE",
     "HOOK_RETURN_NEXT", "KeyHashStruct", "Task", "TaskClass", "Taskpool",
     "UDKey", "UserTriggerTermDet",
-    "complete_execution", "prepare_input", "schedule_tasks",
+    "complete_execution", "prepare_input", "recursive_call",
+    "schedule_tasks",
 ]

@@ -22,11 +22,12 @@ wrapper.
 
 Compilation is an optimization that falls back to the dynamic scheduler
 (same taskpool object, same results) on any structural surprise: device
-chores, a class's own ``prepare_input``/``complete_execution``,
-multi-chore classes, multi-dep data flows, typed edges, non-enumerable
-spaces, a served pool (``_serve_no_dag``), a pool on the wire of a
-multi-rank context (a rank-private ``local_only`` pool still compiles),
-or no native tier.
+or recursive chores, a class's own ``prepare_input``/
+``complete_execution``, the user-defined key, deps, startup or SIMCOST
+(``_check_eligible``), ranged (counted) fan-ins, multi-chore classes,
+multi-dep data flows, typed edges, non-enumerable spaces, a served pool
+(``_serve_no_dag``), a pool on the wire of a multi-rank context (a
+rank-private ``local_only`` pool still compiles), or no native tier.
 
 PINS does not force the fallback: the executor fires batch-granular
 ``DAG_FETCH``/``DAG_COMPLETE`` spans (payload: the batch size) through the
@@ -34,8 +35,6 @@ dispatch table, a few index loads a batch of up to 1024 tasks, and the
 per-task ``EXEC`` begin/end around the bodies only while PINS chains are
 registered (``pins.enabled``, read once a batch).
 
-Left out: the user-defined key/dep/startup and SIMCOST gates (the port's
-task classes have none of those overrides).
 """
 
 from __future__ import annotations

@@ -37,6 +37,9 @@ FLOW_CTL = "CTL"
 
 DEV_CPU = "cpu"
 DEV_CUDA = "cuda"
+# a host callable that re-enters the runtime with a nested pool
+# (runtime/recursive.py: PARSEC_DEV_RECURSIVE)
+DEV_RECURSIVE = "recursive"
 
 _task_counter = itertools.count()
 _UNSET = object()   # lazy-attribute sentinel (space_extents)

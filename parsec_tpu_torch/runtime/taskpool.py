@@ -4,7 +4,9 @@ Port of ``parsec_tpu/runtime/taskpool.py`` (the reference's
 ``parsec_taskpool_t``): a taskpool owns task classes and their data
 repos, a termination-detection monitor (the only path to ``nb_tasks``),
 startup enumeration and completion listeners
-(:meth:`Taskpool.add_completion_listener`).  On several ranks a pool
+(:meth:`Taskpool.add_completion_listener`), with the single
+``on_complete`` slot, fired first, that a recursive call chains onto
+(:mod:`.recursive`).  On several ranks a pool
 carries the rank-agreed ``comm_id`` its context gives it at enqueue (None
 for a rank-private ``local_only`` pool).  ``termdet_name`` picks the
 pool's own termination detector (the JDF ``%option termdet``), and a pool
@@ -36,6 +38,9 @@ class Taskpool:
         # wire identity, set at enqueue (None: never on the wire)
         self.comm_id: int | None = None
         self.local_only = False
+        # fired at termination before the listeners (recursive_call
+        # chains its drain onto it)
+        self.on_complete: Callable[["Taskpool"], None] | None = None
         # this pool's termination detector by name (None: the termdet
         # param's)
         self.termdet_name: str | None = None
@@ -88,6 +93,8 @@ class Taskpool:
             self._done.set()
             listeners = self._completion_listeners
             self._completion_listeners = []
+        if self.on_complete is not None:
+            self.on_complete(self)
         for cb in listeners:
             cb(self)
         if self.context is not None:

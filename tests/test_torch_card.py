@@ -242,6 +242,55 @@ def test_tiled_gemm_on_the_card(card):
                 torch.from_numpy(b))
 
 
+def test_recursive_gemm_runs_its_sub_gemms_on_k1(card):
+    """The recursive GEMM's nested pools on the card: every sub-GEMM a
+    K1 task (``mma_tf32``), none on a host body, each sub-tile's device
+    copy released as its pool drains, C within the TF32 bound."""
+    from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_recursive_ptg
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((512, 512), dtype=np.float32)
+    b = rng.standard_normal((512, 512), dtype=np.float32)
+    A = TiledMatrix.from_dense("A", a, 256, 256)
+    B = TiledMatrix.from_dense("B", b, 256, 256)
+    C = TiledMatrix("C", 512, 512, 256, 256)
+    launches = tg.gemm_update.launches
+    tf32 = tg.gemm_update.launches_by_variant["mma_tf32"]
+    tasks, released = card.tasks_by_class["GEMM"], card.released
+    ctx = Context(nb_cores=2)
+    try:
+        ctx.add_taskpool(tiled_gemm_recursive_ptg(A, B, C, 64, 64))
+        ctx.wait(timeout=120)
+        card.sync()
+    finally:
+        ctx.fini(timeout=30)
+    # 8 outer tasks, each a 4 x 4 x 4 nested pool of 64-wide sub-GEMMs
+    assert card.tasks_by_class["GEMM"] - tasks == 8 * 64
+    assert card.released - released == 8 * 3 * 16
+    assert tg.gemm_update.launches > launches
+    assert tg.gemm_update.launches_by_variant["mma_tf32"] - tf32 \
+        == tg.gemm_update.launches - launches
+    _tf32_close(torch.from_numpy(C.to_dense()), torch.from_numpy(a),
+                torch.from_numpy(b))
+
+
+def test_a_mesh_recipe_runs_on_the_card(card, monkeypatch):
+    """Ring attention over 2 gloo rank processes sharing the card: each
+    rank's block within 1e-4 of dense attention on one process, the K/V
+    rotations staged through the host (gloo's point-to-point takes host
+    tensors)."""
+    import json
+
+    from parsec_tpu_torch.comm import run_multiproc
+    monkeypatch.setenv("PARSEC_PAR_SPEC", json.dumps([
+        {"kind": "ring", "mesh": {"sp": 2}, "shape": [1, 4, 256, 64],
+         "causal": True, "seed": 0, "check": 1}]))
+    res = run_multiproc(2, "parsec_tpu_torch.parallel.bodies:mesh_body",
+                        timeout=120, transport="device", distributed=True)
+    for r in res:
+        assert r[0]["err"] <= 1e-4, r[0]
+        assert r[0]["staged_by_op"].get("send_recv", 0) > 0, r[0]
+
+
 # ---------------------------------------------------------------------------
 # K2: the ragged paged-attention page update, and decode serving on the card
 # ---------------------------------------------------------------------------

@@ -93,9 +93,10 @@ def _both(build, nb_ranks):
 # classification
 # ---------------------------------------------------------------------------
 
-SHARED = ["cholesky", "lu", "stencil1d", "stencil2d", "tiled_gemm",
-          "llm_prefill", "llm_decode_k", "llm_decode_spec",
-          "llm_decode_spec_batched", "comm_bcast", "comm_reduce"]
+SHARED = ["cholesky", "lu", "pingpong", "reduction", "stencil1d",
+          "stencil2d", "tiled_gemm", "all2all", "llm_prefill",
+          "llm_decode_k", "llm_decode_spec", "llm_decode_spec_batched",
+          "comm_bcast", "comm_reduce"]
 WANT = {"comm_bcast": "broadcast", "comm_reduce": "reduce",
         "cholesky": "none", "stencil1d": "halo"}
 

@@ -411,7 +411,11 @@ def test_knobs_name_the_params_set_away_from_their_defaults(param):
 def _served_report(server_cls, build, report_fn, spans_mod, rec_mod,
                    pins_mod):
     """A fresh recorder and span recorder, a served CTL backlog of two
-    tenants, and the report."""
+    tenants, and the report.  The SLO planes of servers an earlier test
+    of the process dropped are collected first: the report merges every
+    live plane."""
+    import gc
+    gc.collect()
     old = rec_mod.recorder, spans_mod.recorder
     rec_mod.install(256)
     spans_mod.uninstall()

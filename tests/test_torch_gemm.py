@@ -224,6 +224,9 @@ F32, BF16 = torch.float32, torch.bfloat16
     (F32, F32, 1000, 700, 300, True, "default", "mma_tf32"),
     (F32, F32, 1000, 700, 300, True, "highest", "simt_fp32"),
     (F32, BF16, 1000, 700, 300, True, "default", "mma_tf32"),
+    # the recursive GEMM's sub-tiles and Ex08's
+    (F32, F32, 512, 512, 512, True, "default", "mma_tf32"),
+    (F32, F32, 8, 8, 8, True, "default", "mma_tf32"),
     # a 600-byte pitch TMA cannot take (chip_smoke.py's matmul too)
     (BF16, F32, 1000, 700, 300, True, "default", "simt_fp32"),
     (BF16, BF16, 1000, 700, 300, True, "highest", "simt_fp32"),

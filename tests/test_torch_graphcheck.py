@@ -99,9 +99,10 @@ def _same_reports(jr, pr):
 # every pool builder: the port's findings are the JAX package's
 # ---------------------------------------------------------------------------
 
-MODELS = ["cholesky", "lu", "stencil1d", "stencil2d", "tiled_gemm",
-          "llm_prefill", "llm_decode_k", "llm_decode_spec",
-          "llm_decode_spec_batched", "comm_bcast", "comm_reduce"]
+MODELS = ["cholesky", "lu", "pingpong", "reduction", "stencil1d",
+          "stencil2d", "tiled_gemm", "all2all", "llm_prefill",
+          "llm_decode_k", "llm_decode_spec", "llm_decode_spec_batched",
+          "comm_bcast", "comm_reduce"]
 
 
 @pytest.mark.parametrize("nt", [3, 5])
@@ -600,7 +601,7 @@ def test_the_cli_prints_an_ok_line_for_every_graph(capsys):
     lines = capsys.readouterr().out.splitlines()
     names = [tp.name for _n, tp in _model_graphs(3)]
     # the default run is the graph sweep, then the self-lint's line
-    assert len(lines) - 1 == len(names) == 12
+    assert len(lines) - 1 == len(names) == 15
     for line, name in zip(lines, names):
         assert line.startswith(f"graphcheck {name}: OK"), line
     assert lines[-1].startswith("runtimelint: OK"), lines[-1]

@@ -9,8 +9,9 @@ reports its own), the graphcheck CLI with a GEMM under the enqueue
 gate and the task profiler, and the tuner's and the perf ledger's
 self-tests with two cached lowerings, a sharded two-rank serving plane
 and an adaptive stream, the port's ``stencil_1D.jdf`` copy on two rank
-threads with a JDF graph check and two rungs of the examples ladder,
-then inspect ``sys.modules``
+threads with a JDF graph check and two rungs of the examples ladder, a
+recursive GEMM on the device module around the host and a ring
+attention across two gloo rank processes, then inspect ``sys.modules``
 (subprocesses, because this test process already holds jax through
 ``conftest.py``); and an AST scan of every module of the package finds
 no such import (the JDF copy's prologue is scanned the same way).
@@ -128,7 +129,12 @@ def test_the_package_has_the_slice_modules():
                 "prof/dashboard.py", "core/output.py", "prof/perfdb.py",
                 "tune/__init__.py", "tune/__main__.py", "tune/signature.py",
                 "tune/db.py", "tune/search.py", "tune/adaptive.py",
-                "serve/sharded.py"):
+                "serve/sharded.py", "runtime/recursive.py",
+                "models/reduction.py", "models/pingpong.py",
+                "models/irregular.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/train.py", "parallel/ring.py",
+                "parallel/alltoall.py", "parallel/pipeline.py",
+                "parallel/expert.py", "parallel/bodies.py"):
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     for src in ("gemm.cu", "ragged_attn.cu", "stencil.cu",
                 "native_core.cpp"):
@@ -450,8 +456,8 @@ def test_graphcheck_and_the_task_profiler_load_no_jax_and_no_parsec_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    # 12 graphcheck lines, then the self-lint's
-    assert out["rc"] == 0 and out["ok_lines"] == 13
+    # 15 graphcheck lines, then the self-lint's
+    assert out["rc"] == 0 and out["ok_lines"] == 16
     assert out["execs"] == 8 and out["ok"]
     assert "parsec_tpu_torch.analysis.graphcheck" in out["modules"]
     assert "parsec_tpu_torch.prof.task_profiler" in out["modules"]
@@ -648,7 +654,7 @@ def test_the_ast_scan_covers_the_jdf_front_ends_reshape_and_examples():
         assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
     ladder = sorted(Path(f).stem.split("_")[0] for f in PORT_FILES
                     if f.startswith("parsec_tpu_torch/examples/Ex"))
-    assert ladder == [f"Ex{i:02d}" for i in (*range(8), 10, 11, 12)]
+    assert ladder == [f"Ex{i:02d}" for i in range(13)]
 
 
 def test_the_port_stencil_jdf_prologue_imports_no_jax_package():
@@ -710,6 +716,55 @@ def test_the_jdf_stencil_and_the_ladder_load_no_jax_and_no_parsec_tpu():
     assert out["data"] == 15.0 and out["checked"] == 3
     for m in ("parsec_tpu_torch.ptg.jdf", "parsec_tpu_torch.data.reshape",
               "parsec_tpu_torch.examples.Ex02_Chain"):
+        assert m in out["modules"], m
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_the_recursive_gemm_and_a_gloo_ring_load_no_jax_and_no_parsec_tpu():
+    """A fresh interpreter runs the recursive GEMM (nested pools on the
+    device module around the host) and ring attention over two gloo rank
+    processes; neither it nor the ranks (``isolation_body``) hold jax."""
+    code = textwrap.dedent("""
+        import json, os, sys
+        import numpy as np
+        from parsec_tpu_torch.comm import run_multiproc
+        from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.models.tiled_gemm import (
+            tiled_gemm_recursive_ptg)
+        from parsec_tpu_torch.runtime import Context
+        dev = init_cuda_devices(device="cpu")[0]
+        rng = np.random.default_rng(0)
+        a, b = (rng.standard_normal((16, 16)).astype(np.float32)
+                for _ in range(2))
+        A, B = (TiledMatrix.from_dense(n, x.copy(), 8, 8)
+                for n, x in (("A", a), ("B", b)))
+        C = TiledMatrix("C", 16, 16, 8, 8)
+        with Context(nb_cores=0) as ctx:
+            ctx.add_taskpool(tiled_gemm_recursive_ptg(A, B, C, 4, 4))
+            ctx.wait(timeout=60)
+        err = float(np.abs(C.to_dense() - a @ b).max())
+        os.environ["PARSEC_PAR_SPEC"] = json.dumps([
+            {"kind": "ring", "mesh": {"sp": 2}, "shape": [1, 2, 8, 4],
+             "causal": True, "seed": 0, "check": 1}])
+        ring = run_multiproc(2, "parsec_tpu_torch.parallel.bodies:"
+                             "mesh_body", timeout=60, transport="device",
+                             distributed=True, device="cpu")
+        ranks = run_multiproc(2, "parsec_tpu_torch.comm.mp_bodies:"
+                              "isolation_body", timeout=60)
+        print(json.dumps({"err": err, "sub": dev.tasks_by_class["GEMM"],
+                          "ring": [r[0]["err"] for r in ring],
+                          "ranks": ranks, "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["err"] < 1e-4 and out["sub"] == 8 * 8
+    assert all(e < 1e-5 for e in out["ring"]) and out["ranks"] == [[], []]
+    for m in ("parsec_tpu_torch.runtime.recursive",
+              "parsec_tpu_torch.data_dist.matrix"):
         assert m in out["modules"], m
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded

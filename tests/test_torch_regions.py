@@ -44,6 +44,7 @@ from parsec_tpu.models import cholesky as j_chol
 from parsec_tpu.models import lu as j_lu
 from parsec_tpu.models.tiled_gemm import tiled_gemm_ptg as j_gemm
 from parsec_tpu.ptg.lowering import lower_regions as j_lower_regions
+from parsec_tpu.runtime import Context as j_Context
 import parsec_tpu_torch.llm as p_llm
 import parsec_tpu_torch.ops.ragged_attention  # noqa: F401 — traceables
 from parsec_tpu_torch import ptg
@@ -152,9 +153,10 @@ def test_reports_regions_refuse_raise_in_both_packages(truncated, ntasks,
             of_report(Fake())
 
 
-SHARED = ["cholesky", "lu", "stencil1d", "stencil2d", "tiled_gemm",
-          "llm_prefill", "llm_decode_k", "llm_decode_spec",
-          "llm_decode_spec_batched", "comm_bcast", "comm_reduce"]
+SHARED = ["cholesky", "lu", "pingpong", "reduction", "stencil1d",
+          "stencil2d", "tiled_gemm", "all2all", "llm_prefill",
+          "llm_decode_k", "llm_decode_spec", "llm_decode_spec_batched",
+          "comm_bcast", "comm_reduce"]
 
 
 @pytest.mark.parametrize("max_tasks", [0, 4, 16])
@@ -379,6 +381,49 @@ def test_region_superpools_give_the_jax_tokens(kstep, max_tasks):
                       ).max() <= TOL
 
 
+def test_a_region_pool_writes_back_only_the_rows_it_wrote():
+    """Two region superpools over one set of collections, each built and
+    its table made before either runs, as the batcher builds one pool a
+    tenant: the second pool's completion must leave the first pool's
+    tokens alone.  Its stores hold every key the open collections know,
+    the first pool's too, as copies from before that pool ran; writing
+    them back (the fault this holds) put the first pool's TOK rows back
+    to zeros."""
+    prompts = _prompts(11, 4)
+    steps = {s: 3 for s in prompts}
+    kv = PagedKVCollection("KV", page_size=4, num_heads=H, head_dim=D)
+    Q = DictCollection("Q", dtt=TileType((3, H, D)))
+    O = DictCollection("O", dtt=TileType((H, D)))
+    TOK = DictCollection("TOK", dtt=TileType((3,)))
+    EMB = DictCollection("EMB", dtt=TileType(tuple(MODEL.q3_table().shape)))
+    pdec.seed_emb_table(MODEL, EMB)
+    for seq, prompt in prompts.items():
+        kv.alloc_seq(seq)
+        for key, tile in pdec.prefill_chunks(MODEL, kv, seq,
+                                             prompt[:-1]).items():
+            pg = kv.data_of(*key).get_copy(0)
+            pg.value = tile
+            pg.version += 1
+        pdec.preallocate_decode_steps(kv, seq, steps[seq])
+        pdec.seed_stream_step(MODEL, Q, TOK, seq, prompt[-1])
+    groups = (list(prompts)[:2], list(prompts)[2:])
+    pools = []
+    for i, group in enumerate(groups):
+        tp = pdec.decode_superpool_ptg(kv, Q, O, TOK, EMB, group,
+                                       [steps[s] for s in group],
+                                       name=f"llm_decode{i}")
+        plan = lower_regions(tp, device="cpu")
+        plan.compile()
+        pools.append(plan.taskpool(plan.materialize_table()))
+    for pool in pools:                     # the first completes first
+        with Context(nb_cores=1) as ctx:
+            ctx.add_taskpool(pool)
+            ctx.wait(timeout=60)
+    got = pdec.read_token_chains(TOK, steps)
+    for seq, prompt in prompts.items():
+        assert got[seq][0] == MODEL.reference_generate(prompt, 3), seq
+
+
 # ---------------------------------------------------------------------------
 # the compile budget and the lowering cache
 # ---------------------------------------------------------------------------
@@ -501,6 +546,47 @@ def test_the_region_pool_passes_graphcheck(kind):
     assert not report.errors, report.summary()
     assert pool.region_plan is plan
     assert pool.nb_local_tasks() == len(plan.regions)
+
+
+@pytest.mark.parametrize("name,max_tasks", [("cholesky", 6), ("lu", 12)])
+def test_the_region_pool_fans_in_on_one_ranged_ctl_flow(name, max_tasks):
+    """The region pool is the JAX package's: one CTL flow, a ranged
+    fan-in from the predecessors, and the same graph under graphcheck;
+    run on worker threads it gives the JAX region pool's factor."""
+    n, nb = 64, 8
+    if name == "cholesky":
+        a = j_chol.make_spd(n)
+        JA, A = JSym.from_dense("A", a.copy(), nb, nb), \
+            PSym.from_dense("A", a.copy(), nb, nb)
+        jtp, tp = j_chol.tiled_cholesky_ptg(JA), p_chol.tiled_cholesky_ptg(A)
+    else:
+        a = j_lu.make_dd(n)
+        JA, A = JTiled.from_dense("A", a.copy(), nb, nb), \
+            PTiled.from_dense("A", a.copy(), nb, nb)
+        jtp, tp = j_lu.tiled_lu_ptg(JA), p_lu.tiled_lu_ptg(A)
+    jplan = j_lower_regions(jtp, max_tasks=max_tasks)
+    plan = lower_regions(tp, max_tasks=max_tasks, device="cpu")
+    jplan.compile()
+    plan.compile()
+    jpool = jplan.taskpool(jplan.materialize_table())
+    pool = plan.taskpool(plan.materialize_table())
+    tc, jtc = pool.task_class("REGION"), jpool.task_class("REGION")
+    assert [(f.name, f.is_ctl) for f in tc.flows] == \
+        [(f.name, f.is_ctl) for f in jtc.flows] == [("ctl", True)]
+    assert [d.ranged for d in tc.flows[0].deps_in] == \
+        [d.ranged for d in jtc.flows[0].deps_in] == [True]
+    jr, pr = j_check(jpool), check_ptg(pool)
+    assert pr.ok and pr.graph == jr.graph
+    # a region with no predecessor starts at once
+    assert any(not r.preds for r in plan.regions)
+    with Context(nb_cores=2) as ctx:
+        ctx.add_taskpool(pool)
+        ctx.wait(timeout=60)
+    with j_Context(nb_cores=2) as ctx:
+        ctx.add_taskpool(jpool)
+        ctx.wait(timeout=60)
+    np.testing.assert_allclose(np.asarray(A.to_dense()),
+                               np.asarray(JA.to_dense()), rtol=0, atol=TOL)
 
 
 def test_regions_on_worker_threads_give_the_same_factor():

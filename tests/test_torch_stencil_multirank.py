@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from parsec_tpu.comm import run_multirank as j_run_multirank
+from parsec_tpu.core.params import params as j_params
 from parsec_tpu.data_dist.matrix import TwoDimBlockCyclic as JTwoDim
 from parsec_tpu.data_dist.matrix import VectorTwoDimCyclic as JVector
 from parsec_tpu.models.stencil import stencil_1d_ptg as j_stencil_1d
@@ -78,7 +79,7 @@ def _assemble_1d(res):
 @pytest.mark.parametrize("nranks", [2, 3, 4])
 def test_stencil_1d_across_ranks(nranks):
     port = run_multirank(nranks, _body_1d(True), timeout=180)
-    jax = j_run_multirank(nranks, _body_1d(False), timeout=180)
+    jax = _j_run(nranks, _body_1d(False))
     got = _assemble_1d(port)
     want = stencil_reference(torch.from_numpy(_base()), torch.from_numpy(W1),
                              5).numpy()
@@ -122,22 +123,68 @@ def _assemble_2d(res):
     return got
 
 
-def test_stencil_2d_on_a_2x2_grid():
+def _report_2d(port, jax, got, want):
+    """What a failure prints: per-rank task counts and staged bytes of
+    both runs, and the largest difference from each reference."""
+    return (f"port tasks {[r[1] for r in port]} staged "
+            f"{[r[2] for r in port]}; jax tasks {[r[1] for r in jax]} "
+            f"staged {[r[2] for r in jax]}; max|port - oracle| "
+            f"{float(np.abs(got - want).max()):.3g}, max|port - jax| "
+            f"{float(np.abs(got - _assemble_2d(jax)).max()):.3g}")
+
+
+def _j_run(nranks, body):
+    """``j_run_multirank`` with the JAX package's ``comm_wire_datatypes``
+    at its default (on), as the port always ships wire views; the value
+    before is restored.  The JAX package's own
+    ``tests/test_stencil2d.py::_band_body`` sets and restores that global
+    param from each of its four rank threads at once, so a run of it can
+    leave it off on the worker, and the JAX half would then ship whole
+    tiles."""
+    saved = j_params.get("comm_wire_datatypes")
+    j_params.set("comm_wire_datatypes", True)
+    try:
+        return j_run_multirank(nranks, body, timeout=180)
+    finally:
+        j_params.set("comm_wire_datatypes", saved)
+
+
+def _check_2d():
     port = run_multirank(4, _body_2d(True), timeout=180)
-    jax = j_run_multirank(4, _body_2d(False), timeout=180)
+    jax = _j_run(4, _body_2d(False))
     got = _assemble_2d(port)
-    want = stencil2d_reference(torch.from_numpy(_dense2d()), W2D, 4)
-    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)
+    want = np.asarray(stencil2d_reference(torch.from_numpy(_dense2d()),
+                                          W2D, 4))
+    msg = _report_2d(port, jax, got, want)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5,
+                               err_msg=msg)
     np.testing.assert_allclose(got, j_ref2d(_dense2d(), W2D, 4), rtol=1e-4,
-                               atol=1e-5)
+                               atol=1e-5, err_msg=msg)
     np.testing.assert_allclose(got, _assemble_2d(jax), rtol=1e-6,
-                               atol=1e-6)
-    assert [r[1] for r in port] == [r[1] for r in jax]
+                               atol=1e-6, err_msg=msg)
+    assert [r[1] for r in port] == [r[1] for r in jax], msg
     staged = [r[2] for r in port]
-    assert staged == [r[2] for r in jax]
+    assert staged == [r[2] for r in jax], msg
     # wire views cut the traffic below whole tiles: 16 tiles, 4 steps,
     # at most 4 halos a tile a step, a tile 64 B
-    assert 0 < sum(staged) < 16 * 3 * 4 * 64
+    assert 0 < sum(staged) < 16 * 3 * 4 * 64, msg
+
+
+def test_stencil_2d_on_a_2x2_grid():
+    _check_2d()
+
+
+def test_the_2x2_grid_holds_when_an_earlier_test_left_wire_views_off():
+    """The state ``tests/test_stencil2d.py`` can leave on a worker: the
+    JAX package's ``comm_wire_datatypes`` off.  The comparison still
+    runs both packages with wire views, and the value is left as found."""
+    saved = j_params.get("comm_wire_datatypes")
+    j_params.set("comm_wire_datatypes", False)
+    try:
+        _check_2d()
+        assert j_params.get("comm_wire_datatypes") is False
+    finally:
+        j_params.set("comm_wire_datatypes", saved)
 
 
 @pytest.fixture
