@@ -127,7 +127,7 @@ any phase fails:
    and a run on the same tiles after the DTD run, under the same bound.
 14. **dispatch** — per-task dispatch on the card machine's host: the EP
    pool of ``models/ep.py`` (50 lanes, 10,000 CTL-only tasks with
-   empty bodies), median of 3: ``dispatch_us`` on the compiled-DAG
+   empty bodies), median of 2: ``dispatch_us`` on the compiled-DAG
    executor (it fails unless the executor and the native core engaged)
    and ``dynamic_dispatch_us`` under each of the eleven schedulers,
    beside the host CPU, with the always-on flight recorder at its
@@ -198,8 +198,8 @@ any phase fails:
    cycle (the n-gram drafter proposes), four random; spec submits and
    accepted drafts must be counted, SATTN and SVERIFY must run on the
    card and no task on the CPU; the same backlog with it off
-   (``llm_spec_control``), the two in turns (spec, control, control,
-   spec); tokens/s of every run, the acceptance rate, tokens
+   (``llm_spec_control``), once each; the tokens/s of each run (the
+   ``_runs`` lists, of one entry), the acceptance rate, tokens
    per spec submit and rollbacks; then one ``spec_superpool_ptg`` pool
    seeded directly with oracle drafts on a KV cache of its own
    (``llm_spec_superpool``: ATTN on K2, every position accepted), and
@@ -410,6 +410,27 @@ any phase fails:
    (pp 4) and the MoE step (ep 4), each held against the same function
    on one process; seconds and the bytes staged through the host for
    gloo, by operation.
+43. **path data_layer** — n=8192 fp32: A on a ``HashDataDist`` in tiles
+   of 1024, redistributed on the card to a ``TwoDimBlockCyclic`` in tiles
+   of 512 (256 ``copy_frag`` tasks, the JAX package's count, all on the
+   CUDA chore, 0 on the host); the dynamic GEMM on K1 over the
+   redistributed tiles (C within the TF32 bound); C checkpointed (save
+   and restore seconds, bytes written), a second accumulating pass on C
+   and the same pass on a fresh C restored from the file, bit-equal; a
+   map (x0.5), a reduce to a scalar and a broadcast of one tile on the
+   card, each against torch on the same tensors.
+44. **path runtime_roundout** — the n=8192 GEMM as two pools joined by
+   ``compose`` on K1, on 2 workers in 2 virtual processes (no task
+   selected outside the virtual process it was scheduled on), each pool
+   awaited by ``wait_taskpool``; the GEMM again under ``debug_paranoid``
+   with no finding.  Then **path dynamic_cholesky_auto** and
+   **dynamic_lu_auto**: phase 12's factorizations with ``devices="auto"``
+   (both chores on every class), every task on K1's chores and none on
+   the host chore, under phase 12's gates.
+45. **path llm_step** — ``decode_step_ptg`` at the ``llm_wide`` width (32
+   heads of 128), 4 streams of 64-256 prompt tokens, 8 tokens each, one
+   pool a step (ATTN on K2, the next token sampled on the host); the
+   tokens equal the k-step superpool's and the float64 oracle's.
 
 Every line a phase prints carries ``phase_s``, the seconds since that
 phase began; the ``phases`` line before ``done`` lists every phase's
@@ -1202,7 +1223,7 @@ class _FlightRecorderOff:
         pins.recorder = rec.note if rec is not None else None
 
 
-def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 3) -> dict:
+def phase_dispatch(card: str, ntasks: int = 10000, reps: int = 2) -> dict:
     """Per-task dispatch cost on the host of the card's machine: the EP
     pool (50 lanes, 10,000 tasks, empty bodies) drained by the caller,
     median of ``reps``; ``dispatch_us`` on the compiled-DAG executor (the
@@ -1915,10 +1936,8 @@ def phase_llm_spec(card: str, torch, seed: int = 17, max_new: int = 64,
                    spec_k: int = 6) -> dict:
     """Speculative decode at Llama-2-7B's attention width through the
     entry points (``llm_spec_k=6``), and the same backlog with it off as
-    the control, in turns (spec, control, control, spec: each side once
-    early and once late in the process); then one per-position spec
-    superpool seeded directly, and SATTN's body timed.  Each line's
-    counts are its first run's."""
+    the control, once each; then one per-position spec superpool seeded
+    directly, and SATTN's body timed."""
     from parsec_tpu_torch.device import registry
     from parsec_tpu_torch.llm import ContinuousBatcher
     from parsec_tpu_torch.ops import ragged_attention as ra
@@ -1931,7 +1950,7 @@ def phase_llm_spec(card: str, torch, seed: int = 17, max_new: int = 64,
             for p in prompts]
     cpu = registry.by_type("cpu")[0]
     runs: dict = {}
-    for k in (spec_k, 0, 0, spec_k):
+    for k in (spec_k, 0):
         label = "llm_spec" if k else "llm_spec_control"
         cpu_before = cpu.executed_tasks
         with _Params(llm_spec_k=k):
@@ -1958,10 +1977,6 @@ def phase_llm_spec(card: str, torch, seed: int = 17, max_new: int = 64,
         else:
             _check(st["spec_submits"] == 0 and "SATTN" not in tasks,
                    f"{label}: speculated with llm_spec_k=0")
-        if label in runs:
-            runs[label]["tokens_per_s_runs"].append(w["tokens_per_s"])
-            runs[label]["wall_s_runs"].append(w["wall_s"])
-            continue
         runs[label] = dict(
             streams=len(prompts), spec_k=k, wall_s_runs=[w["wall_s"]],
             tokens=w["tokens"], tokens_per_s_runs=[w["tokens_per_s"]],
@@ -2474,10 +2489,11 @@ def _factor_input(kind: str, n: int, nb: int):
     return a, _factor_matrix(kind, a, nb)
 
 
-def _factor_ptg(kind: str, A):
+def _factor_ptg(kind: str, A, devices: str = "cuda"):
     from parsec_tpu_torch.models.cholesky import tiled_cholesky_ptg
     from parsec_tpu_torch.models.lu import tiled_lu_ptg
-    return (tiled_cholesky_ptg if kind == "cholesky" else tiled_lu_ptg)(A)
+    return (tiled_cholesky_ptg if kind == "cholesky" else tiled_lu_ptg)(
+        A, devices=devices)
 
 
 def _factor_flops(kind: str, n: int) -> float:
@@ -2585,28 +2601,34 @@ def _run_pool(tp, timeout: float = 600) -> None:
 
 
 def phase_dynamic_factor(card: str, torch, kind: str, n: int = 8192,
-                         nb: int = 1024, precision: str = "default") -> dict:
+                         nb: int = 1024, precision: str = "default",
+                         devices: str = "cuda") -> dict:
     """``tiled_cholesky_ptg`` or ``tiled_lu_ptg`` through ``Context`` and
     the device module on the card (the JAX bench's ``dynamic_cholesky``
     stage, ``bench.py:264-298``, and LU at the same size).  A 2x2-tile
     run of the same pool first is set-up: the library's first calls
-    (cuSOLVER and cuBLAS handles, workspaces) stay off the clock."""
+    (cuSOLVER and cuBLAS handles, workspaces) stay off the clock.  With
+    ``devices="auto"`` every class carries its host chore too: the run
+    must leave it unused (``host_runs``), and takes no control."""
     from parsec_tpu_torch.core.params import params
     from parsec_tpu_torch.device import registry
     from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.ops import factor
     from parsec_tpu_torch.ops import gemm as tg
 
     params.set("gemm_precision", precision)
     try:
         a, A = _factor_input(kind, n, nb)
         dev = init_cuda_devices()[0]
-        _run_pool(_factor_ptg(kind, _factor_input(kind, 2 * nb, nb)[1]))
+        _run_pool(_factor_ptg(kind, _factor_input(kind, 2 * nb, nb)[1],
+                              devices))
         dev.sync()
         dev.flush_cache()
-        tp = _factor_ptg(kind, A)
+        tp = _factor_ptg(kind, A, devices)
         chores = {c.device_type for tc in tp.task_classes for c in tc.chores}
         cpu = registry.get(0)
         cpu_before = cpu.executed_tasks
+        host_before = sum(factor.host_runs.values())
         before = dev.stats()
         _k1_reset(tg)                    # counts from here are the path's
         t0 = time.perf_counter()
@@ -2628,18 +2650,23 @@ def phase_dynamic_factor(card: str, torch, kind: str, n: int = 8192,
                  if k - before["tasks_by_class"].get(c, 0)}
         want = _expected_tasks(kind, A.mt)
         variant = "mma_tf32" if precision == "default" else "simt_fp32"
-        _check(chores == {"cuda"}, f"{kind}: chores {chores}")
+        host_runs = sum(factor.host_runs.values()) - host_before
+        _check(chores == ({"cuda", "cpu"} if devices == "auto"
+                          else {"cuda"}), f"{kind}: chores {chores}")
         _check(tasks == want, f"{kind}: tasks {tasks}, expected {want}")
         _check(cpu.executed_tasks == cpu_before, f"{kind}: a CPU chore ran")
+        _check(host_runs == 0, f"{kind} ({devices}): {host_runs} tasks ran "
+               f"their host chore with the card registered")
         _check(launches > 0 and by_variant[variant] == launches,
                f"{kind} ({precision}): K1 ran {by_variant}, expected "
                f"{variant} only")
         _check(set(by_form) == K1_FORMS[kind],
                f"{kind}: K1 forms {by_form}, expected {K1_FORMS[kind]}")
         _check(dev.enabled, "the device was disabled")
-        rec = dict(n=n, nb=nb, precision=precision, wall_s=wall,
-                   gflops=_factor_flops(kind, n) / wall / 1e9,
+        rec = dict(n=n, nb=nb, precision=precision, devices=devices,
+                   wall_s=wall, gflops=_factor_flops(kind, n) / wall / 1e9,
                    tasks=sum(tasks.values()), tasks_by_class=tasks,
+                   host_chore_tasks=host_runs,
                    gemm_launches=launches, gemm_launches_by_variant=by_variant,
                    gemm_launches_by_form=by_form,
                    stage_in_s=delta("t_stage_in"),
@@ -2655,9 +2682,10 @@ def phase_dynamic_factor(card: str, torch, kind: str, n: int = 8192,
                    **_factor_check(torch, kind, A.to_dense(), a, nb,
                                    precision))
         name = f"dynamic_{kind}" + ("" if precision == "default"
-                                    else f"_{precision}")
+                                    else f"_{precision}") \
+            + ("" if devices == "cuda" else f"_{devices}")
         _emit(card, phase="path", name=name, **rec)
-        if precision == "default":
+        if precision == "default" and devices == "cuda":
 
             def run(a_):
                 B = _factor_matrix(kind, a_, nb)
@@ -5670,6 +5698,384 @@ def phase_parallel_mesh(card: str, torch, jobs: list | None = None,
     return out
 
 
+# the fragments of phase data_layer's redistribution (n=8192, tiles of
+# 1024 into tiles of 512: each target tile inside one source tile), the
+# JAX package's count on that geometry
+# (tests/test_torch_collections.py::test_the_card_geometry_has_the_jax_
+# fragment_count)
+DATA_LAYER_FRAGS = 256
+
+
+def _hash_tiles(n: int, nb: int, init):
+    """A ``HashDataDist`` of one rank holding an n x n fp32 matrix's
+    tiles of nb, keyed ``(m, k)``, with the tiled geometry the
+    redistribution reads (``lm``, ``ln``, ``mb``, ``nb``, ``tile_shape``,
+    ``dtype``); the tiles are registered (set-up, off the clock)."""
+    import torch
+
+    from parsec_tpu_torch.data_dist.matrix import HashDataDist
+
+    class HashTiles(HashDataDist):
+        def tile_shape(self, m: int, k: int) -> tuple[int, int]:
+            return (min(self.mb, self.lm - m * self.mb),
+                    min(self.nb, self.ln - k * self.nb))
+
+    H = HashTiles("Ah")
+    H.lm = H.ln = n
+    H.mb = H.nb = nb
+    H.dtype = torch.float32
+    nt = (n + nb - 1) // nb
+    for m in range(nt):
+        for k in range(nt):
+            H.register((m, k), init(m, k, H.tile_shape(m, k)))
+    return H
+
+
+def _dense_of(H, n: int, nb: int):
+    import numpy as np
+    out = np.zeros((n, n), np.float32)
+    for (m, k) in H.known_keys():
+        t = H.data_of(m, k).newest_copy().value.cpu().numpy()
+        out[m * nb:m * nb + t.shape[0], k * nb:k * nb + t.shape[1]] = t
+    return out
+
+
+def phase_data_layer(card: str, torch, n: int = 8192, src_nb: int = 1024,
+                     nb: int = 512, seed: int = 0,
+                     device: str = "cuda") -> dict:
+    """The data layer on the card.  A (n x n fp32, seeded) lies on a
+    ``HashDataDist`` in tiles of ``src_nb`` and is redistributed to a
+    ``TwoDimBlockCyclic`` in tiles of ``nb`` (one ``copy_frag`` task a
+    fragment, on the CUDA chore alone: 0 copies on the host); the dynamic
+    tiled GEMM runs on K1 over the redistributed tiles, C against a
+    float64 product under the TF32 bound; C is checkpointed, a second
+    accumulating pass runs on it, and a fresh C restored from the file
+    takes the same pass: the two are bit-equal.  Then the operators on
+    the card: a map (x0.5, exact), a reduce to a scalar (against the
+    float64 sum of C, within 1e-5 of sum|C|: fp32 partial sums) and a
+    broadcast of tile (0, 0) into four tiles (exact)."""
+    import tempfile
+
+    import numpy as np
+
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.data.checkpoint import (restore_collections,
+                                                  save_collections)
+    from parsec_tpu_torch.data_dist import redistribute as rd
+    from parsec_tpu_torch.data_dist.matrix import (TiledMatrix,
+                                                   TwoDimBlockCyclic)
+    from parsec_tpu_torch.data_dist.operators import (broadcast_taskpool,
+                                                      map_taskpool,
+                                                      reduce_taskpool)
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops, tiled_gemm_ptg
+    from parsec_tpu_torch.ops import gemm as tg
+
+    params.set("gemm_precision", "default")
+
+    def init(tag):
+        def fn(m, k, shape):
+            rng = np.random.default_rng((seed, tag, m, k))
+            return rng.standard_normal(shape, dtype=np.float32)
+        return fn
+
+    t_gen = time.perf_counter()
+    Ah = _hash_tiles(n, src_nb, init(1))
+    A = TwoDimBlockCyclic("A", n, n, nb, nb)
+    B = TiledMatrix("B", n, n, nb, nb, init_fn=init(2))
+    C = TiledMatrix("C", n, n, nb, nb)
+    for M in (A, B, C):
+        for i in range(M.mt):
+            for j in range(M.nt):
+                M.data_of(i, j)
+    t_gen = time.perf_counter() - t_gen
+    dev = init_cuda_devices(device=None if device == "cuda" else device)[0]
+    cpu = registry.get(0)
+    cpu_before = cpu.executed_tasks
+    copies_before = dict(rd.copies)
+    by_class0 = dict(dev.tasks_by_class)
+    _k1_reset(tg)                    # counts from here are the path's
+
+    def run(tp):
+        _run_pool(tp)
+        dev.sync()
+        _sync(torch, device)
+
+    t0 = time.perf_counter()
+    tp = rd.redistribute_taskpool(Ah, A)
+    run(tp)
+    redist_s = time.perf_counter() - t0
+    frags = tp.nb_frags
+    on_card = rd.copies["cuda"] - copies_before.get("cuda", 0)
+    on_host = rd.copies["host"] - copies_before.get("host", 0)
+    _check(frags == DATA_LAYER_FRAGS, f"data_layer: {frags} fragments, "
+           f"the JAX package's count is {DATA_LAYER_FRAGS}")
+    _check(on_card == frags and on_host == 0, f"data_layer: copies on the "
+           f"card {on_card}, on the host {on_host}, of {frags}")
+    t0 = time.perf_counter()
+    run(tiled_gemm_ptg(A, B, C))
+    gemm_s = time.perf_counter() - t0
+    dev.flush_cache()
+    a = _dense_of(Ah, n, src_nb)
+    _check(bool((A.to_dense() == a).all()),
+           "data_layer: the redistributed A differs from the source")
+    b = B.to_dense()
+    worst = _check_c(torch, C.to_dense(), a, b, nb, "data_layer")
+
+    # checkpoint: save C, a second pass on it, the same pass on a fresh C
+    # restored from the file: bit-equal
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "c.npz")
+        t0 = time.perf_counter()
+        save_collections(path, C, meta={"pass": 1})
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        run(tiled_gemm_ptg(A, B, C))
+        dev.flush_cache()
+        uninterrupted = C.to_tensor()
+        C2 = TiledMatrix("C", n, n, nb, nb)
+        t0 = time.perf_counter()
+        meta = restore_collections(path, C2)
+        restore_s = time.perf_counter() - t0
+    _check(meta == {"pass": 1}, f"data_layer: restored meta {meta}")
+    run(tiled_gemm_ptg(A, B, C2))
+    dev.flush_cache()
+    resumed = C2.to_tensor()
+    _check(torch.equal(resumed, uninterrupted), "data_layer: the resumed "
+           "C differs from the uninterrupted run's")
+    del resumed
+
+    # the operators on the card
+    t0 = time.perf_counter()
+    run(map_taskpool(C, lambda key, t: t * 0.5))
+    map_s = time.perf_counter() - t0
+    dev.flush_cache()
+    c = C.to_tensor()
+    _check(torch.equal(c, uninterrupted * 0.5),
+           "data_layer: the map's C is not half the C before it")
+    del uninterrupted
+    out = {}
+    t0 = time.perf_counter()
+    run(reduce_taskpool(C, lambda x, y: x + y, out=out,
+                        transform=torch.sum))
+    reduce_s = time.perf_counter() - t0
+    got = float(out["value"])
+    want = float(c.double().sum())
+    scale = float(c.abs().double().sum())
+    _check(abs(got - want) <= 1e-5 * scale, f"data_layer: the reduce gave "
+           f"{got}, the float64 sum is {want} (sum|C| {scale})")
+    D = TiledMatrix("D", 2 * nb, 2 * nb, nb, nb)
+    t0 = time.perf_counter()
+    run(broadcast_taskpool(C, (0, 0), D))
+    bcast_s = time.perf_counter() - t0
+    dev.flush_cache()
+    tile = C.data_of(0, 0).newest_copy().value.cpu()
+    _check(all(torch.equal(D.data_of(i, j).newest_copy().value.cpu(), tile)
+               for i in range(2) for j in range(2)),
+           "data_layer: a broadcast tile differs from C(0, 0)")
+    launches = tg.gemm_update.launches
+    by_variant = dict(tg.gemm_update.launches_by_variant)
+    tasks = {k: v - by_class0.get(k, 0) for k, v in dev.tasks_by_class.items()
+             if v - by_class0.get(k, 0)}
+    nt = n // nb
+    _check(tasks.get("GEMM", 0) == 3 * nt ** 3 and tasks.get("MAP") == nt * nt
+           and tasks.get("COPY") == 4 and tasks.get("copy_frag") == frags,
+           f"data_layer: tasks on the card {tasks}")
+    _check(cpu.executed_tasks == cpu_before, "data_layer: a CPU chore ran")
+    _check(launches > 0 and by_variant["mma_tf32"] == launches,
+           f"data_layer: K1 ran {by_variant}")
+    rec = dict(n=n, src_nb=src_nb, nb=nb, frags=frags,
+               copies_on_card=on_card, copies_on_host=on_host,
+               redistribute_s=redist_s, gemm_wall_s=gemm_s,
+               gemm_gflops=gemm_flops(n, n, n) / gemm_s / 1e9,
+               max_abs_err=worst, save_s=save_s, restore_s=restore_s,
+               checkpoint_bytes=nbytes, map_s=map_s, reduce_s=reduce_s,
+               reduce_value=got, reduce_float64=want, bcast_s=bcast_s,
+               tasks_by_class=tasks, gemm_launches=launches,
+               gemm_launches_by_variant=by_variant, host_tile_gen_s=t_gen)
+    _emit(card, phase="path", name="data_layer", **rec)
+    return rec
+
+
+def phase_runtime_roundout(card: str, torch, n: int = 8192, nb: int = 1024,
+                           seed: int = 0, device: str = "cuda") -> dict:
+    """The runtime's round-out on the card: the dynamic GEMM as two pools
+    joined by ``compose`` (the second accumulates into the first's C, so
+    C = 2·A·B) on a context of 2 workers in 2 virtual processes, each
+    pool awaited by ``wait_taskpool``, with no task selected outside the
+    virtual process it was scheduled on; then the same GEMM once under
+    ``debug_paranoid``, with no finding.  Both on K1, C against a float64
+    product under the TF32 bound."""
+    from parsec_tpu_torch.core.output import show_help_flush
+    from parsec_tpu_torch.core.params import params
+    from parsec_tpu_torch.data_dist.matrix import TiledMatrix
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.models.tiled_gemm import gemm_flops, tiled_gemm_ptg
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.runtime import Context, compose
+
+    params.set("gemm_precision", "default")
+    A, B, C, t_gen = _path_mats(n, nb, seed)
+    dev = init_cuda_devices(device=None if device == "cuda" else device)[0]
+    cpu = registry.get(0)
+    cpu_before = cpu.executed_tasks
+    _k1_reset(tg)
+    saved = params.get("runtime_nb_vp")
+    params.set("runtime_nb_vp", 2)
+    try:
+        ctx = Context(nb_cores=2)
+    finally:
+        params.set("runtime_nb_vp", saved)
+    first, second = tiled_gemm_ptg(A, B, C), tiled_gemm_ptg(A, B, C)
+    comp = compose(first, second)
+    try:
+        t0 = time.perf_counter()
+        ctx.add_taskpool(comp)
+        waited = []
+        for tp in (first, second, comp):
+            ctx.wait_taskpool(tp, timeout=600)
+            waited.append(time.perf_counter() - t0)
+        dev.sync()
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        vp = ctx.vp_stats()
+    finally:
+        ctx.fini(timeout=60)
+    _check(vp["nb_vp"] == 2 and vp["cross_vp"] == 0,
+           f"runtime_roundout: virtual processes {vp}")
+    _check(all(tp.test() for tp in (first, second, comp)),
+           "runtime_roundout: a composed pool did not complete")
+    dev.flush_cache()
+    a, b = A.to_dense(), B.to_dense()
+    worst = _check_c(torch, C.to_dense() / 2, a, b, nb, "runtime_roundout")
+    compose_launches = tg.gemm_update.launches
+
+    # the same GEMM once under debug_paranoid: no finding
+    C1 = TiledMatrix("C1", n, n, nb, nb)
+    show_help_flush()
+    params.set("debug_paranoid", True)
+    try:
+        t0 = time.perf_counter()
+        _run_pool(tiled_gemm_ptg(A, B, C1))
+        dev.sync()
+        _sync(torch, device)
+        paranoid_s = time.perf_counter() - t0
+    finally:
+        params.set("debug_paranoid", False)
+    findings = {k: v for k, v in show_help_flush().items()
+                if k[0] == "paranoid"}
+    _check(findings == {}, f"runtime_roundout: paranoid findings {findings}")
+    dev.flush_cache()
+    paranoid_err = _check_c(torch, C1.to_dense(), a, b, nb,
+                            "runtime_roundout paranoid")
+    launches = tg.gemm_update.launches
+    by_variant = dict(tg.gemm_update.launches_by_variant)
+    _check(cpu.executed_tasks == cpu_before,
+           "runtime_roundout: a CPU chore ran")
+    _check(compose_launches > 0 and by_variant["mma_tf32"] == launches,
+           f"runtime_roundout: K1 ran {by_variant}")
+    rec = dict(n=n, nb=nb, compose_wall_s=wall,
+               compose_gflops=2 * gemm_flops(n, n, n) / wall / 1e9,
+               wait_taskpool_s=waited, vp=vp, max_abs_err=worst,
+               paranoid_s=paranoid_s, paranoid_findings=0,
+               paranoid_max_abs_err=paranoid_err,
+               compose_gemm_launches=compose_launches,
+               gemm_launches=launches, gemm_launches_by_variant=by_variant,
+               host_tile_gen_s=t_gen)
+    _emit(card, phase="path", name="runtime_roundout", **rec)
+    return rec
+
+
+def phase_llm_step(card: str, torch, seed: int = 31, n: int = 4,
+                   steps: int = 8, device: str = "cuda") -> dict:
+    """The one-step decode pool at the ``llm_wide`` width (32 heads of
+    128, fp32 pages (3,16,32,128)): ``n`` streams with prompts of 64-256
+    tokens from a seed, ``steps`` tokens each, one ``decode_step_ptg`` a
+    step (ATTN on K2, OUT on the card, the next token sampled on the
+    host: ``generate_by_steps``); the tokens must equal the k-step
+    superpool's on the same prompts (``seed_decode_superpool``) and the
+    float64 oracle's."""
+    import numpy as np
+
+    from parsec_tpu_torch.data.datatype import TileType
+    from parsec_tpu_torch.data_dist.collection import DictCollection
+    from parsec_tpu_torch.data_dist.paged_kv import PagedKVCollection
+    from parsec_tpu_torch.device import registry
+    from parsec_tpu_torch.device.cuda import init_cuda_devices
+    from parsec_tpu_torch.llm import decode as dec
+    from parsec_tpu_torch.ops import ragged_attention as ra
+    from parsec_tpu_torch.runtime import Context
+
+    model = _wide_model()
+    H, D = model.num_heads, model.head_dim
+    rng = np.random.default_rng(seed)
+    prompts = {f"s{i}": [int(t) for t in rng.integers(
+        0, model.vocab, int(rng.integers(64, 257)))] for i in range(n)}
+    dev = init_cuda_devices(device=None if device == "cuda" else device)[0]
+    cpu = registry.get(0)
+    cpu_before = cpu.executed_tasks
+    by_class0 = dict(dev.tasks_by_class)
+
+    def colls(tag):
+        return (PagedKVCollection(f"stepKV{tag}", page_size=16, num_heads=H,
+                                  head_dim=D),
+                DictCollection(f"stepQ{tag}", dtt=TileType((3, H, D))),
+                DictCollection(f"stepO{tag}", dtt=TileType((H, D))))
+
+    kv, Q, O = colls("")
+    pools = []
+    ctx = Context(nb_cores=2)
+    try:
+        def run(tp):
+            pools.append(tp.nb_local_tasks())
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=600)
+
+        ra.attn_page_update.launches = 0   # counts from here are the path's
+        t0 = time.perf_counter()
+        got = dec.generate_by_steps(model, kv, Q, O, prompts, steps, run)
+        dev.sync()
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        launches = ra.attn_page_update.launches
+        tasks = {k: v - by_class0.get(k, 0)
+                 for k, v in dev.tasks_by_class.items()
+                 if v - by_class0.get(k, 0)}
+        # the superpool on the same prompts
+        kv2, Q2, O2 = colls("2")
+        TOK = DictCollection("stepTOK", dtt=TileType((3,)))
+        EMB = DictCollection("stepEMB",
+                             dtt=TileType(tuple(model.q3_table().shape)))
+        dec.seed_decode_superpool(model, kv2, Q2, TOK, EMB, prompts,
+                                  {s: steps for s in prompts})
+        t1 = time.perf_counter()
+        ctx.add_taskpool(dec.decode_superpool_ptg(
+            kv2, Q2, O2, TOK, EMB, list(prompts), [steps] * n))
+        ctx.wait(timeout=600)
+        super_s = time.perf_counter() - t1
+    finally:
+        ctx.fini(timeout=60)
+    for s, prompt in prompts.items():
+        sp = dec.read_token_chain(TOK, s, steps)[0]
+        want = model.reference_generate(prompt, steps)
+        _check(got[s] == sp == want, f"llm_step {s}: steps {got[s]}, "
+               f"superpool {sp}, oracle {want}")
+    _check(set(tasks) == {"ATTN", "OUT"}, f"llm_step: classes on the card "
+           f"{sorted(tasks)}")
+    _check(sum(tasks.values()) == sum(pools),
+           f"llm_step: {tasks} on the card for pools of {pools}")
+    _check(launches > 0, "llm_step: ATTN launched no K2 kernel")
+    _check(cpu.executed_tasks == cpu_before, "llm_step: a CPU chore ran")
+    rec = dict(streams=n, steps=steps, heads=H, head_dim=D, wall_s=wall,
+               tokens=n * steps, tokens_per_s=n * steps / wall,
+               pools=len(pools), tasks_by_class=tasks,
+               ragged_attn_page_launches=launches, superpool_s=super_s)
+    _emit(card, phase="path", name="llm_step", **rec)
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5800,6 +6206,14 @@ def _run(torch) -> int:
     T("apps", phase_apps, card, torch)
     T("parallel_ptg", phase_parallel_ptg, card, torch)
     T("parallel_mesh", phase_parallel_mesh, card, torch)
+    data_layer = T("data_layer", phase_data_layer, card, torch)
+    roundout = T("runtime_roundout", phase_runtime_roundout, card, torch)
+    auto_paths = {
+        f"dynamic_{kind}_auto": T(f"dynamic_{kind}_auto",
+                                  phase_dynamic_factor, card, torch, kind,
+                                  devices="auto")
+        for kind in ("cholesky", "lu")}
+    k2_paths["llm_step"] = T("llm_step", phase_llm_step, card, torch)
     k1_paths = {"gemm": path, "dtd_gemm": dtd, "path_checked": checked,
                 "lowered_gemm": lgemm, "lowered_cache": lcache,
                 **factor_paths, "tuned_cholesky": tuned,
@@ -5808,7 +6222,9 @@ def _run(torch) -> int:
                 "multiproc_traced": traced,
                 "multirank_dtd_gemm": mr_dtd, "jdf_gemm": jdf_gemm,
                 "multiproc_legacy_wire": legacy,
-                "recursive_gemm": recursive, "examples": examples}
+                "recursive_gemm": recursive, "examples": examples,
+                "data_layer": data_layer, "runtime_roundout": roundout,
+                **auto_paths}
     row_keys = ("variant", "shape", "precision", "max_abs_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": "gemm_update", "route": "cuda",

@@ -17,7 +17,7 @@ Usage::
 Port of ``parsec_tpu/analysis/__main__.py``.  ``--graph`` takes a
 ``.jdf`` path too, parsed by :mod:`parsec_tpu_torch.ptg.jdf` and built
 with its ``--bind NAME=INT`` globals (:func:`.graphcheck.check_jdf`).
-Left out: the one-step ``llm_decode`` pool, which the port dropped.
+Nothing of the original is left out.
 """
 
 from __future__ import annotations
@@ -40,10 +40,10 @@ def _model_graphs(nt: int, ranks: int = 1):
     from ..data_dist.matrix import (SymTwoDimBlockCyclic, TiledMatrix,
                                     TwoDimBlockCyclic, VectorTwoDimCyclic)
     from ..data_dist.paged_kv import PagedKVCollection
-    from ..llm import (ToyLM, decode_superpool_ptg, preallocate_decode_steps,
-                       prefill_chunks, prefill_ptg, seed_spec_batched_pool,
-                       seed_spec_superpool, spec_batched_ptg,
-                       spec_superpool_ptg)
+    from ..llm import (ToyLM, decode_step_ptg, decode_superpool_ptg,
+                       preallocate_decode_steps, prefill_chunks, prefill_ptg,
+                       seed_spec_batched_pool, seed_spec_superpool,
+                       spec_batched_ptg, spec_superpool_ptg)
     from ..models import (cholesky, ep, irregular, lu, pingpong, reduction,
                           stencil, stencil2d, tiled_gemm)
     nb = 8
@@ -81,6 +81,12 @@ def _model_graphs(nt: int, ranks: int = 1):
     T = DictCollection("T", dtt=kv.default_dtt,
                        init_fn=lambda *k: chunks[k], keys=list(chunks))
     yield "llm_prefill", prefill_ptg(kv, T, list(prompts), devices="cpu")
+    Q = DictCollection("Q", dtt=TileType((3, H, D), torch.float32))
+    O = DictCollection("O", dtt=TileType((H, D), torch.float32))
+    for seq in prompts:
+        kv.ensure_tail_slot(seq)
+    yield "llm_decode", decode_step_ptg(kv, Q, O, list(prompts),
+                                        devices="cpu")
 
     kv2 = PagedKVCollection("KVk", page_size=4, num_heads=H, head_dim=D)
     for seq, toks in prompts.items():
@@ -138,7 +144,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="verify one graph: a model name (cholesky, lu, "
                          "pingpong, reduction, stencil1d, stencil2d, "
                          "tiled_gemm, all2all, ep, "
-                         "llm_prefill, llm_decode_k, llm_decode_spec, "
+                         "llm_prefill, llm_decode, llm_decode_k, "
+                         "llm_decode_spec, "
                          "llm_decode_spec_batched, comm_bcast, "
                          "comm_reduce) or a .jdf path")
     ap.add_argument("--bind", action="append", default=[],

@@ -85,9 +85,10 @@ receiving side (:mod:`parsec_tpu_torch.data.reshape`): a successor's input
 dep type wins over the output dep's, and a write-back converts to the
 dep's type or back to the home tile's.
 
-Left out: the switches that turn coalescing and wire views off
-(``comm_coalesce``, ``comm_wire_datatypes``: nothing in the port turns
-them off).
+Two switches, both on by default: ``comm_coalesce`` stages outgoing
+activations and flushes one priority-ordered message a peer (off: each
+activation is sent as it is made), and ``comm_wire_datatypes`` honours an
+edge's partial-tile wire view (off: the whole tile is shipped).
 """
 
 from __future__ import annotations
@@ -124,6 +125,12 @@ _params.register("comm_short_limit", 4096,
 _params.register("comm_thread", False,
                  "run a dedicated comm-progress thread per rank "
                  "(remote_dep_dequeue_main)")
+_params.register("comm_coalesce", True,
+                 "stage outgoing activations and flush one "
+                 "priority-ordered message a peer per progress")
+_params.register("comm_wire_datatypes", True,
+                 "honour partial-tile wire views on remote edges; off "
+                 "ships whole tiles")
 _params.register("comm_bcast_tree", "binomial",
                  "multi-peer activation propagation: binomial|chain|star, "
                  "or auto (per payload: resolve_tree_kind)")
@@ -452,6 +459,11 @@ class RemoteDepEngine:
 
     # -------------------------------------------- outgoing stage (coalescing)
     def _post_activate(self, dst: int, msg: dict) -> None:
+        if not _params.get("comm_coalesce"):
+            packed = pack_activation(msg)
+            self.ce.send_am(AM_TAG_ACTIVATE, dst, packed,
+                            trace_id=_packed_trace(packed))
+            return
         with self._outq_lock:
             self._outq.setdefault(dst, []).append(
                 (-msg.get("priority", 0), next(self._outseq),
@@ -529,7 +541,8 @@ class RemoteDepEngine:
             out.views[rank] = None
         else:
             out.ranks.add(rank)
-            vk = wire_slice_key(dep.wire_slices(task.locals))
+            vk = (wire_slice_key(dep.wire_slices(task.locals))
+                  if _params.get("comm_wire_datatypes") else None)
             if rank in out.views and out.views[rank] != vk:
                 out.views[rank] = None        # conflicting views
             else:
@@ -788,7 +801,8 @@ class RemoteDepEngine:
                     if copy is not None and dc.rank_of(*key) == self.my_rank:
                         apply_writeback_to_home(
                             dc, key,
-                            reshape_for_writeback(copy, dep, dc, key))
+                            reshape_for_writeback(copy, dep, dc, key),
+                            owner=tp.taskpool_id)
                 return
             succ_tc = tp.task_class(dep.target_class)
             for succ_locals in dep.each_target(t.locals):

@@ -53,8 +53,10 @@ the fabric.  ``comm_socket_fault_p`` breaks connections on purpose
 Use :func:`parsec_tpu_torch.comm.multiproc.run_multiproc` to launch N
 rank processes (the ``mpiexec -np N`` analog).
 
-Left out: the pooled wire buffers of the JAX package's ``data/arena.py``
-(a plain buffer per meta here).
+Frame scratch (a CTRL frame's metadata, a fragment's metadata, the sink
+that drains a duplicate or stale payload) comes from the process's
+pooled wire buffers (:data:`parsec_tpu_torch.data.arena.wire_pool`): the
+decode copies everything out of it before it goes back.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ from collections import deque
 from typing import Any
 
 from ..core.params import params as _params
+from ..data.arena import wire_pool
 from ..prof import spans as _spans
 from . import codec
 from .engine import AM_TAG_GET_FRAG, InprocCommEngine
@@ -173,13 +176,16 @@ def _recv_exact_into(sock: socket.socket, mv: memoryview) -> bool:
 def _drain(sock: socket.socket, n: int) -> bool:
     """Consume and discard ``n`` body bytes (a duplicate or stale frame's
     payload, which has nowhere to land)."""
-    mv = memoryview(bytearray(min(n, 1 << 16)))
-    while n:
-        take = mv[:min(n, mv.nbytes)]
-        if not _recv_exact_into(sock, take):
-            return False
-        n -= take.nbytes
-    return True
+    mv = wire_pool.acquire(min(n, 1 << 16))
+    try:
+        while n:
+            take = mv[:min(n, mv.nbytes)]
+            if not _recv_exact_into(sock, take):
+                return False
+            n -= take.nbytes
+        return True
+    finally:
+        wire_pool.release(mv)
 
 
 def _sendmsg_all(sock: socket.socket, bufs: list) -> None:
@@ -383,16 +389,19 @@ class SocketFabric:
         t0 = time.perf_counter()
         t0_ns = time.perf_counter_ns() if trace_id \
             and _spans.recorder is not None else 0
-        meta = bytearray(meta_len)
-        if not _recv_exact_into(conn, memoryview(meta)):
-            raise OSError("peer closed mid-frame (meta)")
+        meta = wire_pool.acquire(meta_len)
+        try:
+            if not _recv_exact_into(conn, meta):
+                raise OSError("peer closed mid-frame (meta)")
 
-        def fill(view: memoryview) -> None:
-            # segment bytes land in the decoded payload's final buffers
-            if not _recv_exact_into(conn, view):
-                raise OSError("peer closed mid-frame (segment)")
+            def fill(view: memoryview) -> None:
+                # segment bytes land in the decoded payload's buffers
+                if not _recv_exact_into(conn, view):
+                    raise OSError("peer closed mid-frame (segment)")
 
-        payload = codec.decode(meta, fill, pin_tensors=self.pin_tensors)
+            payload = codec.decode(meta, fill, pin_tensors=self.pin_tensors)
+        finally:
+            wire_pool.release(meta)
         if t0_ns:
             # a traced CTRL frame landing, under the header's trace word
             r = _spans.recorder
@@ -424,10 +433,13 @@ class SocketFabric:
             if not _recv_exact_into(conn, memoryview(mlen_buf)):
                 raise OSError("peer closed mid-frame (frag meta len)")
             mlen = _U32.unpack(mlen_buf)[0]
-            mbuf = bytearray(mlen)
-            if not _recv_exact_into(conn, memoryview(mbuf)):
-                raise OSError("peer closed mid-frame (frag meta)")
-            meta = codec.decode_with_segments(mbuf, [])
+            mbuf = wire_pool.acquire(mlen)
+            try:
+                if not _recv_exact_into(conn, mbuf):
+                    raise OSError("peer closed mid-frame (frag meta)")
+                meta = codec.decode_with_segments(bytes(mbuf), [])
+            finally:
+                wire_pool.release(mbuf)
             extra = 4 + mlen
         with self._ilock:
             dup = seq <= self._seen.get(src, 0)

@@ -1,9 +1,13 @@
 """Typed runtime parameters ("MCA params").
 
 Port of ``parsec_tpu/core/params.py``: parameters are registered at point
-of use with a type, default and help text, and resolved from the
-environment (``PARSEC_MCA_<name>``) or else the registered default;
-``set`` overrides either.  :class:`MCAParamValueError` names a param
+of use with a type, default and help text, and resolved, in order of
+precedence, from ``--mca <name> <value>`` (or ``--parsec-mca``) pairs
+consumed by :meth:`ParamRegistry.parse_cmdline`, the environment
+(``PARSEC_MCA_<name>``), a param file of ``name = value`` lines
+(:meth:`ParamRegistry.parse_paramfile`), or else the registered default;
+``set`` overrides all of them.  :meth:`ParamRegistry.dump` lists every
+param with its value, type and source.  :class:`MCAParamValueError` names a param
 whose value lies outside its legal set.
 
 The knob layer is ported whole: a :class:`KnobSpec` declares a param's
@@ -14,10 +18,8 @@ trial's knob vector for a ``with`` block and restores each param's
 ``(value, source)`` after it, and ``snapshot``/``lookup`` read the
 resolved vector and one param's record.
 
-Left out of this copy: ``--mca`` command-line parsing, the param file
-and ``dump``: nothing on the port's path reads them.  The registry is the
-port's own; it shares the ``PARSEC_MCA_`` environment namespace with the
-JAX package but no state.
+The registry is the port's own; it shares the ``PARSEC_MCA_`` environment
+namespace with the JAX package but no state.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ class Param:
     default: Any
     help: str = ""
     read_only: bool = False
-    # where the current value came from: default/env/set
+    # where the current value came from: default/env/file/cli/set
     source: str = "default"
     value: Any = None
 
@@ -112,6 +114,8 @@ class ParamRegistry:
     def __init__(self) -> None:
         self._lock = threading.RLock()
         self._params: dict[str, Param] = {}
+        self._cli_overrides: dict[str, str] = {}
+        self._file_values: dict[str, str] = {}
         self._knobs: dict[str, KnobSpec] = {}
 
     def register(self, name: str, default: Any, help: str = "",
@@ -131,9 +135,14 @@ class ParamRegistry:
             return p
 
     def _resolve(self, p: Param) -> tuple[Any, str]:
+        conv = _TYPES[p.type]
+        if p.name in self._cli_overrides:
+            return conv(self._cli_overrides[p.name]), "cli"
         env = os.environ.get(f"PARSEC_MCA_{p.name}")
         if env is not None:
-            return _TYPES[p.type](env), "env"
+            return conv(env), "env"
+        if p.name in self._file_values:
+            return conv(self._file_values[p.name]), "file"
         return p.default, "default"
 
     def lookup(self, name: str) -> Param | None:
@@ -218,6 +227,50 @@ class ParamRegistry:
             return {name: p.value for name, p in sorted(self._params.items())
                     if isinstance(p.value, (bool, int, float, str))}
 
+    # -- external sources ----------------------------------------------------
+    def parse_cmdline(self, argv: list[str]) -> list[str]:
+        """Consume ``--mca <name> <value>`` and ``--parsec-mca`` triples;
+        returns ``argv`` without them.  Every param not ``set`` is
+        resolved again."""
+        out: list[str] = []
+        i = 0
+        with self._lock:
+            while i < len(argv):
+                a = argv[i]
+                if a in ("--mca", "--parsec-mca") and i + 2 < len(argv):
+                    self._cli_overrides[argv[i + 1]] = argv[i + 2]
+                    i += 3
+                else:
+                    out.append(a)
+                    i += 1
+            self._refresh_locked()
+        return out
+
+    def parse_paramfile(self, path: str) -> None:
+        """``name = value`` lines, ``#`` comments
+        (``mca_parse_paramfile.c``)."""
+        with open(path) as f:
+            with self._lock:
+                for line in f:
+                    line = line.split("#", 1)[0].strip()
+                    if not line:
+                        continue
+                    name, _, value = line.partition("=")
+                    self._file_values[name.strip()] = value.strip()
+                self._refresh_locked()
+
+    def _refresh_locked(self) -> None:
+        for p in self._params.values():
+            if p.source != "set":
+                p.value, p.source = self._resolve(p)
+
+    def dump(self) -> str:
+        """One line a param: ``name = value [type, from source] : help``."""
+        with self._lock:
+            return "\n".join(
+                f"{name} = {p.value!r} [{p.type}, from {p.source}] : {p.help}"
+                for name, p in sorted(self._params.items()))
+
 
 class MCAParamValueError(ValueError):
     """A param value outside its legal set, naming the param and the set."""
@@ -230,3 +283,8 @@ class MCAParamValueError(ValueError):
 
 
 params = ParamRegistry()
+
+
+def register(name: str, default: Any, help: str = "", **kw) -> Any:
+    """Register a param and read its value (the point-of-use shorthand)."""
+    return params.register(name, default, help, **kw).value

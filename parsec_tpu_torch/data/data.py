@@ -8,8 +8,11 @@ value, dtt}.  A copy's value is a ``torch.Tensor``: on the CPU for device
 MOESI-like protocol (INVALID / OWNED / EXCLUSIVE / SHARED) and versions
 decide staleness at stage-in.
 
-Left out: arena chunks, reshape futures and the paranoid write-back mark
-of the JAX copy — nothing on the port's path sets them.
+A copy an :class:`~parsec_tpu_torch.data.arena.Arena` handed out names
+it in ``arena_chunk``; under ``debug_paranoid`` a home copy carries the
+(taskpool, version) mark of its last write-back in ``wb_mark``
+(:func:`~parsec_tpu_torch.runtime.scheduling.apply_writeback_to_home`).
+Left out: the JAX copy's ``flags`` word, which nothing reads.
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ class DataCopy:
     """One device's copy of a datum (cf. ``parsec_data_copy_t``)."""
 
     __slots__ = ("original", "device_index", "coherency", "readers",
-                 "version", "value", "dtt", "reshaped")
+                 "version", "value", "dtt", "reshaped", "arena_chunk",
+                 "wb_mark")
 
     def __init__(self, original: "Data", device_index: int,
                  value: Any = None, dtt: TileType | None = None) -> None:
@@ -59,6 +63,8 @@ class DataCopy:
         self.value = value
         self.dtt = dtt
         self.reshaped = None   # type key -> shared repack future (reshape)
+        self.arena_chunk = None  # the arena that handed it out
+        self.wb_mark = None      # (taskpool id, version), debug_paranoid
 
     def __repr__(self) -> str:
         return (f"<DataCopy key={self.original.key} dev={self.device_index} "

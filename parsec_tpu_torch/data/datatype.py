@@ -6,7 +6,10 @@ names the partial-tile view a remote edge ships (its ``wire=`` slices),
 hashable for grouping and the activation message; :class:`WireRegion` is
 the JDF ``[type_remote = LR, displ_remote = ...]`` form of such a view.
 :func:`convert` is the typed-edge reshape's conversion (shape and dtype).
-Left out: layout tags and their converters (no port pool declares one).
+A tile type also carries a layout tag (``TileType.layout``, default
+``row_major``): same-shape types of other layouts are told apart, and
+:func:`convert` relays a tile through the converters of
+:func:`register_layout` (to the canonical row-major form and back).
 
 Added: :func:`to_tensor` / :func:`to_numpy`, the one place tiles cross
 between numpy and torch.  bf16 host tiles of the JAX package are
@@ -63,10 +66,11 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 @dataclass(frozen=True)
 class TileType:
-    """A logical tile datatype: shape and element dtype."""
+    """A logical tile datatype: shape, element dtype and layout tag."""
 
     shape: tuple[int, ...]
     dtype: torch.dtype = torch.float32
+    layout: str = "row_major"
 
     @property
     def nbytes(self) -> int:
@@ -111,17 +115,33 @@ class WireRegion:
         return self.rows * self.cols * self.itemsize
 
 
+# layout tag -> (to_canonical, from_canonical): tensor -> tensor functions
+_layout_converters: dict[str, tuple] = {
+    "row_major": (lambda x: x, lambda x: x),
+}
+
+
+def register_layout(tag: str, to_canonical, from_canonical) -> None:
+    """Declare a layout: ``to_canonical`` takes a tile of that layout to
+    row-major, ``from_canonical`` back."""
+    _layout_converters[tag] = (to_canonical, from_canonical)
+
+
 def convert(value: torch.Tensor, src: TileType,
             dst: TileType) -> torch.Tensor:
-    """A tile of type ``src`` as type ``dst``: a reshape of the same
-    element count and a dtype cast, on the tile's own device (no implicit
-    resize)."""
+    """A tile of type ``src`` as type ``dst``: out of ``src``'s layout, a
+    reshape of the same element count and a dtype cast, then into
+    ``dst``'s layout, on the tile's own device (no implicit resize)."""
+    if src.layout != "row_major":
+        value = _layout_converters[src.layout][0](value)
     if tuple(src.shape) != tuple(dst.shape):
         if math.prod(src.shape) != math.prod(dst.shape):
             raise ValueError(f"cannot reshape {src.shape} -> {dst.shape}")
         value = value.reshape(dst.shape)
     if torch_dtype(src.dtype) != torch_dtype(dst.dtype):
         value = value.to(torch_dtype(dst.dtype))
+    if dst.layout != "row_major":
+        value = _layout_converters[dst.layout][1](value)
     return value
 
 

@@ -15,7 +15,8 @@ producer.  The repack is
   consumers of one datum with the same type pay one conversion.
 
 The conversion is :func:`parsec_tpu_torch.data.datatype.convert` (a
-reshape and a cast, on the tile's own device).  Left out: layout tags.
+layout's converters, a reshape and a cast, on the tile's own device); a
+type of another layout tag differs even at the same shape and dtype.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ def needs_reshape(copy: DataCopy, want: TileType | None) -> bool:
         return False
     have = _copy_dtt(copy)
     return (tuple(have.shape) != tuple(want.shape)
-            or torch_dtype(have.dtype) != torch_dtype(want.dtype))
+            or torch_dtype(have.dtype) != torch_dtype(want.dtype)
+            or have.layout != want.layout)
 
 
 def _convert_copy(copy: DataCopy, want: TileType) -> DataCopy:
@@ -70,7 +72,8 @@ def _convert_copy(copy: DataCopy, want: TileType) -> DataCopy:
         value = value.clone()   # the repack never aliases its source
     d = data_create(value, key=("reshape", copy.original.key,
                                 tuple(want.shape),
-                                str(torch_dtype(want.dtype))), dtt=want)
+                                str(torch_dtype(want.dtype)), want.layout),
+                    dtt=want)
     out = d.get_copy(0)
     out.version = copy.version
     return out
@@ -83,14 +86,15 @@ def reshaped_future(copy: DataCopy, want: TileType) -> DataCopyFuture:
     """The shared lazy repack of ``copy`` to ``want``.  The cache key holds
     the copy's version, so a write to the source is never served a stale
     conversion; entries of older versions are pruned on insert."""
-    key = (tuple(want.shape), str(torch_dtype(want.dtype)), copy.version)
+    key = (tuple(want.shape), str(torch_dtype(want.dtype)), want.layout,
+           copy.version)
     with _cache_lock:
         cache = copy.reshaped
         if cache is None:
             cache = copy.reshaped = {}
         f = cache.get(key)
         if f is None:
-            for k in [k for k in cache if k[2] != copy.version]:
+            for k in [k for k in cache if k[3] != copy.version]:
                 del cache[k]
             f = DataCopyFuture(convert=lambda _src, c=copy, w=want:
                                _convert_copy(c, w))

@@ -8,7 +8,8 @@ host-dict-backed collection the LLM pools keep their side tiles in.
 :func:`enumerate_keys` lists a collection's keys for the taskpool
 lowering; an undeclared dict collection has an *open* key space
 (``open_key_space``), which the lowering's stores extend as a plan
-references fresh keys.  Left out: ``key_to_string``.
+references fresh keys.  ``key_to_string`` names a key for messages.
+Nothing of the original is left out.
 """
 
 from __future__ import annotations
@@ -42,6 +43,9 @@ class DataCollection:
 
     def has_key(self, *key) -> bool:
         return True
+
+    def key_to_string(self, *key) -> str:
+        return f"{self.name}({', '.join(map(str, key))})"
 
 
 class DictCollection(DataCollection):

@@ -31,7 +31,12 @@ placement of ``parallel/expert.py``); :class:`SubtileCollection` views one
 tile, or any flow copy, as a tiled matrix for a recursive body's nested
 pool, and writes the sub-tiles back into it (``sync_parent``).
 
-Left out: the band and hash distributions.
+The band distributions (:class:`TwoDimBlockCyclicBand`,
+:class:`SymTwoDimBlockCyclicBand`) store only the tiles within
+``band_size`` of the diagonal, dealt cyclically along it; a tile off the
+band raises ``KeyError``.  :class:`HashDataDist` holds arbitrary keys
+registered one by one, with a user rank function: the staging collection
+of :mod:`~parsec_tpu_torch.data_dist.redistribute`.
 
 :meth:`TiledMatrix.from_numpy_tiles` / :meth:`to_numpy_tiles` carry the
 JAX package's ``{(i, j): np.ndarray}`` host tiles of the stored tiles
@@ -237,6 +242,86 @@ class SymTwoDimBlockCyclic(TwoDimBlockCyclic):
             return False
         return not (self.uplo == self.LOWER and n > m
                     or self.uplo == self.UPPER and m > n)
+
+
+class TwoDimBlockCyclicBand(TwoDimBlockCyclic):
+    """Band storage over block-cyclic (``two_dim_rectangle_cyclic_band.c``):
+    only tiles with ``|m - n| < band_size`` exist, and they ride a 1-D
+    cyclic layout along the diagonal (tile (m, n) on rank
+    ``min(m, n) % nodes``), so the band stays balanced however thin it
+    is.  A tile off the band raises ``KeyError``."""
+
+    def __init__(self, *args, band_size: int = 1, **kw) -> None:
+        super().__init__(*args, **kw)
+        self.band_size = band_size
+
+    def _in_band(self, m: int, n: int) -> bool:
+        return abs(m - n) < self.band_size
+
+    def _check(self, m: int, n: int) -> None:
+        if not self._in_band(m, n):
+            raise KeyError(f"tile ({m},{n}) outside band {self.band_size}")
+
+    def rank_of(self, m: int, n: int) -> int:
+        self._check(m, n)
+        return min(m, n) % max(self.nodes, 1)
+
+    def data_of(self, m: int, n: int) -> Data:
+        self._check(m, n)
+        return super().data_of(m, n)
+
+    def has_tile(self, m: int, n: int) -> bool:
+        return super().has_tile(m, n) and self._in_band(m, n)
+
+
+class SymTwoDimBlockCyclicBand(SymTwoDimBlockCyclic):
+    """Symmetric band storage (``sym_two_dim_rectangle_cyclic_band.c``):
+    one triangle, and of it only the tiles within ``band_size`` of the
+    diagonal."""
+
+    def __init__(self, *args, band_size: int = 1, **kw) -> None:
+        super().__init__(*args, **kw)
+        self.band_size = band_size
+
+    def _check(self, m: int, n: int) -> None:
+        super()._check(m, n)
+        if abs(m - n) >= self.band_size:
+            raise KeyError(f"tile ({m},{n}) outside band {self.band_size}")
+
+    def has_tile(self, m: int, n: int) -> bool:
+        return super().has_tile(m, n) and abs(m - n) < self.band_size
+
+
+class HashDataDist(DataCollection):
+    """Hash-keyed distribution (``hash_datadist.c``): arbitrary keys,
+    each registered with its value (:meth:`register`), and a user rank
+    function (every key on rank 0 without one)."""
+
+    def __init__(self, name: str = "hash", nodes: int = 1, myrank: int = 0,
+                 rank_fn: Callable[..., int] | None = None) -> None:
+        super().__init__(name, nodes, myrank)
+        self._rank_fn = rank_fn or (lambda *k: 0)
+        self._store: dict[tuple, Data] = {}
+        self._lock = threading.Lock()
+
+    def register(self, key: tuple, value: Any) -> Data:
+        t = to_tensor(value)
+        with self._lock:
+            d = data_create(t, key=(self.name,) + tuple(key),
+                            dtt=TileType(tuple(t.shape), t.dtype), dc=self)
+            self._store[tuple(key)] = d
+            return d
+
+    def rank_of(self, *key) -> int:
+        return self._rank_fn(*key)
+
+    def data_of(self, *key) -> Data:
+        with self._lock:
+            return self._store[key]
+
+    def known_keys(self) -> list[tuple]:
+        with self._lock:
+            return list(self._store)
 
 
 class VectorTwoDimCyclic(DataCollection):

@@ -34,17 +34,19 @@ past every device copy they detach: a deferred write-back of a rejected
 draft's k/v is then skipped, never written over the rolled-back page.
 A :class:`~parsec_tpu_torch.data_dist.kv_tiers.KVTierMap` attaches as
 ``tier`` and answers the tier keys of :meth:`PagedKVCollection.stats`.
-Every page is rank 0's unless ``rank_of_fn(seq, page)`` names another
-(the sharded server pins a rank's cache to that rank).
-
-Left out: the JAX package's distribution of sequences over ``nodes``
-ranks by a hash of the sequence id (the port's caches live on one rank
-each).
+Over ``nodes`` ranks a sequence's pages all live on one rank (decode is a
+per-sequence chain): an integer sequence id ``s`` on rank ``s % nodes``,
+any other on ``crc32(repr(s)) % nodes``, which every process computes
+alike (Python's string hash is salted per interpreter).
+``rank_of_fn(seq, page)`` overrides it (the sharded server pins a rank's
+cache to that rank).
 """
 
 from __future__ import annotations
 
+import numbers
 import threading
+import zlib
 from typing import Any, Callable
 
 import torch
@@ -63,13 +65,15 @@ def _home(value: torch.Tensor) -> torch.Tensor:
 
 
 class PagedKVCollection(DataCollection):
-    """Block-table-backed paged KV cache on one rank."""
+    """Block-table-backed paged KV cache, its sequences over ``nodes``
+    ranks."""
 
     def __init__(self, name: str = "KV", page_size: int = 16,
                  num_heads: int = 4, head_dim: int = 8,
                  dtype: Any = torch.float32, max_pages: int = 4096,
+                 nodes: int = 1, myrank: int = 0,
                  rank_of_fn: Callable | None = None) -> None:
-        super().__init__(name)
+        super().__init__(name, nodes, myrank)
         self._rank_of_fn = rank_of_fn
         self.page_size = int(page_size)
         self.num_heads = int(num_heads)
@@ -98,7 +102,13 @@ class PagedKVCollection(DataCollection):
 
     # -- the DataCollection vtable --------------------------------------
     def rank_of(self, *key) -> int:
-        return 0 if self._rank_of_fn is None else self._rank_of_fn(*key)
+        seq, page = key
+        if self._rank_of_fn is not None:
+            return self._rank_of_fn(seq, page)
+        nodes = max(self.nodes, 1)
+        if isinstance(seq, numbers.Integral):
+            return int(seq) % nodes
+        return zlib.crc32(repr(seq).encode()) % nodes
 
     def data_of(self, *key) -> Data:
         seq, page = key

@@ -3,18 +3,21 @@
 Port of ``parsec_tpu/device/device.py`` (the reference's
 ``parsec/mca/device/device.c``): devices register with the process-global
 registry; each carries transfer/execution statistics and per-precision gflops
-ratings; ``best_device`` is ``parsec_get_best_device`` = argmin over the
-task's time estimate.
+ratings, a load (``load_add``) and its info-object array (``infos``,
+:mod:`parsec_tpu_torch.core.info`); ``best_device`` is
+``parsec_get_best_device`` = argmin over the load plus the task's time
+estimate.
 
-Left out: the load accumulator (``load_add``, which nothing calls, so
-the load was always 0), the process-wide XLA dispatch ledger (the CUDA
-device counts its own ``kernel_launches``) and the info-object arrays.
+Left out: the process-wide XLA dispatch ledger (the CUDA device counts
+its own ``kernel_launches``).
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Any
+
+from ..core.info import InfoObjectArray
 
 
 class Device:
@@ -31,6 +34,15 @@ class Device:
         self.gflops_fp16 = 1.0
         self.gflops_fp32 = 1.0
         self.gflops_fp64 = 1.0
+        self.device_load = 0.0
+        self._load_lock = threading.Lock()
+        self.infos = InfoObjectArray(self)
+
+    def load_add(self, delta: float) -> None:
+        """Add ``delta`` seconds of expected work to the device's load,
+        which :meth:`DeviceRegistry.best_device` weighs."""
+        with self._load_lock:
+            self.device_load += delta
 
     def flush_cache(self) -> None:
         pass
@@ -66,15 +78,16 @@ class DeviceRegistry:
 
     def best_device(self, task: Any,
                     device_type: str | None = None) -> Device | None:
-        """``parsec_get_best_device``: min time_estimate."""
+        """``parsec_get_best_device``: min (load + time_estimate); the
+        first of equals."""
         cands = [d for d in self.devices
                  if d.enabled and (device_type is None or d.type == device_type)]
         if not cands:
             return None
         te = task.task_class.time_estimate
         if te is None:
-            return cands[0]
-        return min(cands, key=lambda d: te(task, d))
+            return min(cands, key=lambda d: d.device_load)
+        return min(cands, key=lambda d: d.device_load + te(task, d))
 
 
 registry = DeviceRegistry()

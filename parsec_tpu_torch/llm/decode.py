@@ -43,12 +43,14 @@ Every builder takes ``devices="cuda"`` (the default: the class carries
 only the device chore, resolved by ``dyld`` name, so a missing card fails
 instead of running on the host) or ``"cpu"`` (only the host body).
 
-Left out: three helpers nothing of the port calls: ``decode_step_ptg``
-(a one-step superpool builds the same ATTN -> OUT chain, with SAMPLE
-after it), ``seed_decode_superpool`` (the batcher seeds stream by
-stream) and ``read_token_chain`` (one entry of
-:func:`read_token_chains`); the spec readers likewise read several
-streams at once.
+:func:`decode_step_ptg` is one decode iteration with no in-graph
+sampling (ATTN chains and OUT; the caller samples from ``O``), the pool
+of the analysis CLI's ``llm_decode`` and of a host-driven step loop.
+:func:`generate_by_steps` drives it step by step.
+:func:`seed_decode_superpool` is the superpool's input contract in one
+call (prefill in place, preallocate every step's slot, seed Q, TOK and
+EMB), and :func:`read_token_chain` reads one stream's chain.  The spec
+readers read several streams at once.
 """
 
 from __future__ import annotations
@@ -116,6 +118,65 @@ def prefill_ptg(kv: PagedKVCollection, T: DictCollection,
     fkv.input(data=("KV", lambda g, l: (g.SEQS[l.s], l.c)))
     fkv.output(data=("KV", lambda g, l: (g.SEQS[l.s], l.c)))
     _attach(t, "llm_prefill_copy", devices)
+    return p.build()
+
+
+def decode_step_ptg(kv: PagedKVCollection, Q: DictCollection,
+                    O: DictCollection, seqs: Sequence[Any],
+                    devices: str = "cuda",
+                    name: str = "llm_decode") -> ptg.PTGTaskpool:
+    """One decode iteration for every listed sequence::
+
+        ATTN(s,0) -> ... -> ATTN(s, NP[s]-1) -> OUT(s)
+
+    ATTN folds page p into the online-softmax state (K2 on the card, one
+    launch a same-class batch); OUT finalizes into ``O(s)`` and appends
+    the query token's k/v into the tail page.  Callers must have made the
+    write slot real first (:meth:`PagedKVCollection.ensure_tail_slot`),
+    so ``NP[s] >= 1``; the builder snapshots the page counts."""
+    _check_devices(devices)
+    NP = tuple(kv.npages(s) for s in seqs)
+    if not all(n >= 1 for n in NP):
+        raise ValueError("decode needs ensure_tail_slot() first (NP >= 1)")
+    H, D = kv.num_heads, kv.head_dim
+    p = ptg.PTGBuilder(name, KV=kv, Q=Q, O=O, SEQS=tuple(seqs), NP=NP,
+                       NS=len(seqs))
+
+    t = p.task("ATTN",
+               s=ptg.span(0, lambda g, l: g.NS - 1),
+               p=lambda g, l: range(g.NP[l.s]))
+    t.affinity("KV", lambda g, l: (g.SEQS[l.s], l.p))
+    # long page chains first: the step's critical path
+    t.priority(lambda g, l: g.NP[l.s] - l.p)
+    fq = t.flow("Q", ptg.READ)
+    fq.input(data=("Q", lambda g, l: (g.SEQS[l.s],)))
+    fkv = t.flow("KV", ptg.READ)
+    fkv.input(data=("KV", lambda g, l: (g.SEQS[l.s], l.p)))
+    facc = t.flow("ACC", ptg.RW, dtt=TileType((H, D + 2), _F32))
+    facc.input(new=True, guard=lambda g, l: l.p == 0)
+    facc.input(pred=("ATTN", "ACC", lambda g, l: {"s": l.s, "p": l.p - 1}),
+               guard=lambda g, l: l.p > 0)
+    facc.output(succ=("ATTN", "ACC",
+                      lambda g, l: {"s": l.s, "p": l.p + 1}),
+                guard=lambda g, l: l.p < g.NP[l.s] - 1)
+    facc.output(succ=("OUT", "ACC", lambda g, l: {"s": l.s}),
+                guard=lambda g, l: l.p == g.NP[l.s] - 1)
+    _attach(t, "ragged_attn_page", devices)
+
+    o = p.task("OUT", s=ptg.span(0, lambda g, l: g.NS - 1))
+    o.affinity("KV", lambda g, l: (g.SEQS[l.s], g.NP[l.s] - 1))
+    foacc = o.flow("ACC", ptg.READ)
+    foacc.input(pred=("ATTN", "ACC",
+                      lambda g, l: {"s": l.s, "p": g.NP[l.s] - 1}))
+    foq = o.flow("Q", ptg.READ)
+    foq.input(data=("Q", lambda g, l: (g.SEQS[l.s],)))
+    fkvw = o.flow("KVW", ptg.RW)
+    fkvw.input(data=("KV", lambda g, l: (g.SEQS[l.s], g.NP[l.s] - 1)))
+    fkvw.output(data=("KV", lambda g, l: (g.SEQS[l.s], g.NP[l.s] - 1)))
+    fo = o.flow("O", ptg.WRITE, dtt=TileType((H, D), _F32))
+    fo.input(new=True)
+    fo.output(data=("O", lambda g, l: (g.SEQS[l.s],)))
+    _attach(o, "ragged_attn_out", devices)
     return p.build()
 
 
@@ -709,6 +770,75 @@ def seed_spec_superpool(model: Any, kv: PagedKVCollection,
         seed_spec_stream(model, DRAFT, DTOK, STOK, seq, prompt[-1],
                          drafts[seq], eos=eos)
     return npos
+
+
+def seed_decode_superpool(model: Any, kv: PagedKVCollection,
+                          Q: DictCollection, TOK: DictCollection,
+                          EMB: DictCollection,
+                          prompts: dict[Any, Sequence[int]],
+                          steps: dict[Any, int], *,
+                          eos: int | None = None) -> None:
+    """The input contract of :func:`decode_superpool_ptg` in one call:
+    prefill each prompt's pages in place (no runtime), preallocate every
+    step's write slot, and seed EMB, Q and TOK through
+    :func:`seed_emb_table` and :func:`seed_stream_step`, as the batcher
+    does."""
+    seed_emb_table(model, EMB)
+    for seq, prompt in prompts.items():
+        kv.alloc_seq(seq)
+        for key, tile in prefill_chunks(model, kv, seq,
+                                        prompt[:-1]).items():
+            _set(kv, key, tile)
+        preallocate_decode_steps(kv, seq, steps[seq])
+        seed_stream_step(model, Q, TOK, seq, prompt[-1], eos=eos)
+
+
+def generate_by_steps(model: Any, kv: PagedKVCollection, Q: DictCollection,
+                      O: DictCollection, prompts: dict[Any, Sequence[int]],
+                      steps: int, run: Any,
+                      devices: str = "cuda") -> dict[Any, list[int]]:
+    """Greedy generation one :func:`decode_step_ptg` pool a step: prefill
+    each prompt's pages in place, then per step make every stream's write
+    slot real, seed ``Q(seq)`` with its current token's query stack, run
+    the pool through ``run(taskpool)`` (the caller's context), advance the
+    length ledger, and sample each stream's next token from ``O(seq)`` on
+    the host (``model.sample``, one D2H a stream).  Returns ``{seq:
+    tokens}``; the k-step superpool gives the same tokens in one pool."""
+    cur = {}
+    for seq, prompt in prompts.items():
+        kv.alloc_seq(seq)
+        for key, tile in prefill_chunks(model, kv, seq,
+                                        prompt[:-1]).items():
+            _set(kv, key, tile)
+        cur[seq] = int(prompt[-1])
+    out: dict[Any, list[int]] = {seq: [] for seq in prompts}
+    seqs = list(prompts)
+    for _ in range(steps):
+        for seq in seqs:
+            kv.ensure_tail_slot(seq)
+            _set(Q, (seq,), model.q3(cur[seq]))
+        run(decode_step_ptg(kv, Q, O, seqs, devices=devices))
+        for seq in seqs:
+            kv.note_appended(seq, 1)
+            cur[seq] = model.sample(O.data_of(seq).newest_copy().value.cpu())
+            out[seq].append(cur[seq])
+    return out
+
+
+def read_token_chain(TOK: DictCollection, seq: Any,
+                     k: int) -> tuple[list[int], bool]:
+    """One stream's k-step TOK chain, read as the batcher reads it: the
+    tokens after the step whose done flag fired are the predicated tail
+    and are not surfaced.  Returns ``(tokens, done)``."""
+    rows = _to_host([TOK.data_of(seq, t).newest_copy().value
+                     for t in range(k)])
+    toks: list[int] = []
+    done = False
+    for v in rows:
+        if not done:
+            toks.append(int(round(float(v[0]))))
+            done = bool(v[1] > 0.5)
+    return toks, done
 
 
 def read_token_chains(TOK: DictCollection,

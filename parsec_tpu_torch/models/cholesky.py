@@ -41,8 +41,18 @@ each task runs on its tile's rank: POTRF's factor reaches the TRSMs, and
 the TRSMs' panels the SYRKs and GEMMs, by the comm layer; each rank's
 ``to_dense`` holds its own tiles, and their sum is the factor.
 
-Left out: ``devices="auto"`` (a class with both chores) and the upper
-distribution (``uplo=UPPER`` raises).
+``devices`` is ``"cuda"`` (the default), ``"cpu"`` or ``"auto"`` (both
+chores, the CUDA chore first: with a CUDA device registered every task
+runs it on K1, and the host chore runs only with none;
+:data:`~parsec_tpu_torch.ops.factor.host_runs` counts the host runs).
+
+The upper distribution (``uplo=UPPER``) factors ``A = Uᵀ·U`` in place,
+``U = Lᵀ``: the pool is the lower one, each task reading tile ``(j, i)``
+for its lower tile ``(i, j)`` through a typed edge of the
+``"transposed"`` layout tag (:func:`~parsec_tpu_torch.data.datatype.
+register_layout`), so the repack transposes on the way in and the
+write-back transposes back.  It takes square tiles that divide the
+matrix, and runs on the dynamic path (the lowering refuses typed edges).
 """
 
 from __future__ import annotations
@@ -51,11 +61,12 @@ import numpy as np
 import torch
 
 from .. import ptg
+from ..data.datatype import TileType, register_layout
 from ..data_dist.matrix import SymTwoDimBlockCyclic, TiledMatrix
 from ..device.kernels import register_kernel
 from ..ops import gemm as gemm_ops
-from ..ops.factor import host_body, potrf, tile_body, tri_inverse, \
-    tri_inverse_tiles
+from ..ops.factor import attach_chores, check_devices, potrf, tile_body, \
+    tri_inverse, tri_inverse_tiles
 from ..ptg.lowering import register_traceable
 
 # ---------------------------------------------------------------------------
@@ -122,6 +133,14 @@ for _name, (_tiles, _stacked) in _FORMS.items():
                        libs=() if _name == "potrf" else ("gemm",))
 
 
+def _transpose(x: torch.Tensor) -> torch.Tensor:
+    return x.transpose(-2, -1).contiguous()
+
+
+# a tile of the upper triangle seen as its lower twin, and back
+register_layout("transposed", _transpose, _transpose)
+
+
 # ---------------------------------------------------------------------------
 # the PTG
 # ---------------------------------------------------------------------------
@@ -129,27 +148,37 @@ for _name, (_tiles, _stacked) in _FORMS.items():
 
 def tiled_cholesky_ptg(A: TiledMatrix,
                        devices: str = "cuda") -> ptg.PTGTaskpool:
-    """Build the lower-Cholesky PTG over a square tile grid (the lower
-    triangle of a :class:`SymTwoDimBlockCyclic`, factored in place)."""
-    if devices not in ("cuda", "cpu"):
-        raise ValueError(f"tiled_cholesky_ptg: devices must be 'cuda' or "
-                         f"'cpu', got {devices!r}")
+    """Build the Cholesky PTG over a square tile grid: the lower factor
+    in place over a lower :class:`SymTwoDimBlockCyclic` (or a full tiled
+    matrix), the upper factor ``U = Lᵀ`` over an upper one."""
+    check_devices("tiled_cholesky_ptg", devices)
     if A.mt != A.nt:
         raise ValueError(f"tiled_cholesky_ptg: {A.mt}x{A.nt} tiles; "
                          f"Cholesky needs a square tile grid")
-    if getattr(A, "uplo", SymTwoDimBlockCyclic.LOWER) \
-            != SymTwoDimBlockCyclic.LOWER:
-        raise ValueError("tiled_cholesky_ptg: the upper distribution is "
-                         "not ported; store the lower triangle")
+    upper = getattr(A, "uplo", SymTwoDimBlockCyclic.LOWER) \
+        == SymTwoDimBlockCyclic.UPPER
+    if upper and (A.mb != A.nb or A.lm % A.mb):
+        raise ValueError("tiled_cholesky_ptg: the upper distribution takes "
+                         "square tiles that divide the matrix")
+    # the lower tile (i, j) a task names, and the type its edges carry
+    if upper:
+        def key(i: int, j: int) -> tuple:
+            return (j, i)
+        tt = TileType((A.mb, A.mb), A.dtype, layout="transposed")
+    else:
+        def key(i: int, j: int) -> tuple:
+            return (i, j)
+        tt = None
     NT = A.mt
     p = ptg.PTGBuilder("cholesky", A=A, NT=NT)
 
     # ---- POTRF(k) ---------------------------------------------------------
     po = p.task("POTRF", k=ptg.span(0, lambda g, l: g.NT - 1))
-    po.affinity("A", lambda g, l: (l.k, l.k))
+    po.affinity("A", lambda g, l: key(l.k, l.k))
     po.priority(lambda g, l: 3 * (g.NT - l.k) + 3)   # critical path first
     fT = po.flow("T", ptg.RW)
-    fT.input(data=("A", lambda g, l: (l.k, l.k)), guard=lambda g, l: l.k == 0)
+    fT.input(data=("A", lambda g, l: key(l.k, l.k)), dtt=tt,
+             guard=lambda g, l: l.k == 0)
     fT.input(pred=("SYRK", "T", lambda g, l: {"m": l.k, "k": l.k - 1}),
              guard=lambda g, l: l.k > 0)
     # range arrow: -> T TRSM(k+1..NT-1, k)
@@ -157,18 +186,19 @@ def tiled_cholesky_ptg(A: TiledMatrix,
                     lambda g, l: [{"m": m, "k": l.k}
                                   for m in range(l.k + 1, g.NT)]),
               guard=lambda g, l: l.k < g.NT - 1)
-    fT.output(data=("A", lambda g, l: (l.k, l.k)))
+    fT.output(data=("A", lambda g, l: key(l.k, l.k)))
 
     # ---- TRSM(m, k), m > k ------------------------------------------------
     tr = p.task("TRSM",
                 k=ptg.span(0, lambda g, l: g.NT - 2),
                 m=ptg.span(lambda g, l: l.k + 1, lambda g, l: g.NT - 1))
-    tr.affinity("A", lambda g, l: (l.m, l.k))
+    tr.affinity("A", lambda g, l: key(l.m, l.k))
     tr.priority(lambda g, l: 3 * (g.NT - l.m) + 2)
     tT = tr.flow("T", ptg.READ)
     tT.input(pred=("POTRF", "T", lambda g, l: {"k": l.k}))
     tC = tr.flow("C", ptg.RW)
-    tC.input(data=("A", lambda g, l: (l.m, l.k)), guard=lambda g, l: l.k == 0)
+    tC.input(data=("A", lambda g, l: key(l.m, l.k)), dtt=tt,
+             guard=lambda g, l: l.k == 0)
     tC.input(pred=("GEMM", "C",
                    lambda g, l: {"m": l.m, "n": l.k, "k": l.k - 1}),
              guard=lambda g, l: l.k > 0)
@@ -183,18 +213,19 @@ def tiled_cholesky_ptg(A: TiledMatrix,
                     lambda g, l: [{"m": mm, "n": l.m, "k": l.k}
                                   for mm in range(l.m + 1, g.NT)]),
               guard=lambda g, l: l.m < g.NT - 1)
-    tC.output(data=("A", lambda g, l: (l.m, l.k)))
+    tC.output(data=("A", lambda g, l: key(l.m, l.k)))
 
     # ---- SYRK(m, k), k < m ------------------------------------------------
     sy = p.task("SYRK",
                 m=ptg.span(1, lambda g, l: g.NT - 1),
                 k=ptg.span(0, lambda g, l: l.m - 1))
-    sy.affinity("A", lambda g, l: (l.m, l.m))
+    sy.affinity("A", lambda g, l: key(l.m, l.m))
     sy.priority(lambda g, l: 3 * (g.NT - l.m) + 1)
     sA = sy.flow("A", ptg.READ)
     sA.input(pred=("TRSM", "C", lambda g, l: {"m": l.m, "k": l.k}))
     sT = sy.flow("T", ptg.RW)
-    sT.input(data=("A", lambda g, l: (l.m, l.m)), guard=lambda g, l: l.k == 0)
+    sT.input(data=("A", lambda g, l: key(l.m, l.m)), dtt=tt,
+             guard=lambda g, l: l.k == 0)
     sT.input(pred=("SYRK", "T", lambda g, l: {"m": l.m, "k": l.k - 1}),
              guard=lambda g, l: l.k > 0)
     sT.output(succ=("SYRK", "T", lambda g, l: {"m": l.m, "k": l.k + 1}),
@@ -207,14 +238,15 @@ def tiled_cholesky_ptg(A: TiledMatrix,
                 m=ptg.span(2, lambda g, l: g.NT - 1),
                 n=ptg.span(1, lambda g, l: l.m - 1),
                 k=ptg.span(0, lambda g, l: l.n - 1))
-    ge.affinity("A", lambda g, l: (l.m, l.n))
+    ge.affinity("A", lambda g, l: key(l.m, l.n))
     ge.priority(lambda g, l: 3 * (g.NT - l.m))
     gA = ge.flow("A", ptg.READ)
     gA.input(pred=("TRSM", "C", lambda g, l: {"m": l.m, "k": l.k}))
     gB = ge.flow("B", ptg.READ)
     gB.input(pred=("TRSM", "C", lambda g, l: {"m": l.n, "k": l.k}))
     gC = ge.flow("C", ptg.RW)
-    gC.input(data=("A", lambda g, l: (l.m, l.n)), guard=lambda g, l: l.k == 0)
+    gC.input(data=("A", lambda g, l: key(l.m, l.n)), dtt=tt,
+             guard=lambda g, l: l.k == 0)
     gC.input(pred=("GEMM", "C",
                    lambda g, l: {"m": l.m, "n": l.n, "k": l.k - 1}),
              guard=lambda g, l: l.k > 0)
@@ -235,10 +267,7 @@ def tiled_cholesky_ptg(A: TiledMatrix,
 
     for tc, name in ((po, "potrf"), (tr, "trsm_rlt"), (sy, "syrk_ln"),
                      (ge, "gemm_nt")):
-        if devices == "cuda":
-            tc.body(device="cuda", dyld=name)
-        else:
-            tc.body(host_body(_FORMS[name][0]))
+        attach_chores(tc, name, _FORMS[name][0], devices)
     return p.build()
 
 

@@ -31,7 +31,11 @@ each task runs on its tile's rank: GETRF's factor reaches the panels, and
 the panels reach the trailing updates, by the comm layer; each rank's
 ``to_dense`` holds its own tiles, and their sum is the packed factor.
 
-Left out: ``devices="auto"``.
+``devices`` is ``"cuda"`` (the default: the device chores alone),
+``"cpu"`` (the host chores alone) or ``"auto"`` (both, the CUDA chore
+first: with a CUDA device registered every task runs it on K1, and the
+host chore runs only with none; :data:`~parsec_tpu_torch.ops.factor.
+host_runs` counts the host runs).
 """
 
 from __future__ import annotations
@@ -43,8 +47,8 @@ from .. import ptg
 from ..data_dist.matrix import TiledMatrix
 from ..device.kernels import register_kernel
 from ..ops import gemm as gemm_ops
-from ..ops.factor import getrf_nopiv, host_body, tile_body, tri_inverse, \
-    tri_inverse_tiles
+from ..ops.factor import attach_chores, check_devices, getrf_nopiv, \
+    tile_body, tri_inverse, tri_inverse_tiles
 from ..ptg.lowering import register_traceable
 
 
@@ -131,9 +135,7 @@ for _name, (_tiles, _stacked) in _FORMS.items():
 
 def tiled_lu_ptg(A: TiledMatrix, devices: str = "cuda") -> ptg.PTGTaskpool:
     """Build the nopiv LU PTG over a square tile grid (factors in place)."""
-    if devices not in ("cuda", "cpu"):
-        raise ValueError(f"tiled_lu_ptg: devices must be 'cuda' or 'cpu', "
-                         f"got {devices!r}")
+    check_devices("tiled_lu_ptg", devices)
     if A.mt != A.nt:
         raise ValueError(f"tiled_lu_ptg: {A.mt}x{A.nt} tiles; LU needs a "
                          f"square tile grid")
@@ -234,8 +236,5 @@ def tiled_lu_ptg(A: TiledMatrix, devices: str = "cuda") -> ptg.PTGTaskpool:
 
     for tc, name in ((ge_, "lu_getrf"), (tl, "lu_trsm_l"),
                      (tu, "lu_trsm_u"), (gm, "lu_gemm")):
-        if devices == "cuda":
-            tc.body(device="cuda", dyld=name)
-        else:
-            tc.body(host_body(_FORMS[name][0]))
+        attach_chores(tc, name, _FORMS[name][0], devices)
     return p.build()

@@ -34,6 +34,8 @@ batches), as K1 and the tile cache want it.
 from __future__ import annotations
 
 import contextlib
+import threading
+from collections import Counter
 from typing import Any, Callable, Iterator
 
 import torch
@@ -130,12 +132,40 @@ def tile_body(apply: Callable) -> Callable:
     return body
 
 
+#: host chore runs of the factorizations, by task class: on the card a
+#: ``devices="auto"`` pool must leave it untouched (the rule of no
+#: fallback that would hide the card)
+host_runs: Counter = Counter()
+_host_runs_lock = threading.Lock()
+
+
 def host_body(apply: Callable) -> Callable:
     """The host chore ``(es, task, g, l)`` over the same list form: on
-    the host tiles every operation takes its CPU route."""
+    the host tiles every operation takes its CPU route.  Each run counts
+    in :data:`host_runs`."""
     def body(es: Any, task: Any, g: Any, l: Any) -> None:
+        with _host_runs_lock:
+            host_runs[task.task_class.name] += 1
         _run(apply, task)
     return body
+
+
+def attach_chores(tc: Any, name: str, apply: Callable,
+                  devices: str) -> None:
+    """A factorization class's chores: the CUDA chore by name
+    (``"cuda"``), the host chore over ``apply`` (``"cpu"``), or both,
+    CUDA first (``"auto"``): with a CUDA device registered every task
+    takes it, and the host chore runs only with none."""
+    if devices in ("cuda", "auto"):
+        tc.body(device="cuda", dyld=name)
+    if devices in ("cpu", "auto"):
+        tc.body(host_body(apply))
+
+
+def check_devices(who: str, devices: str) -> None:
+    if devices not in ("cuda", "cpu", "auto"):
+        raise ValueError(f"{who}: devices must be 'cuda', 'cpu' or 'auto', "
+                         f"got {devices!r}")
 
 
 def tile_error(got: torch.Tensor, want: torch.Tensor, nb: int) -> float:

@@ -2117,10 +2117,9 @@ def _warm_workload(workload: str, n: int | None, nb: int | None):
     f32 = torch.float32
     model = ToyLM()
     if workload in ("llm_decode", "llm_decode_k"):
-        # llm_decode: the one-step pool (a superpool of one step: the
-        # ATTN -> OUT chain with its SAMPLE; the JAX package's one-step
-        # builder is not ported); llm_decode_k: n sequences, nb steps
-        from ..llm.decode import (decode_superpool_ptg,
+        # llm_decode: the one-step pool, n sequences of nb pages;
+        # llm_decode_k: the superpool, n sequences, nb steps
+        from ..llm.decode import (decode_step_ptg, decode_superpool_ptg,
                                   preallocate_decode_steps)
         one = workload == "llm_decode"
         nseqs = n or 8
@@ -2140,13 +2139,17 @@ def _warm_workload(workload: str, n: int | None, nb: int | None):
             for _ in range(npages):
                 kv.alloc_page(s)
             kv.note_appended(s, npages * kv.page_size - 1)
-            preallocate_decode_steps(kv, s, ksteps)
-            TOK.data_of(s, -1)          # the chain's seed tile
+            if one:
+                kv.ensure_tail_slot(s)
+            else:
+                preallocate_decode_steps(kv, s, ksteps)
+                TOK.data_of(s, -1)          # the chain's seed tile
+        if one:
+            return (decode_step_ptg(kv, Q, O, seqs),
+                    dict(nseqs=nseqs, npages=npages))
         tp = decode_superpool_ptg(kv, Q, O, TOK, EMB, seqs,
                                   [ksteps] * nseqs)
-        geom = (dict(nseqs=nseqs, npages=npages) if one
-                else dict(nseqs=nseqs, steps=ksteps))
-        return tp, geom
+        return tp, dict(nseqs=nseqs, steps=ksteps)
     if workload == "llm_spec_k":
         # the batched speculative pool: n sequences, nb draft tokens a
         # stream (1 + nb positions, the serving path's pad)

@@ -73,12 +73,21 @@ the ``rank<r>`` namespace of the live properties, streams them to the
 ``tune_db``) and applies it before anything reads those params;
 ``tuned_knobs`` holds what was applied (None on a miss).
 
-Left out: multiple virtual processes and vpmaps, thread binding and
-``wait_taskpool``.
+**Virtual processes.**  The streams are partitioned into virtual
+processes by the ``runtime_vpmap`` spec (:mod:`.vpmap`; round-robin over
+``runtime_nb_vp`` when empty); a stream steals only from streams of its
+own virtual process, and an outside thread submits into the first.
+With more than one, each task remembers the virtual process it was
+scheduled on, and :meth:`vp_stats` counts the tasks each one selected
+and any selected by another (``cross_vp``, 0 by construction).  Under
+``runtime_bind_threads`` each worker pins itself to a core of the
+process's affinity mask, round-robin (Linux; best-effort).
+:meth:`wait_taskpool` waits for one pool, and ``test(tp)`` probes one.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 import weakref
@@ -97,6 +106,7 @@ from .scheduling import (ExecutionStream, VirtualProcess, schedule_tasks,
                          select_task, task_progress)
 from .taskpool import Taskpool
 from .termdet import open_termdet
+from .vpmap import nb_vps, parse_vpmap
 
 # the runtime lint's contract (analysis/runtimelint.py); ``_cond`` wraps
 # ``_lock``, so holding either is holding both
@@ -112,6 +122,8 @@ _LOCK_ALIASES = {"_cond": "_lock"}
 _LOCK_ORDER = ("_submit_lock", "_lock")
 
 _params.register("runtime_num_cores", 0, "worker threads (0 = caller-driven)")
+_params.register("runtime_bind_threads", False,
+                 "pin worker threads to cores round-robin (Linux only)")
 _params.register("sched", "lfq", "scheduler module to use")
 # the autotuner's declared domain: the general-purpose scheduler modules
 # (serve_fair is the shim a RuntimeServer interposes, never a move)
@@ -180,16 +192,20 @@ class Context:
         self.devices = device_registry
 
         nworkers = max(nb_cores, 0)
-        vp = VirtualProcess(0, self)
-        self.virtual_processes = [vp]
+        nstreams = max(nworkers, 1)
+        assignment = parse_vpmap(_params.get("runtime_vpmap"), nstreams,
+                                 _params.get("runtime_nb_vp"))
+        self.virtual_processes = [VirtualProcess(v, self)
+                                  for v in range(nb_vps(assignment))]
         self.streams: list[ExecutionStream] = []
-        for i in range(max(nworkers, 1)):
+        for i in range(nstreams):
+            vp = self.virtual_processes[assignment[i]]
             es = ExecutionStream(i if nworkers else -1, vp, self)
             vp.execution_streams.append(es)
             self.streams.append(es)
         # the stream external (non-worker) threads submit and progress on
         self._submit_es = self.streams[0] if nworkers == 0 else \
-            ExecutionStream(-1, vp, self)
+            ExecutionStream(-1, self.virtual_processes[0], self)
 
         self.scheduler = open_scheduler(scheduler or _params.get("sched"))
         self.scheduler.install(self)
@@ -263,6 +279,9 @@ class Context:
                 if not local_only:
                     self._next_comm_id += 1
                     tp.comm_id = self._next_comm_id
+            on_enqueue = getattr(tp, "on_enqueue", None)
+            if on_enqueue is not None:
+                on_enqueue(tp)
             dag = compile_taskpool_dag(tp, self)
             if dag is not None:
                 # count BEFORE publishing: an idle worker may claim and
@@ -334,9 +353,37 @@ class Context:
         with self._cond:
             self._cond.notify_all()
 
-    def test(self) -> bool:
+    def test(self, tp: Taskpool | None = None) -> bool:
+        """Whether every pool completed; with ``tp``, whether that one
+        did (``parsec_taskpool_test``)."""
+        if tp is not None:
+            return tp.test()
         with self._lock:
             return not self._active_taskpools
+
+    def wait_taskpool(self, tp: Taskpool,
+                      timeout: float | None = None) -> None:
+        """Block until ``tp`` completes, driving progress like
+        :meth:`wait`, without waiting for the other live pools.  At the
+        deadline it writes the stall dump, then raises
+        :class:`ContextWaitTimeout`."""
+        try:
+            self._drive_until(tp.test, timeout)
+        except ContextWaitTimeout:
+            self._stall_dump(
+                f"taskpool {tp.name} wait timed out (timeout={timeout}s; "
+                f"{self._live_desc()})")
+            raise
+
+    def vp_stats(self) -> dict:
+        """Tasks selected by each virtual process's streams, and tasks a
+        stream selected that were scheduled on another virtual process
+        (counted only with more than one)."""
+        by_vp = [sum(es.nb_selected for es in vp.execution_streams)
+                 for vp in self.virtual_processes]
+        cross = sum(es.nb_cross_vp for es in self.streams)
+        return {"nb_vp": len(self.virtual_processes), "tasks_by_vp": by_vp,
+                "cross_vp": cross}
 
     def wait(self, timeout: float | None = None) -> None:
         """Block until every taskpool completes; raises the recorded
@@ -416,8 +463,20 @@ class Context:
             self.abort()
 
     # ------------------------------------------------------- progress loops
+    def _bind_worker(self, es: ExecutionStream) -> None:
+        """Pin this worker to a core of the process's affinity mask,
+        round-robin by stream (``runtime_bind_threads``)."""
+        if not _params.get("runtime_bind_threads"):
+            return
+        try:
+            allowed = sorted(os.sched_getaffinity(0))
+            os.sched_setaffinity(0, {allowed[es.th_id % len(allowed)]})
+        except (AttributeError, OSError):
+            pass    # not Linux, or a restricted mask: best-effort
+
     def _worker_main(self, es: ExecutionStream) -> None:
         es.owner_ident = threading.get_ident()
+        self._bind_worker(es)
         self._start_barrier.wait()
         backoff = Backoff()
         while not self._shutdown:

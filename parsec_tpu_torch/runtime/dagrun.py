@@ -251,7 +251,8 @@ class CompiledDag(_CompiledDagBase):
                 for sfi, tgid, tfi in attach:
                     tasks[tgid].data[tfi] = data[sfi]
                 for fi, dc, key in wb:
-                    apply_writeback_to_home(dc, key, data[fi])
+                    apply_writeback_to_home(dc, key, data[fi],
+                                            owner=self.taskpool.taskpool_id)
             done.append(gid)
         return done, retry
 

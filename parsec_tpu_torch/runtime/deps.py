@@ -15,7 +15,12 @@ The trackers live in one of three tiers that share that protocol:
   releases a batch of same-class records under one lock acquisition;
 - **native**: the C++ dep table (:mod:`parsec_tpu_torch.native`), keyed
   by an exact 64-bit packing of the task identity (:func:`_pack_key64`),
-  taken by classes the index tier does not hold when the key packs;
+  taken by classes the index tier does not hold when the key packs.  The
+  pool's part of the key is a slot of this context's live pools
+  (:meth:`DependencyTracking._native_slot`), recycled when a pool is
+  purged, not the process-wide ``taskpool_id``: past 1,023 pools in one
+  process the id no longer packs, and every key would quietly fall to
+  the Python table;
 - **hashed**: a Python table for any other key.
 
 A counted class (one with a ranged input dep) decrements a per-task goal
@@ -174,6 +179,10 @@ class DependencyTracking:
         self._native = None
         self._inputs: dict[int, list] = {}    # k64 -> inputs ++ repo_refs
         self._inputs_lock = threading.Lock()
+        # taskpool_id -> native key slot (1..1023), freed at purge
+        self._slots: dict[int, int] = {}
+        self._slot_free = list(range((1 << _TP_BITS) - 1, 0, -1))
+        self._slot_lock = threading.Lock()
         self._index_store = (_IndexArrayStore()
                              if _params.get("deps_storage") == "index-array"
                              else None)
@@ -203,7 +212,8 @@ class DependencyTracking:
                 return ready[0] if ready else None
         if self._native is not None and tc.find_deps_fn is None:
             # a UD key with non-int elements refuses to pack
-            k64 = _pack_key64(taskpool.taskpool_id, tc.task_class_id, tkey)
+            k64 = _pack_key64(self._native_slot(taskpool.taskpool_id),
+                              tc.task_class_id, tkey)
             if k64 is not None:
                 return self._release_native(taskpool, tc, locals_, k64,
                                             bit, flow_index, data_copy,
@@ -228,6 +238,22 @@ class DependencyTracking:
             return None
         return self._make_ready(taskpool, tc, locals_, trk.inputs,
                                 trk.repo_refs)
+
+    def _native_slot(self, taskpool_id: int) -> int:
+        """The pool's part of a native key: a slot of this context's live
+        pools.  The lookup is one dict read (atomic under the GIL); only a
+        pool's first native release takes the lock.  With every slot
+        taken the pool keys as ``1 << _TP_BITS``, which refuses to pack,
+        so its deps take the Python table."""
+        slot = self._slots.get(taskpool_id)
+        if slot is None:
+            with self._slot_lock:
+                slot = self._slots.get(taskpool_id)
+                if slot is None:
+                    slot = (self._slot_free.pop() if self._slot_free
+                            else 1 << _TP_BITS)
+                    self._slots[taskpool_id] = slot
+        return slot
 
     def _indexed_eligible(self, tc: TaskClass) -> bool:
         """Whether a class's deps take the index-array tier: the ONE
@@ -376,9 +402,15 @@ class DependencyTracking:
         """Reclaim tracker and input entries a finished (or aborted)
         taskpool left behind: the k64 space is context-wide."""
         shift = _TC_BITS + _PARAM_BITS
-        with self._inputs_lock:
-            for k in [k for k in self._inputs if (k >> shift) == taskpool_id]:
-                del self._inputs[k]
+        with self._slot_lock:
+            slot = self._slots.pop(taskpool_id, None)
+        if slot is not None:
+            with self._inputs_lock:
+                for k in [k for k in self._inputs if (k >> shift) == slot]:
+                    del self._inputs[k]
+            if slot < (1 << _TP_BITS):
+                with self._slot_lock:
+                    self._slot_free.append(slot)
         for key, _ in list(self._table.items()):
             if key[0] == taskpool_id:
                 self._table.remove(key)

@@ -25,7 +25,13 @@ the input, and ``prepare_input`` resolves it on the consumer's thread.  A
 pool whose classes carry a ``simcost`` tracks the simulated critical path
 (``Taskpool.largest_simulation_date``).
 
-Left out: the paranoid write-back checks.
+Under ``debug_paranoid`` the loop checks its invariants: a task enters
+execution with every input resolved (no pending repack), and two
+write-backs of one pool to one home tile carry rising source versions
+(:func:`apply_writeback_to_home`: an older version after a newer one
+raises, an equal one warns through ``show_help("paranoid",
+"equal-version-writeback")``, as they may be CTL-ordered).  The mark
+lives on the home copy (``DataCopy.wb_mark``) under ``_wb_lock``.
 """
 
 from __future__ import annotations
@@ -44,17 +50,24 @@ from .task import (HOOK_RETURN_AGAIN, HOOK_RETURN_ASYNC, HOOK_RETURN_DISABLE,
                    Task, TaskClass)
 
 # the runtime lint's contract (analysis/runtimelint.py): the simulation
-# dates move under the pool's _sim_lock (the JAX module's paranoid
-# write-back marks are not ported)
+# dates move under the pool's _sim_lock, the paranoid write-back mark
+# under the module's _wb_lock
 _LOCK_PROTECTED = {
     "Taskpool._sim_ready": "_sim_lock",
     "Taskpool.largest_simulation_date": "_sim_lock",
+    "DataCopy.wb_mark": "_wb_lock",
 }
 _LOCK_ORDER = ()
 
 _params.register(
     "runtime_keep_highest_priority_task", True,
     "hold the best released task as the stream's next task")
+_params.register(
+    "debug_paranoid", False,
+    "check the runtime's invariants as it runs (costly): resolved inputs "
+    "at execution, ordered write-backs to a home tile")
+
+_wb_lock = threading.Lock()
 
 # PINS fast path: the dispatch table's identity is stable (slots swap in
 # place), so a disabled site is one index load and a falsy branch
@@ -78,7 +91,8 @@ class ExecutionStream:
     """One worker's execution context (cf. ``parsec_execution_stream_t``)."""
 
     __slots__ = ("th_id", "virtual_process", "context", "next_task",
-                 "sched_private", "owner_ident")
+                 "sched_private", "owner_ident", "nb_selected",
+                 "nb_cross_vp")
 
     def __init__(self, th_id: int, virtual_process: Any, context: Any) -> None:
         self.th_id = th_id
@@ -87,6 +101,10 @@ class ExecutionStream:
         self.next_task: Task | None = None
         self.sched_private: Any = None
         self.owner_ident: int = -1   # thread id that owns next_task
+        # with several virtual processes: tasks this stream selected, and
+        # those of them scheduled on another virtual process
+        self.nb_selected = 0
+        self.nb_cross_vp = 0
 
 
 class VirtualProcess:
@@ -109,6 +127,10 @@ def schedule_tasks(es: ExecutionStream, tasks: list[Task],
     h = _hooks[_SCHEDULE_BEGIN]
     if h is not None:
         h(es, tasks)
+    if len(es.context.virtual_processes) > 1:
+        vid = es.virtual_process.vp_id
+        for t in tasks:
+            t.sched_vp = vid
     # next_task is a single-owner slot: only the thread running this
     # stream's loop may fill it (a device manager completing a task on
     # behalf of another stream goes through the scheduler).  A scheduler
@@ -127,9 +149,19 @@ def schedule_tasks(es: ExecutionStream, tasks: list[Task],
         h(es, tasks)
 
 
+def _note_vp(es: ExecutionStream, t: Task) -> None:
+    """Count a selection of a task scheduled with several virtual
+    processes (``Context.vp_stats``)."""
+    es.nb_selected += 1
+    if t.sched_vp != es.virtual_process.vp_id:
+        es.nb_cross_vp += 1
+
+
 def select_task(es: ExecutionStream) -> tuple[Task | None, int]:
     if es.next_task is not None:
         t, es.next_task = es.next_task, None
+        if t.sched_vp is not None:
+            _note_vp(es, t)
         return t, 0
     h = _hooks[_SELECT_BEGIN]
     if h is not None:
@@ -138,6 +170,8 @@ def select_task(es: ExecutionStream) -> tuple[Task | None, int]:
     h = _hooks[_SELECT_END]
     if h is not None:
         h(es, t)
+    if t is not None and t.sched_vp is not None:
+        _note_vp(es, t)
     if t is not None and 0 < distance < 99:
         # work pulled from another stream's queue: a steal (99 is the
         # schedulers' shared system-queue sentinel, not a steal)
@@ -246,6 +280,15 @@ def prepare_input(es: ExecutionStream, task: Task) -> None:
         if f.dtt is not None:
             from ..data.data import scratch_copy
             task.data[f.flow_index] = scratch_copy(f.dtt)
+    if _params.get("debug_paranoid"):
+        for f in task.task_class.flows:
+            if f.is_ctl or not (f.deps_in or f.dtt):
+                continue
+            v = task.data[f.flow_index]
+            if v is not None and not hasattr(v, "value"):
+                raise AssertionError(
+                    f"paranoid: {task} flow {f.name} entering execution "
+                    f"with unresolved input {type(v).__name__}")
 
 
 def _find_input_dep(succ_tc: TaskClass, flow_name: str, src_class: str,
@@ -323,7 +366,8 @@ def release_deps(es: ExecutionStream, task: Task) -> None:
             if out_copy is not None and dep.data_ref is not None:
                 dc, key = dep.data_ref(t.locals)
                 apply_writeback_to_home(
-                    dc, key, reshape_for_writeback(out_copy, dep, dc, key))
+                    dc, key, reshape_for_writeback(out_copy, dep, dc, key),
+                    owner=tp.taskpool_id)
             return
         succ_tc = tp.task_class(dep.target_class)
         for succ_locals in dep.each_target(t.locals):
@@ -370,13 +414,35 @@ def release_deps(es: ExecutionStream, task: Task) -> None:
         schedule_tasks(es, ready, 0)
 
 
-def apply_writeback_to_home(dc: Any, key: tuple, out_copy: Any) -> None:
+def apply_writeback_to_home(dc: Any, key: tuple, out_copy: Any,
+                            owner: int | None = None) -> None:
     """Apply a final version to a collection's home (device-0) copy.  The
     value is shared, not copied: a device tensor stays on its device until
-    the device module writes its own copy back (``flush_cache``)."""
+    the device module writes its own copy back (``flush_cache``).
+    ``owner`` (a taskpool id) scopes the paranoid check of unordered
+    write-backs."""
     home = dc.data_of(*key).get_copy(0)
     if home is None or home is out_copy:
         return
+    if owner is not None and _params.get("debug_paranoid"):
+        with _wb_lock:
+            mark = home.wb_mark
+            if mark is not None and mark[0] == owner:
+                if out_copy.version < mark[1]:
+                    # an older source after a newer one: an unordered
+                    # interleave of two writers
+                    raise AssertionError(
+                        f"paranoid: unordered writebacks to {dc.name}{key}"
+                        f" — source version {out_copy.version} after "
+                        f"{mark[1]} was already applied (two writers race "
+                        f"one home tile; order them with a flow edge)")
+                if out_copy.version == mark[1]:
+                    from ..core.output import show_help
+                    show_help("paranoid", "equal-version-writeback",
+                              f"{dc.name}{key}: two writebacks with equal "
+                              f"source version {out_copy.version}; if the "
+                              f"writers are not CTL-ordered this is a race")
+            home.wb_mark = (owner, out_copy.version)
     home.value = out_copy.value
     home.version = max(home.version, out_copy.version) + 1
 

@@ -301,11 +301,14 @@ class TaskClass:
 
 
 class Task:
-    """One executable instance of a task class (cf. ``parsec_task_t``)."""
+    """One executable instance of a task class (cf. ``parsec_task_t``).
+    A task a :class:`~parsec_tpu_torch.core.mempool.Mempool` hands out
+    carries its owner in ``_mempool_owner``."""
 
     __slots__ = ("taskpool", "task_class", "locals", "priority", "data",
                  "repo_entries", "status", "chore_mask", "uid",
-                 "selected_device", "sim_exec_date")
+                 "selected_device", "sim_exec_date", "sched_vp",
+                 "_mempool_owner")
 
     def __init__(self, taskpool: Any, task_class: TaskClass,
                  locals_: dict, priority: int = 0) -> None:
@@ -321,6 +324,8 @@ class Task:
         self.uid = next(_task_counter)
         self.selected_device = None
         self.sim_exec_date = 0.0   # simulated completion date (simcost)
+        # the virtual process it was scheduled on (several VPs only)
+        self.sched_vp: int | None = None
 
     @property
     def key(self) -> tuple:

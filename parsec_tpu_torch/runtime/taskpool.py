@@ -11,8 +11,15 @@ carries the rank-agreed ``comm_id`` its context gives it at enqueue (None
 for a rank-private ``local_only`` pool).  ``termdet_name`` picks the
 pool's own termination detector (the JDF ``%option termdet``), and a pool
 whose classes carry a ``simcost`` tracks ``largest_simulation_date``.
-Left out: the process-wide taskpool registry, sequential composition
-(``compose``) and region plans.
+
+A live pool is in the process-wide registry from construction to
+termination (:func:`taskpool_lookup`; a serving process enqueues a fresh
+pool an iteration, so a retired pool leaves it).  ``on_enqueue`` runs at
+enqueue, before startup: a pool that inserts its tasks then (the
+redistribution's DTD pool) composes like any other.
+:class:`CompoundTaskpool` (:func:`compose`) runs its members one after
+another, each enqueued when its predecessor terminates.  Left out: region
+plans (the port's region pools keep theirs on the lowered object).
 """
 
 from __future__ import annotations
@@ -21,11 +28,18 @@ import itertools
 import threading
 from typing import Any, Callable, Sequence
 
+from ..core.hash_table import ConcurrentHashTable
 from ..data.datarepo import DataRepo
 from .task import Task, TaskClass
 from .termdet import TermDetMonitor
 
 _taskpool_ids = itertools.count(1)
+_registry = ConcurrentHashTable()
+
+
+def taskpool_lookup(tp_id: int) -> "Taskpool | None":
+    """The live pool of that id (None once it terminated)."""
+    return _registry.get(tp_id)
 
 
 class Taskpool:
@@ -38,6 +52,8 @@ class Taskpool:
         # wire identity, set at enqueue (None: never on the wire)
         self.comm_id: int | None = None
         self.local_only = False
+        # run at enqueue, before startup (a DTD pool inserts its tasks)
+        self.on_enqueue: Callable[["Taskpool"], None] | None = None
         # fired at termination before the listeners (recursive_call
         # chains its drain onto it)
         self.on_complete: Callable[["Taskpool"], None] | None = None
@@ -56,6 +72,7 @@ class Taskpool:
         self._done = threading.Event()
         self._completion_listeners: list[Callable[["Taskpool"], None]] = []
         self._listeners_lock = threading.Lock()
+        _registry.insert(self.taskpool_id, self)
 
     def add_task_class(self, tc: TaskClass) -> TaskClass:
         tc.task_class_id = len(self.task_classes)
@@ -99,6 +116,7 @@ class Taskpool:
             cb(self)
         if self.context is not None:
             self.context._taskpool_terminated(self)
+        _registry.remove(self.taskpool_id)
 
     def wait(self, timeout: float | None = None) -> None:
         """Block until this taskpool completes, driving progress from the
@@ -110,3 +128,39 @@ class Taskpool:
 
     def test(self) -> bool:
         return self._done.is_set()
+
+
+class CompoundTaskpool(Taskpool):
+    """Sequential composition (``compound.c``): each member is enqueued
+    when its predecessor terminates; the compound terminates after the
+    last."""
+
+    def __init__(self, members: Sequence[Taskpool]) -> None:
+        super().__init__(name="compound")
+        self.members = list(members)
+        self._idx = 0
+
+    def startup(self, context: Any) -> list[Task]:
+        self.tdm.taskpool_addto_nb_pa(+1)   # alive until the last member
+        self._start_next(context)
+        return []
+
+    def _start_next(self, context: Any) -> None:
+        if self._idx >= len(self.members):
+            self.tdm.taskpool_addto_nb_pa(-1)
+            return
+        member = self.members[self._idx]
+        self._idx += 1
+        prev_cb = member.on_complete
+
+        def chain(tp: Taskpool) -> None:
+            if prev_cb is not None:
+                prev_cb(tp)
+            self._start_next(context)
+
+        member.on_complete = chain
+        context.add_taskpool(member)
+
+
+def compose(*taskpools: Taskpool) -> CompoundTaskpool:
+    return CompoundTaskpool(taskpools)

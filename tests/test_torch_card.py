@@ -1274,3 +1274,180 @@ def test_the_comm_thread_on_the_device_socket_tier(card, monkeypatch):
         assert [r[key] for r in runs[True]] == [r[key] for r in runs[False]]
     assert [r["tiers"]["payload_in"] for r in runs[True]] \
         == [r["tiers"]["payload_in"] for r in runs[False]]
+
+
+# ---------------------------------------------------------------------------
+# the data layer and the runtime round-out on the card (chip_smoke.py's
+# data_layer, runtime_roundout and llm_step at small sizes)
+# ---------------------------------------------------------------------------
+
+def _seeded(seed):
+    def init(m, k, shape):
+        rng = np.random.default_rng((seed, m, k))
+        return rng.standard_normal(shape, dtype=np.float32)
+    return init
+
+
+def _run_on(card, tp, nb_cores=0):
+    ctx = Context(nb_cores=nb_cores)
+    try:
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=300)
+        card.sync()
+    finally:
+        ctx.fini()
+
+
+def test_redistribute_checkpoint_and_operators_on_the_card(card, tmp_path):
+    """A redistributed from tiles of 256 to 128 on the CUDA chore alone,
+    the GEMM on K1 over it (the TF32 bound), a bit-equal checkpoint
+    resume, and the operators against torch."""
+    from parsec_tpu_torch.data.checkpoint import (restore_collections,
+                                                  save_collections)
+    from parsec_tpu_torch.data_dist import redistribute as rd
+    from parsec_tpu_torch.data_dist.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.data_dist.operators import (broadcast_taskpool,
+                                                      map_taskpool,
+                                                      reduce_taskpool)
+    params.set("gemm_precision", "default")
+    n = 1024
+    S = TiledMatrix("S", n, n, 256, 256, init_fn=_seeded(1))
+    A = TwoDimBlockCyclic("A", n, n, 128, 128)
+    B = TiledMatrix("B", n, n, 128, 128, init_fn=_seeded(2))
+    C = TiledMatrix("C", n, n, 128, 128)
+    before = dict(rd.copies)
+    tp = rd.redistribute_taskpool(S, A)
+    _run_on(card, tp)
+    assert tp.nb_frags == 64
+    assert rd.copies["cuda"] - before.get("cuda", 0) == 64
+    assert rd.copies["host"] == before.get("host", 0)
+    launches = tg.gemm_update.launches
+    _run_on(card, tiled_gemm_ptg(A, B, C))
+    assert tg.gemm_update.launches > launches
+    card.flush_cache()
+    assert np.array_equal(A.to_dense(), S.to_dense())
+    _tf32_close(C.to_tensor(), S.to_tensor(), B.to_tensor())
+    path = str(tmp_path / "c.npz")
+    save_collections(path, C)
+    _run_on(card, tiled_gemm_ptg(A, B, C))
+    card.flush_cache()
+    C2 = TiledMatrix("C", n, n, 128, 128)
+    restore_collections(path, C2)
+    _run_on(card, tiled_gemm_ptg(A, B, C2))
+    card.flush_cache()
+    assert torch.equal(C2.to_tensor(), C.to_tensor())
+    c = C.to_tensor()
+    _run_on(card, map_taskpool(C, lambda key, t: t * 0.5))
+    card.flush_cache()
+    assert torch.equal(C.to_tensor(), c * 0.5)
+    out = {}
+    _run_on(card, reduce_taskpool(C, lambda x, y: x + y, out=out,
+                                  transform=torch.sum))
+    assert out["value"].is_cuda
+    c = C.to_tensor().double()
+    assert abs(float(out["value"]) - float(c.sum())) \
+        <= 1e-5 * float(c.abs().sum())
+    D = TiledMatrix("D", 256, 256, 128, 128)
+    _run_on(card, broadcast_taskpool(C, (0, 0), D))
+    card.flush_cache()
+    t = C.data_of(0, 0).newest_copy().value.cpu()
+    for i in range(2):
+        for j in range(2):
+            assert torch.equal(D.data_of(i, j).newest_copy().value.cpu(), t)
+
+
+def test_compose_on_two_virtual_processes_and_paranoid_on_the_card(card):
+    from parsec_tpu_torch.core.output import show_help_flush
+    from parsec_tpu_torch.runtime import compose
+    params.set("gemm_precision", "default")
+    n, nb = 1024, 256
+    A = TiledMatrix("A", n, n, nb, nb, init_fn=_seeded(3))
+    B = TiledMatrix("B", n, n, nb, nb, init_fn=_seeded(4))
+    C = TiledMatrix("C", n, n, nb, nb)
+    saved = params.get("runtime_nb_vp")
+    params.set("runtime_nb_vp", 2)
+    try:
+        ctx = Context(nb_cores=2)
+    finally:
+        params.set("runtime_nb_vp", saved)
+    first, second = tiled_gemm_ptg(A, B, C), tiled_gemm_ptg(A, B, C)
+    try:
+        ctx.add_taskpool(compose(first, second))
+        ctx.wait_taskpool(first, timeout=300)
+        ctx.wait_taskpool(second, timeout=300)
+        card.sync()
+        assert ctx.vp_stats()["cross_vp"] == 0
+    finally:
+        ctx.fini()
+    card.flush_cache()
+    _tf32_close(C.to_tensor() / 2, A.to_tensor(), B.to_tensor())
+    show_help_flush()
+    params.set("debug_paranoid", True)
+    try:
+        C1 = TiledMatrix("C1", n, n, nb, nb)
+        _run_on(card, tiled_gemm_ptg(A, B, C1))
+    finally:
+        params.set("debug_paranoid", False)
+    assert not [k for k in show_help_flush() if k[0] == "paranoid"]
+    card.flush_cache()
+    _tf32_close(C1.to_tensor(), A.to_tensor(), B.to_tensor())
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu", "upper"])
+def test_auto_factorizations_take_the_card_chores(card, kind):
+    params.set("gemm_precision", "default")
+    n, nb = 1024, 256
+    if kind == "lu":
+        a = lu.make_dd(n, seed=1)
+        A = TiledMatrix.from_dense("A", a.copy(), nb, nb)
+        tp = lu.tiled_lu_ptg(A, devices="auto")
+    else:
+        a = chol.make_spd_fast(n)
+        A = SymTwoDimBlockCyclic.from_dense(
+            "A", a.copy(), nb, nb, uplo=int(kind == "upper"))
+        tp = chol.tiled_cholesky_ptg(A, devices="auto")
+    host = sum(factor.host_runs.values())
+    ran = card.executed_tasks
+    _run_on(card, tp)
+    card.flush_cache()
+    assert sum(factor.host_runs.values()) == host
+    assert card.executed_tasks - ran == tp.nb_local_tasks()
+    got = A.to_dense()
+    if kind == "upper":
+        got = np.ascontiguousarray(np.triu(got).T)
+    err = _tile_error(got, a, "lu" if kind == "lu" else "cholesky", nb)
+    assert err < TF32_TILE_TOL
+
+
+def test_decode_steps_on_k2_equal_the_superpool(card):
+    from parsec_tpu_torch.data.datatype import TileType
+    from parsec_tpu_torch.data_dist.collection import DictCollection
+    from parsec_tpu_torch.data_dist.paged_kv import PagedKVCollection
+    from parsec_tpu_torch.llm import decode as dec
+    model = ToyLM(num_heads=32, head_dim=128)
+    H, D = model.num_heads, model.head_dim
+    rng = np.random.default_rng(5)
+    prompts = {f"s{i}": [int(t) for t in rng.integers(0, model.vocab, 40)]
+               for i in range(2)}
+    kv = PagedKVCollection("KVs", page_size=16, num_heads=H, head_dim=D)
+    Q = DictCollection("Qs", dtt=TileType((3, H, D)))
+    O = DictCollection("Os", dtt=TileType((H, D)))
+    launches = ra.attn_page_update.launches
+
+    def run(tp):
+        _run_on(card, tp, nb_cores=2)
+
+    got = dec.generate_by_steps(model, kv, Q, O, prompts, 4, run)
+    assert ra.attn_page_update.launches > launches
+    kv2 = PagedKVCollection("KVs2", page_size=16, num_heads=H, head_dim=D)
+    Q2 = DictCollection("Qs2", dtt=TileType((3, H, D)))
+    O2 = DictCollection("Os2", dtt=TileType((H, D)))
+    TOK = DictCollection("TOKs", dtt=TileType((3,)))
+    EMB = DictCollection("EMBs", dtt=TileType(tuple(model.q3_table().shape)))
+    dec.seed_decode_superpool(model, kv2, Q2, TOK, EMB, prompts,
+                              {s: 4 for s in prompts})
+    _run_on(card, dec.decode_superpool_ptg(kv2, Q2, O2, TOK, EMB,
+                                           list(prompts), [4, 4]))
+    for s, prompt in prompts.items():
+        assert got[s] == dec.read_token_chain(TOK, s, 4)[0] \
+            == model.reference_generate(prompt, 4), s

@@ -271,15 +271,19 @@ def test_constructors_and_flops_match_jax():
 
 @pytest.mark.parametrize("case", ["devices", "square", "upper"])
 def test_builder_refuses_what_it_cannot_factor(case):
+    """An unknown device, a non-square tile grid, and an upper
+    distribution whose tiles do not divide the matrix (the upper factor
+    transposes whole square tiles)."""
     a = chol.make_spd(32, seed=1)
     kw = {}
     A = SymTwoDimBlockCyclic.from_dense("A", a, 8, 8)
     if case == "devices":
-        kw = dict(devices="auto")
+        kw = dict(devices="tpu")
     elif case == "square":
         A = TiledMatrix.from_dense("A", a[:, :24], 8, 8)
     else:
-        A = SymTwoDimBlockCyclic.from_dense("A", a, 8, 8, uplo=1)
+        A = SymTwoDimBlockCyclic.from_dense("A", chol.make_spd(30, seed=1),
+                                            8, 8, uplo=1)
     with pytest.raises(ValueError):
         chol.tiled_cholesky_ptg(A, **kw)
 

@@ -15,6 +15,7 @@ sides.
 import importlib
 import importlib.util
 import pathlib
+import time
 
 import pytest
 
@@ -72,7 +73,8 @@ def _compare(name, got, want):
             assert got["llm"][k] == want["llm"][k], k
         assert got["llm"]["kv"]["physical_pages"] == \
             want["llm"]["kv"]["physical_pages"] == 0
-        assert got["completed"] == want["completed"]
+        assert got["completed"] == want["completed"], \
+            (got["completed"], want["completed"])
     else:
         assert got == want
 
@@ -89,9 +91,30 @@ def registry_restored():
         d.device_index = i
 
 
+def _admit_in_one_wave(monkeypatch, n):
+    """Hold each package's batcher loop until ``n`` streams are queued,
+    so Ex12's four streams are admitted in one wave in both runs (its
+    pool count depends on the waves: one wave or two)."""
+    import parsec_tpu.llm.batcher as jb
+    import parsec_tpu_torch.llm.batcher as pb
+    for mod in (jb, pb):
+        orig = mod.ContinuousBatcher._loop
+
+        def loop(self, orig=orig):
+            deadline = time.monotonic() + 60
+            while len(self._pending) < n and time.monotonic() < deadline:
+                time.sleep(0.001)
+            orig(self)
+
+        monkeypatch.setattr(mod.ContinuousBatcher, "_loop", loop)
+
+
 @pytest.mark.parametrize("name", LADDER)
 def test_example_returns_what_the_jax_example_returns(name, gated,
-                                                      registry_restored):
+                                                      registry_restored,
+                                                      monkeypatch):
+    if name == "Ex12_LLMServe":
+        _admit_in_one_wave(monkeypatch, 4)
     mod = importlib.import_module(f"parsec_tpu_torch.examples.{name}")
     got = (mod.main(device="cpu")
            if name in ("Ex08_Recursive", "Ex12_LLMServe") else mod.main())

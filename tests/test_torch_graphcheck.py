@@ -601,7 +601,7 @@ def test_the_cli_prints_an_ok_line_for_every_graph(capsys):
     lines = capsys.readouterr().out.splitlines()
     names = [tp.name for _n, tp in _model_graphs(3)]
     # the default run is the graph sweep, then the self-lint's line
-    assert len(lines) - 1 == len(names) == 15
+    assert len(lines) - 1 == len(names) == 16
     for line, name in zip(lines, names):
         assert line.startswith(f"graphcheck {name}: OK"), line
     assert lines[-1].startswith("runtimelint: OK"), lines[-1]

@@ -456,8 +456,8 @@ def test_graphcheck_and_the_task_profiler_load_no_jax_and_no_parsec_tpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
-    # 15 graphcheck lines, then the self-lint's
-    assert out["rc"] == 0 and out["ok_lines"] == 16
+    # 16 graphcheck lines (llm_decode among them), then the self-lint's
+    assert out["rc"] == 0 and out["ok_lines"] == 17
     assert out["execs"] == 8 and out["ok"]
     assert "parsec_tpu_torch.analysis.graphcheck" in out["modules"]
     assert "parsec_tpu_torch.prof.task_profiler" in out["modules"]
@@ -766,5 +766,108 @@ def test_the_recursive_gemm_and_a_gloo_ring_load_no_jax_and_no_parsec_tpu():
     for m in ("parsec_tpu_torch.runtime.recursive",
               "parsec_tpu_torch.data_dist.matrix"):
         assert m in out["modules"], m
+    loaded = [m for m in out["modules"] if _forbidden(m)]
+    assert loaded == [], loaded
+
+
+def test_the_ast_scan_covers_the_data_layer_and_the_runtime_round_out():
+    for rel in ("data/arena.py", "data/checkpoint.py",
+                "data_dist/redistribute.py", "data_dist/operators.py",
+                "runtime/vpmap.py", "runtime/taskpool.py", "core/future.py",
+                "core/output.py", "llm/decode.py", "data_dist/paged_kv.py"):
+        assert f"parsec_tpu_torch/{rel}" in PORT_FILES, rel
+
+
+def test_checkpoint_redistribute_and_compose_load_no_jax_and_no_parsec_tpu():
+    """A redistribution composed with a GEMM on the device module around
+    the host, two virtual processes, the operators, a checkpoint saved
+    and restored, a one-step decode, an ``"auto"`` upper Cholesky and the
+    arenas, with ``jax`` and ``parsec_tpu`` absent from ``sys.modules``."""
+    code = textwrap.dedent("""
+        import json, os, sys, tempfile
+        import numpy as np
+        import torch
+        os.environ["PARSEC_MCA_runtime_nb_vp"] = "2"
+        from parsec_tpu_torch.data.arena import wire_pool
+        from parsec_tpu_torch.data.checkpoint import (restore_collections,
+                                                      save_collections)
+        from parsec_tpu_torch.data_dist.matrix import (
+            HashDataDist, SymTwoDimBlockCyclic, TiledMatrix,
+            TwoDimBlockCyclic)
+        from parsec_tpu_torch.data_dist.operators import (map_taskpool,
+                                                          reduce_taskpool)
+        from parsec_tpu_torch.data_dist.redistribute import (
+            redistribute_taskpool)
+        from parsec_tpu_torch.device.cuda import init_cuda_devices
+        from parsec_tpu_torch.llm import ToyLM, generate_by_steps
+        from parsec_tpu_torch.data.datatype import TileType
+        from parsec_tpu_torch.data_dist.collection import DictCollection
+        from parsec_tpu_torch.data_dist.paged_kv import PagedKVCollection
+        from parsec_tpu_torch.models import cholesky
+        from parsec_tpu_torch.models.tiled_gemm import tiled_gemm_ptg
+        from parsec_tpu_torch.runtime import Context, compose
+        dev = init_cuda_devices(device="cpu")[0]
+        rng = np.random.default_rng(0)
+        a = rng.standard_normal((16, 16), np.float32)
+        b = rng.standard_normal((16, 16), np.float32)
+        S = TiledMatrix.from_dense("S", a, 8, 8)
+        A = TwoDimBlockCyclic("A", 16, 16, 4, 4)
+        B = TiledMatrix.from_dense("B", b, 4, 4)
+        C = TiledMatrix("C", 16, 16, 4, 4)
+        ctx = Context(nb_cores=2)
+        ctx.add_taskpool(compose(redistribute_taskpool(S, A),
+                                 tiled_gemm_ptg(A, B, C)))
+        ctx.wait(timeout=60)
+        out = {}
+        ctx.add_taskpool(map_taskpool(C, lambda k, t: t * 2.0))
+        ctx.add_taskpool(reduce_taskpool(C, lambda x, y: x + y, out=out,
+                                         transform=torch.sum))
+        ctx.wait(timeout=60)
+        dev.flush_cache()
+        vp = ctx.vp_stats()
+        ok = bool(np.allclose(C.to_dense(), 2 * (a @ b), rtol=1e-4,
+                              atol=1e-4))
+        ok = ok and abs(float(out["value"]) - float((2 * (a @ b)).sum())) \\
+            < 1e-2
+        with tempfile.TemporaryDirectory() as d:
+            p = os.path.join(d, "ck.npz")
+            save_collections(p, C)
+            D = TiledMatrix("C", 16, 16, 4, 4)
+            restore_collections(p, D)
+            ok = ok and bool(np.array_equal(D.to_dense(), C.to_dense()))
+        m = ToyLM()
+        kv = PagedKVCollection("KV", page_size=4, num_heads=4, head_dim=8)
+        Q = DictCollection("Q", dtt=TileType((3, 4, 8)))
+        O = DictCollection("O", dtt=TileType((4, 8)))
+        def run(tp):
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=60)
+        toks = generate_by_steps(m, kv, Q, O, {"s": [3, 7, 11]}, 3, run)
+        ok = ok and toks["s"] == m.reference_generate([3, 7, 11], 3)
+        spd = cholesky.make_spd(16, seed=1)
+        U = SymTwoDimBlockCyclic.from_dense("U", spd, 8, 8, uplo=1)
+        ctx.add_taskpool(cholesky.tiled_cholesky_ptg(U, devices="auto"))
+        ctx.wait(timeout=60)
+        dev.flush_cache()
+        ctx.fini(timeout=30)
+        want = np.linalg.cholesky(spd.astype(np.float64)).T
+        ok = ok and bool(np.allclose(np.triu(U.to_dense()), want,
+                                     atol=1e-4))
+        HashDataDist("H").register((0,), np.zeros(2))
+        print(json.dumps({"ok": ok, "vp": vp, "pool": wire_pool.stats(),
+                          "modules": sorted(sys.modules)}))
+    """)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=180)
+    assert r.returncode == 0, r.stderr
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"], out
+    assert out["vp"]["nb_vp"] == 2 and out["vp"]["cross_vp"] == 0
+    for mod in ("parsec_tpu_torch.data.checkpoint",
+                "parsec_tpu_torch.data_dist.redistribute",
+                "parsec_tpu_torch.data_dist.operators",
+                "parsec_tpu_torch.runtime.vpmap",
+                "parsec_tpu_torch.data.arena"):
+        assert mod in out["modules"], mod
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == [], loaded

@@ -279,6 +279,43 @@ def test_ep_dag_runs_through_native_deptable(port_param):
         assert [d for d, n in done if n == lane] == list(range(20))
 
 
+def test_native_deptable_engages_after_a_thousand_pools(port_param,
+                                                        monkeypatch):
+    """A process that has made more than 1,023 taskpools (an xdist worker
+    that ran other files first) still keys every EP dependency in the
+    native table: the key packs the pool's slot in this context, not the
+    process-wide ``taskpool_id``, which no longer fits its 10 bits.  On
+    the earlier code every release fell quietly to the Python table
+    (``calls == 0``), which is how ``test_ep_dag_runs_through_native_
+    deptable`` failed under the full run."""
+    import itertools
+
+    import parsec_tpu_torch.runtime.taskpool as tpmod
+    from parsec_tpu_torch.models.ep import ep_pool
+    from parsec_tpu_torch.runtime import Context
+
+    monkeypatch.setattr(tpmod, "_taskpool_ids", itertools.count(5000))
+    port_param("runtime_dag_compile", False)
+    port_param("deps_storage", "hash")
+    ctx = Context(nb_cores=2)
+    calls = []
+    try:
+        counting = ctx.deps._native = _CountingTable(ctx.deps._native)
+        for _ in range(3):          # slots recycle from pool to pool
+            done = []
+            tp = ep_pool(4, 6, lambda d, n: done.append((d, n))).build()
+            assert tp.taskpool_id >= 5000
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=60)
+            calls.append(counting.calls)
+            assert sorted(done) == sorted(
+                (d, n) for d in range(6) for n in range(4))
+    finally:
+        ctx.fini()
+    assert calls == [4 * 5, 2 * 4 * 5, 3 * 4 * 5] and len(counting) == 0
+    assert ctx.deps._slots == {}
+
+
 @pytest.mark.parametrize("storage", ["index-array", "hash"])
 def test_native_and_python_tiers_agree_on_gemm(port_param, storage):
     """The host GEMM through the dynamic scheduler with the native dep

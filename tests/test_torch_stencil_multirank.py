@@ -32,6 +32,7 @@ from parsec_tpu.models.stencil2d import stencil_2d_ptg as j_stencil_2d
 from parsec_tpu.models.stencil2d import stencil2d_reference as j_ref2d
 from parsec_tpu_torch import ptg
 from parsec_tpu_torch.comm import run_multirank
+from parsec_tpu_torch.core.params import params as p_params
 from parsec_tpu_torch.data.datatype import TileType
 from parsec_tpu_torch.data_dist.collection import DictCollection
 from parsec_tpu_torch.data_dist.matrix import (TwoDimBlockCyclic,
@@ -149,8 +150,16 @@ def _j_run(nranks, body):
         j_params.set("comm_wire_datatypes", saved)
 
 
+def _p_run(nranks, body):
+    """``run_multirank`` with the port's ``comm_wire_datatypes`` pinned
+    on (its default), its value and source restored after, as
+    :func:`_j_run` pins the JAX package's."""
+    with p_params.overrides({"comm_wire_datatypes": True}):
+        return run_multirank(nranks, body, timeout=180)
+
+
 def _check_2d():
-    port = run_multirank(4, _body_2d(True), timeout=180)
+    port = _p_run(4, _body_2d(True))
     jax = _j_run(4, _body_2d(False))
     got = _assemble_2d(port)
     want = np.asarray(stencil2d_reference(torch.from_numpy(_dense2d()),
