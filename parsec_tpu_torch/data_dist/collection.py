@@ -59,8 +59,9 @@ class DictCollection(DataCollection):
     def __init__(self, name: str = "dict", dtt: TileType | None = None,
                  init_fn: Callable | None = None,
                  keys: Iterable[tuple] | None = None,
-                 rank_of_fn: Callable | None = None) -> None:
-        super().__init__(name)
+                 rank_of_fn: Callable | None = None, nodes: int = 1,
+                 myrank: int = 0) -> None:
+        super().__init__(name, nodes, myrank)
         self.default_dtt = dtt
         self._init_fn = init_fn
         self._rank_of_fn = rank_of_fn

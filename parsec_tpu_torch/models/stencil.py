@@ -57,12 +57,13 @@ def stencil_1d_ptg(V: VectorTwoDimCyclic, weights: Any,
     # otherwise the t == T-1 writeback to V(i) races the t == 0 ghost
     # reads of V(i) when T == 1.  The declared key space mirrors V's
     # tiling, so the lowering can lay out the snapshot's store, and each
-    # snapshot tile lives on its V tile's rank.
+    # snapshot tile lives on its V tile's rank, over V's ranks (a mesh
+    # lowering shards it as it shards V).
     V0 = DictCollection(
         name=V.name + "_0",
         init_fn=lambda i: V.data_of(i).newest_copy().value.clone(),
         keys=[(i,) for i in range(V.mt)],
-        rank_of_fn=lambda i: V.rank_of(i))
+        rank_of_fn=lambda i: V.rank_of(i), nodes=V.nodes, myrank=V.myrank)
 
     p = ptg.PTGBuilder("stencil1d", V=V, V0=V0, NT=NT, T=iterations,
                        W=W, R=R)

@@ -90,13 +90,26 @@ budget cannot afford to the eager path (prepared at first run).
 <workload>`` prepare a named workload's lowerings ahead of a run,
 launching no kernel.
 
+**Multi-rank lowering** (``lower_taskpool(tp, mesh=DeviceMesh(devices))``):
+a *distributed* taskpool lowers to one step over rank-major stores, as in
+the JAX package.  A collection over ``nodes > 1`` ranks is laid out in
+rows ``[r*cap, (r+1)*cap)`` for the tiles rank r owns (``dc.rank_of``),
+padded to the largest rank's count, and placed one slab a rank on the
+rank's device; a ``nodes == 1`` collection is replicated; no store is
+dense.  Where the JAX package lets GSPMD derive the collectives,
+:mod:`.spmd` writes them out: the owner of the rows a task writes
+computes it, and a plan made at lowering time exchanges, before each
+level, the rows a rank reads from another rank (``exchange_bytes`` by
+source and destination).  A context over more than one rank with no
+mesh raises :class:`LoweringError`, and the caller runs the dynamic
+scheduler on the same pool.
+
 Left out, each still in ``ROADMAP.md``: the JAX package's persistent
 compile cache (``_ensure_persistent_compile_cache``): it has no
 counterpart, since the kernel libraries already persist in their build
 directory (:mod:`..ops._build`); ``lowering_scan_min`` folding of
 identical levels into a ``lax.scan`` (the levels run in a Python loop;
-CUDA-graph capture of a step or a region step is later work); mesh SPMD
-and multi-rank lowering, which raise ``NotImplementedError``.
+CUDA-graph capture of a step or a region step is later work).
 """
 
 from __future__ import annotations
@@ -106,7 +119,7 @@ import hashlib
 import itertools
 import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -114,7 +127,7 @@ import torch
 from ..core.params import params as _params
 from ..data.data import ACCESS_RW, ACCESS_WRITE
 
-__all__ = ["LoweredRegion", "LoweringCache", "LoweringError",
+__all__ = ["DeviceMesh", "LoweredRegion", "LoweringCache", "LoweringError",
            "LoweredTaskpool", "RegionLoweredTaskpool", "Traceable",
            "find_traceable", "lower_regions", "lower_taskpool",
            "lowering_cache", "register_traceable", "structural_fingerprint",
@@ -146,6 +159,49 @@ class LoweringError(RuntimeError):
     """Raised when a taskpool cannot be lowered (irregular structure, a
     body with no traceable, ragged tiles...).  Callers run the dynamic
     runtime instead: lowering is an optimization, never a requirement."""
+
+
+class DeviceMesh:
+    """The devices of one process along a ``"ranks"`` axis: what
+    :func:`lower_taskpool` lowers a distributed taskpool over, the
+    counterpart of the ``jax.sharding.Mesh`` the JAX package takes.
+
+    ``devices`` gives rank r's device at position r.  A device may
+    repeat: ``DeviceMesh(["cuda:0"] * 4)`` is four ranks sharing the card,
+    as :func:`..comm.run_multirank` runs them, and the tests lower over
+    ``["cpu"] * n``.  ``shape`` is ``{axis: size}``, as the JAX mesh's.
+
+    It is not :class:`parsec_tpu_torch.parallel.mesh.Mesh`, the
+    multi-process mesh of the parallel recipes (one rank a process,
+    collectives through a ``torch.distributed`` group): this one is a
+    list in one process, and the lowered step moves rows between its
+    ranks itself (:mod:`.spmd`)."""
+
+    def __init__(self, devices: Any, axis_names: tuple = ("ranks",)) -> None:
+        self.devices = tuple(torch.device(d) for d in devices)
+        self.axis_names = tuple(axis_names)
+        if not self.devices:
+            raise ValueError("DeviceMesh: no device")
+        if len(self.axis_names) != 1:
+            raise ValueError(f"DeviceMesh: one axis over a device list, "
+                             f"got {self.axis_names}")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {self.axis_names[0]: len(self.devices)}
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def key(self) -> tuple:
+        """The cache key's part: axis and devices, so two meshes of other
+        sizes or devices never share a built step."""
+        return (self.axis_names, tuple(str(d) for d in self.devices))
+
+    def __repr__(self) -> str:
+        return (f"DeviceMesh({[str(d) for d in self.devices]}, "
+                f"{self.axis_names})")
 
 
 # ---------------------------------------------------------------------------
@@ -473,7 +529,7 @@ def _value(dc, key: tuple) -> torch.Tensor:
 
 
 class _Stores:
-    """One tensor per referenced collection, on one rank.
+    """One tensor per referenced collection (or, over a mesh, one a rank).
 
     Layout per collection is chosen by the passes: ``stacked``
     (``[n_tiles, *tile]``, rows in the collection's key order; supports
@@ -489,9 +545,20 @@ class _Stores:
     for each key its ``has_key`` oracle vouches for (a tiled grid's
     out-of-bounds key stays an error).  Every row exists before any
     tensor is made, so a store never grows on the device, and never
-    inside a step."""
+    inside a step.
 
-    def __init__(self) -> None:
+    **Rank-major stores.**  With ``nranks`` set (a mesh lowering), a
+    collection distributed over ``nodes > 1`` ranks lays the tiles rank
+    r owns (``dc.rank_of``) in rows ``[r*cap, (r+1)*cap)``, padded with
+    zero rows to the largest rank's count, so rank r's slab holds
+    exactly its tiles; a ``nodes == 1`` collection keeps the plain order
+    and is ``replicated``.  An open key space raises
+    :class:`LoweringError` (no enumerable ownership), and no store is
+    dense.  The mesh step says which replicated stores it writes, and so
+    gets one copy a rank (``private``), and how many receive rows each
+    rank's tensor of a store has past its own part (:mod:`.spmd`)."""
+
+    def __init__(self, nranks: int | None = None) -> None:
         self.dcs: dict[str, Any] = {}
         self.rows: dict[str, dict[tuple, int]] = {}
         self.written: set[str] = set()
@@ -501,6 +568,8 @@ class _Stores:
         self.dtype: dict[str, torch.dtype] = {}
         self.open: set[str] = set()         # lazily extended key spaces
         self.scratch: set[str] = set()      # synthetic NEW-flow stores
+        self.nranks = nranks
+        self.replicated: set[str] = set()   # nodes == 1 under a mesh
 
     def _ensure(self, dc) -> None:
         name = dc.name
@@ -510,7 +579,10 @@ class _Stores:
             keys = _collection_keys(dc)
         except LoweringError:
             keys = []                   # not enumerable: an open key space
-        if not keys or bool(getattr(dc, "open_key_space", False)):
+        # a mesh lowering keeps the closed snapshot of an undeclared dict
+        # collection: an open space has no enumerable ownership to shard by
+        open_space = not keys or bool(getattr(dc, "open_key_space", False))
+        if open_space and self.nranks is None:
             self.dcs[name] = dc
             self.rows[name] = {_norm_key(k): i for i, k in enumerate(keys)}
             self.nrows[name] = len(keys)
@@ -521,6 +593,10 @@ class _Stores:
                 self.shape[name] = tuple(first.shape)
                 self.dtype[name] = first.dtype
             return
+        if not keys:
+            raise LoweringError(
+                f"collection {name}: open key spaces do not lower "
+                f"multi-rank (no enumerable ownership)")
         shapes = {dc.tile_shape(*k) if hasattr(dc, "tile_shape")
                   else tuple(_value(dc, k).shape) for k in keys}
         if len(shapes) != 1:
@@ -529,8 +605,27 @@ class _Stores:
                 f"lowering needs uniform tile shapes")
         self.dcs[name] = dc
         self.layout[name] = "stacked"
-        self.rows[name] = {k: i for i, k in enumerate(keys)}
-        self.nrows[name] = len(keys)
+        if self.nranks is not None and getattr(dc, "nodes", 1) > 1:
+            if dc.nodes != self.nranks:
+                raise LoweringError(
+                    f"collection {name} is distributed over {dc.nodes} "
+                    f"ranks but the mesh has {self.nranks}")
+            by_rank: dict[int, list[tuple]] = {}
+            for k in keys:
+                r = dc.rank_of(*k)
+                if not 0 <= r < self.nranks:
+                    raise LoweringError(f"collection {name}: tile {k} on "
+                                        f"rank {r}, outside the mesh")
+                by_rank.setdefault(r, []).append(k)
+            cap = max(len(v) for v in by_rank.values())
+            self.rows[name] = {k: r * cap + i for r in range(self.nranks)
+                               for i, k in enumerate(by_rank.get(r, ()))}
+            self.nrows[name] = self.nranks * cap
+        else:
+            self.rows[name] = {k: i for i, k in enumerate(keys)}
+            self.nrows[name] = len(keys)
+            if self.nranks is not None:
+                self.replicated.add(name)
         self.shape[name] = tuple(next(iter(shapes)))
         dtype = getattr(dc, "dtype", None)
         self.dtype[name] = (dtype if isinstance(dtype, torch.dtype)
@@ -584,6 +679,8 @@ class _Stores:
         whole collection: ``I[i, j] == row of tile (i, j)``, every tile
         covered.  Pure check; commit with ``set_dense``."""
         name = dc.name
+        if self.nranks is not None:
+            return False   # a dense re-layout would drop tile ownership
         if not (hasattr(dc, "mt") and hasattr(dc, "nt")):
             return False
         if I.shape != (dc.mt, dc.nt):
@@ -597,12 +694,23 @@ class _Stores:
     def set_dense(self, dc) -> None:
         self.layout[dc.name] = "dense"
 
-    def materialize(self, device: torch.device) -> dict[str, torch.Tensor]:
+    def materialize(self, device: torch.device | None = None,
+                    mesh: Any = None, step: Any = None) -> dict[str, Any]:
         """The stores on ``device``: each a stack of its tiles in row order
         (or the dense matrix), built on the host and moved with one copy
         when every tile is on the host, else stacked on ``device`` (a tile
         already there is not moved); scratch stores start as zeros on the
-        device.  A store no plan referenced is left out."""
+        device.  A store no plan referenced is left out.
+
+        With ``mesh`` and its ``step`` (:mod:`.spmd`), each store is a
+        tuple of one tensor a rank, on the rank's device: a distributed
+        store's slab of ``cap`` rows (padding rows zero), a replicated
+        store's copy (one on each distinct device, shared by its ranks;
+        one a rank for a store in ``step.private``), a scratch store's
+        zeros; each followed by the ``step.recv_rows(r, name)`` receive
+        rows of that rank (zeros)."""
+        if mesh is not None:
+            return self._materialize_mesh(mesh, step)
         out = {}
         for name, dc in self.dcs.items():
             if self.layout[name] == "dense":
@@ -610,19 +718,65 @@ class _Stores:
                 continue
             if not self.rows[name]:
                 continue
-            tiles: list[Any] = [None] * self.nrows[name]
-            for k, i in self.rows[name].items():
-                tiles[i] = _value(dc, k)
-            if all(t.device.type == "cpu" for t in tiles):
-                out[name] = torch.stack(tiles).to(device)
-            else:
-                out[name] = torch.stack([t.to(device) for t in tiles])
+            out[name] = self._stack(name, device)
         for name in self.scratch:
             out[name] = torch.zeros((self.nrows[name],) + self.shape[name],
                                     dtype=self.dtype[name], device=device)
         return out
 
-    def writeback(self, values: dict[str, torch.Tensor],
+    def _stack(self, name: str, device: torch.device) -> torch.Tensor:
+        """Store ``name`` as one ``[nrows, *tile]`` tensor, padding rows
+        zero: stacked on the host and moved once when every tile is
+        there, else stacked on ``device``."""
+        dc = self.dcs[name]
+        tiles: list[Any] = [None] * self.nrows[name]
+        for k, i in self.rows[name].items():
+            tiles[i] = _value(dc, k)
+        on_host = all(t is None or t.device.type == "cpu" for t in tiles)
+        at = torch.device("cpu") if on_host else device
+        if any(t is None for t in tiles):
+            pad = torch.zeros(self.shape[name], dtype=self.dtype[name],
+                              device=at)
+            tiles = [pad if t is None else t for t in tiles]
+        return torch.stack([t.to(at) for t in tiles]).to(device)
+
+    def _materialize_mesh(self, mesh: Any, step: Any) -> dict[str, tuple]:
+        devices = mesh.devices
+
+        def placed(own: torch.Tensor, name: str, r: int) -> torch.Tensor:
+            buf = torch.zeros((own.shape[0] + step.recv_rows(r, name),)
+                              + own.shape[1:], dtype=own.dtype,
+                              device=devices[r])
+            buf[:own.shape[0]].copy_(own)
+            return buf
+
+        out = {}
+        for name in self.dcs:
+            if not self.rows[name]:
+                continue
+            full = self._stack(name, torch.device("cpu"))
+            if name not in self.replicated:
+                cap = self.nrows[name] // self.nranks
+                out[name] = tuple(placed(full[r * cap:(r + 1) * cap], name, r)
+                                  for r in range(self.nranks))
+            elif name in step.private:
+                out[name] = tuple(placed(full, name, r)
+                                  for r in range(self.nranks))
+            else:
+                copies: dict[str, torch.Tensor] = {}
+                for d in devices:
+                    if str(d) not in copies:
+                        copies[str(d)] = full.to(d, copy=True)
+                out[name] = tuple(copies[str(d)] for d in devices)
+        for name in self.scratch:
+            out[name] = tuple(
+                torch.zeros((self.nrows[name] + step.recv_rows(r, name),)
+                            + self.shape[name], dtype=self.dtype[name],
+                            device=d)
+                for r, d in enumerate(devices))
+        return out
+
+    def writeback(self, values: dict[str, Any],
                   only: dict[str, set] | None = None) -> None:
         """Every tile of a written store becomes a tensor of its own on its
         collection's newest copy, whose version is bumped, on the device
@@ -631,29 +785,38 @@ class _Stores:
         there with no round trip.  With ``only`` (store -> rows), a
         store's other rows are left alone: a row the plan never wrote
         holds the value it had when the stores were built, which another
-        pool may have replaced since."""
+        pool may have replaced since.  Over a mesh, each tile comes from
+        its owner's slab (padding and receive rows are dropped), or from
+        rank 0's copy of a replicated store, which the step leaves equal
+        on every rank."""
         for name in self.written:
             dc = self.dcs[name]
-            src = values[name]
-            moved: dict[torch.device, torch.Tensor] = {src.device: src}
+            parts, cap = (values[name],), None
+            if self.nranks is not None:
+                own = self.nrows[name]
+                if name not in self.replicated:
+                    cap = own = self.nrows[name] // self.nranks
+                parts = tuple(t[:own] for t in values[name])
+            moved: dict[tuple, torch.Tensor] = {}
             dense = self.layout[name] == "dense"
             keep = None if only is None else only.get(name, set())
             for key, i in self.rows[name].items():
                 if keep is not None and i not in keep:
                     continue
+                p, j = (0, i) if cap is None else divmod(i, cap)
                 copy = dc.data_of(*key).newest_copy()
                 old = copy.value
                 dev = (old.device if isinstance(old, torch.Tensor)
                        else torch.device("cpu"))
-                arr = moved.get(dev)
+                arr = moved.get((p, dev))
                 if arr is None:
-                    arr = moved[dev] = src.to(dev)
+                    arr = moved[(p, dev)] = parts[p].to(dev)
                 if dense:
                     m, n = key
                     tile = arr[m * dc.mb:(m + 1) * dc.mb,
                                n * dc.nb:(n + 1) * dc.nb]
                 else:
-                    tile = arr[i]
+                    tile = arr[j]
                 copy.value = tile.clone(memory_format=torch.contiguous_format)
                 copy.version += 1
 
@@ -713,9 +876,28 @@ def _key_param_deps(tasks: list[dict], keys: list[tuple],
     return deps
 
 
-def _try_chain_collapse(tp, infos, stores: _Stores):
+class _ChainPlan(NamedTuple):
+    """A collapsible accumulation chain: the class's flows and kernel, the
+    three collections, the store rows of each (m, k) lhs tile ``IA``,
+    (k, n) rhs tile ``IB`` and (m, n) accumulator ``IC``, and the locals
+    of each (m, n) chain's last task (``last``)."""
+    info: Any
+    lhs: Any
+    rhs: Any
+    acc: Any
+    lhs_dc: Any
+    rhs_dc: Any
+    acc_dc: Any
+    IA: np.ndarray
+    IB: np.ndarray
+    IC: np.ndarray
+    last: dict
+
+
+def _chain_plan(tp, infos, stores: _Stores) -> _ChainPlan | None:
     """Detect ``ACC(p..., k)``: init-from-store at k=lo, accumulate lhs·rhs
-    along k, write-to-store at k=hi, and emit one contraction."""
+    along k, write-to-store at k=hi; None where the pool is not such a
+    chain."""
     if len(infos) != 1:
         return None
     (info,) = infos.values()
@@ -833,12 +1015,15 @@ def _try_chain_collapse(tp, infos, stores: _Stores):
     IA = np.zeros((len(mvals), len(kvals)), np.int64)
     IB = np.zeros((len(kvals), len(nvals)), np.int64)
     IC = np.full((len(mvals), len(nvals)), -1, np.int64)
+    last: dict[tuple, dict] = {}
     for loc, lkey, rkey, akey in zip(tasks, lk, rk, acc_keys):
         m = mi[tuple(loc[p] for p in pl)]
         n = ni[tuple(loc[p] for p in pr)]
         k = ki[loc[chain]]
         IA[m, k] = stores.row(lhs_dc, lkey)
         IB[k, n] = stores.row(rhs_dc, rkey)
+        if loc[chain] == khi:
+            last[(m, n)] = loc
         if akey is not None:
             row = stores.row(acc_dc, _norm_key(akey[1]))
             if IC[m, n] not in (-1, row):
@@ -847,7 +1032,17 @@ def _try_chain_collapse(tp, infos, stores: _Stores):
     if (IC < 0).any():
         return None
     stores.written.add(acc_dc.name)
+    return _ChainPlan(info, lhs, rhs, acc, lhs_dc, rhs_dc, acc_dc, IA, IB,
+                      IC, last)
 
+
+def _try_chain_collapse(tp, infos, stores: _Stores):
+    """The chain of :func:`_chain_plan` as one contraction."""
+    plan = _chain_plan(tp, infos, stores)
+    if plan is None:
+        return None
+    info, lhs, rhs, acc, lhs_dc, rhs_dc, acc_dc, IA, IB, IC, _ = plan
+    kernel = info.kernel
     combine = kernel.chain_combine
     an, bn, cn = lhs_dc.name, rhs_dc.name, acc_dc.name
 
@@ -1308,10 +1503,12 @@ def _task_graph(tp, infos):
     return out, levels
 
 
-def _build_unrolled(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
+def _unrolled_plans(tp, infos, stores: _Stores) -> list:
+    """Per task, in topological order: ``(cname, key, info, in_plan,
+    out_plan)``, each data flow's source (``("store", name, row)``,
+    ``("val", (cname, key, flow_index))``, ``("none",)`` or ``("new",
+    shape, dtype)``) and the store rows it is written to."""
     order, _ = _task_graph(tp, infos)
-
-    # per task, its input plan and output plan (host side)
     plans = []
     for cname, i in order:
         info = infos[cname]
@@ -1353,6 +1550,11 @@ def _build_unrolled(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
                     stores.written.add(dc.name)
             out_plan.append(rows)
         plans.append((cname, key, info, in_plan, out_plan))
+    return plans
+
+
+def _build_unrolled(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
+    plans = _unrolled_plans(tp, infos, stores)
     targets = sorted({name for *_, out_plan in plans
                       for rows in out_plan for name, _ in rows})
 
@@ -1411,16 +1613,24 @@ class LoweredTaskpool:
     collections on ``device``.  ``execute()`` runs one step eagerly and
     writes the tiles back to the source collections (the dynamic path's
     completion semantics), bumping each tile's version.
+
+    With ``mesh`` (a :class:`DeviceMesh`), each store is a tuple of one
+    tensor a rank (:meth:`placement` says which are slabs and which
+    copies), ``device`` is the mesh's first device, and the step's
+    exchange plan is readable: :attr:`exchange` (bytes by source and
+    destination, rows, sends, each rank's groups), :meth:`exchange_share`
+    and :meth:`run_by_rank`.
     """
 
     def __init__(self, tp, step_fn: Callable, stores: _Stores, mode: str,
                  device: torch.device, signature: Any = None,
-                 kernels: tuple = ()) -> None:
+                 kernels: tuple = (), mesh: DeviceMesh | None = None) -> None:
         self.taskpool = tp
         self.step_fn = step_fn
         self._stores = stores
         self.mode = mode    # "chain-collapse" | "wavefront" | "unrolled"
         self.device = device
+        self.mesh = mesh
         self.signature = signature
         self._kernels = kernels     # the plan's traceables (warm's libs)
         # the wavefront plan's size: its levels, and its batched calls
@@ -1428,7 +1638,10 @@ class LoweredTaskpool:
         self.levels = getattr(step_fn, "levels", None)
         self.groups = getattr(step_fn, "groups", None)
 
-    def initial_stores(self) -> dict[str, torch.Tensor]:
+    def initial_stores(self) -> dict[str, Any]:
+        if self.mesh is not None:
+            return self._stores.materialize(mesh=self.mesh,
+                                            step=self.step_fn)
         return self._stores.materialize(self.device)
 
     @property
@@ -1441,17 +1654,73 @@ class LoweredTaskpool:
         ``"scratch"``."""
         return dict(self._stores.layout)
 
+    def placement(self) -> dict[str, dict]:
+        """Over a mesh, each store's placement (the counterpart of the JAX
+        package's ``shardings()``): ``{"spec": "sharded" | "replicated",
+        "devices": [...]}``, a sharded store with one slab on each rank's
+        device, a replicated one with a copy on each device listed (one a
+        rank when the step writes it).  Raises without a mesh."""
+        if self.mesh is None:
+            raise LoweringError("placement() needs a mesh lowering")
+        st, devs = self._stores, [str(d) for d in self.mesh.devices]
+        out = {}
+        for name in (*st.dcs, *sorted(st.scratch)):
+            if name in st.dcs and name not in st.replicated:
+                out[name] = {"spec": "sharded", "devices": devs}
+            elif name in self.step_fn.private or name in st.scratch:
+                out[name] = {"spec": "replicated", "devices": devs}
+            else:
+                out[name] = {"spec": "replicated",
+                             "devices": list(dict.fromkeys(devs))}
+        return out
+
+    @property
+    def exchange(self) -> dict | None:
+        """The mesh step's exchange plan (None without a mesh):
+        ``bytes`` by ``(source, destination)`` rank, ``rows`` and
+        ``sends`` (one per source, destination and store at a level),
+        ``final_bytes`` (a replicated collection made equal again at the
+        step's end), ``groups_by_rank`` (batched calls) and
+        ``levels_with_sends``."""
+        return getattr(self.step_fn, "report", None)
+
+    @property
+    def exchange_bytes(self) -> dict | None:
+        rep = self.exchange
+        return None if rep is None else dict(rep["bytes"])
+
+    def exchange_share(self, stores: dict | None = None,
+                       reps: int = 3) -> dict:
+        """Over a mesh, the mean milliseconds of a step and of its
+        exchange's copies alone on ``stores`` (made fresh when None), and
+        the exchange's share of the step.  On one card the times are CUDA
+        events', elsewhere the host's wall after a synchronize."""
+        if self.mesh is None:
+            raise LoweringError("exchange_share() needs a mesh lowering")
+        return self.step_fn.timings(
+            self.initial_stores() if stores is None else stores, reps)
+
+    def run_by_rank(self, stores: dict, probe: Callable) -> tuple:
+        """One mesh step on ``stores`` with ``probe() -> {counter: int}``
+        read around each rank's groups: returns the step's stores and,
+        per rank, the counters' growth there (a kernel's launches by
+        variant, say)."""
+        if self.mesh is None:
+            raise LoweringError("run_by_rank() needs a mesh lowering")
+        return self.step_fn.by_rank(stores, probe)
+
     def warm(self) -> dict[str, float]:
         """Prepare the card for the first step and execute nothing: load
         (or build) the kernel libraries the plan's traceables name
         (``load_s``; none on the host, whose wrappers take the plain
         versions) and put the plan's index tensors on the device
-        (``upload_s``).  Returns the seconds of each part."""
+        (``upload_s``; over a mesh, each rank's indices and exchange plan
+        on that rank's device).  Returns the seconds of each part."""
         load_s, upload_s = _prepare(self.step_fn, self._kernels,
                                     self.device)
         return {"load_s": round(load_s, 4), "upload_s": round(upload_s, 4)}
 
-    def execute(self) -> dict[str, torch.Tensor]:
+    def execute(self) -> dict[str, Any]:
         out = self.step_fn(self.initial_stores())
         self._stores.writeback(out)
         return out
@@ -1462,28 +1731,34 @@ def _prepare(step: Callable, kernels: tuple,
     """What the card prepares for a step, executing nothing: the kernel
     libraries its traceables name, loaded (or built; none on the host,
     whose wrappers take the plain versions), then its index tensors on
-    the device.  Returns the seconds of each part."""
+    the device (a mesh step's ``placed`` pairs each with its rank's
+    device).  Returns the seconds of each part."""
+    placed = getattr(step, "placed", None)
+    if placed is None:
+        placed = [(device, idx) for idx in getattr(step, "indices", ())]
+    devices = {str(d): d for d in getattr(step, "devices", (device,))}
     t0 = time.perf_counter()
-    if device.type == "cuda":
+    if any(d.type == "cuda" for d in devices.values()):
         from ..ops import _build
         for name in sorted({lib for k in kernels for lib in k.libs}):
             _build.load(name)
     t1 = time.perf_counter()
-    for idx in getattr(step, "indices", ()):
-        idx.on(device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    for dev, idx in placed:
+        idx.on(dev)
+    for d in devices.values():
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     return t1 - t0, time.perf_counter() - t1
 
 
-def _cached(mode: str, device: torch.device, step: Callable,
-            sig: Any) -> Callable:
+def _cached(mode: str, where: Any, step: Callable, sig: Any) -> Callable:
     """The built step of this structure: ``step`` on a miss, the step of
     the first identical lowering on a hit (``step``, already built, is
-    then dropped)."""
+    then dropped).  ``where`` is the lowering device, or a mesh's key
+    with its replicated stores."""
     if not _params.get("lowering_cache"):
         return step
-    key = (mode, str(device), _backend_signature(), sig)
+    key = (mode, where, _backend_signature(), sig)
     return lowering_cache.get_or_build(key, lambda: step)
 
 
@@ -1497,15 +1772,37 @@ def lower_taskpool(tp, context: Any = None, mesh: Any = None,
     ``"wavefront"``, ``"unrolled"``.
 
     ``device="cuda"`` (the default) raises where no card is visible; the
-    tests pass ``device="cpu"``.  ``mesh=``, or a context over more than
-    one rank, raises ``NotImplementedError``: multi-rank lowering is not
-    ported.  Raises :class:`LoweringError` when the structure is not
-    lowerable; the caller then runs the dynamic scheduler instead (same
-    taskpool object).
+    tests pass ``device="cpu"``.
+
+    ``mesh``: a :class:`DeviceMesh` with one ``"ranks"`` axis lowers the
+    *distributed* taskpool to one SPMD step over that mesh (:mod:`.spmd`),
+    tile ownership taken from each collection's ``rank_of``; the mesh's
+    devices then place the stores and ``device`` is not read.  A mesh
+    with another axis, or a context over more than one rank with no
+    mesh, raises :class:`LoweringError`.
+
+    Raises :class:`LoweringError` when the structure is not lowerable;
+    the caller then runs the dynamic scheduler instead (same taskpool
+    object).
     """
-    if mesh is not None or (context is not None
-                            and getattr(context, "nb_ranks", 1) > 1):
-        raise NotImplementedError("multi-rank lowering is not ported")
+    nranks = None
+    if mesh is not None:
+        axes = dict(getattr(mesh, "shape", {}))
+        if list(axes) != ["ranks"]:
+            raise LoweringError(
+                f"multi-rank lowering needs a 1-D mesh with a 'ranks' axis, "
+                f"got {list(axes)}")
+        nranks = axes["ranks"]
+        device = mesh.devices[0]
+        if any(d.type == "cuda" for d in mesh.devices) \
+                and not torch.cuda.is_available():
+            raise RuntimeError("lower_taskpool: no CUDA device is visible "
+                               "for the mesh; give it CPU devices to lower "
+                               "onto the host")
+    elif context is not None and getattr(context, "nb_ranks", 1) > 1:
+        raise LoweringError("multi-rank lowering needs an explicit mesh= "
+                            "(see lower_taskpool's docstring); dynamic "
+                            "path here")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("lower_taskpool: no CUDA device is visible; "
@@ -1515,29 +1812,39 @@ def lower_taskpool(tp, context: Any = None, mesh: Any = None,
     infos = _analyze(tp)
     kernels = tuple({id(i.kernel): i.kernel for i in infos.values()
                      if i.kernel is not None}.values())
+    chain, wavefront, unrolled = (_try_chain_collapse, _build_wavefront,
+                                  _build_unrolled)
+    if mesh is not None:
+        from . import spmd
+        chain, wavefront, unrolled = (
+            lambda *a, f=f: f(*a, mesh=mesh)
+            for f in (spmd.chain_collapse, spmd.wavefront, spmd.unrolled))
 
     def lowered(built, stores: _Stores, mode: str) -> LoweredTaskpool:
         step, sig = built
-        return LoweredTaskpool(tp, _cached(mode, device, step, sig), stores,
-                               mode, device, signature=sig, kernels=kernels)
+        where = (str(device) if mesh is None
+                 else (mesh.key(), tuple(sorted(stores.replicated))))
+        return LoweredTaskpool(tp, _cached(mode, where, step, sig), stores,
+                               mode, device, signature=sig, kernels=kernels,
+                               mesh=mesh)
 
     if passes in ("auto", "chain-collapse"):
-        stores = _Stores()
-        built = _try_chain_collapse(tp, infos, stores)
+        stores = _Stores(nranks)
+        built = chain(tp, infos, stores)
         if built is not None:
             return lowered(built, stores, "chain-collapse")
         if passes == "chain-collapse":
             raise LoweringError("taskpool does not chain-collapse")
     if passes in ("auto", "wavefront"):
-        stores = _Stores()
+        stores = _Stores(nranks)
         try:
-            return lowered(_build_wavefront(tp, infos, stores), stores,
+            return lowered(wavefront(tp, infos, stores), stores,
                            "wavefront")
         except LoweringError:
             if passes == "wavefront":
                 raise
-    stores = _Stores()
-    return lowered(_build_unrolled(tp, infos, stores), stores, "unrolled")
+    stores = _Stores(nranks)
+    return lowered(unrolled(tp, infos, stores), stores, "unrolled")
 
 
 # ---------------------------------------------------------------------------

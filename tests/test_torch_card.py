@@ -3,8 +3,9 @@ GEMM, with its transposed and subtracting forms; K2, the ragged
 paged-attention page update; K3, the 1-D stencil), the device module,
 decode serving, the tiled Cholesky and LU, the lowered taskpools, DTD
 task insertion, the compiled-DAG executor, the comm layer's device
-fabric with the factorizations across four ranks sharing the card, and
-four rank processes on the card over the device socket tier.  They skip
+fabric with the factorizations across four ranks sharing the card, the
+multi-rank lowering over four ranks on the card, and four rank processes
+on the card over the device socket tier.  They skip
 without one.
 
 This file imports no JAX, so it also runs where JAX is not installed;
@@ -33,6 +34,7 @@ from parsec_tpu_torch.device import registry
 from parsec_tpu_torch.device.cuda import init_cuda_devices
 from parsec_tpu_torch.data_dist.matrix import (SymTwoDimBlockCyclic,
                                                TiledMatrix,
+                                               TwoDimBlockCyclic,
                                                VectorTwoDimCyclic)
 from parsec_tpu_torch.llm import ToyLM
 from parsec_tpu_torch.models import cholesky as chol
@@ -43,7 +45,8 @@ from parsec_tpu_torch.ops import factor
 from parsec_tpu_torch.ops import gemm as tg
 from parsec_tpu_torch.ops import ragged_attention as ra
 from parsec_tpu_torch.ops import stencil as ks
-from parsec_tpu_torch.ptg.lowering import lower_regions, lower_taskpool
+from parsec_tpu_torch.ptg.lowering import (DeviceMesh, lower_regions,
+                                           lower_taskpool)
 from parsec_tpu_torch.runtime import Context
 from parsec_tpu_torch.serve import RuntimeServer
 
@@ -1451,3 +1454,88 @@ def test_decode_steps_on_k2_equal_the_superpool(card):
     for s, prompt in prompts.items():
         assert got[s] == dec.read_token_chain(TOK, s, 4)[0] \
             == model.reference_generate(prompt, 4), s
+
+
+# ---------------------------------------------------------------------------
+# the multi-rank (SPMD) lowering: four ranks sharing the card
+# ---------------------------------------------------------------------------
+
+def _mesh_pool(kind, devices, seed=8):
+    """The sharded pool of ``kind`` over 4 ranks, lowered over a mesh of
+    ``devices``: GEMM (bf16 A/B, fp32 C) on a 2 x 2 grid, Cholesky on 4
+    x 1, the stencil on 4 cyclic ranks.  Returns the lowered pool and
+    its output collection."""
+    rng = np.random.default_rng(seed)
+    if kind == "gemm":
+        n, nb = 1024, 256
+        a, b = (torch.from_numpy(rng.standard_normal((n, n),
+                                                     dtype=np.float32))
+                .bfloat16() for _ in range(2))
+        A = TwoDimBlockCyclic.from_dense("A", a, nb, nb, P=2, Q=2)
+        B = TwoDimBlockCyclic.from_dense("B", b, nb, nb, P=2, Q=2)
+        out = TwoDimBlockCyclic("C", n, n, nb, nb, P=2, Q=2)
+        tp = tiled_gemm_ptg(A, B, out)
+    elif kind == "cholesky":
+        a = chol.make_spd_fast(1024, seed=6)
+        out = SymTwoDimBlockCyclic.from_dense("A", a.copy(), 256, 256, P=4,
+                                              Q=1)
+        tp = chol.tiled_cholesky_ptg(out)
+    else:
+        base = rng.standard_normal(16 * 4096).astype(np.float32)
+        out = VectorTwoDimCyclic("V", lm=len(base), mb=4096, P=4,
+                                 init_fn=lambda m, s:
+                                 base[m * 4096:m * 4096 + s])
+        tp = stencil_1d_ptg(out, np.full(9, 1.0 / 9), 5)
+    return lower_taskpool(tp, mesh=DeviceMesh(devices)), out
+
+
+def _probe():
+    return {**{f"k1:{v}": k for v, k in
+               tg.gemm_update.launches_by_variant.items()},
+            "k3": ks.stencil1d.launches}
+
+
+@pytest.mark.parametrize("kind", ["gemm", "cholesky", "stencil"])
+def test_mesh_lowering_on_the_card_matches_the_cpu(card, kind):
+    """The same pool lowered over ``DeviceMesh(["cuda:0"] * 4)`` and over
+    four CPU ranks (the plain versions): the same pass and exchange, each
+    rank's groups launching its kernel on the card (K1's ``wgmma_bf16``
+    for the GEMM, ``mma_tf32`` for the Cholesky, K3 for the stencil),
+    and the same tiles (bf16 products are exact in fp32: ``rtol=1e-4,
+    atol=1e-3``; TF32 against fp32 within ``TF32_TILE_TOL`` tile by tile;
+    the stencil's fp32 taps ``atol=1e-5``)."""
+    on_card, got = _mesh_pool(kind, ["cuda:0"] * 4)
+    on_cpu, want = _mesh_pool(kind, ["cpu"] * 4)
+    assert on_card.mode == on_cpu.mode
+    assert on_card.exchange_bytes == on_cpu.exchange_bytes
+    stores = on_card.initial_stores()
+    assert all(t.device.type == "cuda" for parts in stores.values()
+               for t in parts)
+    out, by_rank = on_card.run_by_rank(stores, _probe)
+    torch.cuda.synchronize()
+    groups = on_card.exchange["groups_by_rank"]
+    for r, delta in enumerate(by_rank):
+        ran = {k: v for k, v in delta.items() if v}
+        if kind == "gemm":
+            assert ran == {"k1:wgmma_bf16": 1}, (r, ran)
+        elif kind == "cholesky":
+            # rank 0 holds only the first diagonal tile: POTRF, no K1
+            assert set(ran) == ({"k1:mma_tf32"} if r else set()), (r, ran)
+        else:
+            assert ran == {"k3": groups[r]}, (r, ran)
+    on_card._stores.writeback(out)
+    on_cpu.execute()
+    if kind == "gemm":
+        torch.testing.assert_close(got.to_tensor(), want.to_tensor(),
+                                   rtol=1e-4, atol=1e-3)
+    elif kind == "cholesky":
+        err = factor.tile_error(torch.tril(got.to_tensor().cuda().double()),
+                                torch.tril(want.to_tensor().cuda().double()),
+                                256)
+        assert err < TF32_TILE_TOL
+    else:
+        g = torch.cat([got.data_of(i).newest_copy().value.cpu()
+                       for i in range(got.mt)])
+        w = torch.cat([want.data_of(i).newest_copy().value
+                       for i in range(want.mt)])
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5)

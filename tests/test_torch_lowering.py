@@ -32,6 +32,7 @@ from parsec_tpu.models.stencil import stencil_1d_ptg as j_stencil_1d
 from parsec_tpu.models.stencil2d import stencil_2d_ptg as j_stencil_2d
 from parsec_tpu.models.tiled_gemm import tiled_gemm_fused as j_fused
 from parsec_tpu.models.tiled_gemm import tiled_gemm_ptg as j_gemm
+from parsec_tpu.ptg.lowering import LoweringError as JLoweringError
 from parsec_tpu.ptg.lowering import lower_taskpool as j_lower
 from parsec_tpu.ptg.lowering import register_traceable as j_register
 from parsec_tpu_torch import ptg as tptg
@@ -491,13 +492,17 @@ def test_writeback_bumps_versions_and_gives_tiles_of_their_own():
     assert len({t.untyped_storage().data_ptr() for t in tiles}) == 4
 
 
-def test_multi_rank_lowering_is_not_ported():
-    tp, _, _ = _gemm(PORT)
-    with pytest.raises(NotImplementedError, match="multi-rank"):
-        lower_taskpool(tp, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-rank"):
-        lower_taskpool(tp, context=SimpleNamespace(nb_ranks=2),
-                       device="cpu")
+def test_multi_rank_context_without_a_mesh_is_refused():
+    """A context over more than one rank with no mesh, or a mesh with no
+    ``"ranks"`` axis, raises LoweringError as in the JAX package, so a
+    caller that catches it runs the dynamic scheduler on the pool."""
+    for pkg in (JAX, PORT):
+        tp, _, _ = _gemm(pkg)
+        err = LoweringError if pkg is PORT else JLoweringError
+        with pytest.raises(err, match="mesh"):
+            pkg.lower(tp, context=SimpleNamespace(nb_ranks=2))
+        with pytest.raises(err, match="ranks"):
+            pkg.lower(tp, mesh=object())
 
 
 def test_lowering_onto_the_card_without_one_raises():
