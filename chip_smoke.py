@@ -61,18 +61,25 @@ any phase fails:
    16 streams, prompts of 64-512 tokens from seed 11, 32 new tokens (8
    traced), k=8, two tenants, held to the oracle and to the card like
    the ``llm`` phase.
-7. **kernel stencil1d** — K3 against its plain PyTorch version on the
-   card: the lowered stencil's interior group (62 rows of 2^18 + 8, fp32,
-   9 taps), the same in bf16, the mesh stencil's groups (16 rows, and
-   the edge rank's 1), one row of 2^20 + 8 (past the TPU kernel's VMEM
-   limit) and a 3-D batch; kernel, plain and bound times, and
-   ``torch.nn.functional.conv1d`` on the same rows (the same
-   cross-correlation; a yardstick the port never calls).
+7. **kernel stencil1d** — K3's two entries against their plain PyTorch
+   versions on the card, 9 taps: the rows entry at the lowered
+   stencil's levels (one rank's: 64 rows of 2^18 read in place from a
+   64-row store, -1 at the two edges, fp32 and bf16; a mesh rank's: 16
+   rows of a 48-row local tensor, the ghosts from scattered receive
+   rows), and the padded entry at the first design's group shapes (62
+   rows of 2^18 + 8 fp32 and bf16, 16 and 1 rows), one row of 2^20 + 8
+   (past the TPU kernel's VMEM limit) and a 3-D batch; the CUDA-event
+   and the profiler's kernel-only times, plain and bound times, and
+   ``torch.nn.functional.conv1d`` on the same padded rows (the same
+   cross-correlation; a yardstick the port never calls; no one call
+   reads the neighbour rows' ghosts).
 8. **path lowered_stencil** — ``lower_taskpool(stencil_1d_ptg(V, w, 64))``
    at the JAX bench's configuration (n = 2^24, mb = 2^18, R = 4, weights
-   1/9, base from seed 0): the wavefront pass, 3 K3 launches a level, all
-   of V against a float64 oracle computed on the card; the execute wall,
-   the step wall with stores resident, one step under ``torch.profiler``.
+   1/9, base from seed 0): the wavefront pass, one K3 launch a level
+   (the rows entry), all of V against a float64 oracle computed on the
+   card; the execute wall, the step wall with stores resident, one
+   warmed step under ``torch.profiler``: its device time by operation
+   name (no concatenation of padded rows) and its idle share.
 9. **path lowered_stencil2d** — ``stencil_2d_ptg`` lowered at 8192^2
    fp32, 1024^2 tiles, 16 iterations (plain PyTorch traceable, no
    kernel), against the float64 oracle on the card.
@@ -445,7 +452,8 @@ any phase fails:
    A and of B a rank), beside the single-rank lowered step; the Cholesky
    and LU at n=8192, nb=512 under phase 12's gates and control, beside
    the dynamic four-rank walls; the 1-D stencil (n=2^24, mb=2^18, R=4, 8
-   iterations, 4 cyclic ranks) on K3, against the float64 reference,
+   iterations, 4 cyclic ranks) on K3, one launch a rank a level,
+   against the float64 reference,
    with the segment bytes it exchanges a level beside the halo bytes the
    body reads (R cells of each cross-rank neighbour).  Each prints its
    step and its exchange alone (CUDA events, mean of 3), the exchange's
@@ -2101,66 +2109,130 @@ def phase_llm_tiers(card: str, torch, seed: int = 19, max_new: int = 24,
     return rec
 
 
+def _stencil_rows_inputs(torch, seed: int):
+    """The rows entry's inputs at the lowered stencils' levels: (label,
+    dtype, (c, c_rows, l, l_rows, r, r_rows), iterations).  One rank's
+    level reads 64 tiles of 2^18 from a 64-row store, each tile's
+    neighbours its own rows -1 and +1 (-1 at the two edges); a mesh
+    rank's level reads its 16 own rows of a 48-row local tensor and the
+    ghosts from its 32 receive rows, each tile's neighbours two scattered
+    receive rows (the edge rank has no left one)."""
+    mb = 1 << 18
+    cases = []
+    for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+        g = torch.Generator(device="cuda").manual_seed(seed + i)
+        st = torch.randn(64, mb, device="cuda", generator=g).to(dtype)
+        lt = torch.arange(-1, 63, device="cuda")
+        rt = torch.arange(1, 65, device="cuda")
+        rt[-1] = -1
+        cases.append((f"rows: one rank's level [64 of 64, {mb}] "
+                      f"{str(dtype)[6:]}", dtype,
+                      (st, slice(0, 64), st, lt, st, rt), 50))
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    loc = torch.randn(48, mb, device="cuda", generator=g)
+    perm = torch.randperm(32, generator=torch.Generator().manual_seed(
+        seed)).cuda() + 16
+    lt, rt = perm[:16].clone(), perm[16:].clone()
+    lt[0] = -1
+    cases.append((f"rows: a mesh rank's level [16 of 48, {mb}] float32",
+                  torch.float32, (loc, slice(0, 16), loc, lt, loc, rt), 50))
+    return cases
+
+
+def _stencil_padded(torch, args, R: int):
+    """The padded rows [G, mb + 2R] that the rows entry's ``args`` (one
+    store for the three flows, neighbour rows as index tensors) stand
+    for: what the rows entry reads in place, and conv1d's input."""
+    st, cr, _, lt, _, rt = args
+    zeros = st.new_zeros(lt.numel(), R)
+    lg = torch.where((lt >= 0)[:, None], st[lt.clamp(min=0), -R:], zeros)
+    rg = torch.where((rt >= 0)[:, None], st[rt.clamp(min=0), :R], zeros)
+    return torch.cat([lg, st[cr], rg], dim=1)
+
+
 def phase_stencil_kernel(card: str, torch) -> tuple[dict, list]:
-    """K3 (``stencil1d``) against its plain version at the lowered
-    stencils' groups (one rank's and four ranks') and at shapes the TPU
-    kernel could not take; returns the interior group's record for the
-    kernels line, and every record."""
+    """K3 against its plain versions, both entries: the rows entry
+    (``stencil1d_rows``) at the lowered stencils' levels, and the padded
+    entry (``stencil1d``) at the first design's group shapes and at
+    shapes the TPU kernel could not take; returns one rank's level's
+    record (the main path's shape) for the kernels line, and every
+    record."""
     import torch.nn.functional as F
 
     from parsec_tpu_torch.ops import stencil as ks
     taps = 9
+    R = (taps - 1) // 2
     w = [1.0 / taps] * taps
     # fp32: the kernel fuses each tap's multiply-add, the plain version
     # rounds the product first: a few ulp of |out| <= ~5, a wrong element
     # is O(0.1).  bf16 output: one bf16 ulp (2^-7 relative) where the two
     # fp32 sums round to neighbouring bf16 values
-    cases = [("interior group [62, 262152] fp32", (62, 262152),
-              torch.float32, 1e-5, 50),
-             ("interior group [62, 262152] bf16", (62, 262152),
-              torch.bfloat16, 4e-2, 50),
-             # phase lowered_multirank_stencil's groups: a rank's 16
-             # segments a level, and the boundary rank's lone edge one
-             ("mesh rank group [16, 262152] fp32", (16, 262152),
-              torch.float32, 1e-5, 50),
-             ("mesh edge group [1, 262152] fp32", (1, 262152),
-              torch.float32, 1e-5, 200),
-             ("one row of 2^20+8 fp32", (1, (1 << 20) + 8), torch.float32,
-              1e-5, 50),
-             ("3-D batch [4, 8, 4104] fp32", (4, 8, 4104), torch.float32,
-              1e-5, 200)]
-    recs = []
-    for i, (label, shape, dtype, tol, iters) in enumerate(cases):
+    tol = {torch.float32: 1e-5, torch.bfloat16: 4e-2}
+    cases = []
+    for label, dtype, args, iters in _stencil_rows_inputs(torch, 510):
+        cases.append((label, "rows", dtype, _stencil_padded(torch, args, R),
+                      (lambda a=args: ks.stencil1d_rows(*a, w)),
+                      (lambda a=args: ks.stencil1d_rows_plain(*a, w)),
+                      iters))
+    for i, (label, shape, dtype, iters) in enumerate((
+            ("padded: interior group [62, 262152] fp32", (62, 262152),
+             torch.float32, 50),
+            ("padded: interior group [62, 262152] bf16", (62, 262152),
+             torch.bfloat16, 50),
+            ("padded: mesh rank group [16, 262152] fp32", (16, 262152),
+             torch.float32, 50),
+            ("padded: mesh edge group [1, 262152] fp32", (1, 262152),
+             torch.float32, 200),
+            ("padded: one row of 2^20+8 fp32", (1, (1 << 20) + 8),
+             torch.float32, 50),
+            ("padded: 3-D batch [4, 8, 4104] fp32", (4, 8, 4104),
+             torch.float32, 200))):
         g = torch.Generator(device="cuda").manual_seed(500 + i)
         p = torch.randn(*shape, device="cuda", generator=g).to(dtype)
-        got = ks.stencil1d(p, w)
-        want = ks.stencil1d_plain(p, w)
+        cases.append((label, "padded", dtype, p,
+                      (lambda p=p: ks.stencil1d(p, w)),
+                      (lambda p=p: ks.stencil1d_plain(p, w)), iters))
+    recs = []
+    for label, entry, dtype, padded, fn, plain, iters in cases:
+        got = fn()
+        want = plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         _check(got.shape == want.shape and got.dtype == dtype,
                f"stencil1d {label}: {tuple(got.shape)} {got.dtype}")
-        _check(err <= tol, f"stencil1d {label}: max abs err {err} above "
-               f"{tol}")
-        ms = _time_ms(torch, lambda: ks.stencil1d(p, w), iters)
-        plain_ms = _time_ms(torch, lambda: ks.stencil1d_plain(p, w), iters)
-        # the same cross-correlation as one library call on (rows, 1, L)
-        rows2 = p.reshape(-1, 1, shape[-1])
+        _check(err <= tol[dtype], f"stencil1d {label}: max abs err {err} "
+               f"above {tol[dtype]}")
+        ms = _time_ms(torch, fn, iters)
+        kernel_ms, sessions = _kernel_device_ms(
+            torch, fn, iters, "stencil1d_kernel", ks.stencil1d)
+        plain_ms = _time_ms(torch, plain, iters)
+        # the same cross-correlation as one library call on the padded
+        # rows (rows, 1, L)
+        rows2 = padded.reshape(-1, 1, padded.shape[-1])
         wt = torch.tensor(w, device="cuda", dtype=dtype).reshape(1, 1, taps)
         lib = lambda: F.conv1d(rows2, wt)  # noqa: E731
         lib_out = lib().reshape(got.shape)
         torch.cuda.synchronize()
         lib_err = (lib_out.float() - want.float()).abs().max().item()
         lib_ms = _time_ms(torch, lib, iters)
-        nbytes = (p.numel() + got.numel()) * p.element_size()
+        # each input cell read once (a tile's row and its 2R ghosts, or
+        # a padded row), each output written once
+        nbytes = (padded.numel() + got.numel()) * padded.element_size()
         bound_ms, bound_by = _bound(2.0 * taps * got.numel(), nbytes,
                                     "float32")
-        rec = dict(shape=label, max_abs_err=err, tol=tol, ms=ms,
-                   plain_ms=plain_ms, library_ms=lib_ms,
-                   library_max_abs_err=lib_err, bound_ms=bound_ms,
-                   bound_by=bound_by, gbps=nbytes / ms / 1e6)
+        rec = dict(shape=label, entry=entry, max_abs_err=err,
+                   tol=tol[dtype], ms=ms, kernel_ms=kernel_ms,
+                   kernel_ms_sessions=sessions, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_max_abs_err=lib_err,
+                   library_on="conv1d on the padded rows" if entry == "rows"
+                   else "conv1d on the same rows",
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   kernel_share_of_bound=bound_ms / kernel_ms,
+                   gbps=nbytes / kernel_ms / 1e6)
         _emit(card, phase="kernel", name="stencil1d", **rec)
         recs.append(rec)
-        del p, got, want, lib_out, rows2
+        del got, want, lib_out, rows2
+    del cases
     torch.cuda.empty_cache()
     return recs[0], recs
 
@@ -2183,7 +2255,6 @@ def phase_lowered_stencil(card: str, torch, n: int = 1 << 24,
     """The compiled 1-D stencil at the JAX bench's configuration
     (``bench.py:676-704``), through ``lower_taskpool`` on the card."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from parsec_tpu_torch.data_dist.matrix import VectorTwoDimCyclic
     from parsec_tpu_torch.models.stencil import (stencil_1d_ptg,
@@ -2207,9 +2278,9 @@ def phase_lowered_stencil(card: str, torch, n: int = 1 << 24,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ks.stencil1d.launches
-    # one interior group and two one-row boundary groups a level
-    _check(launches == 3 * iterations,
-           f"K3 launched {launches} times, expected {3 * iterations}")
+    # one group a level: the boundary tiles fold into the interior ones
+    _check(launches == iterations,
+           f"K3 launched {launches} times, expected {iterations}")
 
     # all of V against the float64 tap loop on the card: fp32 stores
     # round every level (2^-24 of |x| <= ~5), 64 levels stay far under
@@ -2230,12 +2301,14 @@ def phase_lowered_stencil(card: str, torch, n: int = 1 << 24,
     torch.cuda.synchronize()
     materialize_s = time.perf_counter() - t0
     step_s = _step_wall(torch, low.step_fn, stores, reps=5)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        low.step_fn(stores)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    busy, events, top, _ = _device_busy(prof)
+    # a warmed step traced: its device operations by name (the rows
+    # entry leaves no concatenation of padded rows), its idle share
+    traced = _traced_step(torch, low.step_fn, stores, ks.stencil1d,
+                          "stencil1d_kernel")
+    cats = [d for d in traced["device_ms_by_name"]
+            if "CatArray" in d["name"]]
+    _check(not cats, f"lowered stencil: the traced step concatenates "
+           f"({cats})")
     # the ideal step reads and writes the vector once a level
     nbytes = 2.0 * 4 * n * iterations
     rec = dict(n=n, mb=mb, radius=radius, iterations=iterations,
@@ -2244,9 +2317,7 @@ def phase_lowered_stencil(card: str, torch, n: int = 1 << 24,
                step_s=step_s,
                gflops=stencil_flops(n, radius, iterations) / step_s / 1e9,
                gbps=nbytes / step_s / 1e9, stencil1d_launches=launches,
-               traced_step_s=traced_s, device_busy_s=busy,
-               idle_share=1.0 - busy / traced_s, device_events=events,
-               top_device_time=top, max_abs_err=err)
+               **traced, max_abs_err=err)
     _emit(card, phase="path", name="lowered_stencil", **rec)
     del stores
     torch.cuda.empty_cache()
@@ -5026,7 +5097,8 @@ def _traced_step(torch, step, stores, counter, kname: str) -> dict:
     """One step of ``step`` on ``stores`` under ``torch.profiler`` (device
     activity), after a warm-up cycle the profile drops: the step's host
     wall, the card's busy time and idle share, the device time of the
-    kernel named ``kname`` and the largest device costs.  A session is
+    kernel named ``kname``, the largest device costs and every device
+    operation's count and time by name (``device_ms_by_name``).  A session is
     taken only when its profile holds as many ``kname`` events as
     ``counter`` (the wrapper) counted launches in the traced step; after
     three sessions short of that, the busy time, idle share and kernel
@@ -5051,9 +5123,13 @@ def _traced_step(torch, step, stores, counter, kname: str) -> dict:
             launched = counter.launches - before
             prof.step()
         busy, events, top, dev_ns = _device_busy(prof)
-        seen = sum(1 for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA
-                   and kname in e.name())
+        counts: dict[str, int] = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                counts[e.name()] = counts.get(e.name(), 0) + 1
+        seen = sum(c for nm, c in counts.items() if kname in nm)
+        by_name = [{"name": nm[:60], "count": counts[nm], "ms": ns / 1e6}
+                   for nm, ns in dev_ns.most_common()]
         sessions.append([launched, seen])
         if seen == launched:
             return dict(traced_step_s=traced_s, device_busy_s=busy,
@@ -5062,10 +5138,12 @@ def _traced_step(torch, step, stores, counter, kname: str) -> dict:
                         kernel_device_ms=sum(
                             ns for nm, ns in dev_ns.items()
                             if kname in nm) / 1e6,
-                        top_device_time=top, trace_sessions=sessions)
+                        top_device_time=top, device_ms_by_name=by_name,
+                        trace_sessions=sessions)
     return dict(traced_step_s=traced_s, device_busy_s=None, idle_share=None,
                 device_events=events, kernel_device_ms=None,
-                top_device_time=top, trace_sessions=sessions)
+                top_device_time=top, device_ms_by_name=by_name,
+                trace_sessions=sessions)
 
 
 def phase_lowered_multirank(card: str, torch, kind: str, beside: dict,
@@ -5177,9 +5255,12 @@ def phase_lowered_multirank(card: str, torch, kind: str, beside: dict,
                f"{name}: K1 ran {by_variant}, expected one wgmma_bf16 a "
                f"rank")
     elif kind == "stencil":
-        _check(k3 == sum(groups) and launches == 0,
-               f"{name}: K3 launched {k3} times for {sum(groups)} groups "
-               f"(K1 {launches})")
+        # one group a rank a level: the edge ranks' boundary tiles fold
+        # into their other tiles
+        _check(k3 == sum(groups) and launches == 0
+               and groups == [iterations] * MR_RANKS,
+               f"{name}: K3 launched {k3} times for groups {groups}, "
+               f"expected one a rank a level (K1 {launches})")
     else:
         _check(launches > 0 and by_variant["mma_tf32"] == launches,
                f"{name}: K1 ran {by_variant}, expected mma_tf32 only")
@@ -6633,13 +6714,17 @@ def _run(torch) -> int:
                 "launches_by_path": {name: p["stencil1d_launches"]
                                      for name, p in k3_paths.items()},
                 "shapes": [{key: r[key] for key in (
-                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")} for r in sten_recs],
+                    "shape", "entry", "max_abs_err", "ms", "kernel_ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                    for r in sten_recs],
+                "entry": sten_rec["entry"],
                 "max_abs_err": sten_rec["max_abs_err"],
-                "ms": sten_rec["ms"], "plain_ms": sten_rec["plain_ms"],
+                "ms": sten_rec["ms"], "kernel_ms": sten_rec["kernel_ms"],
+                "plain_ms": sten_rec["plain_ms"],
                 "bound_ms": sten_rec["bound_ms"],
                 "bound_by": sten_rec["bound_by"],
-                "library_ms": sten_rec["library_ms"]}]
+                "library_ms": sten_rec["library_ms"],
+                "library_on": sten_rec["library_on"]}]
     _check(all(math.isfinite(k["ms"]) for k in kernels), "a time is not finite")
     _emit(card, phase="phases", seconds=dict(sorted(
         PHASE_SECONDS.items(), key=lambda kv: -kv[1])))

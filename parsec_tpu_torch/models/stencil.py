@@ -10,11 +10,11 @@ Two incarnations of one taskpool, as in the JAX package:
 - the dynamic body (a host chore through ``Context``), in float64 on the
   CPU tensors of the tiles, then cast back to the tile dtype;
 - the traceable the lowering runs (``lower_taskpool(stencil_1d_ptg(...))``
-  takes the wavefront pass): per level, each group's padded rows
-  ``[G, mb + 2R]`` are built with zero ghosts where a neighbour is missing,
-  and ONE launch of K3 (:func:`ops.stencil.stencil1d`) updates the group.
-  It is scoped to the taskpool through ``local_traceables``, since its
-  weights differ per build.
+  takes the wavefront pass): per level, ONE launch of K3's rows entry
+  (:func:`ops.stencil.stencil1d_rows`) updates every tile, reading each
+  tile and its neighbours' ghosts where they lie in the store (zeros
+  where a neighbour is missing).  It is scoped to the taskpool through
+  ``local_traceables``, since its weights differ per build.
 
 ``flops = iterations * N * (2R+1) * 2`` (one multiply and one add per
 weight).  :func:`stencil_reference` is the float64 oracle, on the device
@@ -33,7 +33,7 @@ from .. import ptg
 from ..data.data import data_create
 from ..data_dist.collection import DictCollection
 from ..data_dist.matrix import VectorTwoDimCyclic
-from ..ops.stencil import stencil1d, stencil1d_plain
+from ..ops.stencil import stencil1d, stencil1d_plain, stencil1d_rows
 from ..ptg.lowering import Traceable
 
 
@@ -116,22 +116,27 @@ def stencil_1d_ptg(V: VectorTwoDimCyclic, weights: Any,
         task.set_flow_data(
             "C", data_create(new, key=("st", l.t, l.i)).get_copy(0))
 
-    # The traceable the wavefront lowering runs: boundary tasks arrive
-    # with their L/R flow as None (no active arrow) and read zero ghosts,
-    # exactly like the dynamic body.  Computes in the tile dtype promoted
-    # with fp32 (bf16 tiles update in fp32), one K3 launch per group.
+    # The traceables the lowering runs: boundary tasks arrive with their
+    # L/R flow as None (no active arrow) or a row of -1 and read zero
+    # ghosts, exactly like the dynamic body.  Computes in the tile dtype
+    # promoted with fp32 (bf16 tiles update in fp32, rounded once).  The
+    # wavefront passes call ``rows``: ONE K3 launch a level reads every
+    # tile and its neighbours' ghosts in place from the store rows.
+    # ``stacked``/``apply`` serve the unrolled pass and callers holding
+    # tensors, through K3's padded entry.
     wl = W.tolist()
-    ghosts: dict[tuple, torch.Tensor] = {}    # zero ghosts, made once each
+
+    def rows(c, left, right):
+        (cs, ci), (ls, li), (rs, ri) = (
+            f if f is not None else (None, None) for f in (c, left, right))
+        return stencil1d_rows(cs, ci, ls, li, rs, ri, wl)
 
     def stacked(c, left, right):
         ct = torch.promote_types(c.dtype, torch.float32)
-        if left is None or right is None:
-            gk = (c.shape[0], ct, c.device)
-            zeros = ghosts.get(gk)
-            if zeros is None:
-                zeros = ghosts[gk] = c.new_zeros((c.shape[0], R), dtype=ct)
-        lg = zeros if left is None else left[:, -R:].to(ct)
-        rg = zeros if right is None else right[:, :R].to(ct)
+        lg = (c.new_zeros((c.shape[0], R), dtype=ct) if left is None
+              else left[:, -R:].to(ct))
+        rg = (c.new_zeros((c.shape[0], R), dtype=ct) if right is None
+              else right[:, :R].to(ct))
         padded = torch.cat([lg, c.to(ct), rg], dim=1)
         return stencil1d(padded, wl).to(c.dtype)
 
@@ -145,8 +150,8 @@ def stencil_1d_ptg(V: VectorTwoDimCyclic, weights: Any,
 
     t.body(body, dyld="stencil1d")
     tp = p.build()
-    tp.local_traceables = {"stencil1d": Traceable(apply, stacked=stacked,
-                                                  libs=("stencil",))}
+    tp.local_traceables = {"stencil1d": Traceable(
+        apply, stacked=stacked, rows=rows, libs=("stencil",))}
     return tp
 
 

@@ -240,17 +240,28 @@ class Traceable:
     (the decode ATTN class's ACC chain); the lowering's steps keep
     ``apply``, whose results never share a store's memory.
 
+    ``rows(*flows)``, optional, is the stacked form reading its inputs
+    where they lie: for each data flow, ``(store, index)``, the store
+    tensor and the group's rows in it (a slice where they are
+    consecutive, else a long tensor on the store's device, -1 where a
+    task has no active input on that flow), or None where no task of the
+    group has one.  It returns the writable flows' new ``[G, ...]`` values
+    (a tuple for several), never writing a store.  The wavefront passes
+    call it for a class that has it, with no gather, and keep tasks that
+    differ only in an absent READ flow in one group.
+
     ``libs`` names the kernel libraries (``csrc/<name>.cu``) the body
     launches on a CUDA tensor, for :meth:`LoweredTaskpool.warm`.
     """
 
     __slots__ = ("apply", "bilinear", "chain_combine", "stacked", "inplace",
-                 "libs")
+                 "rows", "libs")
 
     def __init__(self, apply: Callable, bilinear: bool = False,
                  chain_combine: Callable | None = None,
                  stacked: Callable | None = None,
                  inplace: Callable | None = None,
+                 rows: Callable | None = None,
                  libs: tuple = ()) -> None:
         self.apply = apply
         self.bilinear = bilinear
@@ -258,6 +269,7 @@ class Traceable:
             _default_bilinear_chain if bilinear else None)
         self.stacked = stacked
         self.inplace = inplace
+        self.rows = rows
         self.libs = tuple(libs)
 
 
@@ -276,9 +288,10 @@ def register_traceable(name: str, apply: Callable, *, bilinear: bool = False,
                        chain_combine: Callable | None = None,
                        stacked: Callable | None = None,
                        inplace: Callable | None = None,
+                       rows: Callable | None = None,
                        libs: tuple = ()) -> Traceable:
     t = Traceable(apply, bilinear=bilinear, chain_combine=chain_combine,
-                  stacked=stacked, inplace=inplace, libs=libs)
+                  stacked=stacked, inplace=inplace, rows=rows, libs=libs)
     with _lock:
         _traceables[name] = t
     return t
@@ -825,7 +838,8 @@ class _Index:
     """Store rows as an index: a slice when they are one run of
     consecutive rows (a view on read, a slab on write), else a long
     tensor of any shape, kept per device (:meth:`LoweredTaskpool.warm`
-    puts it there ahead of the first step)."""
+    puts it there ahead of the first step).  A row of -1 (no row, in a
+    :class:`Traceable` ``rows`` call's index) is never part of a run."""
 
     __slots__ = ("rows", "sel", "_dev")
 
@@ -833,7 +847,8 @@ class _Index:
         self.rows = rows
         r0 = int(rows.flat[0])
         self.sel = (slice(r0, r0 + len(rows))
-                    if rows.ndim == 1 and (np.diff(rows) == 1).all()
+                    if rows.ndim == 1 and r0 >= 0
+                    and (np.diff(rows) == 1).all()
                     else None)
         self._dev: dict[torch.device, torch.Tensor] = {}
 
@@ -1282,49 +1297,98 @@ def _wavefront_plan(tp, infos, stores: _Stores) -> tuple[list, dict]:
     return plans, dirty_by_name
 
 
+def _in_place(info, in_plan, out_plan) -> bool:
+    """Whether a task joins a group that its class's ``rows`` hook reads
+    in place: the class has the hook, no input is NEW, and no READ flow
+    is forwarded to another row (a forward needs the gathered value)."""
+    return (info.kernel is not None and info.kernel.rows is not None
+            and all(ip[0] != "new" for ip in in_plan)
+            and all(w or not ex for _p, ex, w in out_plan))
+
+
+def _split_by_store(members: list, opt: list[int]) -> list[list]:
+    """An in-place group's members in parts whose flows ``opt`` (READ
+    flows that may be absent) each name one store: the hook takes one
+    store a flow.  A member absent on a flow fits any part."""
+    parts: list[tuple[dict, list]] = []
+    for m in members:
+        names = {fj: m[0][fj][1] for fj in opt if m[0][fj][0] == "row"}
+        for seen, ms in parts:
+            if all(seen.get(fj, nm) == nm for fj, nm in names.items()):
+                seen.update(names)
+                ms.append(m)
+                break
+        else:
+            parts.append((dict(names), [m]))
+    return [ms for _names, ms in parts]
+
+
 def _group_plans(plans, infos) -> dict[int, list]:
     """Group per-task plans into ONE batched kernel call per (wavefront,
     class, source signature) and build the gather/scatter specs.  Returns
-    ``{level: [(kernel, n_writable, gathers, scatters, G), ...]}``."""
+    ``{level: [(kernel, n_writable, gathers, scatters, G), ...]}``.  A
+    class whose kernel has a ``rows`` hook groups its tasks regardless of
+    which READ flows are absent, and its groups gather nothing: each
+    data flow is ``(store, "rows", index)`` with -1 for an absent task."""
     by_level: dict[int, dict[tuple, list]] = {}
     for node, L, cname, key, in_plan, out_plan in plans:
-        sig = (cname,
-               tuple(ip if ip[0] in ("none", "new") else ("row", ip[1])
-                     for ip in in_plan),
-               tuple((p[0] if p else None, tuple(n for n, _ in ex), w)
-                     for p, ex, w in out_plan))
+        outs = tuple((p[0] if p else None, tuple(n for n, _ in ex), w)
+                     for p, ex, w in out_plan)
+        if _in_place(infos[cname], in_plan, out_plan):
+            sig = (cname, "rows",
+                   tuple(("opt",) if not out_plan[fj][2]
+                         else ip if ip[0] == "none" else ("row", ip[1])
+                         for fj, ip in enumerate(in_plan)), outs)
+        else:
+            sig = (cname,
+                   tuple(ip if ip[0] in ("none", "new") else ("row", ip[1])
+                         for ip in in_plan), outs)
         by_level.setdefault(L, {}).setdefault(sig, []).append(
             (in_plan, out_plan))
 
     level_specs: dict[int, list] = {}
     for L in sorted(by_level):
         specs = []
+        groups = []
         for sig, members in by_level[L].items():
+            if sig[1] == "rows":
+                opt = [fj for fj, k in enumerate(sig[2]) if k == ("opt",)]
+                groups += [(sig, True, ms)
+                           for ms in _split_by_store(members, opt)]
+            else:
+                groups.append((sig, False, members))
+        for sig, in_place, members in groups:
             # a group's tasks are independent, so their order is free:
             # in store-row order, consecutive rows gather as views and
             # scatter as slabs (the topological order leaves them reversed)
             members.sort(key=lambda m: (
-                tuple(ip[2] for ip in m[0] if ip[0] == "row"),
+                tuple(ip[2] if ip[0] == "row" else -1 for ip in m[0]),
                 tuple(p[1] for p, _, _ in m[1] if p is not None)))
             cname = sig[0]
             info = infos[cname]
             G = len(members)
             # per data flow: None | (name, kind, arg) with kind "const"
             # (one row feeds the whole group), "range" (consecutive rows:
-            # a view), "gather" (an index copy), or "new" (zeros of a
-            # static shape made inline)
+            # a view), "gather" (an index copy), "new" (zeros of a
+            # static shape made inline), or "rows" (an in-place group's
+            # rows, -1 where a task has none: the hook reads them)
             gathers = []
             for fj in range(len(info.data_flows)):
-                ip0 = members[0][0][fj]
-                if ip0[0] == "none":
+                present = [m[0][fj] for m in members
+                           if m[0][fj][0] != "none"]
+                if not present:
                     gathers.append(None)
                     continue
+                ip0 = present[0]
                 if ip0[0] == "new":
                     gathers.append(("", "new", (ip0[1], ip0[2])))
                     continue
                 name = ip0[1]
-                rows = np.array([m[0][fj][2] for m in members], np.int64)
-                if (rows == rows[0]).all():
+                rows = np.array([m[0][fj][2] if m[0][fj][0] == "row"
+                                 else -1 for m in members], np.int64)
+                if in_place:
+                    gathers.append((name, "rows", _Index(rows)))
+                elif (rows == rows[0]).all():
                     gathers.append((name, "const", int(rows[0])))
                 else:
                     idx = _Index(rows)
@@ -1422,11 +1486,16 @@ def _run_level(st: dict, specs) -> None:
             elif kind == "const":
                 args.append(st[name][arg])
                 batched.append(False)
+            elif kind == "rows":
+                args.append((st[name], arg.on(st[name].device)))
+                batched.append(True)
             else:
                 args.append(st[name][arg.on(st[name].device)])
                 batched.append(True)
         if nw == 0:
             res, out_batched = (), False  # nothing written: nothing to run
+        elif any(g is not None and g[1] == "rows" for g in gathers):
+            res, out_batched = _results(kernel.rows(*args), nw), True
         elif G == 1 or not any(batched):
             res, out_batched = _call_one(kernel, nw, args), False
         else:

@@ -488,6 +488,99 @@ def test_stencil_wrapper_raises_on_cuda_without_fallback(card, bad):
     assert ks.stencil1d.launches == before
 
 
+def _rows_case(R, dtype, rows, length, seed, pitch=0, scattered=False):
+    """A store of ``rows`` rows of ``length`` (a row pitch ``pitch``
+    longer, where set), a group of G = rows - 2 tiles and their left and
+    right neighbours' rows (-1 at the two edges), consecutive or in a
+    seeded order."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    full = torch.randn(rows, length + pitch, device="cuda", generator=g)
+    st = full.to(dtype)[:, :length]
+    G = rows - 2
+    c = torch.arange(1, G + 1, device="cuda")
+    if scattered:
+        c = c[torch.randperm(G, generator=torch.Generator().manual_seed(
+            seed)).cuda()]
+    lt, rt = c - 1, c + 1
+    lt[c == 1] = -1
+    rt[c == G] = -1
+    cr = slice(1, G + 1) if not scattered else c
+    w = torch.randn(2 * R + 1, generator=torch.Generator().manual_seed(R))
+    return st, cr, lt, rt, w
+
+
+# fp32: fmaf against the plain version's rounded products (a few ulp of
+# |out| of order 1-10); bf16 output: one bf16 ulp (2^-7 of |out|, and
+# 4e-2 near 0) where the two fp32 sums round apart
+@pytest.mark.parametrize("R,dtype,rows,length,pitch,scattered,tol", [
+    (1, torch.float32, 10, 4096, 0, False, 1e-5),
+    (4, torch.float32, 10, 4096 + 3, 0, True, 1e-5),     # unaligned rows
+    (4, torch.bfloat16, 10, 4100, 0, False, 4e-2),
+    (4, torch.bfloat16, 7, 8191, 0, True, 4e-2),
+    (4, torch.float32, 9, 5000, 12, True, 1e-5),         # a row pitch
+    (31, torch.float32, 5, 70, 0, False, 1e-5),          # 63 taps
+    (4, torch.float32, 66, 1 << 18, 0, False, 1e-5),     # one rank's level
+    (4, torch.bfloat16, 66, 1 << 18, 0, False, 4e-2)])
+def test_stencil_rows_kernel_matches_plain(card, R, dtype, rows, length,
+                                           pitch, scattered, tol):
+    st, cr, lt, rt, w = _rows_case(R, dtype, rows, length, 20 + R, pitch,
+                                   scattered)
+    before = ks.stencil1d.launches
+    got = ks.stencil1d_rows(st, cr, st, lt, st, rt, w)
+    torch.cuda.synchronize()
+    assert ks.stencil1d.launches == before + 1
+    want = ks.stencil1d_rows_plain(st, cr, st, lt, st, rt, w)
+    assert got.shape == want.shape == (rows - 2, length)
+    assert got.dtype == dtype
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=tol)
+
+
+def test_stencil_rows_kernel_three_stores_and_one_row(card):
+    """Each flow from its own store, a flow with no rows (zeros), and a
+    group of one."""
+    R = 4
+    g = torch.Generator(device="cuda").manual_seed(31)
+    c, lft = (torch.randn(6, 4104, device="cuda", generator=g)
+              for _ in range(2))
+    w = [0.1] * (2 * R + 1)
+    lt = torch.tensor([5, 0, 3], device="cuda")
+    for args in ((c, slice(2, 5), lft, lt, None, None),
+                 (c, slice(4, 5), None, None, lft,
+                  torch.tensor([2], device="cuda"))):
+        got = ks.stencil1d_rows(*args, w)
+        want = ks.stencil1d_rows_plain(*args, w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", ["float64", "taps", "even", "range",
+                                 "cpu_rows", "dtypes"])
+def test_stencil_rows_wrapper_raises_on_cuda_without_fallback(card, bad):
+    st = torch.randn(6, 256, device="cuda")
+    c, lt, rt = slice(1, 5), torch.tensor([-1, 1, 2, 3], device="cuda"), \
+        torch.tensor([2, 3, 4, -1], device="cuda")
+    lst = st
+    w = [0.1] * 9
+    if bad == "float64":
+        st = lst = st.double()
+    elif bad == "taps":
+        w = [0.01] * (ks.MAX_TAPS + 1)
+    elif bad == "even":
+        w = [0.1] * 8
+    elif bad == "range":
+        lt = torch.tensor([-1, 1, 2, 6], device="cuda")
+    elif bad == "cpu_rows":
+        lt = lt.cpu()
+    else:
+        lst = st.bfloat16()
+    before = ks.stencil1d.launches
+    with pytest.raises((TypeError, ValueError)):
+        ks.stencil1d_rows(st, c, lst, lt, st, rt, w)
+    assert ks.stencil1d.launches == before
+
+
 def test_lowered_stencil_on_the_card(card):
     rng = np.random.default_rng(4)
     base = rng.standard_normal(8 * 4096).astype(np.float32)
@@ -498,7 +591,7 @@ def test_lowered_stencil_on_the_card(card):
     assert low.mode == "wavefront"
     before = ks.stencil1d.launches
     low.execute()
-    assert ks.stencil1d.launches == before + 3 * 5
+    assert ks.stencil1d.launches == before + 5     # one a level
     got = torch.cat([V.data_of(i).newest_copy().value for i in range(8)])
     np.testing.assert_allclose(got.numpy(),
                                stencil_reference(base, w, 5).numpy(),
