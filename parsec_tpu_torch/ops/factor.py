@@ -28,19 +28,40 @@ models share them:
 
 Each takes a CUDA or a CPU tensor; any other device raises.  Every
 result is row-major and contiguous (the solvers return column-major
-batches), as K1 and the tile cache want it.
+batches), as K1 and the tile cache want it.  Inside a lowered step's
+trace (:mod:`..prof.spans`), :func:`potrf`, :func:`getrf_nopiv` and the
+inverses each record one span, ``lib.potrf``, ``lib.getrf`` or
+``lib.trsm``, with the tiles it factors or inverts (``batch``) and
+their order (``nb``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
+import time
 from collections import Counter
 from typing import Any, Callable, Iterator
 
 import torch
 
 from ..data.data import ACCESS_WRITE
+from ..prof import spans as _spans
+
+_now = time.perf_counter_ns
+
+
+def _lib_span(r: Any, name: str, t0: int, batch: int, nb: int) -> None:
+    """A library tile call's span (``t0`` to now) in the lowered step's
+    trace, if one is active."""
+    tid = _spans.active_trace()
+    if tid:
+        r.record(name, tid, t0, _now(), None, ("batch", batch, "nb", nb))
+
+
+def _batch(t: torch.Tensor) -> int:
+    return math.prod(t.shape[:-2])
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -53,9 +74,14 @@ def potrf(t: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of ``t`` (``[..., n, n]``, its lower triangle
     read) in fp32; NaNs where a factorization failed."""
     _device_kind(t)
+    r = _spans.recorder
+    t0 = _now() if r is not None else 0
     L, info = torch.linalg.cholesky_ex(t.float(), check_errors=False)
-    return L.masked_fill((info != 0)[..., None, None],
-                         float("nan")).contiguous()
+    out = L.masked_fill((info != 0)[..., None, None],
+                        float("nan")).contiguous()
+    if r is not None:
+        _lib_span(r, "lib.potrf", t0, _batch(t), t.shape[-1])
+    return out
 
 
 def getrf_nopiv_plain(t: torch.Tensor) -> torch.Tensor:
@@ -74,11 +100,17 @@ def getrf_nopiv_plain(t: torch.Tensor) -> torch.Tensor:
 def getrf_nopiv(t: torch.Tensor) -> torch.Tensor:
     """Packed nopiv LU of ``t`` (``[..., n, n]``) in fp32: the library's
     ``lu_factor_ex`` on the card, :func:`getrf_nopiv_plain` on the CPU."""
+    r = _spans.recorder
+    t0 = _now() if r is not None else 0
     if _device_kind(t) == "cpu":
-        return getrf_nopiv_plain(t)
-    lu, _, _ = torch.linalg.lu_factor_ex(t.float(), pivot=False,
-                                         check_errors=False)
-    return lu.contiguous()
+        lu = getrf_nopiv_plain(t)
+    else:
+        lu, _, _ = torch.linalg.lu_factor_ex(t.float(), pivot=False,
+                                             check_errors=False)
+        lu = lu.contiguous()
+    if r is not None:
+        _lib_span(r, "lib.getrf", t0, _batch(t), t.shape[-1])
+    return lu
 
 
 def tri_inverse(ts: torch.Tensor, upper: bool,
@@ -88,8 +120,20 @@ def tri_inverse(ts: torch.Tensor, upper: bool,
     ``unit``), in fp32.  A stack broadcast along its leading axis (one
     tile shared by a group) is inverted once and broadcast back."""
     _device_kind(ts)
+    r = _spans.recorder
+    t0 = _now() if r is not None else 0
     if ts.dim() == 3 and ts.shape[0] > 1 and ts.stride(0) == 0:
-        return tri_inverse(ts[:1], upper, unit).expand(ts.shape)
+        inv = _tri_inverse(ts[:1], upper, unit).expand(ts.shape)
+        batch = 1
+    else:
+        inv, batch = _tri_inverse(ts, upper, unit), _batch(ts)
+    if r is not None:
+        _lib_span(r, "lib.trsm", t0, batch, ts.shape[-1])
+    return inv
+
+
+def _tri_inverse(ts: torch.Tensor, upper: bool, unit: bool) -> torch.Tensor:
+    """:func:`tri_inverse` of every tile of ``ts``, one solve."""
     n = ts.shape[-1]
     eye = torch.eye(n, dtype=torch.float32, device=ts.device).expand(
         ts.shape)
@@ -102,13 +146,18 @@ def tri_inverse_tiles(ts: list[torch.Tensor], upper: bool,
     """:func:`tri_inverse` of each tile of a list, each distinct tile
     once (one batched solve); the inverses come back in list order,
     contiguous, a tile listed twice getting the same inverse."""
+    _device_kind(ts[0])
+    r = _spans.recorder
+    t0 = _now() if r is not None else 0
     first: dict[int, int] = {}
     uniq = []
     for t in ts:
         if t.data_ptr() not in first:
             first[t.data_ptr()] = len(uniq)
             uniq.append(t)
-    inv = tri_inverse(torch.stack(uniq), upper, unit)
+    inv = _tri_inverse(torch.stack(uniq), upper, unit)
+    if r is not None:
+        _lib_span(r, "lib.trsm", t0, len(uniq), ts[0].shape[-1])
     return [inv[first[t.data_ptr()]] for t in ts]
 
 

@@ -49,6 +49,13 @@ fp32 under either setting, which is what the JAX package computes on the
 CPU.  :func:`k1_variant` is the rule that picks the kernel's variant
 before each launch.
 
+**Spans.**  Inside a lowered step's trace (:mod:`..prof.spans`), each
+launch records ``k1.prep``, the entry's host work before the upload
+(checks, the variant, tile pointers, the pinned buffer, tensor maps), and
+``k1.launch``, the pinned host-to-device copy and the launch, each with
+the launch's variant, form, batch and shape.  A CPU tensor launches
+nothing and records nothing.
+
 Left out: ``matmul_xla`` (the jitted XLA body has no port of its own:
 :func:`gemm_update` is the body).
 """
@@ -56,12 +63,14 @@ Left out: ``matmul_xla`` (the jitted XLA body has no port of its own:
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Any
 
 import torch
 
 from ..core.params import params as _params
 from ..device.kernels import register_kernel
+from ..prof import spans as _spans
 from ..ptg.lowering import register_traceable
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +80,7 @@ _INT_MAX = 2**31 - 1
 K1_VARIANTS = ("simt_fp32", "mma_tf32", "wgmma_bf16")   # csrc/gemm.cu codes
 PRECISIONS = ("default", "highest")
 _MAP_BYTES = 128       # one CUtensorMap
+_now = time.perf_counter_ns
 
 _params.register("gemm_precision", "default",
                  "matmul precision for GEMM bodies: default|highest")
@@ -255,6 +265,18 @@ def k1_form(trans_b: bool, subtract: bool, add_c: bool) -> str:
             + ("" if add_c else "-noc"))
 
 
+def _k1_spans(r: Any, t0: int, t1: int, variant: str, form: str,
+              batch: int, m: int, n: int, k: int) -> None:
+    """A launch's ``k1.prep`` (``t0`` to ``t1``) and ``k1.launch`` (``t1``
+    to now) in the lowered step's trace, if one is active."""
+    tid = _spans.active_trace()
+    if tid:
+        args = ("variant", variant, "form", form, "batch", batch, "m", m,
+                "n", n, "k", k)
+        r.record("k1.prep", tid, t0, t1, None, args)
+        r.record("k1.launch", tid, t1, _now(), None, args)
+
+
 def _count(variant: str, key: str = "nn", batch: int = 1) -> None:
     gemm_update.launches += 1
     gemm_update.launches_by_variant[variant] += 1
@@ -278,6 +300,8 @@ def gemm_update(a: torch.Tensor, b: torch.Tensor,
     ``default`` and in strict fp32 under ``highest``; bf16 inputs run on
     bf16 tensor cores (``wgmma``) under both, their products being exact
     in fp32, in the plain ``c + a@b`` form."""
+    r = _spans.recorder
+    t_in = _now() if r is not None else 0
     precision = gemm_precision(precision)
     out_dtype = a.dtype if c is None else c.dtype
     batch, m, n, k = _check(a, b, c, out_dtype, trans_b)
@@ -288,9 +312,13 @@ def gemm_update(a: torch.Tensor, b: torch.Tensor,
     variant = k1_variant(a.dtype, out_dtype, m, n, k,
                          _aligned(a, b, *([] if c is None else [c])),
                          precision, trans_b, subtract)
+    form = k1_form(trans_b, subtract, c is not None)
+    t1 = _now() if r is not None else 0
     _launch(a, b, c, out, batch, m, n, k, variant, trans_b=trans_b,
             subtract=subtract)
-    _count(variant, k1_form(trans_b, subtract, c is not None), batch)
+    if r is not None:
+        _k1_spans(r, t_in, t1, variant, form, batch, m, n, k)
+    _count(variant, form, batch)
     return out
 
 
@@ -316,6 +344,8 @@ def gemm_update_tiles(as_: list[torch.Tensor], bs: list[torch.Tensor],
     The tile pointers (and, for ``wgmma_bf16``, a pair of TMA tensor maps
     a tile, encoded here on the host) go up in one pinned host-to-device
     copy."""
+    r = _spans.recorder
+    t_in = _now() if r is not None else 0
     precision = gemm_precision()
     if not (len(as_) == len(bs) == len(as_ if cs is None else cs)) \
             or not as_:
@@ -376,18 +406,24 @@ def gemm_update_tiles(as_: list[torch.Tensor], bs: list[torch.Tensor],
         if rc != 0:
             raise RuntimeError(f"gemm: tensor maps of {batch} tiles "
                                f"{m}x{k}@{k}x{n} refused (cudaError {rc})")
+    form = k1_form(trans_b, subtract, cs is not None)
+    t1 = _now() if r is not None else 0
     dev = host.to(a0.device, non_blocking=True)
     _launch(a0, b0, c0, outs[0], batch, m, n, k, variant,
             ptrs=dev.data_ptr(),
             maps=dev.data_ptr() + maps_at if nmaps else None,
             trans_b=trans_b, subtract=subtract)
-    _count(variant, k1_form(trans_b, subtract, cs is not None), batch)
+    if r is not None:
+        _k1_spans(r, t_in, t1, variant, form, batch, m, n, k)
+    _count(variant, form, batch)
     return outs
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a@b`` in ``a.dtype`` with fp32 accumulation (``matmul_pallas``),
     at the ``gemm_precision`` knob's setting."""
+    r = _spans.recorder
+    t_in = _now() if r is not None else 0
     precision = gemm_precision()
     batch, m, n, k = _check(a, b, None, a.dtype)
     if a.device.type == "cpu":
@@ -396,7 +432,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = a.new_empty((*a.shape[:-1], n))
     variant = k1_variant(a.dtype, a.dtype, m, n, k, _aligned(a, b),
                          precision)
+    t1 = _now() if r is not None else 0
     _launch(a, b, None, out, batch, m, n, k, variant)
+    if r is not None:
+        _k1_spans(r, t_in, t1, variant, "nn-noc", batch, m, n, k)
     matmul.launches += 1
     return out
 

@@ -100,8 +100,8 @@ def normalize(raw: Iterable) -> list[tuple]:
     for s in raw:
         name, trace, t0, t1 = s[0], int(s[1]), int(s[2]), int(s[3])
         args = s[5] if len(s) > 5 else None
-        a = {"task": args} if isinstance(args, str) else \
-            (dict(args) if isinstance(args, dict) else {})
+        a = _spans.args_dict(args) \
+            if isinstance(args, (str, dict, tuple, list)) else {}
         if len(s) > 4 and s[4]:
             a.setdefault("tenant", s[4])
         out.append((name, trace, t0, max(t0, t1), a))

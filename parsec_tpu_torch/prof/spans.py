@@ -20,7 +20,34 @@ comm.get            a rendezvous GET, request -> payload landed
 comm.get_serve      the producer serving that GET (fragment window)
 wire.ctrl           one CTRL frame landing (socket fabric)
 serve.request       the whole submission, submit -> ticket resolution
+lowered.step        one ``step_fn`` call of a lowered pool, call -> return
+                    (args ``mode``); each call is one trace of its own
+lowered.clone       the wavefront step's clones of the stores it writes and
+                    its saved and restored rows; the gathering chain's
+                    clone of its result store (``bytes``)
+lowered.level       one wavefront level (``level``, ``groups``)
+lowered.gather      one group's gathers and NEW zeros (``task``, ``G``,
+                    ``bytes``)
+lowered.call        one group's kernel call, also a group that runs
+                    nothing (``task``, ``G``)
+lowered.scatter     one level's scatters, with the clones of pending values
+                    that share a store's memory (``bytes``)
+k1.prep             K1's host work before its upload: checks, tile
+                    pointers, pinned buffer, tensor maps (``variant``,
+                    ``form``, ``batch``, ``m``, ``n``, ``k``)
+k1.launch           K1's pinned host-to-device copy and its launch (same)
+lib.potrf           a library tile factor, Cholesky (``batch``, ``nb``)
+lib.trsm            a library triangular inverse (``batch``, ``nb``)
+lib.getrf           a library tile factor, LU without pivoting (same)
 ==================  =========================================================
+
+The ``lowered.*``, ``k1.*`` and ``lib.*`` spans are recorded only inside
+a lowered step's trace (:func:`active_trace` is not 0): the step makes
+its trace the thread's active one for the kernel wrappers under it.  The
+``bytes`` of the gather, scatter and clone spans are the payload bytes
+of the tensors they copy (an index gather's result, the rows a scatter
+writes, a clone), counted once each; the wavefront plan states the same
+totals a step as ``LoweredTaskpool.bytes_moved``.
 
 A task on the CUDA device module gets its ``exec`` span from the EXEC
 pair the manager fires around its hand-off (``device/cuda.py``): host
@@ -35,7 +62,16 @@ Cost:
   with no allocation.
 - **enabled**: one thread-local stack operation at begin, one list
   append at end; the capacity bound (``prof_spans_max``) drops the
-  oldest half under a lock taken only at overflow.
+  oldest half under a lock taken only at overflow.  A lowered step
+  records a few spans a level and a K1 launch (about 700 a Cholesky step
+  of 94 levels), each two clock reads, an argument tuple and a record.
+
+**One clock.**  Spans keep ``perf_counter_ns``.  A recorder takes one
+anchor when it is made: the tightest of several back-to-back pairs of
+``time.time_ns()`` and ``perf_counter_ns()`` (:func:`clock_anchor`), as
+``anchor`` ``(unix_ns, perf_ns)``; :meth:`SpanRecorder.to_wall` puts a
+span on the wall clock, which ``torch.profiler``'s events are on, and
+:func:`export_chrome` writes the same anchor.
 
 Across ranks the 8-byte ``trace_id`` rides the activation tuple
 (:func:`~parsec_tpu_torch.comm.remote_dep.pack_activation`), the CTRL
@@ -72,6 +108,7 @@ _params.register("prof_spans_max", 65536,
                  "is dropped (the snapshotter's bounding discipline)")
 
 _now = time.perf_counter_ns
+_ident = threading.get_ident
 
 
 class TraceContext:
@@ -101,30 +138,57 @@ def new_trace() -> TraceContext:
     return TraceContext(tid)
 
 
+def clock_anchor(pairs: int = 16) -> tuple[int, int]:
+    """``(unix_ns, perf_ns)`` read together: of ``pairs`` back-to-back
+    reads ``perf, time_ns, perf``, the one whose two ``perf`` reads lie
+    closest, with the middle of those two."""
+    best = None
+    for _ in range(pairs):
+        p0 = _now()
+        u = time.time_ns()
+        p1 = _now()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, u, (p0 + p1) // 2)
+    return best[1], best[2]
+
+
 class SpanRecorder:
     """Bounded store of finished spans.  ``record`` is one tuple build +
     one list append (GIL-atomic), the flight recorder's ring-write
     shape; the capacity bound drops the oldest half under a lock taken
-    only at overflow."""
+    only at overflow.  ``anchor`` is the recorder's one clock anchor
+    (:func:`clock_anchor`), taken when it is made."""
 
-    __slots__ = ("max", "spans", "dropped", "_lock")
+    __slots__ = ("max", "spans", "dropped", "anchor", "_lock")
 
     def __init__(self, max_spans: int | None = None) -> None:
         self.max = max_spans if max_spans is not None \
             else int(_params.get("prof_spans_max"))
         self.spans: list[tuple] = []
         self.dropped = 0
+        self.anchor = clock_anchor()
         self._lock = threading.Lock()
+
+    def to_wall(self, perf_ns: int) -> int:
+        """A span's ``perf_counter_ns`` time on the wall clock
+        (``time.time_ns``), through :attr:`anchor`."""
+        return perf_ns + self.anchor[0] - self.anchor[1]
 
     def record(self, name: str, trace_id: int, t0: int, t1: int,
                tenant: str | None = None,
-               args: "dict | str | None" = None) -> None:
+               args: "dict | str | tuple | None" = None) -> None:
         """``args`` may be a plain string as the cheap form — the hot
         task-span path passes the task-class name without building a
-        dict; export maps it to ``{"task": <str>}``."""
-        self.spans.append((name, trace_id, t0, t1, tenant, args,
-                           threading.get_ident()))
-        if len(self.spans) > self.max:
+        dict; export maps it to ``{"task": <str>}``.  A flat tuple
+        ``(key, value, key, value, ...)`` of strings and numbers is the
+        form of the spans recorded by the hundred a step: the collector
+        stops tracking such a record in its young generations, where a
+        dict would keep the record tracked into the oldest one, whose
+        full collections then pause for the whole heap (:func:`args_dict`
+        reads any form)."""
+        spans = self.spans
+        spans.append((name, trace_id, t0, t1, tenant, args, _ident()))
+        if len(spans) > self.max:
             with self._lock:
                 if len(self.spans) > self.max:
                     drop = self.max // 2
@@ -135,9 +199,43 @@ class SpanRecorder:
         return [s for s in list(self.spans) if s[1] == trace_id]
 
 
+def args_dict(args: "dict | str | tuple | list | None") -> dict:
+    """A span's ``args`` in any recorded form as a dict (a flat tuple
+    comes back from a raw export as a list)."""
+    if not args:
+        return {}
+    if type(args) is str:               # the cheap hot-path form
+        return {"task": args}
+    if type(args) in (tuple, list):     # the flat (key, value, ...) form
+        return dict(zip(args[::2], args[1::2]))
+    return dict(args)
+
+
 # the module-global recorder slot the hot sites branch on: None = the
 # one-branch disabled path (pinned allocation-free by the tests)
 recorder: SpanRecorder | None = None
+
+class _Active(threading.local):
+    """The lowered step's trace on each thread (0: none), for the kernel
+    wrappers under it."""
+
+    tid = 0
+
+
+_active = _Active()
+
+
+def active_trace() -> int:
+    """The trace id of the lowered step running on this thread, else 0."""
+    return _active.tid
+
+
+def enter_trace(trace_id: int) -> int:
+    """Make ``trace_id`` this thread's active trace; returns the one it
+    replaces, to be entered again on the way out."""
+    prev = _active.tid
+    _active.tid = trace_id
+    return prev
 
 
 class _TaskSpans:
@@ -291,10 +389,7 @@ def to_chrome_events(pid: int = 3) -> list[dict]:
         if tenant:
             a["tenant"] = tenant
         if args:
-            if type(args) is str:       # the cheap hot-path form
-                a["task"] = args
-            else:
-                a.update(args)
+            a.update(args_dict(args))
         events.append({"name": name, "cat": "span", "ph": "X",
                        "ts": t0 / 1e3,
                        "dur": max((t1 - t0) / 1e3, 0.001),
@@ -322,11 +417,14 @@ def export_chrome(path: str, rank: int = 0) -> dict:
     """Write THIS rank's spans as a standalone Chrome trace, anchored by
     a wall-clock sync event — ``perf_counter_ns`` clocks are per-process,
     so :mod:`tracemerge` aligns ranks through the ``parsec_clock_sync``
-    anchor (``unix_ns`` - ``perf_ns`` offset) before stitching."""
+    anchor (``unix_ns`` - ``perf_ns`` offset) before stitching.  The
+    anchor is the recorder's own (:attr:`SpanRecorder.anchor`)."""
+    r = recorder
+    unix_ns, perf_ns = r.anchor if r is not None else clock_anchor()
     events: list[dict] = [
         {"name": "parsec_clock_sync", "ph": "i", "s": "g",
-         "ts": _now() / 1e3, "pid": rank, "tid": 0,
-         "args": {"unix_ns": time.time_ns(), "perf_ns": _now()}},
+         "ts": perf_ns / 1e3, "pid": rank, "tid": 0,
+         "args": {"unix_ns": unix_ns, "perf_ns": perf_ns}},
         {"name": "process_name", "ph": "M", "pid": rank,
          "args": {"name": f"rank{rank}"}},
     ]

@@ -104,6 +104,15 @@ source and destination).  A context over more than one rank with no
 mesh raises :class:`LoweringError`, and the caller runs the dynamic
 scheduler on the same pool.
 
+**Spans.**  With the span recorder installed (:mod:`..prof.spans`), each
+call of a pass's step is one trace: ``lowered.step``; the wavefront's
+``lowered.clone``, ``lowered.level`` and, within a level, each group's
+``lowered.gather`` and ``lowered.call``, then its ``lowered.scatter``;
+the gathering chain's ``lowered.clone``.  The gather, scatter and clone
+spans carry the bytes they copy, and a wavefront lowering states the same
+totals a step as :attr:`LoweredTaskpool.bytes_moved`.  Without the
+recorder a step pays one falsy branch a site.
+
 Left out, each still in ``ROADMAP.md``: the JAX package's persistent
 compile cache (``_ensure_persistent_compile_cache``): it has no
 counterpart, since the kernel libraries already persist in their build
@@ -126,6 +135,7 @@ import torch
 
 from ..core.params import params as _params
 from ..data.data import ACCESS_RW, ACCESS_WRITE
+from ..prof import spans as _spans
 
 __all__ = ["DeviceMesh", "LoweredRegion", "LoweringCache", "LoweringError",
            "LoweredTaskpool", "RegionLoweredTaskpool", "Traceable",
@@ -153,6 +163,9 @@ _params.register(
     "wall-clock budget for staged region preparation (smallest region "
     "first): once it is spent, the remaining regions run eager (prepared "
     "at first run); cache hits are always free; 0.0 = unbudgeted")
+
+
+_now = time.perf_counter_ns
 
 
 class LoweringError(RuntimeError):
@@ -460,6 +473,29 @@ def _call_group(kernel: Traceable, nw: int, args: list) -> tuple:
     cols = [None if a is None else list(a.unbind(0)) for a in args]
     return tuple(torch.stack(v) for v in
                  _results(kernel.apply(*cols), nw))
+
+
+def _traced(mode: str, run: Callable) -> Callable:
+    """``run`` as a pass's step.  With the span recorder installed, each
+    call is one trace: a ``lowered.step`` span from call to return, whose
+    id is the thread's active trace meanwhile, so that the spans under it
+    (levels, groups, clones, K1, the library's tile calls) join it.  With
+    none installed, one falsy branch."""
+
+    def step_fn(st: dict) -> dict:
+        r = _spans.recorder
+        if r is None:
+            return run(st)
+        tid = _spans.new_trace().trace_id
+        prev = _spans.enter_trace(tid)
+        t0 = _now()
+        try:
+            return run(st)
+        finally:
+            _spans.enter_trace(prev)
+            r.record("lowered.step", tid, t0, _now(), None, ("mode", mode))
+
+    return step_fn
 
 
 # ---------------------------------------------------------------------------
@@ -1075,27 +1111,35 @@ def _try_chain_collapse(tp, infos, stores: _Stores):
         arg_names = [{id(lhs): an, id(rhs): bn, id(acc): cn}[id(f)]
                      for f in info.data_flows]
 
-        def step_fn(st: dict) -> dict:
+        def run_dense(st: dict) -> dict:
             st = dict(st)
             st[cn] = _call_one(kernel, 1, [st[nm] for nm in arg_names])[0]
             return st
 
-        return step_fn, ("chain-dense", kernel, tuple(arg_names), an, bn, cn)
+        return (_traced("chain-dense", run_dense),
+                ("chain-dense", kernel, tuple(arg_names), an, bn, cn))
 
     ia, ib, ic = _Index(IA), _Index(IB), _Index(IC.reshape(-1))
     m_n = IC.shape
 
-    def step_fn(st: dict) -> dict:
+    def run(st: dict) -> dict:
         dev = st[cn].device
         ja, jb, jc = ia.on(dev), ib.on(dev), ic.on(dev)
         c = combine(st[an][ja], st[bn][jb],
                     st[cn][jc].reshape(*m_n, *st[cn].shape[1:]))
         st = dict(st)
+        r = _spans.recorder
+        tid = _spans.active_trace() if r is not None else 0
+        t0 = _now() if tid else 0
         out = st[cn].clone()
+        if tid:
+            r.record("lowered.clone", tid, t0, _now(), None,
+                     ("bytes", out.nbytes))
         out[jc] = c.reshape(-1, *c.shape[2:]).to(out.dtype)
         st[cn] = out
         return st
 
+    step_fn = _traced("chain-gather", run)
     step_fn.indices = (ia, ib, ic)
     return step_fn, ("chain-gather", kernel, an, bn, cn,
                      _freeze(IA), _freeze(IB), _freeze(IC))
@@ -1326,7 +1370,7 @@ def _split_by_store(members: list, opt: list[int]) -> list[list]:
 def _group_plans(plans, infos) -> dict[int, list]:
     """Group per-task plans into ONE batched kernel call per (wavefront,
     class, source signature) and build the gather/scatter specs.  Returns
-    ``{level: [(kernel, n_writable, gathers, scatters, G), ...]}``.  A
+    ``{level: [(kernel, n_writable, gathers, scatters, G, class), ...]}``.  A
     class whose kernel has a ``rows`` hook groups its tasks regardless of
     which READ flows are absent, and its groups gather nothing: each
     data flow is ``(store, "rows", index)`` with -1 for an absent task."""
@@ -1416,7 +1460,7 @@ def _group_plans(plans, infos) -> dict[int, list]:
                                          for m in members], np.int64)
                         scatters.append((name, _Index(rows), "in", fj))
             specs.append((info.kernel, len(info.writable_flows), gathers,
-                          scatters, G))
+                          scatters, G, cname))
         level_specs[L] = specs
     return level_specs
 
@@ -1430,47 +1474,114 @@ def _build_wavefront(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
     plans, dirty_by_name = _wavefront_plan(tp, infos, stores)
     level_specs = _group_plans(plans, infos)
     targets = sorted({s[0] for specs in level_specs.values()
-                      for *_, scatters, _G in specs for s in scatters})
+                      for *_, scatters, _G, _c in specs for s in scatters})
     dirty = {name: _Index(rows) for name, rows in dirty_by_name.items()}
     levels = [level_specs[L] for L in sorted(level_specs)]
 
-    def step_fn(st: dict) -> dict:
+    def run(st: dict) -> dict:
+        r = _spans.recorder
+        tid = _spans.active_trace() if r is not None else 0
+        t0 = _now() if tid else 0
         st = dict(st)
         for name in targets:            # the step writes clones, in place
             st[name] = st[name].clone()
         saved = {name: st[name][idx.on(st[name].device)].clone()
                  for name, idx in dirty.items()}
-        for specs in levels:
-            _run_level(st, specs)
-        for name, idx in dirty.items():
-            st[name][idx.on(st[name].device)] = saved[name]
+        if tid:
+            r.record("lowered.clone", tid, t0, _now(), None, ("bytes", sum(
+                st[name].nbytes for name in targets) + sum(
+                v.nbytes for v in saved.values())))
+        for i, specs in enumerate(levels):
+            _run_level(st, specs, i)
+        if dirty:
+            t0 = _now() if tid else 0
+            for name, idx in dirty.items():
+                st[name][idx.on(st[name].device)] = saved[name]
+            if tid:
+                r.record("lowered.clone", tid, t0, _now(), None, (
+                    "bytes", sum(v.nbytes for v in saved.values())))
         return st
 
+    step_fn = _traced("wavefront", run)
     step_fn.levels = len(levels)
     step_fn.groups = sum(len(specs) for specs in levels)
     step_fn.indices = tuple(dirty.values()) + _level_indices(levels)
+    step_fn.rows_moved = _rows_moved(levels, targets, dirty_by_name)
     sig = ("wavefront", _freeze(dirty_by_name), tuple(
         tuple((kernel, nw, _freeze(gathers), _freeze(scatters), G)
-              for kernel, nw, gathers, scatters, G in specs)
+              for kernel, nw, gathers, scatters, G, _c in specs)
         for specs in levels))
     return step_fn, sig
+
+
+def _rows_moved(levels: list, targets: list, dirty: dict) -> dict:
+    """The store rows a wavefront step copies, by the span that copies
+    them and by store, as its spans count them: ``gather``, each index
+    gather's rows; ``scatter``, each scatter's rows and the clones of
+    forwarded views (a traceable's results have storage of their own);
+    ``clone``, the saved rows twice (saved, restored); and ``stores``,
+    the stores the step clones whole.  The counts are the step's
+    structure, which a cached step shares with every lowering of it;
+    :func:`_bytes_moved` prices them in one lowering's stores."""
+    moved: dict = {"gather": {}, "scatter": {}, "clone": {},
+                   "stores": list(targets)}
+
+    def add(kind: str, name: str, rows: int) -> None:
+        moved[kind][name] = moved[kind].get(name, 0) + rows
+
+    for specs in levels:
+        for _k, _nw, gathers, scatters, _G, _c in specs:
+            for g in gathers:
+                if g is not None and g[1] == "gather":
+                    add("gather", g[0], len(g[2].rows))
+            for name, idx, src_kind, src_idx in scatters:
+                add("scatter", name, len(idx.rows))
+                src = gathers[src_idx] if src_kind == "in" else None
+                if src is not None and src[1] == "const":
+                    add("scatter", src[0], 1)
+                elif src is not None and src[1] == "range":
+                    add("scatter", src[0], len(src[2].rows))
+    for name, rows in dirty.items():
+        add("clone", name, 2 * len(rows))
+    return moved
+
+
+def _bytes_moved(rows_moved: dict, stores: _Stores) -> dict[str, int]:
+    """:func:`_rows_moved`'s counts in bytes, in ``stores``' tiles: the
+    bytes a step's gather, scatter and clone spans carry."""
+    row = {name: int(np.prod(shape, dtype=np.int64))
+           * stores.dtype[name].itemsize
+           for name, shape in stores.shape.items()}
+    out = {kind: sum(n * row[name] for name, n in rows_moved[kind].items())
+           for kind in ("gather", "scatter", "clone")}
+    out["clone"] += sum(stores.nrows[name] * row[name]
+                        for name in rows_moved["stores"])
+    return out
 
 
 def _level_indices(levels: list) -> tuple:
     """Every index tensor a list of levels' groups gathers or scatters
     by (what :func:`_prepare` puts on the device)."""
     return tuple(
-        x for specs in levels for _k, _nw, gathers, scatters, _G in specs
+        x for specs in levels
+        for _k, _nw, gathers, scatters, _G, _c in specs
         for x in ([g[2] for g in gathers if g is not None]
                   + [sc[1] for sc in scatters])
         if isinstance(x, _Index))
 
 
-def _run_level(st: dict, specs) -> None:
+def _run_level(st: dict, specs, level: int = -1) -> None:
     """One wavefront on stores the step owns: every group computes, then
-    every scatter lands (level-atomic)."""
+    every scatter lands (level-atomic).  Inside a traced step
+    (:func:`_traced`) it records the level, each group's gathers and call,
+    and the scatters, with the bytes each copies; each span starts where
+    the one before it ended."""
+    r = _spans.recorder
+    tid = _spans.active_trace() if r is not None else 0
+    t_level = t0 = _now() if tid else 0
     pend = []                            # (name, _Index, value, batched)
-    for kernel, nw, gathers, scatters, G in specs:
+    for kernel, nw, gathers, scatters, G, cname in specs:
+        moved = 0
         args, batched = [], []
         for gth in gathers:
             if gth is None:
@@ -1492,6 +1603,12 @@ def _run_level(st: dict, specs) -> None:
             else:
                 args.append(st[name][arg.on(st[name].device)])
                 batched.append(True)
+                if tid and kind == "gather":
+                    moved += args[-1].nbytes
+        if tid:
+            t1 = _now()
+            r.record("lowered.gather", tid, t0, t1, None,
+                     ("task", cname, "G", G, "bytes", moved))
         if nw == 0:
             res, out_batched = (), False  # nothing written: nothing to run
         elif any(g is not None and g[1] == "rows" for g in gathers):
@@ -1508,17 +1625,31 @@ def _run_level(st: dict, specs) -> None:
             else:
                 v, b = args[src_idx], batched[src_idx]
             pend.append((name, idx, v, b))
+        if tid:
+            t0 = _now()
+            r.record("lowered.call", tid, t1, t0, None,
+                     ("task", cname, "G", G))
     # a pending value that is a view of a store (a forwarded input, or a
     # body that returns its input) is copied before any write lands
+    moved = 0
     store_ptrs = {t.untyped_storage().data_ptr() for t in st.values()}
     for name, idx, v, b in pend:
         if v.untyped_storage().data_ptr() in store_ptrs:
             v = v.clone()
+            if tid:
+                moved += v.nbytes
         store = st[name]
         n = len(idx.rows)
         if not b:
             v = v.expand(n, *v.shape)
         store[idx.on(store.device)] = v
+        if tid:
+            moved += v.nbytes
+    if tid:
+        t1 = _now()
+        r.record("lowered.scatter", tid, t0, t1, None, ("bytes", moved))
+        r.record("lowered.level", tid, t_level, t1, None,
+                 ("level", level, "groups", len(specs)))
 
 
 # ---------------------------------------------------------------------------
@@ -1627,7 +1758,7 @@ def _build_unrolled(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
     targets = sorted({name for *_, out_plan in plans
                       for rows in out_plan for name, _ in rows})
 
-    def step_fn(st: dict) -> dict:
+    def run(st: dict) -> dict:
         st = dict(st)
         for name in targets:            # the step writes clones, in place
             st[name] = st[name].clone()
@@ -1658,6 +1789,7 @@ def _build_unrolled(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
                     st[name][row] = v
         return st
 
+    step_fn = _traced("unrolled", run)
     sig = ("unrolled", tuple(
         (cname, key, info.kernel,
          tuple(f.flow_index for f in info.data_flows),
@@ -1706,6 +1838,12 @@ class LoweredTaskpool:
         # (groups) over all levels; None for the other passes
         self.levels = getattr(step_fn, "levels", None)
         self.groups = getattr(step_fn, "groups", None)
+        # the wavefront step's bytes a solve, by what moves them
+        # ({"gather", "scatter", "clone"}, as its spans count them); None
+        # for the other passes
+        rows = getattr(step_fn, "rows_moved", None)
+        self.bytes_moved = None if rows is None \
+            else _bytes_moved(rows, stores)
 
     def initial_stores(self) -> dict[str, Any]:
         if self.mesh is not None:
@@ -2443,7 +2581,7 @@ def lower_regions(tp, context: Any = None, max_tasks: int | None = None,
         # chains) distinct keys and redundant preparations of one step
         sig = ("region", tuple(
             tuple((kernel, nw, _freeze(gathers), _freeze(scatters), G)
-                  for kernel, nw, gathers, scatters, G in specs)
+                  for kernel, nw, gathers, scatters, G, _c in specs)
             for specs in levels))
         regions.append(LoweredRegion(
             r.index, r.ntasks, r.level_lo, r.level_hi,

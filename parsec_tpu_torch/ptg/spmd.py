@@ -584,7 +584,7 @@ def wavefront(tp, infos, stores: _Stores, mesh: Any):
                           groups)
     sig = ("mesh-wavefront", _freeze(dirty_by_name), _freeze(ranks), tuple(
         tuple(tuple((kernel, nw, _freeze(g), _freeze(sc), G)
-                    for kernel, nw, g, sc, G in specs[r][L])
+                    for kernel, nw, g, sc, G, _c in specs[r][L])
               for L in sorted(specs[r]))
         for r in range(lay.n)))
     return step, sig

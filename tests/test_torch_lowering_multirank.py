@@ -385,7 +385,7 @@ def test_each_rank_reads_only_its_own_part_and_receive_rows(kind):
     else:
         for r in range(nranks):
             for specs in step.specs[r].values():
-                for _k, _nw, gathers, scatters, _G in specs:
+                for _k, _nw, gathers, scatters, _G, _c in specs:
                     for g in gathers:
                         if g is None or g[1] == "new":
                             continue
