@@ -748,8 +748,74 @@ def phase_kernel(card: str, torch) -> tuple[dict, list]:
     torch.testing.assert_close(mm.float(), ref, rtol=1e-2, atol=5e-2)
     _emit(card, phase="kernel", name="matmul",
           max_abs_err=(mm.float() - ref).abs().max().item())
+    del a, b, mm, ref
+    _rows_entry_cases(card, torch, tol)
     torch.cuda.empty_cache()
     return recs[0], recs
+
+
+def _rows_entry_cases(card: str, torch, tol: dict) -> list:
+    """K1's rows entry (``gemm_update_rows``) at the lowered Cholesky's
+    shapes, as its hooks call it, against the plain version on gathered
+    copies of the same rows: the GEMM form, nt-sub over 465 scattered
+    rows of one store of 512^3 tiles (its largest group), written back
+    into the C rows; and the TRSM form, nt-noc with no C, one inverse
+    tile read by every row (an int index).  One ``mma_tf32`` launch
+    each.  The rows are the lowering's own indices, which keep the
+    entry's plan from one call to the next, as in a lowered step."""
+    from parsec_tpu_torch.ops import gemm as tg
+    from parsec_tpu_torch.ptg.lowering import _Index
+    G, nb = 465, 512
+    g = torch.Generator(device="cuda").manual_seed(300)
+    st = torch.randn(3 * G, nb, nb, device="cuda", generator=g)
+    perm = torch.randperm(3 * G, generator=torch.Generator().manual_seed(
+        300)).numpy()
+    a_rows, b_rows, c_rows = (_Index(perm[i * G:(i + 1) * G])
+                              for i in range(3))
+    inv = torch.randn(1, nb, nb, device="cuda", generator=g)
+    c = (st, c_rows)
+    cases = [("nt-sub", "batch465x512^3 fp32, out = the C rows",
+              ((st, a_rows), (st, b_rows), c, c), True,
+              tuple(st[r.on(st.device)] for r in (a_rows, b_rows, c_rows))),
+             ("nt-noc", "batch465x512^3 fp32, one B tile, new out",
+              ((st, a_rows), (inv, 0), None, None), False,
+              (st[a_rows.on(st.device)], inv.expand(G, nb, nb), None))]
+    recs = []
+    for form, label, ops, into, (ga, gb, gc) in cases:
+        want = tg.gemm_update_plain(ga, gb, gc, tf32=True, trans_b=True,
+                                    subtract=gc is not None)
+        before = dict(tg.gemm_update.launches_by_variant)
+
+        def run(ops=ops, sub=gc is not None):
+            return tg.gemm_update_rows(*ops, trans_b=True, subtract=sub)
+
+        res = run()
+        torch.cuda.synchronize()
+        after = dict(tg.gemm_update.launches_by_variant)
+        ran = {v: after[v] - before.get(v, 0) for v in after
+               if after[v] != before.get(v, 0)}
+        _check(ran == {"mma_tf32": 1},
+               f"gemm_update_rows {form}: ran {ran}, expected one mma_tf32")
+        got = st[c_rows.on(st.device)] if into else res
+        _check(res is None if into else res.shape == (G, nb, nb),
+               f"gemm_update_rows {form}: returned {type(res)}")
+        err = (got - want).abs().max().item()
+        torch.testing.assert_close(got, want, **tol)
+        del got, want, res
+        flops = 2.0 * G * nb ** 3
+        # A, B, C read and out written a tile; one B tile for the TRSM
+        nbytes = (4 * G if into else 2 * G + 1) * nb * nb * 4
+        ms = _time_ms(torch, run, 5)
+        host_ms = _host_ms(torch, run, 20)
+        bound_ms, bound_by = _bound(flops, nbytes, "tfloat32")
+        rec = dict(form=form, shape=label, variant="mma_tf32",
+                   max_abs_err=err, atol=tol["atol"], ms=ms,
+                   host_ms=host_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   tflops=flops / ms / 1e9)
+        _emit(card, phase="kernel", name="gemm_update_rows", **rec)
+        recs.append(rec)
+    del st, perm, inv
+    return recs
 
 
 def _path_mats(n: int, nb: int, seed: int) -> tuple:

@@ -16,6 +16,12 @@ The four incarnations (``potrf``, ``trsm_rlt``, ``syrk_ln``,
 ``gemm_nt``) are each registered once as a batched list form, with a
 stacked form for the wavefront lowering; the per-task device body and the
 host chore run the same list form (:mod:`parsec_tpu_torch.ops.factor`).
+TRSM, SYRK and GEMM also carry a ``rows`` hook: the wavefront passes'
+groups of them read their tiles where they lie in the store rows
+(:func:`~parsec_tpu_torch.ops.gemm.gemm_update_rows`), and SYRK and GEMM
+write their results back into the rows of their T and C wherever the
+plan shows no other task of the level reads them (every task of theirs
+in this pool), so that only POTRF's and TRSM's results are scattered.
 So the device module's fused same-class dispatch and the wavefront pass
 both take them, and every tile product runs on K1 under the
 ``gemm_precision`` knob, as the JAX package's ``_mm_precision`` has it:
@@ -122,14 +128,56 @@ def gemm_nt_stacked(as_: torch.Tensor, bs: torch.Tensor,
                                         trans_b=True, subtract=True)
 
 
+# the rows hooks: the wavefront passes' groups of TRSM, SYRK and GEMM read
+# their tiles where they lie in the store rows (``(store, index)`` a
+# flow), and SYRK's and GEMM's results go back into the rows of their T
+# and C where the plan allows it (``out``); K1 reads its tile pointers
+# from the card (``gemm_update_rows``)
+
+def trsm_rows(t, c) -> torch.Tensor:
+    """TRSM over store rows: the inverse of the group's L, then one K1
+    launch of ``C @ inv(L)ᵀ`` from the C rows into new tiles (the C rows
+    are K1's A, which its blocks read whole, so the result never goes
+    back into them in place).  A level's TRSM tasks share one diagonal
+    tile (the plan's ``one`` row), inverted once and read by every
+    tile; a group over several is inverted tile by tile."""
+    st, ix = t
+    if ix.one is not None:
+        inv = (tri_inverse(st[ix.one:ix.one + 1], upper=False), 0)
+    else:
+        inv = (tri_inverse(st[ix.on(st.device)], upper=False),
+               slice(0, len(ix.rows)))
+    return gemm_ops.gemm_update_rows(c, inv, trans_b=True)
+
+
+def syrk_rows(a, t, out=(None,)) -> torch.Tensor | None:
+    """SYRK over store rows, ``T - A·Aᵀ``: one K1 launch reading the A
+    rows as both operands, its results into the T rows with ``out``."""
+    return gemm_ops.gemm_update_rows(a, a, t, out[0], trans_b=True,
+                                     subtract=True)
+
+
+def gemm_nt_rows(a, b, c, out=(None,)) -> torch.Tensor | None:
+    """GEMM over store rows, ``C - A·Bᵀ``: one K1 launch, its results
+    into the C rows with ``out``."""
+    return gemm_ops.gemm_update_rows(a, b, c, out[0], trans_b=True,
+                                     subtract=True)
+
+
 _FORMS = {"potrf": (potrf_tiles, potrf), "trsm_rlt": (trsm_tiles,
                                                       trsm_stacked),
           "syrk_ln": (syrk_tiles, syrk_stacked),
           "gemm_nt": (gemm_nt_tiles, gemm_nt_stacked)}
+# POTRF keeps its one tile a level (a view of the row: nothing gathered);
+# the writable flow of SYRK and GEMM (their only one) may be written back
+_ROWS = {"trsm_rlt": (trsm_rows, ()), "syrk_ln": (syrk_rows, (0,)),
+         "gemm_nt": (gemm_nt_rows, (0,))}
 for _name, (_tiles, _stacked) in _FORMS.items():
     register_kernel(_name, "cuda", tile_body(_tiles))
+    _rows, _into = _ROWS.get(_name, (None, ()))
     # every form but the diagonal factor launches K1
-    register_traceable(_name, _tiles, stacked=_stacked,
+    register_traceable(_name, _tiles, stacked=_stacked, rows=_rows,
+                       rows_into=_into,
                        libs=() if _name == "potrf" else ("gemm",))
 
 

@@ -128,7 +128,8 @@ def stencil_1d_ptg(V: VectorTwoDimCyclic, weights: Any,
 
     def rows(c, left, right):
         (cs, ci), (ls, li), (rs, ri) = (
-            f if f is not None else (None, None) for f in (c, left, right))
+            (f[0], f[1].on(f[0].device)) if f is not None else (None, None)
+            for f in (c, left, right))
         return stencil1d_rows(cs, ci, ls, li, rs, ri, wl)
 
     def stacked(c, left, right):

@@ -259,11 +259,16 @@ def one_update_dropped(name: str, tiles: Callable,
     stacked form ``stacked``, ``(as_, bs, cs)``) again so that the first
     C tile it is given passes through unchanged: one GEMM task's update
     is dropped, the fault that :func:`tile_error`'s gate must catch.
-    Yields the list that records the drop; on leaving, ``tiles`` and
-    ``stacked`` are registered as before.  Register it before a pool is
+    Where the registered traceable has a ``rows`` hook, the hook is
+    wrapped the same way (the group's first C row keeps its value,
+    whether the hook writes into the C rows or returns new tiles), with
+    its ``rows_into``, so that the faulty run takes the path the program
+    takes.  Yields the list that records the drop; on leaving, the
+    traceable registered before is back.  Register it before a pool is
     lowered: the lowering takes its forms when it lowers."""
     from ..device.kernels import register_kernel
-    from ..ptg.lowering import register_traceable
+    from ..ptg.lowering import find_traceable, register_traceable
+    prev = find_traceable(name)
     dropped: list = []
 
     def tiles_dropped(as_, bs, cs):
@@ -280,12 +285,30 @@ def one_update_dropped(name: str, tiles: Callable,
             out[0] = cs[0]
         return out
 
-    def register(t: Callable, st: Callable) -> None:
-        register_kernel(name, "cuda", tile_body(t))
-        register_traceable(name, t, stacked=st, libs=("gemm",))
+    def rows_dropped(*flows, out=None):
+        # C is the last flow, ``(store, index)``; its first row's tile
+        # before the update is the group's first result
+        c_st, c_ix = flows[-1]
+        kept = None if dropped else c_st[int(c_ix.rows[0])].clone()
+        res = prev.rows(*flows) if out is None \
+            else prev.rows(*flows, out=out)
+        if kept is not None:
+            dropped.append(1)
+            if res is None:             # written into the C rows
+                o_st, o_ix = out[0]
+                o_st[int(o_ix.rows[0])].copy_(kept)
+            else:
+                res[0] = kept
+        return res
 
-    register(tiles_dropped, stacked_dropped)
+    register_kernel(name, "cuda", tile_body(tiles_dropped))
+    register_traceable(name, tiles_dropped, stacked=stacked_dropped,
+                       rows=None if prev.rows is None else rows_dropped,
+                       rows_into=prev.rows_into, libs=("gemm",))
     try:
         yield dropped
     finally:
-        register(tiles, stacked)
+        register_kernel(name, "cuda", tile_body(tiles))
+        register_traceable(name, prev.apply, stacked=prev.stacked,
+                           rows=prev.rows, rows_into=prev.rows_into,
+                           libs=prev.libs)

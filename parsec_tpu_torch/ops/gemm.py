@@ -24,6 +24,13 @@ to a batch dimension for the device module's fused dispatch.
   dispatch and the dense chain collapse call it: nothing is stacked, and
   every output tile frees its memory alone when the LRU evicts it.  Its
   launches count on ``gemm_update.launches``, since it is the same kernel.
+- :func:`gemm_update_rows` ``((A, ia), (B, ib), (C, ic), (O, io))``: the
+  same kernel over G tiles read where they lie in stores (a lowered
+  step's ``rows`` hook operands), in ONE launch whose tile pointers are
+  made on the card from offsets kept for each group of rows, the results
+  written into store rows (C's own, row for row, where the caller asks)
+  or into a new ``[G, m, n]`` tensor.  The lowered Cholesky's TRSM, SYRK
+  and GEMM groups call it.
 - :func:`matmul` ``(a, b) -> a@b`` in ``a.dtype``: the direct counterpart
   of ``matmul_pallas``, on the same kernel.
 - :func:`gemm_chain` ``(lhs, rhs, acc0)``: the chain-collapse lowering's
@@ -51,10 +58,12 @@ before each launch.
 
 **Spans.**  Inside a lowered step's trace (:mod:`..prof.spans`), each
 launch records ``k1.prep``, the entry's host work before the upload
-(checks, the variant, tile pointers, the pinned buffer, tensor maps), and
-``k1.launch``, the pinned host-to-device copy and the launch, each with
-the launch's variant, form, batch and shape.  A CPU tensor launches
-nothing and records nothing.
+(checks, the variant, tile pointers, the pinned buffer, tensor maps; for
+the rows entry, checks and the tile pointers made on the card where its
+stores are new), and ``k1.launch``, the pinned host-to-device copy (none
+for the rows entry) and the launch, each with the launch's variant,
+form, batch and shape.  A CPU tensor launches nothing and records
+nothing.
 
 Left out: ``matmul_xla`` (the jitted XLA body has no port of its own:
 :func:`gemm_update` is the body).
@@ -63,9 +72,12 @@ Left out: ``matmul_xla`` (the jitted XLA body has no port of its own:
 from __future__ import annotations
 
 import ctypes
+import math
+import threading
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..core.params import params as _params
@@ -417,6 +429,287 @@ def gemm_update_tiles(as_: list[torch.Tensor], bs: list[torch.Tensor],
         _k1_spans(r, t_in, t1, variant, form, batch, m, n, k)
     _count(variant, form, batch)
     return outs
+
+
+class _RowsPlan:
+    """A group of row indices as :func:`gemm_update_rows` checked it once:
+    each operand's host rows (A, B, C, out; None for no C), on a card the
+    tiles' byte offsets from their stores' bases (``[4 G]`` int64 there, 0
+    for no C) and the tile pointers made from them, by stores' bases
+    (:func:`_pointers`), and the indices it was made from (whose ids key
+    it, kept alive with it)."""
+
+    __slots__ = ("rows", "offs", "ptrs", "keep")
+
+    def __init__(self, rows, offs, keep) -> None:
+        self.rows, self.offs, self.keep = rows, offs, keep
+        self.ptrs: dict[tuple, torch.Tensor] = {}
+
+
+_ptrs_lock = threading.Lock()     # held to add to a plan's pointers
+_PTRS_KEPT = 4          # pointer arrays a plan keeps, by stores' bases
+
+
+def _rows_len(index: Any) -> int | None:
+    """How many tiles an operand's index names: None for an int (one row
+    for every tile)."""
+    if isinstance(index, int):
+        return None
+    if isinstance(index, slice):
+        if index.step not in (None, 1) or index.start is None \
+                or index.stop is None or index.start < 0:
+            raise ValueError(f"gemm: rows {index} are not a run of rows")
+        return index.stop - index.start
+    if isinstance(index, torch.Tensor):
+        ok = index.dtype == torch.int64 and index.dim() == 1
+    else:
+        index = getattr(index, "rows", None)
+        ok = isinstance(index, np.ndarray) and index.dtype == np.int64 \
+            and index.ndim == 1
+    if not ok:
+        raise ValueError("gemm: rows must be a slice, an int, a 1-D int64 "
+                         "tensor or a lowered step's index")
+    return len(index)
+
+
+def _index_rows(index: Any, G: int) -> np.ndarray:
+    """An operand's rows on the host: a slice's run, an int's row G
+    times, a lowered step's index's own rows, a tensor's read back."""
+    if isinstance(index, slice):
+        return np.arange(index.start, index.stop, dtype=np.int64)
+    if isinstance(index, int):
+        return np.full(G, index, np.int64)
+    if isinstance(index, torch.Tensor):
+        return index.cpu().numpy()
+    return index.rows
+
+
+def _index_key(index: Any) -> Any:
+    if isinstance(index, slice):
+        return ("s", index.start, index.stop)
+    return ("i", index) if isinstance(index, int) else id(index)
+
+
+def _row_bytes(st: torch.Tensor) -> int:
+    return math.prod(st.shape[1:]) * st.element_size()
+
+
+def _rows_plan(ops: list, share: tuple, row_bytes: tuple,
+               device: torch.device, G: int) -> _RowsPlan:
+    """The :class:`_RowsPlan` of ``ops`` (``(store, index)`` or None, in
+    the order A, B, C, out; ``row_bytes`` each store's tile bytes), made
+    and checked once for a group of a lowered step's indices (kept in
+    A's index's ``memo``) and at every call for any other: every row
+    inside its store, and the results' rows distinct, apart from A's and
+    B's (``share`` gives each operand the first operand in its store),
+    and from C's but row for row."""
+    memo = getattr(ops[0][1], "memo", None)
+    if any(op is not None and isinstance(op[1], torch.Tensor) for op in ops):
+        memo = None         # a tensor's rows may change under its id
+    key = ("gemm_update_rows", tuple(
+        None if op is None else (_index_key(op[1]), op[0].shape[0])
+        for op in ops), share, row_bytes, device)
+    plan = None if memo is None else memo.get(key)
+    if plan is not None:
+        return plan
+    rows = []
+    for name, op in zip("ABCO", ops):
+        if op is None:
+            rows.append(None)
+            continue
+        r = _index_rows(op[1], G)
+        if len(r) and (r.min() < 0 or r.max() >= op[0].shape[0]):
+            raise ValueError(f"gemm: a row of {name} is outside its store "
+                             f"of {op[0].shape[0]} tiles")
+        rows.append(r)
+    out_rows = rows[3]
+    if len(np.unique(out_rows)) != len(out_rows):
+        raise ValueError("gemm: two results share one row of out")
+    for j, name in ((0, "A"), (1, "B")):
+        if share[3] == share[j] and np.intersect1d(out_rows, rows[j]).size:
+            raise ValueError(f"gemm: out shares rows with {name}; it may "
+                             f"alias C alone, row for row")
+    if ops[2] is not None and share[3] == share[2]:
+        c_rows = rows[2]
+        for g, o in enumerate(out_rows.tolist()):
+            if not np.array_equal(np.flatnonzero(c_rows == o),
+                                  [g] if c_rows[g] == o else []):
+                raise ValueError("gemm: out aliases C other than row for "
+                                 "row")
+    offs = None
+    if device.type == "cuda":
+        host = np.zeros(4 * G, np.int64)
+        for i, (r, nb) in enumerate(zip(rows, row_bytes)):
+            if r is not None:
+                host[i * G:(i + 1) * G] = r * nb
+        offs = torch.as_tensor(host).to(device)
+    plan = _RowsPlan([None if r is None else r.tolist() for r in rows], offs,
+                     tuple(op[1] for op in ops if op is not None))
+    if memo is not None:
+        memo[key] = plan
+    return plan
+
+
+def _pointers(plan: _RowsPlan, bases: tuple, G: int) -> torch.Tensor:
+    """K1's ``4 G`` tile pointers for stores at ``bases`` (A's, B's, C's
+    or 0, out's), made on the card: A's base added to every offset, then
+    each other base's difference over its run of operands (C's, with
+    none, takes A's back off).  Kept by bases, which a lowered step's
+    stores repeat from one solve to the next."""
+    ptrs = plan.ptrs.get(bases)
+    if ptrs is not None:
+        return ptrs
+    ptrs = torch.add(plan.offs, bases[0])
+    i = 1
+    while i < 4:
+        j = i
+        while j + 1 < 4 and bases[j + 1] == bases[i]:
+            j += 1
+        if bases[i] != bases[0]:
+            ptrs[i * G:(j + 1) * G].add_(bases[i] - bases[0])
+        i = j + 1
+    with _ptrs_lock:
+        while len(plan.ptrs) >= _PTRS_KEPT:
+            plan.ptrs.pop(next(iter(plan.ptrs)))
+        plan.ptrs[bases] = ptrs
+    return ptrs
+
+
+def _plain_into(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None,
+                o: torch.Tensor, trans_b: bool, subtract: bool) -> None:
+    """:func:`gemm_update_plain`'s ``c ± a@b`` (or ``±a@b``) for one tile,
+    written into ``o`` (which may be ``c``)."""
+    if not all(t.dtype == torch.float32
+               for t in (a, b, o, *(() if c is None else (c,)))):
+        o.copy_(gemm_update_plain(a, b, c, trans_b=trans_b,
+                                  subtract=subtract))
+        return
+    bt = b.transpose(-1, -2) if trans_b else b
+    if c is None:
+        torch.matmul(a, bt, out=o)
+        if subtract:
+            o.neg_()
+    else:
+        (torch.sub if subtract else torch.add)(c, torch.matmul(a, bt),
+                                               out=o)
+
+
+def gemm_update_rows(a: tuple, b: tuple, c: tuple | None = None,
+                     out: tuple | None = None, *, trans_b: bool = False,
+                     subtract: bool = False) -> torch.Tensor | None:
+    """``c + a@b`` over G tiles read where they lie in stores, in ONE
+    kernel launch, at the ``gemm_precision`` knob's setting; ``trans_b``,
+    ``subtract`` and ``c=None`` as in :func:`gemm_update`.
+
+    Each operand is ``(store, index)``: a contiguous ``[R, rows, cols]``
+    tensor of tiles and the G tiles' rows in it: a lowered step's index
+    as its ``rows`` hook is given it, a slice, a 1-D int64 tensor, or
+    (but for A, whose rows give G) an int, one row for every tile.  A
+    lowered step's index keeps the group's plan (checks, offsets) in its
+    ``memo`` from one step to the next; a tensor is read back at every
+    call.  A row may stand in more than one operand (SYRK passes the
+    same rows as A and B).  The
+    results go into ``out``'s rows, and None is returned; with no
+    ``out``, into a new ``[G, m, n]`` tensor, which is returned.  ``out``
+    may be C's rows, row for row (each result replaces the tile it adds
+    to); it is refused where it shares a row with A or B, or two results
+    share a row.
+
+    On the card the tiles' pointers (A's, B's, C's, out's) are made
+    there, each store's base plus the tile's offset, from offsets made
+    once for each group of indices (:func:`_pointers`): no per-tile host
+    work, no pinned buffer, no host-to-device copy.  It runs ``mma_tf32``
+    and ``simt_fp32`` (:func:`k1_variant`); bf16 operands in the plain
+    form, which take ``wgmma_bf16`` and a tensor map a tile, are refused
+    (:func:`gemm_update_tiles` takes them).  On a CPU tensor each tile is
+    :func:`gemm_update_plain`'s expression, written into its row."""
+    r = _spans.recorder
+    t_in = _now() if r is not None else 0
+    precision = gemm_precision()
+    if c is None:
+        c = (None, None)
+    fresh = out is None
+    (a_st, ia), (b_st, ib), (c_st, ic) = a, b, c
+    sts = (a_st, b_st, c_st)
+    if any(t is not None and (not isinstance(t, torch.Tensor) or t.dim() != 3
+                              or not t.is_contiguous()) for t in sts) \
+            or a_st is None or b_st is None:
+        raise ValueError("gemm: A, B and C must be contiguous "
+                         "[rows, *tile] stores")
+    G = _rows_len(ia)
+    if G is None:
+        raise ValueError("gemm: A's rows must name its tiles, not one row")
+    m, k = a_st.shape[1:]
+    n, k2 = b_st.shape[1:] if trans_b else b_st.shape[2:0:-1]
+    out_dtype = a_st.dtype if c_st is None else c_st.dtype
+    dev = a_st.device
+    if k2 != k or a_st.dtype != b_st.dtype or a_st.dtype not in _DTYPE_CODE \
+            or out_dtype not in _DTYPE_CODE or b_st.device != dev \
+            or _rows_len(ib) not in (None, G) or (c_st is not None and (
+                tuple(c_st.shape[1:]) != (m, n) or c_st.device != dev
+                or _rows_len(ic) not in (None, G))):
+        raise ValueError(f"gemm: stores A {tuple(a_st.shape)} {a_st.dtype}, "
+                         f"B {tuple(b_st.shape)} {b_st.dtype} and C "
+                         f"{None if c_st is None else tuple(c_st.shape)} do "
+                         f"not chain over {G} rows")
+    if G == 0 or G > _MAX_BATCH:
+        raise ValueError(f"gemm: {G} tiles in one launch, 1 to {_MAX_BATCH}")
+    if fresh:
+        out = (a_st.new_empty((G, m, n), dtype=out_dtype), slice(0, G))
+    o_st, io = out
+    if not isinstance(o_st, torch.Tensor) or o_st.dim() != 3 \
+            or tuple(o_st.shape[1:]) != (m, n) or o_st.dtype != out_dtype \
+            or o_st.device != dev or not o_st.is_contiguous() \
+            or _rows_len(io) not in (None, G):
+        raise ValueError(f"gemm: out must be a contiguous [rows, {m}, {n}] "
+                         f"{out_dtype} store on {dev} with {G} rows")
+    ops = [a, b, None if c_st is None else c, out]
+    # each operand's first operand in the same store; stores apart must
+    # not overlap
+    bases = tuple(0 if t is None else t.data_ptr()
+                  for t in (a_st, b_st, c_st, o_st))
+    mem: dict[int, tuple] = {}
+    share = []
+    for i, (t, p) in enumerate(zip((a_st, b_st, c_st, o_st), bases)):
+        if t is None:
+            share.append(-1)
+            continue
+        j = mem.setdefault(p, (i, t.nbytes, t.shape, t.dtype))
+        if j[1:] != (t.nbytes, t.shape, t.dtype):
+            raise ValueError("gemm: operands in one memory must be one "
+                             "store")
+        share.append(j[0])
+    ends = sorted((p, p + j[1]) for p, j in mem.items())
+    if any(e > p2 for (_, e), (p2, _) in zip(ends, ends[1:])):
+        raise ValueError("gemm: operands in one memory must be one store")
+    row_bytes = tuple(0 if t is None else _row_bytes(t)
+                      for t in (a_st, b_st, c_st, o_st))
+    plan = _rows_plan(ops, tuple(share), row_bytes, dev, G)
+    if dev.type == "cpu":
+        a_r, b_r, c_r, o_r = plan.rows
+        for g in range(G):
+            _plain_into(a_st[a_r[g]], b_st[b_r[g]],
+                        None if c_st is None else c_st[c_r[g]],
+                        o_st[o_r[g]], trans_b, subtract)
+        return o_st if fresh else None
+    _require_cuda(a_st)
+    variant = k1_variant(a_st.dtype, out_dtype, m, n, k,
+                         all(p % 16 == 0 and nb % 16 == 0
+                             for p, nb in zip(bases, row_bytes)),
+                         precision, trans_b, subtract)
+    if variant == "wgmma_bf16":
+        raise ValueError("gemm: bf16 operands in the plain form run on "
+                         "wgmma_bf16, which reads a tensor map a tile: use "
+                         "gemm_update_tiles")
+    ptrs = _pointers(plan, bases, G)
+    form = k1_form(trans_b, subtract, c_st is not None)
+    t1 = _now() if r is not None else 0
+    _launch(a_st, b_st, c_st, o_st, G, m, n, k, variant,
+            ptrs=ptrs.data_ptr(), trans_b=trans_b, subtract=subtract)
+    if r is not None:
+        _k1_spans(r, t_in, t1, variant, form, G, m, n, k)
+    _count(variant, form, G)
+    return o_st if fresh else None
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -22,9 +22,11 @@ the card.
 4. **Wavefront batching**: every flow value is resolved to a store row,
    tasks are grouped per (topological level, class, source signature),
    and each group is ONE batched call of the class's traceable over rows
-   gathered from the stores.  Hazards that in-place rows would break
-   raise :class:`LoweringError`, and ``"auto"`` then takes the unrolled
-   pass.
+   gathered from the stores (or read where they lie, through a
+   traceable's ``rows`` hook, which may also write a flow's new values
+   back into the rows it read where the plan proves that safe).  Hazards
+   that in-place rows would break raise :class:`LoweringError`, and
+   ``"auto"`` then takes the unrolled pass.
 5. **Unrolled**: any other regular DAG runs task by task in topological
    order.
 
@@ -110,8 +112,10 @@ call of a pass's step is one trace: ``lowered.step``; the wavefront's
 ``lowered.gather`` and ``lowered.call``, then its ``lowered.scatter``;
 the gathering chain's ``lowered.clone``.  The gather, scatter and clone
 spans carry the bytes they copy, and a wavefront lowering states the same
-totals a step as :attr:`LoweredTaskpool.bytes_moved`.  Without the
-recorder a step pays one falsy branch a site.
+totals a step as :attr:`LoweredTaskpool.bytes_moved`; each call span
+carries the rows its ``rows`` hook read and wrote in place, which
+:attr:`LoweredTaskpool.rows_moved` totals by store under ``in_place``.
+Without the recorder a step pays one falsy branch a site.
 
 Left out, each still in ``ROADMAP.md``: the JAX package's persistent
 compile cache (``_ensure_persistent_compile_cache``): it has no
@@ -255,26 +259,41 @@ class Traceable:
 
     ``rows(*flows)``, optional, is the stacked form reading its inputs
     where they lie: for each data flow, ``(store, index)``, the store
-    tensor and the group's rows in it (a slice where they are
-    consecutive, else a long tensor on the store's device, -1 where a
-    task has no active input on that flow), or None where no task of the
-    group has one.  It returns the writable flows' new ``[G, ...]`` values
-    (a tuple for several), never writing a store.  The wavefront passes
-    call it for a class that has it, with no gather, and keep tasks that
-    differ only in an absent READ flow in one group.
+    tensor and the group's rows in it as the plan made them, or None
+    where no task of the group has one.  The index (:class:`_Index`)
+    holds the rows on the host (``rows``, -1 where a task has no active
+    input on that flow), the row every task names (``one``, else None),
+    ``on(device)``, the rows as a slice where they are consecutive, else
+    a long tensor on that device, and ``memo``, a dict in which the hook
+    may keep what it derives from them for the next step.  It returns
+    the writable flows' new ``[G, ...]`` values (a tuple for several).
+    The wavefront passes call it for a class that has it, with no
+    gather, and keep tasks that differ only in an absent READ flow in
+    one group.
+
+    ``rows_into`` names the writable flows (by their position among the
+    writable flows) whose new values the hook can write into the rows it
+    read them from.  Where the plan shows that a flow's home row is the
+    row the task read on it and that no other task of the level reads
+    that row (on any flow, in any group), the pass calls ``rows(*flows,
+    out=...)``: ``out`` holds, per writable flow, the ``(store, index)``
+    to write into (the flow's own input rows) or None; the hook writes
+    those flows there, returns None in their place, and the pass
+    scatters nothing for them.  Otherwise the hook writes no store.
 
     ``libs`` names the kernel libraries (``csrc/<name>.cu``) the body
     launches on a CUDA tensor, for :meth:`LoweredTaskpool.warm`.
     """
 
     __slots__ = ("apply", "bilinear", "chain_combine", "stacked", "inplace",
-                 "rows", "libs")
+                 "rows", "rows_into", "libs")
 
     def __init__(self, apply: Callable, bilinear: bool = False,
                  chain_combine: Callable | None = None,
                  stacked: Callable | None = None,
                  inplace: Callable | None = None,
                  rows: Callable | None = None,
+                 rows_into: tuple = (),
                  libs: tuple = ()) -> None:
         self.apply = apply
         self.bilinear = bilinear
@@ -283,6 +302,7 @@ class Traceable:
         self.stacked = stacked
         self.inplace = inplace
         self.rows = rows
+        self.rows_into = tuple(rows_into) if rows is not None else ()
         self.libs = tuple(libs)
 
 
@@ -302,9 +322,11 @@ def register_traceable(name: str, apply: Callable, *, bilinear: bool = False,
                        stacked: Callable | None = None,
                        inplace: Callable | None = None,
                        rows: Callable | None = None,
+                       rows_into: tuple = (),
                        libs: tuple = ()) -> Traceable:
     t = Traceable(apply, bilinear=bilinear, chain_combine=chain_combine,
-                  stacked=stacked, inplace=inplace, rows=rows, libs=libs)
+                  stacked=stacked, inplace=inplace, rows=rows,
+                  rows_into=rows_into, libs=libs)
     with _lock:
         _traceables[name] = t
     return t
@@ -877,7 +899,7 @@ class _Index:
     puts it there ahead of the first step).  A row of -1 (no row, in a
     :class:`Traceable` ``rows`` call's index) is never part of a run."""
 
-    __slots__ = ("rows", "sel", "_dev")
+    __slots__ = ("rows", "sel", "one", "memo", "_dev")
 
     def __init__(self, rows: np.ndarray) -> None:
         self.rows = rows
@@ -886,6 +908,9 @@ class _Index:
                     if rows.ndim == 1 and r0 >= 0
                     and (np.diff(rows) == 1).all()
                     else None)
+        # the row every entry names (a TRSM group's diagonal tile)
+        self.one = r0 if r0 >= 0 and (rows == r0).all() else None
+        self.memo: dict = {}     # what a ``rows`` hook derives from them
         self._dev: dict[torch.device, torch.Tensor] = {}
 
     def on(self, device: torch.device) -> Any:
@@ -1367,13 +1392,50 @@ def _split_by_store(members: list, opt: list[int]) -> list[list]:
     return [ms for _names, ms in parts]
 
 
+def _level_reads(plans) -> dict[tuple, int]:
+    """How many (task, flow) reads each store row has in each level:
+    ``{(level, store, row): reads}``, over every task and flow, whatever
+    reads it (a gather, a view, a forwarded value, a ``rows`` hook)."""
+    reads: dict[tuple, int] = {}
+    for _node, L, _c, _k, in_plan, _out in plans:
+        for ip in in_plan:
+            if ip[0] == "row":
+                k = (L, ip[1], ip[2])
+                reads[k] = reads.get(k, 0) + 1
+    return reads
+
+
+def _written_into(info, L, in_plan, out_plan, reads) -> tuple:
+    """Per data flow of a task in an in-place group, whether the hook
+    writes the flow's new values into the row it read: the hook accepts
+    the flow (``rows_into``), the flow's home row is its input row with
+    no further target, and no other read of that row falls in the
+    task's level (``reads``, :func:`_level_reads`).  The rows a level
+    writes in place are then read by no one but their writer, so the
+    level stays atomic without a scatter."""
+    into = info.kernel.rows_into
+    flags, j = [], 0
+    for ip, (p, ex, w) in zip(in_plan, out_plan):
+        ok = False
+        if w:
+            ok = (j in into and ip[0] == "row" and p == (ip[1], ip[2])
+                  and not ex and reads[(L, ip[1], ip[2])] == 1)
+            j += 1
+        flags.append(ok)
+    return tuple(flags)
+
+
 def _group_plans(plans, infos) -> dict[int, list]:
     """Group per-task plans into ONE batched kernel call per (wavefront,
     class, source signature) and build the gather/scatter specs.  Returns
     ``{level: [(kernel, n_writable, gathers, scatters, G, class), ...]}``.  A
     class whose kernel has a ``rows`` hook groups its tasks regardless of
     which READ flows are absent, and its groups gather nothing: each
-    data flow is ``(store, "rows", index)`` with -1 for an absent task."""
+    data flow is ``(store, "rows", index)`` with -1 for an absent task,
+    or ``(store, "into", index, j)`` for a flow the hook writes back into
+    the same rows (:func:`_written_into`; ``j`` its writable position),
+    which is then not scattered."""
+    reads = _level_reads(plans)
     by_level: dict[int, dict[tuple, list]] = {}
     for node, L, cname, key, in_plan, out_plan in plans:
         outs = tuple((p[0] if p else None, tuple(n for n, _ in ex), w)
@@ -1382,7 +1444,8 @@ def _group_plans(plans, infos) -> dict[int, list]:
             sig = (cname, "rows",
                    tuple(("opt",) if not out_plan[fj][2]
                          else ip if ip[0] == "none" else ("row", ip[1])
-                         for fj, ip in enumerate(in_plan)), outs)
+                         for fj, ip in enumerate(in_plan)), outs,
+                   _written_into(infos[cname], L, in_plan, out_plan, reads))
         else:
             sig = (cname,
                    tuple(ip if ip[0] in ("none", "new") else ("row", ip[1])
@@ -1414,8 +1477,10 @@ def _group_plans(plans, infos) -> dict[int, list]:
             # per data flow: None | (name, kind, arg) with kind "const"
             # (one row feeds the whole group), "range" (consecutive rows:
             # a view), "gather" (an index copy), "new" (zeros of a
-            # static shape made inline), or "rows" (an in-place group's
-            # rows, -1 where a task has none: the hook reads them)
+            # static shape made inline), "rows" (an in-place group's
+            # rows, -1 where a task has none: the hook reads them), or
+            # "into" (rows the hook reads and writes the flow back into)
+            wi = {f.flow_index: j for j, f in enumerate(info.writable_flows)}
             gathers = []
             for fj in range(len(info.data_flows)):
                 present = [m[0][fj] for m in members
@@ -1430,7 +1495,10 @@ def _group_plans(plans, infos) -> dict[int, list]:
                 name = ip0[1]
                 rows = np.array([m[0][fj][2] if m[0][fj][0] == "row"
                                  else -1 for m in members], np.int64)
-                if in_place:
+                if in_place and sig[4][fj]:
+                    gathers.append((name, "into", _Index(rows),
+                                    wi[info.data_flows[fj].flow_index]))
+                elif in_place:
                     gathers.append((name, "rows", _Index(rows)))
                 elif (rows == rows[0]).all():
                     gathers.append((name, "const", int(rows[0])))
@@ -1438,10 +1506,11 @@ def _group_plans(plans, infos) -> dict[int, list]:
                     idx = _Index(rows)
                     gathers.append((name, "range" if idx.sel is not None
                                     else "gather", idx))
-            wi = {f.flow_index: j for j, f in enumerate(info.writable_flows)}
             scatters = []   # (name, _Index, src_kind, src_idx)
             for fj, f in enumerate(info.data_flows):
                 _, _, writable = members[0][1][fj]
+                if in_place and sig[4][fj]:
+                    continue    # written into its rows by the hook
                 if writable:
                     n_tgt = 1 + len(members[0][1][fj][1])
                     for t in range(n_tgt):
@@ -1474,7 +1543,10 @@ def _build_wavefront(tp, infos, stores: _Stores) -> tuple[Callable, tuple]:
     plans, dirty_by_name = _wavefront_plan(tp, infos, stores)
     level_specs = _group_plans(plans, infos)
     targets = sorted({s[0] for specs in level_specs.values()
-                      for *_, scatters, _G, _c in specs for s in scatters})
+                      for *_, scatters, _G, _c in specs for s in scatters}
+                     | {g[0] for specs in level_specs.values()
+                        for _k, _nw, gathers, *_ in specs for g in gathers
+                        if g is not None and g[1] == "into"})
     dirty = {name: _Index(rows) for name, rows in dirty_by_name.items()}
     levels = [level_specs[L] for L in sorted(level_specs)]
 
@@ -1519,30 +1591,39 @@ def _rows_moved(levels: list, targets: list, dirty: dict) -> dict:
     them and by store, as its spans count them: ``gather``, each index
     gather's rows; ``scatter``, each scatter's rows and the clones of
     forwarded views (a traceable's results have storage of their own);
-    ``clone``, the saved rows twice (saved, restored); and ``stores``,
-    the stores the step clones whole.  The counts are the step's
-    structure, which a cached step shares with every lowering of it;
-    :func:`_bytes_moved` prices them in one lowering's stores."""
+    ``clone``, the saved rows twice (saved, restored); ``stores``, the
+    stores the step clones whole; and ``in_place``, the rows ``rows``
+    hooks read where they lie (``read``) and write back into the rows
+    they read (``written``), which nothing copies.  The counts are the
+    step's structure, which a cached step shares with every lowering of
+    it; :func:`_bytes_moved` prices the copies in one lowering's
+    stores."""
     moved: dict = {"gather": {}, "scatter": {}, "clone": {},
-                   "stores": list(targets)}
+                   "stores": list(targets),
+                   "in_place": {"read": {}, "written": {}}}
 
-    def add(kind: str, name: str, rows: int) -> None:
-        moved[kind][name] = moved[kind].get(name, 0) + rows
+    def add(to: dict, name: str, rows: int) -> None:
+        to[name] = to.get(name, 0) + rows
 
     for specs in levels:
         for _k, _nw, gathers, scatters, _G, _c in specs:
             for g in gathers:
                 if g is not None and g[1] == "gather":
-                    add("gather", g[0], len(g[2].rows))
+                    add(moved["gather"], g[0], len(g[2].rows))
+                elif g is not None and g[1] in ("rows", "into"):
+                    n = int((g[2].rows >= 0).sum())
+                    add(moved["in_place"]["read"], g[0], n)
+                    if g[1] == "into":
+                        add(moved["in_place"]["written"], g[0], n)
             for name, idx, src_kind, src_idx in scatters:
-                add("scatter", name, len(idx.rows))
+                add(moved["scatter"], name, len(idx.rows))
                 src = gathers[src_idx] if src_kind == "in" else None
                 if src is not None and src[1] == "const":
-                    add("scatter", src[0], 1)
+                    add(moved["scatter"], src[0], 1)
                 elif src is not None and src[1] == "range":
-                    add("scatter", src[0], len(src[2].rows))
+                    add(moved["scatter"], src[0], len(src[2].rows))
     for name, rows in dirty.items():
-        add("clone", name, 2 * len(rows))
+        add(moved["clone"], name, 2 * len(rows))
     return moved
 
 
@@ -1572,24 +1653,37 @@ def _level_indices(levels: list) -> tuple:
 
 def _run_level(st: dict, specs, level: int = -1) -> None:
     """One wavefront on stores the step owns: every group computes, then
-    every scatter lands (level-atomic).  Inside a traced step
-    (:func:`_traced`) it records the level, each group's gathers and call,
-    and the scatters, with the bytes each copies; each span starts where
-    the one before it ended."""
+    every scatter lands (level-atomic).  A ``rows`` hook's group may write
+    flows into the rows it read (``"into"``) while the level runs: the
+    plan gives those rows no other reader in the level.  Inside a traced
+    step (:func:`_traced`) it records the level, each group's gathers and
+    call (with the rows it read and wrote in place), and the scatters,
+    with the bytes each copies; each span starts where the one before it
+    ended."""
     r = _spans.recorder
     tid = _spans.active_trace() if r is not None else 0
     t_level = t0 = _now() if tid else 0
     pend = []                            # (name, _Index, value, batched)
     for kernel, nw, gathers, scatters, G, cname in specs:
-        moved = 0
-        args, batched = [], []
+        moved = n_read = n_written = 0
+        args, batched, into = [], [], None
         for gth in gathers:
             if gth is None:
                 args.append(None)
                 batched.append(False)
                 continue
-            name, kind, arg = gth
-            if kind == "new":
+            name, kind, arg = gth[:3]
+            if kind in ("rows", "into"):
+                args.append((st[name], arg))
+                batched.append(True)
+                if kind == "into":
+                    into = into or [None] * nw
+                    into[gth[3]] = args[-1]
+                if tid:
+                    n = int((arg.rows >= 0).sum())
+                    n_read += n
+                    n_written += n if kind == "into" else 0
+            elif kind == "new":
                 shape, dtype = arg
                 dev = next(iter(st.values())).device
                 args.append(torch.zeros(shape, dtype=dtype, device=dev))
@@ -1597,9 +1691,6 @@ def _run_level(st: dict, specs, level: int = -1) -> None:
             elif kind == "const":
                 args.append(st[name][arg])
                 batched.append(False)
-            elif kind == "rows":
-                args.append((st[name], arg.on(st[name].device)))
-                batched.append(True)
             else:
                 args.append(st[name][arg.on(st[name].device)])
                 batched.append(True)
@@ -1611,6 +1702,9 @@ def _run_level(st: dict, specs, level: int = -1) -> None:
                      ("task", cname, "G", G, "bytes", moved))
         if nw == 0:
             res, out_batched = (), False  # nothing written: nothing to run
+        elif into is not None:
+            res, out_batched = _results(kernel.rows(*args, out=tuple(into)),
+                                        nw), True
         elif any(g is not None and g[1] == "rows" for g in gathers):
             res, out_batched = _results(kernel.rows(*args), nw), True
         elif G == 1 or not any(batched):
@@ -1628,7 +1722,8 @@ def _run_level(st: dict, specs, level: int = -1) -> None:
         if tid:
             t0 = _now()
             r.record("lowered.call", tid, t1, t0, None,
-                     ("task", cname, "G", G))
+                     ("task", cname, "G", G, "read_in_place", n_read,
+                      "written_in_place", n_written))
     # a pending value that is a view of a store (a forwarded input, or a
     # body that returns its input) is copied before any write lands
     moved = 0
@@ -1844,6 +1939,19 @@ class LoweredTaskpool:
         rows = getattr(step_fn, "rows_moved", None)
         self.bytes_moved = None if rows is None \
             else _bytes_moved(rows, stores)
+        # the same step's rows by store: those it copies (``gather``,
+        # ``scatter``, ``clone``, as above) and, under ``in_place``, those
+        # its ``rows`` hooks read where they lie and write back into the
+        # rows they read (``read``, ``written``), which nothing copies
+        self.rows_moved = None
+        if rows is not None:
+            clone = dict(rows["clone"])
+            for name in rows["stores"]:
+                clone[name] = clone.get(name, 0) + stores.nrows[name]
+            self.rows_moved = {"gather": dict(rows["gather"]),
+                               "scatter": dict(rows["scatter"]),
+                               "clone": clone,
+                               "in_place": rows["in_place"]}
 
     def initial_stores(self) -> dict[str, Any]:
         if self.mesh is not None:

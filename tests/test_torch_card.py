@@ -45,8 +45,9 @@ from parsec_tpu_torch.ops import factor
 from parsec_tpu_torch.ops import gemm as tg
 from parsec_tpu_torch.ops import ragged_attention as ra
 from parsec_tpu_torch.ops import stencil as ks
-from parsec_tpu_torch.ptg.lowering import (DeviceMesh, lower_regions,
-                                           lower_taskpool)
+from parsec_tpu_torch.ptg.lowering import (DeviceMesh, find_traceable,
+                                           lower_regions, lower_taskpool,
+                                           register_traceable)
 from parsec_tpu_torch.runtime import Context
 from parsec_tpu_torch.serve import RuntimeServer
 
@@ -697,6 +698,81 @@ def test_syrk_tile_list_reads_one_tile_as_a_and_b(card, precision):
     got = chol.syrk_tiles(as_, ts)
     for x, a, t in zip(got, as_, ts):
         torch.testing.assert_close(x, t - a @ a.T, rtol=1e-4, atol=1e-3)
+
+
+def _rows_of_one_store(G, nb, seed):
+    """A store of 3 G tiles ``nb x nb`` and three disjoint sets of G
+    scattered rows in it, as int64 tensors on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    st = torch.randn(3 * G, nb, nb, device="cuda", generator=g)
+    perm = torch.randperm(3 * G, generator=torch.Generator().manual_seed(
+        seed)).cuda()
+    return st, perm[:G], perm[G:2 * G], perm[2 * G:]
+
+
+def test_k1_rows_entry_writes_into_c_bit_for_bit_as_stacked(card):
+    """``gemm_update_rows``, ``mma_tf32`` nt-sub over 465 tiles of 512³
+    (the lowered Cholesky's largest GEMM group) read where they lie in one
+    store, ``out`` the C rows themselves: bit for bit
+    ``gemm_update_stacked`` on gathered copies of the same rows (the same
+    kernel on the same tiles, read through its tile pointers)."""
+    st, a_rows, b_rows, c_rows = _rows_of_one_store(465, 512, 23)
+    want = tg.gemm_update_stacked(st[a_rows], st[b_rows], st[c_rows],
+                                  trans_b=True, subtract=True)
+    before = dict(tg.gemm_update.launches_by_variant)
+    c = (st, c_rows)
+    assert tg.gemm_update_rows((st, a_rows), (st, b_rows), c, c,
+                               trans_b=True, subtract=True) is None
+    torch.cuda.synchronize()
+    assert _variant_delta(before) == {"mma_tf32": 1}
+    assert torch.equal(st[c_rows], want)
+
+
+@pytest.mark.parametrize("over", ["A", "B"])
+def test_k1_rows_entry_refuses_out_over_a_or_b(card, over):
+    st, a_rows, b_rows, c_rows = _rows_of_one_store(4, 64, 24)
+    out_rows = c_rows.clone()
+    out_rows[1] = (a_rows if over == "A" else b_rows)[2]
+    before = dict(tg.gemm_update.launches_by_variant)
+    kept = st.clone()
+    with pytest.raises(ValueError, match=f"shares rows with {over}"):
+        tg.gemm_update_rows((st, a_rows), (st, b_rows), (st, c_rows),
+                            (st, out_rows), trans_b=True, subtract=True)
+    assert _variant_delta(before) == {}
+    assert torch.equal(st, kept)
+
+
+def test_lowered_cholesky_rows_hooks_give_the_stacked_factor(card):
+    """The lowered Cholesky with its K1 classes on their rows hooks (read
+    in place, SYRK and GEMM written back) and with the stacked forms on
+    gathered rows (the hooks unregistered for the run): the same factor,
+    bit for bit, and 0 rows gathered against the stacked run's."""
+    a = chol.make_spd_fast(1024, 25)
+    names = ("trsm_rlt", "syrk_ln", "gemm_nt")
+
+    def run():
+        A = SymTwoDimBlockCyclic.from_dense("A", a, 128, 128)
+        low = lower_taskpool(chol.tiled_cholesky_ptg(A))
+        out = low.step_fn(low.initial_stores())["A"]
+        torch.cuda.synchronize()
+        return low, out
+
+    low, got = run()
+    kept = {name: find_traceable(name) for name in names}
+    try:
+        for name, t in kept.items():
+            register_traceable(name, t.apply, stacked=t.stacked,
+                               libs=t.libs)
+        low_st, want = run()
+    finally:
+        for name, t in kept.items():
+            register_traceable(name, t.apply, stacked=t.stacked,
+                               rows=t.rows, rows_into=t.rows_into,
+                               libs=t.libs)
+    assert torch.equal(got, want)
+    assert low.rows_moved["gather"] == {}
+    assert low.rows_moved["in_place"]["written"] == {"A": 8 * 7 * 9 // 6}
+    assert low_st.rows_moved["gather"]["A"] > 0
 
 
 def _spd_tiles(n, count, seed):

@@ -204,9 +204,11 @@ def _groups(tp) -> tuple[int, int]:
 
 
 def test_classes_without_the_hook_group_by_source_signature():
-    """A GEMM, a Cholesky and the 2-D stencil (no ``rows`` hook) group as
-    before the hook existed, one group per (level, class, source
-    signature): the counts below are the parent tree's."""
+    """A GEMM and the 2-D stencil (no ``rows`` hook) group as before the
+    hook existed, one group per (level, class, source signature), and so
+    does the Cholesky, whose TRSM, SYRK and GEMM have had the hook since
+    their tiles are read in place (none of its READ flows is ever
+    absent): the counts below are the tree's before either hook."""
     rng = np.random.default_rng(0)
     a = rng.standard_normal((16, 16)).astype(np.float32)
     gemm = tiled_gemm_ptg(TiledMatrix.from_dense("A", a, 4, 4),
