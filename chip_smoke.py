@@ -25,7 +25,10 @@ any phase fails:
    ``torch.baddbmm``'s times (a yardstick the port never
    calls; TF32 on for it alone where the variant is ``mma_tf32``; bf16 ->
    fp32 through ``baddbmm``'s ``out_dtype``) and the least time the card
-   could take (TF32 at 495 TFLOP/s for ``mma_tf32``).
+   could take (TF32 at 495 TFLOP/s for ``mma_tf32``); then the diagonal
+   tile's hand kernels (``csrc/factor.cu``, POTRF and the triangular
+   inverse) at one 512 x 512 tile beside ``cholesky_ex`` and
+   ``solve_triangular`` (``factor_tile`` lines).
 3. **path** — the dynamic-runtime tiled GEMM at full size (n=8192, nb=1024,
    fp32: 8x8x8 = 512 tasks, 768 MiB of tiles through the device LRU)
    through ``Context`` and ``init_cuda_devices()`` at the default
@@ -112,7 +115,10 @@ any phase fails:
    lowered_cholesky** at n=16384, nb=512 and **path lowered_lu** at
    n=8192, nb=512 (the JAX bench's ``lowered_*`` stages): the wavefront
    pass, its step on resident stores (mean of 3), ``execute()`` end to
-   end, one step under ``torch.profiler``.  The SPD input is
+   end, one step under ``torch.profiler``; ``execute()``'s POTRF and
+   inverse calls by route (``factor.launches_by_route``): the Cholesky's
+   nt POTRFs and nt-1 inverses all on ``csrc/factor.cu``, the LU's
+   2(nt-1) inverses all on the library.  The SPD input is
    ``make_spd_fast`` at both sizes (the JAX bench's dynamic stage takes
    ``make_spd``, an n^3 host Gram product), the LU input ``make_dd``.
    Each factor is held in float64 on the card against the float64
@@ -337,7 +343,8 @@ any phase fails:
    timed as the bench times it (K1 ``mma_tf32`` in the SYRK, GEMM and
    TRSM groups); again on a cold cache under a budget half the first
    region's preparation, so the later regions shed to the eager path;
-   and the whole-pool ``lower_taskpool`` at the same n.  The three
+   and the whole-pool ``lower_taskpool`` at the same n, each with its
+   16 POTRFs and 15 inverses on ``csrc/factor.cu``.  The three
    factors within the TF32 tile gate of each other and of the float64
    factor; regions, prepared and shed, ``compile_s``, seconds, GFLOPS
    and K1's launches by form.
@@ -451,7 +458,9 @@ any phase fails:
    its exchange equal to the count derived from ``rank_of`` (a quarter of
    A and of B a rank), beside the single-rank lowered step; the Cholesky
    and LU at n=8192, nb=512 under phase 12's gates and control, beside
-   the dynamic four-rank walls; the 1-D stencil (n=2^24, mb=2^18, R=4, 8
+   the dynamic four-rank walls, their inverses counted by route (one a
+   rank holding a block column's TRSM tiles: the Cholesky's 16 POTRFs
+   and 29 inverses on ``csrc/factor.cu``, the LU's 58 on the library); the 1-D stencil (n=2^24, mb=2^18, R=4, 8
    iterations, 4 cyclic ranks) on K3, one launch a rank a level,
    against the float64 reference,
    with the segment bytes it exchanges a level beside the halo bytes the
@@ -616,6 +625,30 @@ def _k1_reset(tg) -> None:
     tg.gemm_update.launches_by_batch = {}
 
 
+def _factor_reset() -> None:
+    """Zero the POTRF and inverse launch counts by route (the
+    ``lib.potrf`` and ``lib.trsm`` calls): what follows is a path's
+    own."""
+    from parsec_tpu_torch.ops import factor
+    factor.launches_by_route.clear()
+
+
+def _factor_routes(name: str, kind: str, nt: int, trsm: int) -> dict:
+    """The POTRF and inverse launches by route since
+    :func:`_factor_reset`, as ``{"<op>.<route>": count}``, checked: a
+    Cholesky of ``nt`` block columns runs its ``nt`` POTRFs and its
+    ``trsm`` inverses on the hand kernels, none on the library; an LU
+    its ``trsm`` inverses (upper, unit) on the library."""
+    from parsec_tpu_torch.ops import factor
+    got = {f"{op}.{route}": k
+           for (op, route), k in sorted(factor.launches_by_route.items())}
+    want = {"potrf.hand": nt, "trsm.hand": trsm} if kind == "cholesky" \
+        else {"trsm.library": trsm}
+    _check(got == want, f"{name}: factor launches by route {got}, "
+           f"expected {want}")
+    return got
+
+
 def phase_kernel(card: str, torch) -> tuple[dict, list]:
     """Each K1 variant against its plain version at the paths' shapes;
     returns the dynamic path's shape record (``mma_tf32``) for the
@@ -750,6 +783,7 @@ def phase_kernel(card: str, torch) -> tuple[dict, list]:
           max_abs_err=(mm.float() - ref).abs().max().item())
     del a, b, mm, ref
     _rows_entry_cases(card, torch, tol)
+    _factor_tile_cases(card, torch)
     torch.cuda.empty_cache()
     return recs[0], recs
 
@@ -815,6 +849,58 @@ def _rows_entry_cases(card: str, torch, tol: dict) -> list:
         _emit(card, phase="kernel", name="gemm_update_rows", **rec)
         recs.append(rec)
     del st, perm, inv
+    return recs
+
+
+def _factor_tile_cases(card: str, torch) -> list:
+    """The diagonal tile's hand kernels (``csrc/factor.cu``) alone at the
+    lowered Cholesky's tile, one 512 x 512 fp32 tile read where it lies
+    in a store row, as its POTRF and TRSM call them: each against the
+    float64 factor or inverse and beside the library call it replaced
+    (``cholesky_ex``, ``solve_triangular`` against an identity), one
+    launch a call.  The bound: n^3/3 operations at the fp32 rate, or the
+    tile read and the result written once, whichever is larger."""
+    from parsec_tpu_torch.ops import factor
+    nb = 512
+    g = torch.Generator(device="cuda").manual_seed(310)
+    x = torch.randn(3, nb, nb, device="cuda", generator=g,
+                    dtype=torch.float64)
+    spd = x @ x.transpose(-1, -2) / nb + torch.eye(
+        nb, device="cuda", dtype=torch.float64)
+    st = spd.float()                       # a store of three tiles
+    ref = torch.linalg.cholesky(spd[1])
+    L = factor.potrf(st[1:2])
+    ref_inv = torch.linalg.inv(ref)
+    eye = torch.eye(nb, device="cuda").expand(1, nb, nb)
+    cases = [("potrf", lambda: factor.potrf(st[1:2]), ref,
+              lambda: torch.linalg.cholesky_ex(st[1:2])),
+             ("trinv", lambda: factor.tri_inverse(L, upper=False), ref_inv,
+              lambda: torch.linalg.solve_triangular(L, eye, upper=False))]
+    recs = []
+    for name, run, want, lib in cases:
+        before = dict(factor.launches_by_route)
+        got = run()[0]
+        torch.cuda.synchronize()
+        op = "potrf" if name == "potrf" else "trsm"
+        _check(factor.launches_by_route[op, "hand"]
+               - before.get((op, "hand"), 0) == 1,
+               f"factor {name}: no hand launch")
+        err = ((got.double() - want).abs().max() / want.abs().max()).item()
+        lib_got = lib()
+        lib_got = lib_got[0] if isinstance(lib_got, tuple) else lib_got
+        lib_err = ((lib_got[0].double() - want).abs().max()
+                   / want.abs().max()).item()
+        _check(err < 1e-5, f"factor {name}: relative error {err}")
+        ms = _time_ms(torch, run, 200, warmup=5)
+        lib_ms = _time_ms(torch, lib, 200, warmup=5)
+        host_ms = _host_ms(torch, run, 200)
+        bound_ms, bound_by = _bound(nb ** 3 / 3, 2 * nb * nb * 4, "float32")
+        rec = dict(kernel=name, shape="batch1x512^2 fp32, a store row",
+                   ms=ms, host_ms=host_ms, library_ms=lib_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, rel_err=err,
+                   library_rel_err=lib_err)
+        _emit(card, phase="kernel", name="factor_tile", **rec)
+        recs.append(rec)
     return recs
 
 
@@ -2893,10 +2979,14 @@ def phase_lowered_factor(card: str, torch, kind: str, n: int,
     lower_s = time.perf_counter() - t0
     _check(low.mode == "wavefront", f"lowered {kind} mode {low.mode}")
     _k1_reset(tg)                        # counts from here are the path's
+    _factor_reset()
     t0 = time.perf_counter()
     low.execute()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    nt = n // nb
+    routes = _factor_routes(f"lowered {kind}", kind, nt,
+                            (nt - 1) * (1 if kind == "cholesky" else 2))
     launches = tg.gemm_update.launches
     by_variant = dict(tg.gemm_update.launches_by_variant)
     by_form = dict(tg.gemm_update.launches_by_form)
@@ -2926,6 +3016,7 @@ def phase_lowered_factor(card: str, torch, kind: str, n: int,
                gemm_launches=launches, gemm_launches_by_variant=by_variant,
                gemm_launches_by_form=by_form,
                launches_per_level=launches / low.levels,
+               factor_launches_by_route=routes,
                traced_step_s=traced_s, device_busy_s=busy,
                idle_share=1.0 - busy / traced_s, device_events=events,
                k1_device_s=k1_s / 1e9, top_device_time=top, **checks)
@@ -4516,11 +4607,13 @@ def phase_llm_sharded(card: str, torch, seed: int = 29, max_new: int = 16,
 REGION_BUDGET_S = 90.0
 
 
-def _region_run(torch, plan, budget_s: float) -> dict:
+def _region_run(torch, plan, budget_s: float, name: str, nt: int) -> dict:
     """Prepare ``plan`` under ``budget_s`` (the notes kept), then run its
     region pool to completion on a Context, timed as the JAX bench times
     it: the table's materialization is set-up, the write-back rides the
-    pool's completion listener inside the clock."""
+    pool's completion listener inside the clock.  The Cholesky's ``nt``
+    POTRFs and its ``nt - 1`` inverses, one a block column, must all take
+    the hand kernels."""
     from parsec_tpu_torch.ops import gemm as tg
     from parsec_tpu_torch.runtime import Context
 
@@ -4532,6 +4625,7 @@ def _region_run(torch, plan, budget_s: float) -> dict:
     table = plan.materialize_table()
     torch.cuda.synchronize()
     _k1_reset(tg)                        # counts from here are the path's
+    _factor_reset()
     ctx = Context(nb_cores=0)
     try:
         t0 = time.perf_counter()
@@ -4543,9 +4637,11 @@ def _region_run(torch, plan, budget_s: float) -> dict:
         ctx.fini(timeout=60)
     plan.finalize(table)                 # a no-op: the listener ran
     del table
+    routes = _factor_routes(name, "cholesky", nt, nt - 1)
     st = plan.stats()
     return dict(st, seconds=seconds, prepare_wall_s=prep_wall,
-                notes=notes, gemm_launches=tg.gemm_update.launches,
+                notes=notes, factor_launches_by_route=routes,
+                gemm_launches=tg.gemm_update.launches,
                 gemm_launches_by_variant=dict(
                     tg.gemm_update.launches_by_variant),
                 gemm_launches_by_form=dict(tg.gemm_update.launches_by_form))
@@ -4588,7 +4684,7 @@ def phase_region_cholesky(card: str, torch, n: int = 8192,
     _check(plan.stats()["ntasks"] == want_tasks,
            f"region_cholesky: {plan.stats()['ntasks']} tasks, expected "
            f"{want_tasks}")
-    run = _region_run(torch, plan, REGION_BUDGET_S)
+    run = _region_run(torch, plan, REGION_BUDGET_S, "region_cholesky", nt)
     data = sum(r.step_fn is not None for r in plan.regions)
     _check(run["regions_compiled"] == data and run["regions_eager"] == 0,
            f"region_cholesky: {run['regions_compiled']} of {data} regions "
@@ -4623,7 +4719,7 @@ def phase_region_cholesky(card: str, torch, n: int = 8192,
     lowering_cache.peek(plan2._cache_key(smallest))
     probe = time.perf_counter() - t0
     budget = 2 * probe + 0.5 * min(preps[1:] or preps)
-    shed = _region_run(torch, plan2, budget)
+    shed = _region_run(torch, plan2, budget, "region_cholesky shed", nt)
     _check(shed["regions_eager"] >= 1
            and shed["regions_compiled"] + shed["regions_eager"] == data,
            f"region_cholesky shed: {shed['regions_compiled']} prepared, "
@@ -4640,10 +4736,13 @@ def phase_region_cholesky(card: str, torch, n: int = 8192,
     A3 = _factor_matrix("cholesky", a, nb)
     low = lower_taskpool(_factor_ptg("cholesky", A3))
     _k1_reset(tg)
+    _factor_reset()
     t0 = time.perf_counter()
     low.execute()
     torch.cuda.synchronize()
     whole_s = time.perf_counter() - t0
+    whole_routes = _factor_routes("region_cholesky whole", "cholesky", nt,
+                                  nt - 1)
     whole_launches = tg.gemm_update.launches
     dense_whole = A3.to_dense()
     whole_checks = _factor_check(torch, "cholesky", dense_whole, a, nb,
@@ -4672,6 +4771,7 @@ def phase_region_cholesky(card: str, torch, n: int = 8192,
                gemm_launches=launches,
                gemm_launches_by_variant=run["gemm_launches_by_variant"],
                gemm_launches_by_form=run["gemm_launches_by_form"],
+               factor_launches_by_route=run["factor_launches_by_route"],
                **checks,
                prepare_s_by_region=preps, prepare_start_s=starts,
                shed=dict(budget_s=budget, probe_s=probe,
@@ -4686,10 +4786,13 @@ def phase_region_cholesky(card: str, torch, n: int = 8192,
                          gflops=flops / shed["seconds"] / 1e9,
                          gemm_launches=shed["gemm_launches"],
                          gemm_launches_by_form=shed["gemm_launches_by_form"],
+                         factor_launches_by_route=shed[
+                             "factor_launches_by_route"],
                          tile_error=shed_checks["tile_error"]),
                whole_pool=dict(execute_s=whole_s,
                                gflops=flops / whole_s / 1e9,
                                gemm_launches=whole_launches,
+                               factor_launches_by_route=whole_routes,
                                tile_error=whole_checks["tile_error"]),
                pair_tile_errors=pairs)
     _emit(card, phase="path", name="region_cholesky", **rec)
@@ -5306,11 +5409,22 @@ def phase_lowered_multirank(card: str, torch, kind: str, beside: dict,
 
     # the main path: every count zeroed just before, read just after
     _k1_reset(tg)
+    _factor_reset()
     ks.stencil1d.launches = 0
     t0 = time.perf_counter()
     low.execute()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    routes = None
+    if kind in ("cholesky", "lu"):
+        # a block column's diagonal tile is inverted once by each rank
+        # that holds a TRSM tile below it, one a process row (the LU's
+        # once more by each that holds one right of it, a process column)
+        nt = n // nb
+        inv = sum(min(MR_P, nt - 1 - k) for k in range(nt - 1))
+        if kind == "lu":
+            inv += sum(min(MR_Q, nt - 1 - k) for k in range(nt - 1))
+        routes = _factor_routes(name, kind, nt, inv)
     launches = tg.gemm_update.launches
     by_variant = dict(tg.gemm_update.launches_by_variant)
     by_form = dict(tg.gemm_update.launches_by_form)
@@ -5386,6 +5500,7 @@ def phase_lowered_multirank(card: str, torch, kind: str, beside: dict,
                launches_by_rank=by_rank, gemm_launches=launches,
                gemm_launches_by_variant=by_variant,
                gemm_launches_by_form=by_form, stencil1d_launches=k3,
+               factor_launches_by_route=routes,
                **beside, **checks)
     if kind == "stencil":
         # the exchange moves whole segments, as the PTG stencil's dynamic

@@ -172,13 +172,14 @@ _FORMS = {"potrf": (potrf_tiles, potrf), "trsm_rlt": (trsm_tiles,
 # the writable flow of SYRK and GEMM (their only one) may be written back
 _ROWS = {"trsm_rlt": (trsm_rows, ()), "syrk_ln": (syrk_rows, (0,)),
          "gemm_nt": (gemm_nt_rows, (0,))}
+# the kernel libraries each form launches: the diagonal factor and the
+# TRSM's inverse ``csrc/factor.cu``, every product K1 (``csrc/gemm.cu``)
+_LIBS = {"potrf": ("factor",), "trsm_rlt": ("gemm", "factor")}
 for _name, (_tiles, _stacked) in _FORMS.items():
     register_kernel(_name, "cuda", tile_body(_tiles))
     _rows, _into = _ROWS.get(_name, (None, ()))
-    # every form but the diagonal factor launches K1
     register_traceable(_name, _tiles, stacked=_stacked, rows=_rows,
-                       rows_into=_into,
-                       libs=() if _name == "potrf" else ("gemm",))
+                       rows_into=_into, libs=_LIBS.get(_name, ("gemm",)))
 
 
 def _transpose(x: torch.Tensor) -> torch.Tensor:

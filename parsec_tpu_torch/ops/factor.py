@@ -6,20 +6,24 @@ modules (``parsec_tpu/models/cholesky.py:86-91,151-167``,
 are the library calls the port allows beside K1, gathered so that both
 models share them:
 
-- :func:`potrf` — ``torch.linalg.cholesky_ex(check_errors=False)``: no
-  host sync (the plain ``cholesky`` checks ``info`` on the host and
-  would stall the device module's manager thread at every POTRF), and a
-  failed factorization comes back as NaNs, as ``jnp.linalg.cholesky``
-  returns it.
+- :func:`potrf` — on the card, for tiles of order 32 to 512 in steps of
+  32, the hand-written kernel of ``csrc/factor.cu``; otherwise
+  ``torch.linalg.cholesky_ex(check_errors=False)``: no host sync (the
+  plain ``cholesky`` checks ``info`` on the host and would stall the
+  device module's manager thread at every POTRF).  On both routes a
+  failed factorization comes back as a tile of NaNs, as
+  ``jnp.linalg.cholesky`` returns it.
 - :func:`getrf_nopiv` — on the card ``torch.linalg.lu_factor_ex(pivot=
   False, check_errors=False)``, batched and free of host syncs; PyTorch
   refuses ``pivot=False`` on the CPU, so a CPU tensor takes
   :func:`getrf_nopiv_plain`, the JAX traceable's fp32 rank-1 loop.
 - :func:`tri_inverse` / :func:`tri_inverse_tiles` — the inverse of a
-  triangular tile from one identity solve
-  (``torch.linalg.solve_triangular``), the JAX traceables' form; the
-  product with it runs on K1.  A tile shared by a group (a broadcast
-  view, or the same tile listed again) is inverted once.
+  triangular tile, the JAX traceables' form; the product with it runs on
+  K1.  A lower, non-unit tile on the card in the hand kernel's range
+  takes ``csrc/factor.cu``'s inverse kernel; every other (the LU's upper
+  and unit inverses, CPU tensors, larger tiles) one identity solve
+  (``torch.linalg.solve_triangular``).  A tile shared by a group (a
+  broadcast view, or the same tile listed again) is inverted once.
 - :func:`tile_body` / :func:`host_body` — a batched list form as the
   per-task device body and as the host chore.
 - :func:`tile_error` — how far a factor lies from its reference, tile
@@ -28,16 +32,22 @@ models share them:
 
 Each takes a CUDA or a CPU tensor; any other device raises.  Every
 result is row-major and contiguous (the solvers return column-major
-batches), as K1 and the tile cache want it.  Inside a lowered step's
-trace (:mod:`..prof.spans`), :func:`potrf`, :func:`getrf_nopiv` and the
-inverses each record one span, ``lib.potrf``, ``lib.getrf`` or
-``lib.trsm``, with the tiles it factors or inverts (``batch``) and
-their order (``nb``).
+batches), as K1 and the tile cache want it.  The route follows the
+input alone (:func:`hand_route`): no knob chooses it, and a hand launch
+that fails raises.  :data:`launches_by_route` counts the POTRF and
+inverse launches by ``(operation, route)``, ``route`` ``"hand"`` or
+``"library"``.  Inside a lowered step's trace (:mod:`..prof.spans`),
+:func:`potrf`, :func:`getrf_nopiv` and the inverses each record one
+span, ``lib.potrf``, ``lib.getrf`` or ``lib.trsm``, with the tiles it
+factors or inverts (``batch``), their order (``nb``) and, but for
+``lib.getrf``, the ``route``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import math
 import threading
 import time
@@ -52,12 +62,16 @@ from ..prof import spans as _spans
 _now = time.perf_counter_ns
 
 
-def _lib_span(r: Any, name: str, t0: int, batch: int, nb: int) -> None:
-    """A library tile call's span (``t0`` to now) in the lowered step's
-    trace, if one is active."""
+def _lib_span(r: Any, name: str, t0: int, batch: int, nb: int,
+              route: str | None = None) -> None:
+    """A tile call's span (``t0`` to now) in the lowered step's trace, if
+    one is active."""
     tid = _spans.active_trace()
     if tid:
-        r.record(name, tid, t0, _now(), None, ("batch", batch, "nb", nb))
+        args = ("batch", batch, "nb", nb)
+        if route is not None:
+            args += ("route", route)
+        r.record(name, tid, t0, _now(), None, args)
 
 
 def _batch(t: torch.Tensor) -> int:
@@ -70,17 +84,86 @@ def _device_kind(t: torch.Tensor) -> str:
     return t.device.type
 
 
+#: the order of the largest tile the hand kernels take (a cluster of 16
+#: CTAs of 32 rows); every order from 32 to it in steps of 32
+HAND_MAX_N = 512
+
+#: POTRF and inverse launches by ``(operation, route)``: ``("potrf" |
+#: "trsm", "hand" | "library")``
+launches_by_route: Counter = Counter()
+_route_lock = threading.Lock()
+
+
+def _count(op: str, route: str) -> None:
+    with _route_lock:
+        launches_by_route[op, route] += 1
+
+
+def hand_route(t: torch.Tensor, upper: bool = False,
+               unit: bool = False) -> bool:
+    """Whether tiles ``t`` (``[..., n, n]``) take the hand kernels of
+    ``csrc/factor.cu``: on the card, lower and non-unit, of an order
+    ``n`` from 32 to :data:`HAND_MAX_N` in steps of 32.  Any dtype, read
+    as fp32."""
+    n = t.shape[-1]
+    return (t.device.type == "cuda" and not upper and not unit
+            and n % 32 == 0 and 32 <= n <= HAND_MAX_N)
+
+
+@functools.cache
+def _entries() -> tuple:
+    """The two C entry points, built at first use, their signatures set
+    once."""
+    from ._build import load
+    lib = load("factor")
+    fns = (lib.parsec_potrf_tiles, lib.parsec_trinv_tiles)
+    for fn in fns:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+    return fns
+
+
+def _hand(which: int, t: torch.Tensor) -> torch.Tensor:
+    """One launch of the POTRF (``which`` 0) or the inverse kernel (1)
+    over tiles ``t``, each read where it lies if its rows are 16-byte
+    aligned runs of adjacent elements (a store row, a view with a wider
+    pitch), else from a contiguous copy; a fresh contiguous fp32 result
+    of ``t``'s shape."""
+    n = t.shape[-1]
+    x = t.float().reshape(-1, n, n)
+    if (x.stride(-1) != 1 or x.stride(-2) < n or x.stride(-2) % 4
+            or x.data_ptr() % 16 or (x.shape[0] > 1 and x.stride(0) % 4)):
+        x = x.contiguous()
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), x.stride(0), x.stride(1), out.data_ptr(), n,
+            x.shape[0])
+    with torch.cuda.device(x.device):
+        rc = _entries()[which](*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"factor: {('potrf', 'trinv')[which]} kernel "
+                           f"launch failed (cudaError {rc}) at batch="
+                           f"{x.shape[0]} n={n}")
+    return out.view(t.shape)
+
+
 def potrf(t: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of ``t`` (``[..., n, n]``, its lower triangle
-    read) in fp32; NaNs where a factorization failed."""
+    read) in fp32; a tile of NaNs where a factorization failed."""
     _device_kind(t)
     r = _spans.recorder
     t0 = _now() if r is not None else 0
-    L, info = torch.linalg.cholesky_ex(t.float(), check_errors=False)
-    out = L.masked_fill((info != 0)[..., None, None],
-                        float("nan")).contiguous()
+    if hand_route(t):
+        out, route = _hand(0, t), "hand"
+    else:
+        L, info = torch.linalg.cholesky_ex(t.float(), check_errors=False)
+        out = L.masked_fill((info != 0)[..., None, None],
+                            float("nan")).contiguous()
+        route = "library"
+    _count("potrf", route)
     if r is not None:
-        _lib_span(r, "lib.potrf", t0, _batch(t), t.shape[-1])
+        _lib_span(r, "lib.potrf", t0, _batch(t), t.shape[-1], route)
     return out
 
 
@@ -123,22 +206,30 @@ def tri_inverse(ts: torch.Tensor, upper: bool,
     r = _spans.recorder
     t0 = _now() if r is not None else 0
     if ts.dim() == 3 and ts.shape[0] > 1 and ts.stride(0) == 0:
-        inv = _tri_inverse(ts[:1], upper, unit).expand(ts.shape)
-        batch = 1
+        inv, route = _tri_inverse(ts[:1], upper, unit)
+        inv, batch = inv.expand(ts.shape), 1
     else:
-        inv, batch = _tri_inverse(ts, upper, unit), _batch(ts)
+        (inv, route), batch = _tri_inverse(ts, upper, unit), _batch(ts)
     if r is not None:
-        _lib_span(r, "lib.trsm", t0, batch, ts.shape[-1])
+        _lib_span(r, "lib.trsm", t0, batch, ts.shape[-1], route)
     return inv
 
 
-def _tri_inverse(ts: torch.Tensor, upper: bool, unit: bool) -> torch.Tensor:
-    """:func:`tri_inverse` of every tile of ``ts``, one solve."""
-    n = ts.shape[-1]
-    eye = torch.eye(n, dtype=torch.float32, device=ts.device).expand(
-        ts.shape)
-    return torch.linalg.solve_triangular(ts.float(), eye, upper=upper,
-                                         unitriangular=unit).contiguous()
+def _tri_inverse(ts: torch.Tensor, upper: bool,
+                 unit: bool) -> tuple[torch.Tensor, str]:
+    """:func:`tri_inverse` of every tile of ``ts`` in one launch or one
+    solve, and the route it took."""
+    if hand_route(ts, upper, unit):
+        inv, route = _hand(1, ts), "hand"
+    else:
+        n = ts.shape[-1]
+        eye = torch.eye(n, dtype=torch.float32, device=ts.device).expand(
+            ts.shape)
+        inv = torch.linalg.solve_triangular(
+            ts.float(), eye, upper=upper, unitriangular=unit).contiguous()
+        route = "library"
+    _count("trsm", route)
+    return inv, route
 
 
 def tri_inverse_tiles(ts: list[torch.Tensor], upper: bool,
@@ -155,9 +246,9 @@ def tri_inverse_tiles(ts: list[torch.Tensor], upper: bool,
         if t.data_ptr() not in first:
             first[t.data_ptr()] = len(uniq)
             uniq.append(t)
-    inv = _tri_inverse(torch.stack(uniq), upper, unit)
+    inv, route = _tri_inverse(torch.stack(uniq), upper, unit)
     if r is not None:
-        _lib_span(r, "lib.trsm", t0, len(uniq), ts[0].shape[-1])
+        _lib_span(r, "lib.trsm", t0, len(uniq), ts[0].shape[-1], route)
     return [inv[first[t.data_ptr()]] for t in ts]
 
 

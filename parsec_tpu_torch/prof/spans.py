@@ -36,9 +36,11 @@ k1.prep             K1's host work before its upload: checks, tile
                     pointers, pinned buffer, tensor maps (``variant``,
                     ``form``, ``batch``, ``m``, ``n``, ``k``)
 k1.launch           K1's pinned host-to-device copy and its launch (same)
-lib.potrf           a library tile factor, Cholesky (``batch``, ``nb``)
-lib.trsm            a library triangular inverse (``batch``, ``nb``)
-lib.getrf           a library tile factor, LU without pivoting (same)
+lib.potrf           a tile factor, Cholesky (``batch``, ``nb``, ``route``:
+                    ``hand``, ``csrc/factor.cu``, or ``library``)
+lib.trsm            a triangular inverse (same)
+lib.getrf           a library tile factor, LU without pivoting (``batch``,
+                    ``nb``)
 ==================  =========================================================
 
 The ``lowered.*``, ``k1.*`` and ``lib.*`` spans are recorded only inside

@@ -851,6 +851,165 @@ def test_lu_bodies_match_plain(card, precision):
                                   list(c.cpu()))), rtol=1e-4, atol=1e-2)
 
 
+# the diagonal tile's hand kernels (csrc/factor.cu): POTRF and the lower
+# triangular inverse, each against its library call and float64.  Both
+# routes are fp32 throughout; with a unit-scale SPD input (eigenvalues in
+# [1, 5]) each lies within a few fp32 roundings of the float64 factor or
+# inverse, relative to its largest entry: ``FACTOR_RTOL`` (both routes read
+# 1e-7 to 4e-7 on an H100), where one wrong entry is off by O(1).
+FACTOR_RTOL = 2e-6
+FACTOR_NB = [32, 64, 128, 256, 512]
+
+
+def _spd64(nb, batch, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(batch, nb, nb, device="cuda", generator=g,
+                    dtype=torch.float64)
+    return x @ x.transpose(-1, -2) / nb + torch.eye(
+        nb, device="cuda", dtype=torch.float64)
+
+
+def _rel(got, want):
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def _route_delta(before):
+    now = factor.launches_by_route
+    return {k: now[k] - before.get(k, 0) for k in now
+            if now[k] != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("nb", FACTOR_NB)
+def test_hand_potrf_matches_the_library_and_float64(card, nb, batch):
+    a64 = _spd64(nb, batch, nb + batch)
+    ref = torch.linalg.cholesky(a64)
+    before = dict(factor.launches_by_route)
+    got = factor.potrf(a64.float())
+    assert _route_delta(before) == {("potrf", "hand"): 1}
+    lib = torch.linalg.cholesky_ex(a64.float())[0]
+    assert got.shape == (batch, nb, nb) and got.is_contiguous()
+    assert got.dtype == torch.float32
+    assert torch.count_nonzero(torch.triu(got, 1)) == 0
+    assert _rel(got, ref) < FACTOR_RTOL
+    assert _rel(lib, ref) < FACTOR_RTOL
+    assert _rel(got, lib.double()) < FACTOR_RTOL
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("nb", FACTOR_NB)
+def test_hand_inverse_matches_the_library_and_float64(card, nb, batch):
+    L64 = torch.linalg.cholesky(_spd64(nb, batch, 2 * nb + batch))
+    L = L64.float()
+    ref = torch.linalg.inv(L.double())
+    before = dict(factor.launches_by_route)
+    got = factor.tri_inverse(L, upper=False)
+    assert _route_delta(before) == {("trsm", "hand"): 1}
+    eye = torch.eye(nb, device="cuda").expand(batch, nb, nb)
+    lib = torch.linalg.solve_triangular(L, eye, upper=False)
+    assert got.shape == (batch, nb, nb) and got.is_contiguous()
+    assert torch.count_nonzero(torch.triu(got, 1)) == 0
+    assert _rel(got, ref) < FACTOR_RTOL
+    assert _rel(got, lib.double()) < FACTOR_RTOL
+    # the list form: a tile listed twice is inverted once, by the kernel
+    before = dict(factor.launches_by_route)
+    invs = factor.tri_inverse_tiles([L[0], L[-1], L[0]], upper=False)
+    assert _route_delta(before) == {("trsm", "hand"): 1}
+    assert torch.equal(invs[0], invs[2])
+    assert torch.equal(invs[1], got[-1])
+
+
+def test_hand_kernels_read_store_rows_where_they_lie(card):
+    """A view of a store row, and a tile inside a wider pitch, give what
+    their contiguous copies give, bit for bit, as does a tile whose rows
+    are not 16-byte aligned (copied first); a stride-0 broadcast stack is
+    inverted once and broadcast back."""
+    nb = 512
+    st = _spd64(nb, 4, 70).float()
+    row = factor.potrf(st[2:3])
+    assert row.shape == (1, nb, nb)
+    assert torch.equal(row[0], factor.potrf(st[2].clone()))
+    wide = torch.zeros(nb, nb + 96, device="cuda")
+    wide[:, :nb] = st[1]
+    assert torch.equal(factor.potrf(wide[:, :nb]), factor.potrf(st[1]))
+    L = factor.potrf(st[0])
+    before = dict(factor.launches_by_route)
+    inv = factor.tri_inverse(L[None].expand(5, nb, nb), upper=False)
+    assert _route_delta(before) == {("trsm", "hand"): 1}
+    assert inv.shape == (5, nb, nb) and inv.stride(0) == 0
+    assert torch.equal(inv[4], factor.tri_inverse(L, upper=False))
+    wl = torch.zeros(nb, nb + 96, device="cuda")
+    wl[:, :nb] = L
+    assert torch.equal(factor.tri_inverse(wl[:, :nb], upper=False),
+                       factor.tri_inverse(L, upper=False))
+    # rows that are not 16-byte aligned: read from a contiguous copy
+    odd = torch.zeros(nb, nb + 1, device="cuda")
+    odd[:, 1:] = st[1]
+    assert torch.equal(factor.potrf(odd[:, 1:]), factor.potrf(st[1]))
+
+
+def test_hand_potrf_gives_a_nan_tile_where_not_spd(card):
+    st = _spd64(256, 3, 71).float()
+    st[1, 200, 200] = -1e3
+    st[2, 7, 7] = float("inf")
+    out = factor.potrf(st)
+    torch.cuda.synchronize()
+    assert out[1].isnan().all() and out[2].isnan().all()
+    assert torch.equal(out[0], factor.potrf(st[0]))
+    assert out[0].isfinite().all()
+
+
+def test_a_failed_hand_launch_raises(card, monkeypatch):
+    """No fallback: a launch the kernel refuses raises, naming it."""
+    def refused(*args):
+        return 1
+    monkeypatch.setattr(factor, "_entries", lambda: (refused, refused))
+    t = _spd64(64, 1, 72).float()
+    with pytest.raises(RuntimeError, match="potrf kernel launch failed"):
+        factor.potrf(t)
+    with pytest.raises(RuntimeError, match="trinv kernel launch failed"):
+        factor.tri_inverse(t, upper=False)
+
+
+def _lowered_factor(a, nb, library):
+    """The lowered Cholesky of ``a`` (one step on the card) through the
+    hand route, or through the library route with ``library``; the
+    factor's lower triangle and the routes' launch counts a solve."""
+    A = SymTwoDimBlockCyclic.from_dense("A", a, nb, nb)
+    low = lower_taskpool(chol.tiled_cholesky_ptg(A))
+    real = factor.hand_route
+    if library:
+        factor.hand_route = lambda *args, **kw: False
+    try:
+        before = dict(factor.launches_by_route)
+        low.execute()
+        torch.cuda.synchronize()
+        counts = _route_delta(before)
+    finally:
+        factor.hand_route = real
+    return torch.tril(torch.from_numpy(A.to_dense())).double(), counts
+
+
+@pytest.mark.parametrize("nt", [4, 32])
+def test_lowered_cholesky_hand_route_matches_the_library_route(card, nt):
+    """The lowered Cholesky of nt x nt tiles of 512 through the hand
+    kernels against the same step through the library: one hand POTRF a
+    diagonal tile and one hand inverse a TRSM level, no library call, and
+    factors within fp32 roundings of each other tile by tile (their TF32
+    products agree), each within the TF32 gate of float64 at nt = 4."""
+    nb = 512
+    a = chol.make_spd_fast(nt * nb, seed=26)
+    hand, counts = _lowered_factor(a, nb, library=False)
+    assert counts == {("potrf", "hand"): nt, ("trsm", "hand"): nt - 1}
+    lib, lib_counts = _lowered_factor(a, nb, library=True)
+    assert lib_counts == {("potrf", "library"): nt,
+                          ("trsm", "library"): nt - 1}
+    assert factor.tile_error(hand, lib, nb) < 1e-4
+    if nt == 4:
+        ref = torch.linalg.cholesky(torch.from_numpy(a).double().cuda())
+        assert factor.tile_error(hand.cuda(), ref, nb) < TF32_TILE_TOL
+
+
 # the tile-error gate of TF32 products (chip_smoke.py's FACTOR_TOL): the
 # TRSMs' rounding of the panel (2^-11) reads about 4e-4; one dropped
 # trailing update reads about sqrt(nb)/n, 2e-2 at n=1024, nb=256

@@ -276,7 +276,8 @@ def test_warm_names_the_kernel_libraries_of_the_plan():
     assert {lib for k in low._kernels for lib in k.libs} == {"gemm"}
     _, ch = _both("cholesky", 3)
     low = lower_taskpool(ch, device="cpu")
-    assert {lib for k in low._kernels for lib in k.libs} == {"gemm"}
+    assert {lib for k in low._kernels for lib in k.libs} == {"gemm",
+                                                             "factor"}
     assert low.mode == "wavefront" and low.step_fn.indices
 
 

@@ -166,8 +166,8 @@ def test_library_spans_count_the_tile_calls(installed):
     trsm = [s for s in installed.spans
             if s[0] == "lowered.call" and _args(s)["task"] == "TRSM"]
     assert names["lib.trsm"] == len(trsm) == nt - 1
-    assert all(_args(s) == {"batch": 1, "nb": NB} for s in installed.spans
-               if s[0] == "lib.potrf")
+    assert all(_args(s) == {"batch": 1, "nb": NB, "route": "library"}
+               for s in installed.spans if s[0] == "lib.potrf")
     assert "k1.launch" not in names         # the host launches no K1
 
 
