@@ -2818,11 +2818,9 @@ def _factor_control(card: str, torch, kind: str, a, nb: int, run,
     """The path ``run(a)`` (which returns the factor on the host) once
     more with one trailing update dropped: its tile error must exceed
     the ``default`` gate."""
-    from parsec_tpu_torch.models import cholesky, lu
     from parsec_tpu_torch.ops.factor import one_update_dropped
-    name, mod = ("gemm_nt", cholesky) if kind == "cholesky" \
-        else ("lu_gemm", lu)
-    with one_update_dropped(name, *mod._FORMS[name]) as dropped:
+    name = "gemm_nt" if kind == "cholesky" else "lu_gemm"
+    with one_update_dropped(name) as dropped:
         dense = run(a)
     torch.cuda.synchronize()
     _check(dropped == [1], f"control {label}: no update was dropped")

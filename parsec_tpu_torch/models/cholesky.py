@@ -13,22 +13,25 @@ with four task classes whose mix shifts with ``k``:
   the last one feeds ``TRSM(m,n)``.
 
 The four incarnations (``potrf``, ``trsm_rlt``, ``syrk_ln``,
-``gemm_nt``) are each registered once as a batched list form, with a
-stacked form for the wavefront lowering; the per-task device body and the
-host chore run the same list form (:mod:`parsec_tpu_torch.ops.factor`).
-TRSM, SYRK and GEMM also carry a ``rows`` hook: the wavefront passes'
-groups of them read their tiles where they lie in the store rows
-(:func:`~parsec_tpu_torch.ops.gemm.gemm_update_rows`), and SYRK and GEMM
-write their results back into the rows of their T and C wherever the
-plan shows no other task of the level reads them (every task of theirs
-in this pool), so that only POTRF's and TRSM's results are scattered.
-So the device module's fused same-class dispatch and the wavefront pass
-both take them, and every tile product runs on K1 under the
-``gemm_precision`` knob, as the JAX package's ``_mm_precision`` has it:
+``gemm_nt``) are each registered once as a batched list form, which the
+per-task device body, the host chore and the unrolled pass run
+(:mod:`parsec_tpu_torch.ops.factor`).  Each class has one batched form
+on the lowered step.  TRSM's, SYRK's and GEMM's is a ``rows`` hook: the
+wavefront passes' groups of them read their tiles where they lie in the
+store rows (:func:`~parsec_tpu_torch.ops.gemm.gemm_update_rows`), and
+SYRK and GEMM write their results back into the rows of their T and C
+wherever the plan shows no other task of the level reads them (every
+task of theirs in this pool), so that only POTRF's and TRSM's results
+are scattered.  POTRF, one tile a level, runs its list form.  Every
+tile product runs on K1 under the ``gemm_precision`` knob, as the JAX
+package's ``_mm_precision`` has it:
 
-- POTRF: ``torch.linalg.cholesky_ex`` (no host sync; NaNs on failure);
-- TRSM: the inverse of ``Lₖₖ`` from one identity solve, each distinct
-  diagonal tile of a batch once, then K1's transposed form with no C
+- POTRF: on the card, for a tile of order 32 to 512 in steps of 32,
+  the hand kernel of ``csrc/factor.cu``; else the library's
+  ``torch.linalg.cholesky_ex`` (no host sync; NaNs on failure);
+- TRSM: the inverse of ``Lₖₖ``, each distinct diagonal tile of a batch
+  once (``csrc/factor.cu``'s inverse kernel in the same range, else one
+  identity solve), then K1's transposed form with no C
   (``C · inv(Lₖₖ)ᵀ``);
 - SYRK and GEMM: K1's transposed, subtracting form (``t - a·aᵀ``,
   ``c - a·bᵀ``).
@@ -76,8 +79,8 @@ from ..ops.factor import attach_chores, check_devices, potrf, tile_body, \
 from ..ptg.lowering import register_traceable
 
 # ---------------------------------------------------------------------------
-# the four incarnations: list forms (one call over a batch of tasks) and
-# stacked forms (a leading group axis), in flow declaration order
+# the four incarnations: list forms (one call over a batch of tasks), in
+# flow declaration order
 # ---------------------------------------------------------------------------
 
 
@@ -109,23 +112,6 @@ def gemm_nt_tiles(as_: list[torch.Tensor], bs: list[torch.Tensor],
     return gemm_ops.gemm_update_tiles(
         [a.float() for a in as_], [b.float() for b in bs],
         [c.float() for c in cs], trans_b=True, subtract=True)
-
-
-def trsm_stacked(ls: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
-    return gemm_ops.gemm_update_stacked(cs.float(), tri_inverse(ls, False),
-                                        trans_b=True)
-
-
-def syrk_stacked(as_: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
-    a = as_.float().contiguous()
-    return gemm_ops.gemm_update_stacked(a, a, ts.float(), trans_b=True,
-                                        subtract=True)
-
-
-def gemm_nt_stacked(as_: torch.Tensor, bs: torch.Tensor,
-                    cs: torch.Tensor) -> torch.Tensor:
-    return gemm_ops.gemm_update_stacked(as_.float(), bs.float(), cs.float(),
-                                        trans_b=True, subtract=True)
 
 
 # the rows hooks: the wavefront passes' groups of TRSM, SYRK and GEMM read
@@ -164,10 +150,8 @@ def gemm_nt_rows(a, b, c, out=(None,)) -> torch.Tensor | None:
                                      subtract=True)
 
 
-_FORMS = {"potrf": (potrf_tiles, potrf), "trsm_rlt": (trsm_tiles,
-                                                      trsm_stacked),
-          "syrk_ln": (syrk_tiles, syrk_stacked),
-          "gemm_nt": (gemm_nt_tiles, gemm_nt_stacked)}
+_FORMS = {"potrf": potrf_tiles, "trsm_rlt": trsm_tiles,
+          "syrk_ln": syrk_tiles, "gemm_nt": gemm_nt_tiles}
 # POTRF keeps its one tile a level (a view of the row: nothing gathered);
 # the writable flow of SYRK and GEMM (their only one) may be written back
 _ROWS = {"trsm_rlt": (trsm_rows, ()), "syrk_ln": (syrk_rows, (0,)),
@@ -175,11 +159,11 @@ _ROWS = {"trsm_rlt": (trsm_rows, ()), "syrk_ln": (syrk_rows, (0,)),
 # the kernel libraries each form launches: the diagonal factor and the
 # TRSM's inverse ``csrc/factor.cu``, every product K1 (``csrc/gemm.cu``)
 _LIBS = {"potrf": ("factor",), "trsm_rlt": ("gemm", "factor")}
-for _name, (_tiles, _stacked) in _FORMS.items():
+for _name, _tiles in _FORMS.items():
     register_kernel(_name, "cuda", tile_body(_tiles))
     _rows, _into = _ROWS.get(_name, (None, ()))
-    register_traceable(_name, _tiles, stacked=_stacked, rows=_rows,
-                       rows_into=_into, libs=_LIBS.get(_name, ("gemm",)))
+    register_traceable(_name, _tiles, rows=_rows, rows_into=_into,
+                       libs=_LIBS.get(_name, ("gemm",)))
 
 
 def _transpose(x: torch.Tensor) -> torch.Tensor:
@@ -316,7 +300,7 @@ def tiled_cholesky_ptg(A: TiledMatrix,
 
     for tc, name in ((po, "potrf"), (tr, "trsm_rlt"), (sy, "syrk_ln"),
                      (ge, "gemm_nt")):
-        attach_chores(tc, name, _FORMS[name][0], devices)
+        attach_chores(tc, name, _FORMS[name], devices)
     return p.build()
 
 

@@ -10,10 +10,12 @@ Two incarnations of one taskpool, as in the JAX package:
 - the dynamic body (a host chore through ``Context``), in float64 on the
   CPU tensors of the tiles, then cast back to the tile dtype;
 - the traceable the lowering runs (``lower_taskpool(stencil_1d_ptg(...))``
-  takes the wavefront pass): per level, ONE launch of K3's rows entry
-  (:func:`ops.stencil.stencil1d_rows`) updates every tile, reading each
-  tile and its neighbours' ghosts where they lie in the store (zeros
-  where a neighbour is missing).  It is scoped to the taskpool through
+  takes the wavefront pass): its ``rows`` hook, the class's one batched
+  form, is ONE launch a level of K3's rows entry
+  (:func:`ops.stencil.stencil1d_rows`), which updates every tile,
+  reading each tile and its neighbours' ghosts where they lie in the
+  store (zeros where a neighbour is missing); its list form, K3's padded
+  entry, runs the unrolled pass.  It is scoped to the taskpool through
   ``local_traceables``, since its weights differ per build.
 
 ``flops = iterations * N * (2R+1) * 2`` (one multiply and one add per
@@ -120,10 +122,10 @@ def stencil_1d_ptg(V: VectorTwoDimCyclic, weights: Any,
     # L/R flow as None (no active arrow) or a row of -1 and read zero
     # ghosts, exactly like the dynamic body.  Computes in the tile dtype
     # promoted with fp32 (bf16 tiles update in fp32, rounded once).  The
-    # wavefront passes call ``rows``: ONE K3 launch a level reads every
-    # tile and its neighbours' ghosts in place from the store rows.
-    # ``stacked``/``apply`` serve the unrolled pass and callers holding
-    # tensors, through K3's padded entry.
+    # wavefront passes call ``rows``, the class's one batched form: ONE
+    # K3 launch a level reads every tile and its neighbours' ghosts in
+    # place from the store rows.  ``apply`` serves the unrolled pass and
+    # callers holding tensors, through K3's padded entry.
     wl = W.tolist()
 
     def rows(c, left, right):
@@ -132,27 +134,23 @@ def stencil_1d_ptg(V: VectorTwoDimCyclic, weights: Any,
             for f in (c, left, right))
         return stencil1d_rows(cs, ci, ls, li, rs, ri, wl)
 
-    def stacked(c, left, right):
-        ct = torch.promote_types(c.dtype, torch.float32)
-        lg = (c.new_zeros((c.shape[0], R), dtype=ct) if left is None
-              else left[:, -R:].to(ct))
-        rg = (c.new_zeros((c.shape[0], R), dtype=ct) if right is None
-              else right[:, :R].to(ct))
-        padded = torch.cat([lg, c.to(ct), rg], dim=1)
-        return stencil1d(padded, wl).to(c.dtype)
-
     def apply(cs, lefts, rights):
-        def stack(xs):
+        c = torch.stack(cs)
+        ct = torch.promote_types(c.dtype, torch.float32)
+
+        def ghosts(xs, part):
             if xs is None:
-                return None
-            return xs[0][None] if len(xs) == 1 else torch.stack(xs)
-        return list(stacked(stack(cs), stack(lefts), stack(rights))
-                    .unbind(0))
+                return c.new_zeros((len(cs), R), dtype=ct)
+            return torch.stack([x[part] for x in xs]).to(ct)
+
+        padded = torch.cat([ghosts(lefts, slice(-R, None)), c.to(ct),
+                            ghosts(rights, slice(None, R))], dim=1)
+        return list(stencil1d(padded, wl).to(c.dtype).unbind(0))
 
     t.body(body, dyld="stencil1d")
     tp = p.build()
     tp.local_traceables = {"stencil1d": Traceable(
-        apply, stacked=stacked, rows=rows, libs=("stencil",))}
+        apply, rows=rows, libs=("stencil",))}
     return tp
 
 

@@ -344,33 +344,34 @@ def tile_error(got: torch.Tensor, want: torch.Tensor, nb: int) -> float:
 
 
 @contextlib.contextmanager
-def one_update_dropped(name: str, tiles: Callable,
-                       stacked: Callable) -> Iterator[list]:
-    """Register the trailing update ``name`` (its list form ``tiles`` and
-    stacked form ``stacked``, ``(as_, bs, cs)``) again so that the first
-    C tile it is given passes through unchanged: one GEMM task's update
-    is dropped, the fault that :func:`tile_error`'s gate must catch.
-    Where the registered traceable has a ``rows`` hook, the hook is
-    wrapped the same way (the group's first C row keeps its value,
-    whether the hook writes into the C rows or returns new tiles), with
-    its ``rows_into``, so that the faulty run takes the path the program
+def one_update_dropped(name: str) -> Iterator[list]:
+    """Register the trailing update ``name`` (its forms over ``(as_, bs,
+    cs)``) again so that the first C tile it is given passes through
+    unchanged: one GEMM task's update is dropped, the fault that
+    :func:`tile_error`'s gate must catch.  Every form the registry holds
+    for ``name`` is wrapped: ``apply``, also registered as the CUDA body,
+    and its ``rows`` hook (the group's first C row keeps its value,
+    whether the hook writes into the C rows or returns new tiles) or its
+    ``stacked`` form, so that the faulty run takes the path the program
     takes.  Yields the list that records the drop; on leaving, the
-    traceable registered before is back.  Register it before a pool is
-    lowered: the lowering takes its forms when it lowers."""
-    from ..device.kernels import register_kernel
+    traceable's forms and the CUDA body found are back.  Register it
+    before a pool is lowered: the lowering takes its forms when it
+    lowers."""
+    from ..device.kernels import find_incarnation, register_kernel
     from ..ptg.lowering import find_traceable, register_traceable
     prev = find_traceable(name)
+    body = find_incarnation(name, torch.device("cuda"))
     dropped: list = []
 
     def tiles_dropped(as_, bs, cs):
-        out = tiles(as_, bs, cs)
+        out = prev.apply(as_, bs, cs)
         if not dropped:
             dropped.append(1)
             out[0] = cs[0].float().clone()
         return out
 
     def stacked_dropped(as_, bs, cs):
-        out = stacked(as_, bs, cs)
+        out = prev.stacked(as_, bs, cs)
         if not dropped:
             dropped.append(1)
             out[0] = cs[0]
@@ -392,14 +393,17 @@ def one_update_dropped(name: str, tiles: Callable,
                 res[0] = kept
         return res
 
+    def install(apply, stacked, rows):
+        register_traceable(name, apply, bilinear=prev.bilinear,
+                           chain_combine=prev.chain_combine,
+                           stacked=stacked, inplace=prev.inplace, rows=rows,
+                           rows_into=prev.rows_into, libs=prev.libs)
+
     register_kernel(name, "cuda", tile_body(tiles_dropped))
-    register_traceable(name, tiles_dropped, stacked=stacked_dropped,
-                       rows=None if prev.rows is None else rows_dropped,
-                       rows_into=prev.rows_into, libs=("gemm",))
+    install(tiles_dropped, None if prev.stacked is None else stacked_dropped,
+            None if prev.rows is None else rows_dropped)
     try:
         yield dropped
     finally:
-        register_kernel(name, "cuda", tile_body(tiles))
-        register_traceable(name, prev.apply, stacked=prev.stacked,
-                           rows=prev.rows, rows_into=prev.rows_into,
-                           libs=prev.libs)
+        register_kernel(name, "cuda", body)
+        install(prev.apply, prev.stacked, prev.rows)

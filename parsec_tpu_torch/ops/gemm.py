@@ -25,12 +25,13 @@ to a batch dimension for the device module's fused dispatch.
   every output tile frees its memory alone when the LRU evicts it.  Its
   launches count on ``gemm_update.launches``, since it is the same kernel.
 - :func:`gemm_update_rows` ``((A, ia), (B, ib), (C, ic), (O, io))``: the
-  same kernel over G tiles read where they lie in stores (a lowered
-  step's ``rows`` hook operands), in ONE launch whose tile pointers are
-  made on the card from offsets kept for each group of rows, the results
-  written into store rows (C's own, row for row, where the caller asks)
-  or into a new ``[G, m, n]`` tensor.  The lowered Cholesky's TRSM, SYRK
-  and GEMM groups call it.
+  same kernel over G tiles read where they lie in stores, each operand's
+  rows as a lowered step makes them (its index, a slice, or an int), in
+  ONE launch whose tile pointers are made on the card from offsets kept
+  for each group of rows, the results written into store rows (C's own,
+  row for row, where the caller asks) or into a new ``[G, m, n]``
+  tensor.  It is the lowered Cholesky's one batched form for its TRSM,
+  SYRK and GEMM groups (their ``rows`` hooks).
 - :func:`matmul` ``(a, b) -> a@b`` in ``a.dtype``: the direct counterpart
   of ``matmul_pallas``, on the same kernel.
 - :func:`gemm_chain` ``(lhs, rhs, acc0)``: the chain-collapse lowering's
@@ -72,6 +73,7 @@ Left out: ``matmul_xla`` (the jitted XLA body has no port of its own:
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 import time
@@ -217,17 +219,18 @@ def _check(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None,
     return batch, m, n, k
 
 
-def _lib() -> ctypes.CDLL:
+@functools.cache
+def _entries() -> tuple:
+    """K1's two C entry points (the launch, the tensor maps' encoder),
+    built at first use, their signatures set once."""
     from ._build import load
     lib = load("gemm")
-    fn = lib.parsec_gemm_update
-    fn.restype = ctypes.c_int
+    fn, enc = lib.parsec_gemm_update, lib.parsec_gemm_encode_tiles
+    fn.restype = enc.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
         + [ctypes.c_void_p]
-    enc = lib.parsec_gemm_encode_tiles
-    enc.restype = ctypes.c_int
     enc.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
-    return lib
+    return fn, enc
 
 
 def _require_cuda(t: torch.Tensor) -> None:
@@ -241,16 +244,15 @@ def _aligned(*ts: torch.Tensor) -> bool:
 
 def _launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None,
             out: torch.Tensor, batch: int, m: int, n: int, k: int,
-            variant: str, ptrs: int | None = None,
-            maps: int | None = None, trans_b: bool = False,
+            variant: str, ptrs: torch.Tensor | None = None,
+            maps_at: int = 0, trans_b: bool = False,
             subtract: bool = False) -> None:
     """One kernel launch of ``variant`` on the current stream.  With
-    ``ptrs`` (the device address of an int64 array of 4*batch tile
-    pointers: A tiles, then B, C, out; and for ``wgmma_bf16`` ``maps``,
-    the device address of their tensor maps) the batch is read through
-    it and a/b/c/out give only dtypes and device; ``c`` None launches
-    with no C."""
-    fn = _lib().parsec_gemm_update
+    ``ptrs`` (an int64 array of 4*batch tile pointers: A tiles, then B,
+    C, out; for ``wgmma_bf16`` their tensor maps from byte ``maps_at``
+    on; copied to the card first where it is a pinned host buffer) the
+    batch is read through it and a/b/c/out give only dtypes and device;
+    ``c`` None launches with no C."""
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if ptrs is None:
@@ -258,10 +260,15 @@ def _launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor | None,
                     None if c is None else c.data_ptr(), out.data_ptr(),
                     None, None)
         else:
-            bufs = (None, None, None, None, ptrs, maps)
-        rc = fn(*bufs, batch, m, n, k, _DTYPE_CODE[a.dtype],
-                _DTYPE_CODE[out.dtype], 0 if c is None else 1, int(trans_b),
-                int(subtract), K1_VARIANTS.index(variant), stream)
+            if not ptrs.is_cuda:
+                ptrs = ptrs.to(a.device, non_blocking=True)
+            at = ptrs.data_ptr()
+            bufs = (None, None, None, None, at,
+                    at + maps_at if maps_at else None)
+        rc = _entries()[0](*bufs, batch, m, n, k, _DTYPE_CODE[a.dtype],
+                           _DTYPE_CODE[out.dtype], 0 if c is None else 1,
+                           int(trans_b), int(subtract),
+                           K1_VARIANTS.index(variant), stream)
     if rc != 0:
         raise RuntimeError(f"gemm: {variant} kernel launch failed "
                            f"(cudaError {rc}) at batch={batch} m={m} n={n} "
@@ -298,6 +305,25 @@ def _count(variant: str, key: str = "nn", batch: int = 1) -> None:
         gemm_update.launches_by_form.get(key, 0) + 1
 
 
+def _k1(r: Any, t_in: int, a: torch.Tensor, b: torch.Tensor,
+        c: torch.Tensor | None, out: torch.Tensor, batch: int, m: int,
+        n: int, k: int, variant: str, trans_b: bool = False,
+        subtract: bool = False, count: bool = True, **kw: Any) -> None:
+    """A host entry's launch (:func:`_launch`, ``kw`` its tile pointers)
+    and what follows it: inside a lowered step's trace (``r`` the
+    recorder), its ``k1.prep`` from ``t_in`` and its ``k1.launch``; the
+    launch counted on ``gemm_update``'s counters unless ``count`` is
+    False."""
+    form = k1_form(trans_b, subtract, c is not None)
+    t1 = _now() if r is not None else 0
+    _launch(a, b, c, out, batch, m, n, k, variant, trans_b=trans_b,
+            subtract=subtract, **kw)
+    if r is not None:
+        _k1_spans(r, t_in, t1, variant, form, batch, m, n, k)
+    if count:
+        _count(variant, form, batch)
+
+
 def gemm_update(a: torch.Tensor, b: torch.Tensor,
                 c: torch.Tensor | None = None, precision: str | None = None,
                 *, trans_b: bool = False,
@@ -324,13 +350,8 @@ def gemm_update(a: torch.Tensor, b: torch.Tensor,
     variant = k1_variant(a.dtype, out_dtype, m, n, k,
                          _aligned(a, b, *([] if c is None else [c])),
                          precision, trans_b, subtract)
-    form = k1_form(trans_b, subtract, c is not None)
-    t1 = _now() if r is not None else 0
-    _launch(a, b, c, out, batch, m, n, k, variant, trans_b=trans_b,
-            subtract=subtract)
-    if r is not None:
-        _k1_spans(r, t_in, t1, variant, form, batch, m, n, k)
-    _count(variant, form, batch)
+    _k1(r, t_in, a, b, c, out, batch, m, n, k, variant, trans_b=trans_b,
+        subtract=subtract)
     return out
 
 
@@ -413,21 +434,14 @@ def gemm_update_tiles(as_: list[torch.Tensor], bs: list[torch.Tensor],
     host[:8 * len(ptrs)].view(torch.int64).copy_(
         torch.tensor(ptrs, dtype=torch.int64))
     if nmaps:
-        rc = _lib().parsec_gemm_encode_tiles(
-            host.data_ptr(), host.data_ptr() + maps_at, batch, m, n, k)
+        rc = _entries()[1](host.data_ptr(), host.data_ptr() + maps_at,
+                           batch, m, n, k)
         if rc != 0:
             raise RuntimeError(f"gemm: tensor maps of {batch} tiles "
                                f"{m}x{k}@{k}x{n} refused (cudaError {rc})")
-    form = k1_form(trans_b, subtract, cs is not None)
-    t1 = _now() if r is not None else 0
-    dev = host.to(a0.device, non_blocking=True)
-    _launch(a0, b0, c0, outs[0], batch, m, n, k, variant,
-            ptrs=dev.data_ptr(),
-            maps=dev.data_ptr() + maps_at if nmaps else None,
-            trans_b=trans_b, subtract=subtract)
-    if r is not None:
-        _k1_spans(r, t_in, t1, variant, form, batch, m, n, k)
-    _count(variant, form, batch)
+    _k1(r, t_in, a0, b0, c0, outs[0], batch, m, n, k, variant,
+        trans_b=trans_b, subtract=subtract, ptrs=host,
+        maps_at=maps_at if nmaps else 0)
     return outs
 
 
@@ -460,27 +474,21 @@ def _rows_len(index: Any) -> int | None:
                 or index.stop is None or index.start < 0:
             raise ValueError(f"gemm: rows {index} are not a run of rows")
         return index.stop - index.start
-    if isinstance(index, torch.Tensor):
-        ok = index.dtype == torch.int64 and index.dim() == 1
-    else:
-        index = getattr(index, "rows", None)
-        ok = isinstance(index, np.ndarray) and index.dtype == np.int64 \
-            and index.ndim == 1
-    if not ok:
-        raise ValueError("gemm: rows must be a slice, an int, a 1-D int64 "
-                         "tensor or a lowered step's index")
-    return len(index)
+    rows = getattr(index, "rows", None)
+    if not (isinstance(rows, np.ndarray) and rows.dtype == np.int64
+            and rows.ndim == 1):
+        raise ValueError("gemm: rows must be a lowered step's index, a "
+                         "slice or an int")
+    return len(rows)
 
 
 def _index_rows(index: Any, G: int) -> np.ndarray:
     """An operand's rows on the host: a slice's run, an int's row G
-    times, a lowered step's index's own rows, a tensor's read back."""
+    times, a lowered step's index's own rows."""
     if isinstance(index, slice):
         return np.arange(index.start, index.stop, dtype=np.int64)
     if isinstance(index, int):
         return np.full(G, index, np.int64)
-    if isinstance(index, torch.Tensor):
-        return index.cpu().numpy()
     return index.rows
 
 
@@ -504,8 +512,6 @@ def _rows_plan(ops: list, share: tuple, row_bytes: tuple,
     B's (``share`` gives each operand the first operand in its store),
     and from C's but row for row."""
     memo = getattr(ops[0][1], "memo", None)
-    if any(op is not None and isinstance(op[1], torch.Tensor) for op in ops):
-        memo = None         # a tensor's rows may change under its id
     key = ("gemm_update_rows", tuple(
         None if op is None else (_index_key(op[1]), op[0].shape[0])
         for op in ops), share, row_bytes, device)
@@ -602,14 +608,13 @@ def gemm_update_rows(a: tuple, b: tuple, c: tuple | None = None,
     ``subtract`` and ``c=None`` as in :func:`gemm_update`.
 
     Each operand is ``(store, index)``: a contiguous ``[R, rows, cols]``
-    tensor of tiles and the G tiles' rows in it: a lowered step's index
-    as its ``rows`` hook is given it, a slice, a 1-D int64 tensor, or
-    (but for A, whose rows give G) an int, one row for every tile.  A
-    lowered step's index keeps the group's plan (checks, offsets) in its
-    ``memo`` from one step to the next; a tensor is read back at every
-    call.  A row may stand in more than one operand (SYRK passes the
-    same rows as A and B).  The
-    results go into ``out``'s rows, and None is returned; with no
+    tensor of tiles and the G tiles' rows in it, as a lowered step makes
+    them: its index as its ``rows`` hook is given it, a slice, or (but
+    for A, whose rows give G) an int, one row for every tile.  A lowered
+    step's index keeps the group's plan (checks, offsets) in its
+    ``memo`` from one step to the next.  A row may stand in more than
+    one operand (SYRK passes the same rows as A and B).  The results go
+    into ``out``'s rows, and None is returned; with no
     ``out``, into a new ``[G, m, n]`` tensor, which is returned.  ``out``
     may be C's rows, row for row (each result replaces the tile it adds
     to); it is refused where it shares a row with A or B, or two results
@@ -701,14 +706,8 @@ def gemm_update_rows(a: tuple, b: tuple, c: tuple | None = None,
         raise ValueError("gemm: bf16 operands in the plain form run on "
                          "wgmma_bf16, which reads a tensor map a tile: use "
                          "gemm_update_tiles")
-    ptrs = _pointers(plan, bases, G)
-    form = k1_form(trans_b, subtract, c_st is not None)
-    t1 = _now() if r is not None else 0
-    _launch(a_st, b_st, c_st, o_st, G, m, n, k, variant,
-            ptrs=ptrs.data_ptr(), trans_b=trans_b, subtract=subtract)
-    if r is not None:
-        _k1_spans(r, t_in, t1, variant, form, G, m, n, k)
-    _count(variant, form, G)
+    _k1(r, t_in, a_st, b_st, c_st, o_st, G, m, n, k, variant,
+        trans_b=trans_b, subtract=subtract, ptrs=_pointers(plan, bases, G))
     return o_st if fresh else None
 
 
@@ -725,10 +724,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = a.new_empty((*a.shape[:-1], n))
     variant = k1_variant(a.dtype, a.dtype, m, n, k, _aligned(a, b),
                          precision)
-    t1 = _now() if r is not None else 0
-    _launch(a, b, None, out, batch, m, n, k, variant)
-    if r is not None:
-        _k1_spans(r, t_in, t1, variant, "nn-noc", batch, m, n, k)
+    _k1(r, t_in, a, b, None, out, batch, m, n, k, variant, count=False)
     matmul.launches += 1
     return out
 

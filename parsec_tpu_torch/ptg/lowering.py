@@ -45,12 +45,13 @@ How eager PyTorch keeps the JAX step's semantics:
   ``"in"`` scatter forwards a group's input; so before the scatters run,
   every pending value that shares storage with a store is cloned, and no
   write of the level can reach a value another write still has to store.
-- **Batching in place of ``vmap``.**  A traceable may carry a stacked
-  form over a leading group axis; without one, its list form runs on the
-  group's rows and the outputs are stacked.  The unrolled pass, and a
-  group of one task, call the list form on one-element lists.  The
-  unrolled pass clones what it reads from a store, since a later task
-  may overwrite the row while the value is still forwarded.
+- **Batching in place of ``vmap``.**  A traceable has one batched form
+  for a group: a ``rows`` hook reading the store rows in place, or a
+  stacked form over a leading group axis; with neither, its list form
+  runs on the group's rows and the outputs are stacked.  The unrolled
+  pass, and a group of one task, call the list form on one-element
+  lists.  The unrolled pass clones what it reads from a store, since a
+  later task may overwrite the row while the value is still forwarded.
 
 Entry point: :func:`lower_taskpool` ``(tp, device="cuda")``.  On a
 machine with no card, ``device="cuda"`` raises; the tests lower with
@@ -257,19 +258,19 @@ class Traceable:
     (the decode ATTN class's ACC chain); the lowering's steps keep
     ``apply``, whose results never share a store's memory.
 
-    ``rows(*flows)``, optional, is the stacked form reading its inputs
-    where they lie: for each data flow, ``(store, index)``, the store
-    tensor and the group's rows in it as the plan made them, or None
-    where no task of the group has one.  The index (:class:`_Index`)
-    holds the rows on the host (``rows``, -1 where a task has no active
-    input on that flow), the row every task names (``one``, else None),
-    ``on(device)``, the rows as a slice where they are consecutive, else
-    a long tensor on that device, and ``memo``, a dict in which the hook
-    may keep what it derives from them for the next step.  It returns
-    the writable flows' new ``[G, ...]`` values (a tuple for several).
-    The wavefront passes call it for a class that has it, with no
-    gather, and keep tasks that differ only in an absent READ flow in
-    one group.
+    ``rows(*flows)``, optional, is the same function over a group,
+    reading its inputs where they lie: for each data flow, ``(store,
+    index)``, the store tensor and the group's rows in it as the plan
+    made them, or None where no task of the group has one.  The index
+    (:class:`_Index`) holds the rows on the host (``rows``, -1 where a
+    task has no active input on that flow), the row every task names
+    (``one``, else None), ``on(device)``, the rows as a slice where they
+    are consecutive, else a long tensor on that device, and ``memo``, a
+    dict in which the hook may keep what it derives from them for the
+    next step.  It returns the writable flows' new ``[G, ...]`` values (a
+    tuple for several).  The wavefront passes call it for a class that
+    has it, with no gather, and keep tasks that differ only in an absent
+    READ flow in one group.
 
     ``rows_into`` names the writable flows (by their position among the
     writable flows) whose new values the hook can write into the rows it
@@ -280,6 +281,11 @@ class Traceable:
     to write into (the flow's own input rows) or None; the hook writes
     those flows there, returns None in their place, and the pass
     scatters nothing for them.  Otherwise the hook writes no store.
+
+    A class has one batched form for the lowered step: its ``rows`` hook
+    where it has one, else ``stacked``, else ``apply`` on the group's
+    rows.  So a traceable takes ``rows`` or ``stacked``, never both
+    (``ValueError``).
 
     ``libs`` names the kernel libraries (``csrc/<name>.cu``) the body
     launches on a CUDA tensor, for :meth:`LoweredTaskpool.warm`.
@@ -295,6 +301,9 @@ class Traceable:
                  rows: Callable | None = None,
                  rows_into: tuple = (),
                  libs: tuple = ()) -> None:
+        if rows is not None and stacked is not None:
+            raise ValueError("Traceable: a class has one batched form, "
+                             "rows or stacked, not both")
         self.apply = apply
         self.bilinear = bilinear
         self.chain_combine = chain_combine or (
@@ -1447,6 +1456,9 @@ def _group_plans(plans, infos) -> dict[int, list]:
                          for fj, ip in enumerate(in_plan)), outs,
                    _written_into(infos[cname], L, in_plan, out_plan, reads))
         else:
+            # gathered (a task of a class with a hook lands here only if
+            # _in_place refuses it, which no pool of the port does; its
+            # group then runs the list form, _call_group)
             sig = (cname,
                    tuple(ip if ip[0] in ("none", "new") else ("row", ip[1])
                          for ip in in_plan), outs)

@@ -45,8 +45,9 @@ from parsec_tpu_torch.ops import factor
 from parsec_tpu_torch.ops import gemm as tg
 from parsec_tpu_torch.ops import ragged_attention as ra
 from parsec_tpu_torch.ops import stencil as ks
-from parsec_tpu_torch.ptg.lowering import (DeviceMesh, find_traceable,
-                                           lower_regions, lower_taskpool,
+from parsec_tpu_torch.ptg.lowering import (DeviceMesh, _Index,
+                                           find_traceable, lower_regions,
+                                           lower_taskpool,
                                            register_traceable)
 from parsec_tpu_torch.runtime import Context
 from parsec_tpu_torch.serve import RuntimeServer
@@ -701,13 +702,13 @@ def test_syrk_tile_list_reads_one_tile_as_a_and_b(card, precision):
 
 
 def _rows_of_one_store(G, nb, seed):
-    """A store of 3 G tiles ``nb x nb`` and three disjoint sets of G
-    scattered rows in it, as int64 tensors on the card."""
+    """A store of 3 G tiles ``nb x nb`` on the card and three disjoint
+    sets of G scattered rows in it, as a lowered step's indices."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     st = torch.randn(3 * G, nb, nb, device="cuda", generator=g)
     perm = torch.randperm(3 * G, generator=torch.Generator().manual_seed(
-        seed)).cuda()
-    return st, perm[:G], perm[G:2 * G], perm[2 * G:]
+        seed)).numpy()
+    return (st, *(_Index(perm[i * G:(i + 1) * G]) for i in range(3)))
 
 
 def test_k1_rows_entry_writes_into_c_bit_for_bit_as_stacked(card):
@@ -717,7 +718,8 @@ def test_k1_rows_entry_writes_into_c_bit_for_bit_as_stacked(card):
     ``gemm_update_stacked`` on gathered copies of the same rows (the same
     kernel on the same tiles, read through its tile pointers)."""
     st, a_rows, b_rows, c_rows = _rows_of_one_store(465, 512, 23)
-    want = tg.gemm_update_stacked(st[a_rows], st[b_rows], st[c_rows],
+    want = tg.gemm_update_stacked(*(st[r.on(st.device)]
+                                    for r in (a_rows, b_rows, c_rows)),
                                   trans_b=True, subtract=True)
     before = dict(tg.gemm_update.launches_by_variant)
     c = (st, c_rows)
@@ -725,28 +727,30 @@ def test_k1_rows_entry_writes_into_c_bit_for_bit_as_stacked(card):
                                trans_b=True, subtract=True) is None
     torch.cuda.synchronize()
     assert _variant_delta(before) == {"mma_tf32": 1}
-    assert torch.equal(st[c_rows], want)
+    assert torch.equal(st[c_rows.on(st.device)], want)
 
 
 @pytest.mark.parametrize("over", ["A", "B"])
 def test_k1_rows_entry_refuses_out_over_a_or_b(card, over):
     st, a_rows, b_rows, c_rows = _rows_of_one_store(4, 64, 24)
-    out_rows = c_rows.clone()
-    out_rows[1] = (a_rows if over == "A" else b_rows)[2]
+    out_rows = c_rows.rows.copy()
+    out_rows[1] = (a_rows if over == "A" else b_rows).rows[2]
     before = dict(tg.gemm_update.launches_by_variant)
     kept = st.clone()
     with pytest.raises(ValueError, match=f"shares rows with {over}"):
         tg.gemm_update_rows((st, a_rows), (st, b_rows), (st, c_rows),
-                            (st, out_rows), trans_b=True, subtract=True)
+                            (st, _Index(out_rows)), trans_b=True,
+                            subtract=True)
     assert _variant_delta(before) == {}
     assert torch.equal(st, kept)
 
 
 def test_lowered_cholesky_rows_hooks_give_the_stacked_factor(card):
     """The lowered Cholesky with its K1 classes on their rows hooks (read
-    in place, SYRK and GEMM written back) and with the stacked forms on
-    gathered rows (the hooks unregistered for the run): the same factor,
-    bit for bit, and 0 rows gathered against the stacked run's."""
+    in place, SYRK and GEMM written back) and with their list forms on
+    gathered (stacked) rows (the hooks unregistered for the run): the
+    same factor, bit for bit, and 0 rows gathered against the gathered
+    run's."""
     a = chol.make_spd_fast(1024, 25)
     names = ("trsm_rlt", "syrk_ln", "gemm_nt")
 
@@ -761,14 +765,12 @@ def test_lowered_cholesky_rows_hooks_give_the_stacked_factor(card):
     kept = {name: find_traceable(name) for name in names}
     try:
         for name, t in kept.items():
-            register_traceable(name, t.apply, stacked=t.stacked,
-                               libs=t.libs)
+            register_traceable(name, t.apply, libs=t.libs)
         low_st, want = run()
     finally:
         for name, t in kept.items():
-            register_traceable(name, t.apply, stacked=t.stacked,
-                               rows=t.rows, rows_into=t.rows_into,
-                               libs=t.libs)
+            register_traceable(name, t.apply, rows=t.rows,
+                               rows_into=t.rows_into, libs=t.libs)
     assert torch.equal(got, want)
     assert low.rows_moved["gather"] == {}
     assert low.rows_moved["in_place"]["written"] == {"A": 8 * 7 * 9 // 6}
@@ -814,10 +816,12 @@ def test_cholesky_bodies_match_plain(card, precision, prec):
         torch.testing.assert_close(torch.stack(got).cpu(),
                                    torch.stack(want), rtol=tol["rtol"],
                                    atol=tol["atol"] * nb)
-    # the stacked forms, a broadcast diagonal tile among them
-    ls_b = L[1][None].expand(4, nb, nb)
+    # the TRSM's rows hook, one diagonal tile shared by the group
+    st = torch.cat([L[1][None], a])
+    rows = chol.trsm_rows((st, _Index(np.zeros(4, np.int64))),
+                          (st, _Index(np.arange(1, 5))))
     torch.testing.assert_close(
-        chol.trsm_stacked(ls_b, a).cpu(),
+        rows.cpu(),
         torch.stack(chol.trsm_tiles([L[1].cpu()] * 4, list(a.cpu()))),
         **tol)
 
@@ -1128,9 +1132,9 @@ def test_factor_gate_sees_a_dropped_update(card, kind, path):
     """The control of ``TF32_TILE_TOL``: the same run with the first C
     tile of the trailing update's first call passed through (one GEMM
     task's update dropped) reads above the gate."""
-    mod, name = (chol, "gemm_nt") if kind == "cholesky" else (lu, "lu_gemm")
+    name = "gemm_nt" if kind == "cholesky" else "lu_gemm"
     n, nb = 1024, 256
-    with factor.one_update_dropped(name, *mod._FORMS[name]) as dropped:
+    with factor.one_update_dropped(name) as dropped:
         a, A = _factor_run(card, kind, path, n, nb)
     assert dropped == [1]
     assert _tile_error(A.to_dense(), a, kind, nb) > TF32_TILE_TOL

@@ -37,7 +37,8 @@ from parsec_tpu_torch.device.cuda import init_cuda_devices
 from parsec_tpu_torch.models import cholesky as chol
 from parsec_tpu_torch.ops import factor
 from parsec_tpu_torch.ops import gemm as tg
-from parsec_tpu_torch.ptg.lowering import find_traceable, lower_taskpool
+from parsec_tpu_torch.ptg.lowering import (_Index, find_traceable,
+                                           lower_taskpool)
 from parsec_tpu_torch.runtime import Context
 
 PKG_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -154,9 +155,12 @@ def test_lowered_plan_size_at_the_bench_tile_count():
 
 
 def test_no_incarnation_is_bilinear():
+    """None is bilinear, and each has one batched form: TRSM, SYRK and
+    GEMM their rows hooks, POTRF its list form."""
     for name in ("potrf", "trsm_rlt", "syrk_ln", "gemm_nt"):
         tr = find_traceable(name)
-        assert tr is not None and tr.stacked is not None
+        assert tr is not None and tr.stacked is None
+        assert (tr.rows is None) == (name == "potrf")
         assert not tr.bilinear and tr.chain_combine is None
 
 
@@ -176,8 +180,9 @@ def _lower_factors(count, nb=48, seed=6):
 
 
 def test_incarnations_match_jax_traceables():
-    """Each list form and stacked form against the JAX traceable on the
-    same inputs (``vmap`` being a loop of its calls)."""
+    """Each list form, and each rows hook on a store of the same tiles,
+    against the JAX traceable on the same inputs (``vmap`` being a loop
+    of its calls)."""
     spd = [chol.make_spd(48, seed=s) for s in (7, 8)]
     ls = _lower_factors(3)
     cs, as_, bs = _tiles(9, 3), _tiles(10, 3), _tiles(11, 3)
@@ -208,20 +213,24 @@ def test_incarnations_match_jax_traceables():
     np.testing.assert_allclose(chol.potrf(stk(spd)).numpy(),
                                np.stack([x.numpy() for x in cases[0][0]]),
                                rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(
-        chol.trsm_stacked(stk(ls), stk(cs)).numpy(),
-        np.stack([x.numpy() for x in cases[1][0]]), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        chol.syrk_stacked(stk(as_), stk(cs)).numpy(),
-        np.stack([x.numpy() for x in cases[2][0]]), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(
-        chol.gemm_nt_stacked(stk(as_), stk(bs), stk(cs)).numpy(),
-        np.stack([x.numpy() for x in cases[3][0]]), rtol=1e-5, atol=1e-5)
+    # one store: the L tiles in rows 0-2, C 3-5, A 6-8, B 9-11
+    st = stk(ls + cs + as_ + bs)
+    l_, c_, a_, b_ = ((st, _Index(np.arange(3 * i, 3 * i + 3)))
+                      for i in range(4))
+    for got, (listed, want) in zip((chol.trsm_rows(l_, c_),
+                                    chol.syrk_rows(a_, c_),
+                                    chol.gemm_nt_rows(a_, b_, c_)),
+                                   cases[1:]):
+        np.testing.assert_allclose(got.numpy(), np.stack(want),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(got.numpy(),
+                                   np.stack([x.numpy() for x in listed]),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_trsm_shares_one_inverse_per_diagonal_tile(monkeypatch):
-    """A batch of TRSMs under one POTRF solves once; a broadcast diagonal
-    tile in a stacked group solves once too."""
+    """A batch of TRSMs under one POTRF solves once; the rows hook's
+    group, whose tasks share one diagonal row, solves once too."""
     solves = []
     real = torch.linalg.solve_triangular
 
@@ -239,9 +248,12 @@ def test_trsm_shares_one_inverse_per_diagonal_tile(monkeypatch):
         torch.testing.assert_close(g, c @ torch.linalg.inv(x).T,
                                    rtol=1e-4, atol=1e-4)
     solves.clear()
-    stacked = chol.trsm_stacked(L[None].expand(4, 48, 48), torch.stack(cs))
+    st = torch.stack([L, *cs])
+    l_ix, c_ix = _Index(np.zeros(4, np.int64)), _Index(np.arange(1, 5))
+    assert l_ix.one == 0
+    rows = chol.trsm_rows((st, l_ix), (st, c_ix))
     assert solves == [(1, 48, 48)]
-    torch.testing.assert_close(stacked, torch.stack(chol.trsm_tiles(
+    torch.testing.assert_close(rows, torch.stack(chol.trsm_tiles(
         [L] * 4, cs)), rtol=1e-6, atol=1e-6)
 
 
@@ -425,7 +437,7 @@ def test_tile_error_sees_one_dropped_update(cpu_cuda_device, kind, path):
                                  want, nb)
 
     assert run() < 1e-5
-    with factor.one_update_dropped(name, *mod._FORMS[name]) as dropped:
+    with factor.one_update_dropped(name) as dropped:
         assert run() == pytest.approx(predicted, rel=0.25)
     assert dropped == [1]
     assert run() < 1e-5           # the forms are back

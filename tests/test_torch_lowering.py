@@ -432,10 +432,10 @@ def test_stencil_groups_one_call_per_group_a_level():
     """Per level: one group, the boundary tiles folded into the interior
     ones, and one call of the traceable's ``rows`` hook for it (one K3
     launch a level on the card), which reads the tiles in place: no
-    stacked or list call, no gather."""
+    list call, no gather."""
     tp, _, _ = _stencil1d(PORT, R=1, T=5)
     tr = tp.local_traceables["stencil1d"]
-    calls = {"rows": 0, "stacked": 0, "apply": 0}
+    calls = {"rows": 0, "apply": 0}
 
     def count(kind, fn):
         def wrapped(*a):
@@ -444,12 +444,11 @@ def test_stencil_groups_one_call_per_group_a_level():
         return wrapped
 
     tr.rows = count("rows", tr.rows)
-    tr.stacked = count("stacked", tr.stacked)
     tr.apply = count("apply", tr.apply)
     low = lower_taskpool(tp, device="cpu")
     assert low.step_fn.groups == low.step_fn.levels == 5
     low.execute()
-    assert calls == {"rows": 5, "stacked": 0, "apply": 0}
+    assert calls == {"rows": 5, "apply": 0}
 
 
 def test_python_body_is_not_lowerable():

@@ -308,7 +308,7 @@ def test_a_reregistered_kernel_misses():
     from parsec_tpu_torch.ops.factor import one_update_dropped
     _, c1 = _both("cholesky", 3)
     l1 = lower_taskpool(c1, device="cpu")
-    with one_update_dropped("gemm_nt", *p_chol._FORMS["gemm_nt"]):
+    with one_update_dropped("gemm_nt"):
         _, c2 = _both("cholesky", 3)
         l2 = lower_taskpool(c2, device="cpu")
     assert l2.signature != l1.signature

@@ -3,9 +3,10 @@
 GEMM over ``ops/gemm.py:gemm_update_rows``).
 
 - The lowered Cholesky at nt = 4..8 is bit for bit the same plan run
-  through the stacked forms (the four traceables registered again without
-  their ``rows`` hooks for the test's duration), and matches a float64
-  reference within the Cholesky tests' tolerance.
+  on gathered (stacked) rows through the list forms (the K1 traceables
+  registered again without their ``rows`` hooks for the test's
+  duration), and matches a float64 reference within the Cholesky tests'
+  tolerance.
 - The ``in_place`` counter: every SYRK and GEMM row written in place,
   nt(nt-1)(nt+1)/6, and no row gathered; POTRF's and TRSM's results,
   nt(nt+1)/2 rows, scattered.
@@ -17,9 +18,10 @@ GEMM over ``ops/gemm.py:gemm_update_rows``).
 - K1's rows entry on the host: each tile is the plain expression, written
   into its row, and what the entry refuses.
 - The hooks on the plan's indices: TRSM inverts a group's one diagonal
-  tile once (or each of several), bit for bit the stacked form; the
+  tile once (or each of several), bit for bit the list form; the
   dropped-update fault wraps the GEMM's rows hook, so that the faulty run
-  moves what the program moves.
+  moves what the program moves; a traceable takes a ``rows`` hook or a
+  stacked form, not both.
 """
 
 import contextlib
@@ -47,20 +49,19 @@ K1_CLASSES = ("trsm_rlt", "syrk_ln", "gemm_nt")
 
 
 @contextlib.contextmanager
-def _stacked_only():
+def _hooks_off():
     """The Cholesky's K1 traceables registered again without their rows
-    hooks (their list and stacked forms as they are) while the block
-    runs; the registered ones back after it."""
+    hooks (their list forms as they are) while the block runs; the
+    registered ones back after it."""
     kept = {name: find_traceable(name) for name in K1_CLASSES}
     for name, t in kept.items():
-        register_traceable(name, t.apply, stacked=t.stacked, libs=t.libs)
+        register_traceable(name, t.apply, libs=t.libs)
     try:
         yield
     finally:
         for name, t in kept.items():
-            register_traceable(name, t.apply, stacked=t.stacked,
-                               rows=t.rows, rows_into=t.rows_into,
-                               libs=t.libs)
+            register_traceable(name, t.apply, rows=t.rows,
+                               rows_into=t.rows_into, libs=t.libs)
 
 
 def _cholesky(nt: int, nb: int = 8, seed: int = 3):
@@ -72,8 +73,11 @@ def _cholesky(nt: int, nb: int = 8, seed: int = 3):
 
 @pytest.mark.parametrize("nt", [4, 5, 6, 7, 8])
 def test_lowered_cholesky_is_the_stacked_path_bit_for_bit(nt):
+    """The plan on its rows hooks against the same plan with the hooks
+    off: each group gathered into stacked rows and run through the list
+    forms."""
     _, low, got = _cholesky(nt)
-    with _stacked_only():
+    with _hooks_off():
         _, low_st, want = _cholesky(nt)
     assert low.mode == low_st.mode == "wavefront"
     assert (low.levels, low.groups) == (low_st.levels, low_st.groups)
@@ -248,7 +252,11 @@ def _store(rows, seed, m=8, n=8):
         (rows, m, n)).astype(np.float32))
 
 
-@pytest.mark.parametrize("index", ["slice", "tensor"])
+def _ix(rows):
+    return _Index(np.array(rows, np.int64))
+
+
+@pytest.mark.parametrize("index", ["slice", "index"])
 def test_the_rows_entry_writes_each_tile_into_its_row(index):
     st = _store(10, 1)
     a_rows, b_rows, c_rows = [0, 1, 2], [3, 3, 4], [7, 5, 9]
@@ -256,7 +264,7 @@ def test_the_rows_entry_writes_each_tile_into_its_row(index):
     def ix(r):
         if index == "slice" and (np.diff(r) == 1).all():
             return slice(r[0], r[0] + len(r))
-        return torch.tensor(r)
+        return _ix(r)
 
     want = [gemm_ops.gemm_update_plain(st[a], st[b], st[c], trans_b=True,
                                        subtract=True)
@@ -281,14 +289,18 @@ def test_the_rows_entry_writes_each_tile_into_its_row(index):
     ([5, 3, 6], "shares rows with B"),
     ([7, 9, 5], "aliases C other than row for row"),
     ([5, 5, 6], "two results share one row"),
-    ([5, 6, 10], "outside its store")])
+    ([5, 6, 10], "outside its store"),
+    ("int64 tensor", "rows must be a lowered step's index")])
 def test_the_rows_entry_refuses_unsafe_outputs(out_rows, why):
+    """Unsafe output rows, and rows of a kind no lowered step makes (an
+    int64 tensor)."""
     st = _store(10, 2)
     before = st.clone()
+    ix = _ix if out_rows != "int64 tensor" else torch.tensor
     with pytest.raises(ValueError, match=why):
         gemm_ops.gemm_update_rows(
-            (st, torch.tensor([0, 1, 2])), (st, torch.tensor([3, 3, 4])),
-            (st, torch.tensor([7, 5, 9])), (st, torch.tensor(out_rows)),
+            (st, ix([0, 1, 2])), (st, ix([3, 3, 4])), (st, ix([7, 5, 9])),
+            (st, ix([5, 6, 8] if out_rows == "int64 tensor" else out_rows)),
             trans_b=True, subtract=True)
     assert torch.equal(st, before)
 
@@ -300,15 +312,15 @@ def test_the_rows_entry_refuses_unsafe_outputs(out_rows, why):
 @pytest.mark.parametrize("l_rows", [[6, 6, 6], [6, 8, 6]])
 def test_the_trsm_hook_inverts_the_groups_l_rows(l_rows):
     """One diagonal tile for the group (the plan's ``one`` row, as every
-    level of the Cholesky has it) or several: the stacked form's result
-    on gathered copies, bit for bit."""
+    level of the Cholesky has it) or several: the list form's result on
+    the same tiles, bit for bit."""
     st = _store(10, 5)
     st[6:10] = torch.tril(st[6:10]) + 8.0 * torch.eye(8)
-    l_ix, c_ix = _Index(np.array(l_rows)), _Index(np.array([0, 1, 2]))
+    l_ix, c_ix = _ix(l_rows), _ix([0, 1, 2])
     assert (l_ix.one is not None) == (len(set(l_rows)) == 1)
     got = chol.trsm_rows((st, l_ix), (st, c_ix))
-    want = chol.trsm_stacked(st[l_rows], st[[0, 1, 2]])
-    assert torch.equal(got, want)
+    want = chol.trsm_tiles(list(st[l_rows]), list(st[[0, 1, 2]]))
+    assert torch.equal(got, torch.stack(want))
 
 
 @pytest.mark.parametrize("into", [True, False])
@@ -321,11 +333,11 @@ def test_the_dropped_update_keeps_the_first_c_row_in_the_rows_hook(into):
     st = _store(10, 6)
     before = st.clone()
     a_rows, b_rows, c_rows = [0, 1, 2], [3, 3, 4], [7, 5, 9]
-    a, b, c = ((st, _Index(np.array(r))) for r in (a_rows, b_rows, c_rows))
+    a, b, c = ((st, _ix(r)) for r in (a_rows, b_rows, c_rows))
     want = [gemm_ops.gemm_update_plain(st[x], st[y], st[z], trans_b=True,
                                        subtract=True)
             for x, y, z in zip(a_rows, b_rows, c_rows)]
-    with one_update_dropped("gemm_nt", *chol._FORMS["gemm_nt"]) as dropped:
+    with one_update_dropped("gemm_nt") as dropped:
         hook = find_traceable("gemm_nt").rows
         assert hook is not chol.gemm_nt_rows
         res = hook(a, b, c, out=(c,)) if into else hook(a, b, c)
@@ -343,9 +355,24 @@ def test_the_dropped_update_runs_the_programs_in_place_path():
     factor."""
     from parsec_tpu_torch.ops.factor import one_update_dropped
     _, low, want = _cholesky(5)
-    with one_update_dropped("gemm_nt", *chol._FORMS["gemm_nt"]) as dropped:
+    with one_update_dropped("gemm_nt") as dropped:
         _, low_f, got = _cholesky(5)
     assert dropped == [1]
     assert low_f.rows_moved == low.rows_moved
     assert low_f.rows_moved["gather"] == {}
     assert not torch.equal(got["A"], want["A"])
+
+
+def test_a_traceable_takes_rows_or_stacked_not_both():
+    """One batched form a class on the lowered step: ``register_traceable``
+    refuses a ``rows`` hook beside a stacked form, and registers
+    nothing."""
+    def form(*a, **kw):
+        return None
+
+    with pytest.raises(ValueError, match="rows or stacked, not both"):
+        register_traceable("rows_and_stacked", form, stacked=form,
+                           rows=form)
+    assert find_traceable("rows_and_stacked") is None
+    with pytest.raises(ValueError, match="rows or stacked, not both"):
+        Traceable(form, stacked=form, rows=form)

@@ -156,7 +156,7 @@ def test_rows_wrapper_refuses(bad):
 
 def _count_hooks(tp):
     tr = tp.local_traceables["stencil1d"]
-    calls = {"rows": 0, "stacked": 0, "apply": 0}
+    calls = {"rows": 0, "apply": 0}
 
     def count(kind, fn):
         def wrapped(*a):
@@ -189,7 +189,7 @@ def test_lowered_stencil_calls_rows_once_a_level(ranks):
         low = lower_taskpool(tp, mesh=DeviceMesh(["cpu"] * ranks))
         assert low.exchange["groups_by_rank"] == [T] * ranks
     low.execute()
-    assert calls == {"rows": T * ranks, "stacked": 0, "apply": 0}
+    assert calls == {"rows": T * ranks, "apply": 0}
     got = torch.cat([V.data_of(i).newest_copy().value for i in range(nt)])
     np.testing.assert_allclose(got.numpy(),
                                stencil_reference(base, w, T).numpy(),
